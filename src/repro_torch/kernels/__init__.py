@@ -1,0 +1,7 @@
+"""Hand-written Hopper kernels of the port (``csrc/*.cu``, built by
+:mod:`._build` at first use) with their plain PyTorch versions
+(:mod:`.ref`) and the device dispatch (:mod:`.ops`).
+
+K1 ``paged_attention`` replaces the TPU ``_paged_kernel``; K2
+``flash_attention`` replaces the TPU ``_flash_kernel``.
+"""

@@ -10,6 +10,8 @@ import pytest  # noqa: E402
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running system test")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (CUDA kernels); skips elsewhere")
 
 
 @pytest.fixture(scope="session")
