@@ -15,7 +15,21 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 5. steps    — one ``decode_step_paged`` on a frozen copy of the engine's
               pool and tables with K1 and with the gather oracle, and one
               ``prefill`` with K2 and with the plain path; logits compared;
-6. report   — one JSON line of per-kernel numbers, the card line, and the
+6. k4       — K4 (the LSDNN layer) against its plain version at the HPEC
+              shape T=60000, F=G=1024 (fp32 and bf16, random and HPEC
+              data), at ragged shapes and at a cap-saturating case, then
+              timed beside its bound, the plain version and
+              ``torch.addmm`` + ``clamp_``;
+7. lsdnn    — the paper's sparse-DNN workload (``bench/fig13_lsdnn.py``,
+              HPEC configuration: 60,000 rows x 1024 neurons x 120 layers,
+              2 chained passes) through its sequential, unrolled and
+              taskflow paths (the taskflow path: the condition-task cycle
+              on the port's Executor, one CUDA-graph replay per pass), with
+              K4's launches read around the run; outputs and categories
+              checked across the paths and against the plain version;
+8. device   — a DEVICE task (saxpy) through the Executor on the card,
+              checked against numpy;
+9. report   — one JSON line of per-kernel numbers, the card line, and the
               final ``{"ok": true, ...}`` line.
 
     python3 chip_smoke.py
@@ -25,6 +39,7 @@ unavailable. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -38,9 +53,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate and bf16 tensor rate
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor rate
+# (K1, K2) and fp32 rate outside the tensor cores (K4, whose fp32 products
+# are exact)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 
 # tolerances (absolute, bf16 outputs of magnitude <~ 2; one bf16 ulp there
 # is 2**-7 ~ 7.8e-3, and the plain flash version rounds its probabilities
@@ -56,6 +74,19 @@ STEP_REL_TOL = {"bfloat16": 0.25, "float32": 1e-3}
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
 MAX_NEW = 32
+
+# the LSDNN phase: the HPEC challenge's 1024-neuron, 120-layer network on
+# its 60,000 input rows (bench/fig13_lsdnn.py), 2 chained passes, 8 layers
+# per captured DeviceFlow op
+LSDNN_ROWS = 60000
+LSDNN_PASSES = 2
+LSDNN_BLOCK = 8
+LSDNN_CAP = 32.0
+F32, BF16 = torch.float32, torch.bfloat16
+# K4 vs its plain version, max abs error: fp32 1e-4 x cap (the same exact
+# fp32 products, summed in another order); bf16 0.3 as the reference's own
+# test (one bf16 ulp of an output near the cap is 0.125)
+K4_TOL = {F32: 1e-4 * LSDNN_CAP, BF16: 0.3}
 
 
 def log(msg: str) -> None:
@@ -77,9 +108,9 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOPS_PER_S * 1e3
+    t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -385,6 +416,170 @@ def phase_steps(cfg, params, prompts, frozen, dev):
             del pool, out
 
 
+# ------------------------------------------------------------------ phase 6
+def phase_k4(dev):
+    from repro_torch.bench.fig13_lsdnn import make_hpec
+    from repro_torch.kernels import lsdnn_layer as lsdnn_mod
+    from repro_torch.kernels.ref import lsdnn_layer_ref
+    g = torch.Generator(dev).manual_seed(4)
+
+    def normal(T, F, G, dtype):
+        y = torch.randn((T, F), generator=g, device=dev)
+        w = torch.randn((F, G), generator=g, device=dev) * 0.05
+        b = torch.randn((G,), generator=g, device=dev)
+        return y.to(dtype), w.to(dtype), b.to(dtype)
+
+    net = make_hpec(layers=1, rows=LSDNN_ROWS, seed=1)
+    hpec = tuple(torch.from_numpy(a).to(dev)
+                 for a in (net.y0, net.ws[0], net.b))
+    ones = (torch.full((64, 64), 10.0, device=dev),
+            torch.ones((64, 64), device=dev), torch.zeros(64, device=dev))
+    cases = [("HPEC shape, normal", normal(LSDNN_ROWS, 1024, 1024, F32)),
+             ("HPEC shape, normal", normal(LSDNN_ROWS, 1024, 1024, BF16)),
+             ("HPEC layer 0, binary rows", hpec),
+             ("ragged T and G", normal(1000, 1024, 1000, F32)),
+             ("ragged T and G", normal(1000, 1024, 1000, BF16)),
+             ("F, G not multiples of 4", normal(999, 130, 257, F32)),
+             ("cap-saturating", ones),
+             ("cap-saturating", tuple(t.to(BF16) for t in ones))]
+    errs = []
+    for what, (y, w, b) in cases:
+        out = lsdnn_mod.lsdnn_layer_cuda(y, w, b, cap=LSDNN_CAP)
+        ref = lsdnn_layer_ref(y, w, b, cap=LSDNN_CAP)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = K4_TOL[y.dtype]
+        log(f"[k4] {what} T={y.shape[0]} F={y.shape[1]} G={w.shape[1]} "
+            f"{str(y.dtype)[6:]}: max|kernel-plain|={err:.3e} (tol {tol}), "
+            f"max {out.float().max().item():.4g}")
+        if not torch.isfinite(out.float()).all().item() or err > tol:
+            raise SystemExit(f"K4 disagrees with its plain version: {err}")
+        if what == "cap-saturating" and out.float().max().item() != LSDNN_CAP:
+            raise SystemExit("K4 did not clamp at the cap")
+        errs.append(err)
+    # timing at the HPEC shape on dense normal data (the kernel's work does
+    # not depend on the data: it multiplies the dense form)
+    y, w, b = cases[0][1]
+    T, Fd = y.shape
+    G = w.shape[1]
+    ms = time_ms(lambda: lsdnn_mod.lsdnn_layer_cuda(y, w, b), iters=20)
+    plain_ms = time_ms(lambda: lsdnn_layer_ref(y, w, b), iters=10)
+    lib_ms = time_ms(lambda: torch.addmm(b, y, w).clamp_(0.0, LSDNN_CAP),
+                     iters=20)
+    nbytes = 4 * (T * Fd + Fd * G + G + T * G)
+    flops = 2.0 * T * Fd * G
+    b_ms, b_by = bound_ms(nbytes, flops, FP32_FLOPS_PER_S)
+    hy, hw, hb = hpec
+    hpec_ms = time_ms(lambda: lsdnn_mod.lsdnn_layer_cuda(hy, hw, hb),
+                      iters=20)
+    log(f"[k4] timing T={T} F=G={Fd} fp32: kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.4f} ms | "
+        f"torch.addmm + clamp_ (two calls, TF32 off) {lib_ms:.4f} ms | "
+        f"bound {b_ms:.4f} ms ({b_by}; fp32 non-tensor peak "
+        f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B, {flops:.3e} "
+        f"flop) | on the HPEC layer (binary rows, 3% of W nonzero) "
+        f"{hpec_ms:.4f} ms")
+    return dict(name="lsdnn_layer", route="cuda",
+                source="src/repro_torch/kernels/csrc/lsdnn_layer.cu",
+                replaces="src/repro/kernels/lsdnn_layer.py:24",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+# ------------------------------------------------------------------ phase 7
+def phase_lsdnn(dev) -> int:
+    from repro_torch.bench import fig13_lsdnn as fb
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    net = fb.make_hpec(rows=LSDNN_ROWS, seed=0)
+    layers, rows = len(net.ws), net.y0.shape[0]
+    log(f"[lsdnn] HPEC network: {layers} layers x {net.y0.shape[1]} neurons,"
+        f" {rows} rows, {fb.HPEC_NNZ} weights of 1/16 per neuron, bias "
+        f"{fb.HPEC_BIAS}, cap {net.cap}; {LSDNN_PASSES} chained passes, "
+        f"{LSDNN_BLOCK} layers per captured op; made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ops.reset_launch_counts()
+    res = fb.run_paths(net, LSDNN_PASSES, LSDNN_BLOCK, dev)
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    plain = fb.plain_output(net, LSDNN_PASSES, dev)
+    plain_s = time.perf_counter() - t0
+    for name, r in res.items():
+        log(f"[lsdnn] {name}: {r.ms:.1f} ms, {r.calls} host launches, "
+            f"{r.kernel_launches} K4 launches on the device, tasks "
+            f"{r.tasks}, peak device {r.peak_device_mb:.0f} MiB above the "
+            f"path's start, process peak RSS {r.peak_rss_mb:.0f} MiB "
+            f"{r.graph or ''}")
+    ref = res["sequential"]
+    cats = fb.categories(ref.y)
+    for name, r in res.items():
+        err = float(np.abs(r.y - ref.y).max())
+        if not np.isfinite(r.y).all() or err > K4_TOL[F32]:
+            raise SystemExit(f"lsdnn {name} disagrees with sequential: {err}")
+        if not np.array_equal(fb.categories(r.y), cats):
+            raise SystemExit(f"lsdnn {name}: categories differ")
+    plain_cats = fb.categories(plain)
+    diff = np.abs(plain - ref.y)
+    log(f"[lsdnn] categories: {len(cats)} of {rows} rows active, identical "
+        f"across the three paths; plain version ({plain_s:.1f}s): "
+        f"{len(plain_cats)} rows, identical={np.array_equal(plain_cats, cats)}"
+        f"; max|kernel-plain| {diff.max():.3e} over {int((diff > 0).sum())} "
+        f"differing outputs; output max {ref.y.max():.4g}")
+    if not np.array_equal(plain_cats, cats):
+        raise SystemExit("lsdnn: categories differ from the plain version")
+    if not 0 < len(cats) < rows:
+        raise SystemExit(f"lsdnn: {len(cats)} of {rows} rows active")
+    if res["taskflow"].calls != LSDNN_PASSES:
+        raise SystemExit(f"taskflow launches {res['taskflow'].calls} != "
+                         f"{LSDNN_PASSES} passes")
+    k4 = sum(r.kernel_launches for r in res.values())
+    wrapper = res["sequential"].kernel_launches \
+        + res["unrolled"].kernel_launches + res["taskflow"].graph["wrapper_k4"]
+    if counts["lsdnn_layer"] != wrapper:
+        raise SystemExit(f"K4 wrapper count {counts['lsdnn_layer']} != the "
+                         f"paths' {wrapper}")
+    if k4 < 3 * layers * LSDNN_PASSES:
+        raise SystemExit(f"K4 device launches {k4} < 3 x {layers} x "
+                         f"{LSDNN_PASSES}")
+    log(f"[lsdnn] K4 launches: {counts['lsdnn_layer']} wrapper calls, {k4} "
+        f"on the device (eager calls + {res['taskflow'].graph['captured_k4']}"
+        f" captured x {res['taskflow'].graph['replays']} replays)")
+    print(json.dumps({"lsdnn": {n: v for n, v, _ in fb.rows_of(res)}}),
+          flush=True)
+    return k4
+
+
+# ------------------------------------------------------------------ phase 8
+def phase_device_task(dev) -> None:
+    from repro_torch.core import ACCEL, HOST, DeviceFlow, Executor, Taskflow
+    n = 1 << 16
+    x = np.ones(n, np.float32)
+    y = np.full(n, 2.0, np.float32)
+    got = {}
+
+    def saxpy(df: DeviceFlow):
+        df.copy("x", x).copy("y", y)
+        df.kernel(lambda x, y: 2.0 * x + y, ["x", "y"], ["z"])
+        df.fetch("z")
+        got["df"] = df
+
+    ex = Executor(domains={HOST: 1, ACCEL: 1}, devices={ACCEL: [dev]})
+    try:
+        tf = Taskflow("saxpy")
+        t = tf.device(saxpy)
+        check = tf.static(lambda: got.__setitem__("z", got["df"].result("z")))
+        t.precede(check)
+        ex.run(tf).wait()
+    finally:
+        ex.shutdown()
+    df = got["df"]
+    ok = np.array_equal(got["z"], 2.0 * x + y)
+    log(f"[device] DEVICE task saxpy n={n} on {df.device}: one CUDA-graph "
+        f"replay (num_launches={df.num_launches}), equal to numpy: {ok}")
+    if not ok or df.num_launches != 1:
+        raise SystemExit("DEVICE task saxpy failed")
+
+
 # ------------------------------------------------------------------ main
 def main() -> None:
     t_start = time.perf_counter()
@@ -395,13 +590,20 @@ def main() -> None:
     report = phase_kernels(dev)
     cfg, params, prompts, frozen, counts = phase_serve(dev)
     phase_steps(cfg, params, prompts, frozen, dev)
+    del params, frozen
+    gc.collect()              # free the serve phase's weights and pool
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False   # K4's plain version
+    report["lsdnn_layer"] = phase_k4(dev)
+    report["lsdnn_layer"]["launches"] = phase_lsdnn(dev)
+    phase_device_task(dev)
     report["paged_attention"]["launches"] = counts["paged_attention"]
     report["flash_attention"]["launches"] = counts["flash_attention"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{k: report[n][k] for k in keys}
-               for n in ("paged_attention", "flash_attention")]
+               for n in ("paged_attention", "flash_attention", "lsdnn_layer")]
     if "jax" in sys.modules:
         raise SystemExit("jax was imported")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

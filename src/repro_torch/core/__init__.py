@@ -1,14 +1,20 @@
-"""repro_torch.core — the paper's task-graph system (host layer).
+"""repro_torch.core — the paper's task-graph system.
 
-JAX-free copies of the reference host runtime:
+Host layer (copies of the reference host runtime):
     Taskflow / Task / Subflow       task-graph model (§3)
     Executor / Topology             heterogeneous work stealing (§4)
     EventNotifier / WorkStealingQueue  runtime data structures (§4.3)
+    algorithms                      parallel_for / reduce / pipeline
 
-The reference's device layer (``JaxGraph``, ``DeviceFlow``) is not ported
-yet; a ``DEVICE`` task raises ``NotImplementedError``.
+Device layer:
+    DeviceFlow                      cudaFlow over a CUDA graph, one replay
+                                    per launch (§3.5)
+
+The reference's in-XLA conditional graphs (``JaxGraph``) are not ported.
 """
+from . import algorithms
 from .atomic import AtomicInt
+from .deviceflow import DeviceFlow
 from .executor import Executor, TaskError, Topology
 from .graph import ACCEL, HOST, GraphBuilder, Subflow, Task, Taskflow, TaskType
 from .notifier import EventNotifier, Waiter
@@ -16,8 +22,8 @@ from .observer import Observer, Profiler
 from .wsq import WorkStealingQueue
 
 __all__ = [
-    "AtomicInt", "Executor", "TaskError", "Topology",
+    "AtomicInt", "DeviceFlow", "Executor", "TaskError", "Topology",
     "ACCEL", "HOST", "GraphBuilder", "Subflow", "Task", "Taskflow",
     "TaskType", "EventNotifier", "Waiter",
-    "Observer", "Profiler", "WorkStealingQueue",
+    "Observer", "Profiler", "WorkStealingQueue", "algorithms",
 ]

@@ -25,6 +25,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from .atomic import AtomicInt
+from .deviceflow import DeviceFlow
 from .graph import (ACCEL, HOST, Node, Subflow, Task, Taskflow, TaskType)
 from .notifier import EventNotifier, Waiter
 from .observer import Observer
@@ -334,9 +335,10 @@ class Executor:
                 deferred = self._spawn_children(w, node, child._nodes,
                                                 detached=False)
             elif kind is TaskType.DEVICE:
-                # the port has no DeviceFlow yet (queued in ROADMAP.md)
-                raise NotImplementedError(
-                    "DEVICE tasks need DeviceFlow, not yet in repro_torch")
+                df = DeviceFlow(device=w.device)
+                with df.bound():  # the worker's device for fn and offload
+                    node.fn(df)
+                    df._offload()
             else:  # pragma: no cover
                 raise RuntimeError(f"unknown task type {kind}")
         except BaseException as e:  # noqa: BLE001 - task isolation

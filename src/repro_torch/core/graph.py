@@ -10,9 +10,10 @@ Implements the five task types of the paper's unified programming model:
                     successor to run; out-edges are *weak* dependencies
                     (§3.4). ``multi_condition`` returns a list of indices.
 * **device (cudaFlow→DeviceFlow)** — callable taking a
-                    :class:`repro.core.deviceflow.DeviceFlow`; captures a
-                    graph of JAX ops and launches it as ONE compiled XLA
-                    program on the worker's accelerator (§3.5).
+                    :class:`repro_torch.core.deviceflow.DeviceFlow`;
+                    records copies and kernels that are captured into ONE
+                    CUDA graph and launched by one replay on the worker's
+                    device (§3.5).
 
 Strong vs weak dependencies (§3.4.1): an edge is *weak* iff its source is a
 condition task. A node's join counter counts only strong in-edges; condition
@@ -188,8 +189,9 @@ class GraphBuilder:
         return self._add(fn, TaskType.MULTI_CONDITION, name, domain)
 
     def device(self, fn: Callable, name: str = "", domain: str = ACCEL) -> Task:
-        """cudaFlow analogue: ``fn(deviceflow)`` captures a JAX op graph that
-        is compiled and launched as one XLA program (paper §3.5)."""
+        """cudaFlow: ``fn(deviceflow)`` records device ops that are
+        captured into one CUDA graph and launched by one replay (paper
+        §3.5)."""
         return self._add(fn, TaskType.DEVICE, name, domain)
 
     # -- introspection ---------------------------------------------------------------

@@ -30,7 +30,7 @@ FLOAT32 = 0
 BFLOAT16 = 1
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu", "lsdnn_layer.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,6 +51,8 @@ _SIGNATURES = {
     # dtype, q, k, v, o, B, S, T, H, KV, hd, causal, scale, stream
     "repro_flash_attention": (_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                               _i, _i, _f, _vp),
+    # dtype, y, w, b, out, T, F, G, cap, stream
+    "repro_lsdnn_layer": (_i, _vp, _vp, _vp, _vp, _i, _i, _i, _f, _vp),
 }
 
 

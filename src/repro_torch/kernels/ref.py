@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["flash_attention_ref", "paged_attention_ref", "NEG_INF"]
+__all__ = ["flash_attention_ref", "paged_attention_ref", "lsdnn_layer_ref",
+           "NEG_INF"]
 
 NEG_INF = -2.0 ** 30  # large-but-finite, as the reference kernels
 
@@ -80,3 +81,15 @@ def paged_attention_ref(q: torch.Tensor, pool_kv: torch.Tensor,
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l).reshape(B, H, hd).to(q.dtype)
+
+
+def lsdnn_layer_ref(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    cap: float = 32.0) -> torch.Tensor:
+    """One LSDNN inference layer (paper §5.3, HPEC sparse-DNN challenge):
+    ``clamp(relu(y @ w + b), 0, cap)``. y: (T, F); w: (F, G); b: (G,).
+    The operands are upcast and summed in fp32 (bf16 values are exact in
+    fp32, so this is the reference's fp32 accumulation); the result is cast
+    back to ``y.dtype``. On CUDA the product is full fp32 only while
+    ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default)."""
+    z = y.float() @ w.float() + b.float()
+    return z.clamp(0.0, cap).to(y.dtype)

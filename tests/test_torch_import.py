@@ -25,7 +25,9 @@ def test_import_without_gpu_leaves_jax_out():
         "sys.path[:0] = ['src', '.']\n"
         "import repro_torch, repro_torch.serve.engine, "
         "repro_torch.launch.serve, repro_torch.kernels.ops, "
-        "repro_torch.params, repro_torch.core, repro_torch.pipeline\n"
+        "repro_torch.params, repro_torch.core, repro_torch.pipeline, "
+        "repro_torch.core.deviceflow, repro_torch.core.algorithms, "
+        "repro_torch.bench.fig13_lsdnn\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -58,7 +60,8 @@ def test_forbidden_pattern_spares_repro_torch():
     assert not _FORBIDDEN.search("from .repro import x")
 
 
-@pytest.mark.parametrize("src", ["paged_attention.cu", "flash_attention.cu"])
+@pytest.mark.parametrize("src", ["paged_attention.cu", "flash_attention.cu",
+                                 "lsdnn_layer.cu"])
 def test_kernel_sources_name_the_tpu_kernel_they_replace(src):
     text = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / src) \
         .read_text()
@@ -67,7 +70,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace(src):
     assert "bound" in head and "Design" in head
 
 
-@pytest.mark.parametrize("mod", ["serve_profile", "serve_runs"])
+@pytest.mark.parametrize("mod", ["serve_profile", "serve_runs",
+                                 "fig13_lsdnn"])
 def test_bench_scripts_refuse_without_cuda(mod, monkeypatch):
     import importlib
 
@@ -75,4 +79,4 @@ def test_bench_scripts_refuse_without_cuda(mod, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     m = importlib.import_module(f"repro_torch.bench.{mod}")
     with pytest.raises(SystemExit, match="CUDA device"):
-        m.main(*([[]] if mod == "serve_runs" else []))
+        m.main(*([] if mod == "serve_profile" else [[]]))
