@@ -15,21 +15,36 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 5. steps    — one ``decode_step_paged`` on a frozen copy of the engine's
               pool and tables with K1 and with the gather oracle, and one
               ``prefill`` with K2 and with the plain path; logits compared;
-6. k4       — K4 (the LSDNN layer) against its plain version at the HPEC
+              then stablelm's weights and pool are freed;
+6. k3       — K3 (the Mamba1 selective scan) against its plain sequential
+              version at the SSM prefill path's shapes (B=1, dI=8192, N=16,
+              S in {16, 57, 300}, bf16 x/B/C, fp32 dt), a ragged, a B=4, an
+              fp32-input and an initial-state case, then timed beside its
+              bound and the plain version (no PyTorch call computes a
+              selective scan, so it has no library time);
+7. ssm      — falcon-mamba-7b at full width (64 layers, d_model 4096,
+              d_inner 8192, random weights from a seeded
+              ``torch.Generator``) through ``ServeEngine``'s slot-state
+              pool: the same 8 staggered requests, 32 new tokens each, with
+              the launch counts read around the run;
+8. ssmstep  — one ``prefill`` of the 300-token prompt with K3 and with the
+              plain scan, in bf16 and in fp32 compute: logits and the
+              returned SSM states compared; then the weights are freed;
+9. k4       — K4 (the LSDNN layer) against its plain version at the HPEC
               shape T=60000, F=G=1024 (fp32 and bf16, random and HPEC
               data), at ragged shapes and at a cap-saturating case, then
               timed beside its bound, the plain version and
               ``torch.addmm`` + ``clamp_``;
-7. lsdnn    — the paper's sparse-DNN workload (``bench/fig13_lsdnn.py``,
+10. lsdnn   — the paper's sparse-DNN workload (``bench/fig13_lsdnn.py``,
               HPEC configuration: 60,000 rows x 1024 neurons x 120 layers,
               2 chained passes) through its sequential, unrolled and
               taskflow paths (the taskflow path: the condition-task cycle
               on the port's Executor, one CUDA-graph replay per pass), with
               K4's launches read around the run; outputs and categories
               checked across the paths and against the plain version;
-8. device   — a DEVICE task (saxpy) through the Executor on the card,
+11. device  — a DEVICE task (saxpy) through the Executor on the card,
               checked against numpy;
-9. report   — one JSON line of per-kernel numbers, the card line, and the
+12. report  — one JSON line of per-kernel numbers, the card line, and the
               final ``{"ok": true, ...}`` line.
 
     python3 chip_smoke.py
@@ -54,11 +69,16 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor rate
-# (K1, K2) and fp32 rate outside the tensor cores (K4, whose fp32 products
-# are exact)
+# (K1, K2) and fp32 rate outside the tensor cores (K3, K4, whose fp32
+# arithmetic is exact)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12
+# exponentials per second (K3): the special function units give 16 results
+# per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), at the 1.98 GHz boost clock behind
+# the data sheet's 67 TFLOP/s (132 SMs x 128 fp32 lanes x 2 x 1.98 GHz)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 # tolerances (absolute, bf16 outputs of magnitude <~ 2; one bf16 ulp there
 # is 2**-7 ~ 7.8e-3, and the plain flash version rounds its probabilities
@@ -74,6 +94,12 @@ STEP_REL_TOL = {"bfloat16": 0.25, "float32": 1e-3}
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
 MAX_NEW = 32
+
+# K3 vs its plain version: max |kernel - plain| <= K3_REL_TOL x max(1,
+# max |plain|), on y and the final state. Both run the fp32 recurrence step
+# by step; they differ in expf against torch.exp, in FMA contraction and in
+# the order of the 16-term sum over the state
+K3_REL_TOL = 1e-5
 
 # the LSDNN phase: the HPEC challenge's 1024-neuron, 120-layer network on
 # its 60,000 input rows (bench/fig13_lsdnn.py), 2 chained passes, 8 layers
@@ -417,6 +443,178 @@ def phase_steps(cfg, params, prompts, frozen, dev):
 
 
 # ------------------------------------------------------------------ phase 6
+def _rel(a, b) -> float:
+    return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+def phase_k3(dev):
+    from repro_torch.kernels import mamba_scan as scan_mod
+    from repro_torch.kernels.ref import mamba_scan_ref
+    g = torch.Generator(dev).manual_seed(3)
+
+    def inputs(B, S, dI, N, dtype, h0):
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        dt = F.softplus(randn(B, S, dI)) * 0.1
+        return (dt, randn(B, S, dI).to(dtype), randn(B, S, N).to(dtype),
+                randn(B, S, N).to(dtype), -torch.exp(randn(dI, N) * 0.5),
+                randn(B, dI, N) if h0 else None)
+
+    # the SSM prefill path's shapes (B=1, dI=8192, N=16, bf16 x/B/C, fp32
+    # dt) at three prompt lengths, then a ragged dI (not a multiple of the
+    # 16-channel block) with an odd S, B=4, fp32 inputs and an initial state
+    cases = [("prefill", 1, 16, 8192, 16, BF16, False),
+             ("prefill", 1, 57, 8192, 16, BF16, False),
+             ("prefill", 1, 300, 8192, 16, BF16, False),
+             ("ragged dI, odd S", 1, 33, 1000, 16, BF16, False),
+             ("B=4", 4, 300, 8192, 16, BF16, False),
+             ("fp32 inputs", 1, 300, 8192, 16, F32, False),
+             ("initial state", 2, 70, 8192, 16, BF16, True)]
+    errs = []
+    for what, B, S, dI, N, dtype, h0 in cases:
+        dt, x, Bc, Cc, A, init = inputs(B, S, dI, N, dtype, h0)
+        y, hT = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A, h0=init)
+        yr, hr = mamba_scan_ref(dt, A, Bc, Cc, x, h0=init)
+        torch.cuda.synchronize()
+        ey, eh = _rel(y, yr), _rel(hT, hr)
+        ok = torch.isfinite(y).all().item() and torch.isfinite(hT).all().item()
+        log(f"[k3] {what} B={B} S={S} dI={dI} N={N} {str(dtype)[6:]}: "
+            f"max|kernel-plain|/max(1,|plain|) y {ey:.3e} hT {eh:.3e} (tol "
+            f"{K3_REL_TOL}); max|y| {yr.abs().max().item():.4g}")
+        if not ok or max(ey, eh) > K3_REL_TOL:
+            raise SystemExit(f"K3 disagrees with its plain version: {ey}, "
+                             f"{eh}")
+        errs.append((y - yr).abs().max().item())
+    # timing at the path's longest prompt: B=1, S=300
+    dt, x, Bc, Cc, A, _ = inputs(1, 300, 8192, 16, BF16, False)
+    B, S, dI = x.shape
+    N = A.shape[1]
+    ms = time_ms(lambda: scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A))
+    plain_ms = time_ms(lambda: mamba_scan_ref(dt, A, Bc, Cc, x), iters=5,
+                       warmup=1)
+    nbytes = 4 * B * S * dI + 2 * B * S * dI + 2 * 2 * B * S * N \
+        + 4 * dI * N + 4 * B * S * dI + 4 * B * dI * N
+    elems = B * S * dI * N
+    # per (b, t, d, n): exp argument, FMA (2), dx * B, h * C, one add of
+    # the sum over n; per (b, t, d): dt * x
+    flops = 6.0 * elems + B * S * dI
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exp = elems / SFU_EXP_PER_S * 1e3
+    t_fma = flops / FP32_FLOPS_PER_S * 1e3
+    b_ms = max(t_b, t_exp, t_fma)
+    b_by = "bytes" if t_b >= max(t_exp, t_fma) else "operations"
+    log(f"[k3] timing B=1 S=300 dI=8192 N=16 bf16: kernel {ms:.4f} ms | "
+        f"plain {plain_ms:.4f} ms | no library call computes a selective "
+        f"scan | bound {b_ms:.5f} ms ({b_by}: bytes {t_b:.5f} ms for "
+        f"{nbytes} B, exps {t_exp:.5f} ms for {elems} at "
+        f"{SFU_EXP_PER_S:.3e}/s, fp32 {t_fma:.5f} ms for {flops:.3e} flop)")
+    return dict(name="mamba_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                replaces="src/repro/kernels/mamba_scan.py:29",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ------------------------------------------------------------------ phase 7
+def phase_serve_ssm(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.params import init_params, param_bytes
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("falcon-mamba-7b")           # full width and depth
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    wbytes = param_bytes(params)
+    log(f"[ssm] {cfg.name}: L={cfg.num_layers} D={cfg.d_model} "
+        f"dI={cfg.d_inner} N={cfg.ssm_state} K={cfg.ssm_conv} "
+        f"R={cfg.dt_rank_} V={cfg.vocab_size}; weights {wbytes / 1e9:.3f} "
+        f"GB (matrices bf16) in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    eng = ServeEngine(cfg, params, decode_chunk=8, max_batch=8, device=dev)
+    try:
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for t in eng._sstate["ssm"])
+        log(f"[ssm] engine: paged={eng.paged}, slot pool "
+            f"{[tuple(t.shape) for t in eng._sstate['ssm']]} "
+            f"{pool_bytes / 1e6:.1f} MB, max_seq_len {eng._max_seq}")
+        # warm-up request (cuBLAS handles, allocator), outside the counts
+        eng.result(eng.submit(prompts[0][:8], max_new=2))
+        torch.cuda.synchronize()
+        stats0 = dict(eng.stats)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = []
+        for p in prompts:
+            reqs.append(eng.submit(p, max_new=MAX_NEW))
+            time.sleep(0.02)
+        outs = [eng.result(r, timeout=600.0) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        eng.close()
+    stats = {k: v - stats0.get(k, 0) for k, v in eng.stats.items()}
+    for p, o in zip(prompts, outs):
+        if o.shape != (MAX_NEW,) or not ((o >= 0) & (o < cfg.vocab_size)
+                                         ).all():
+            raise SystemExit(f"bad output for prompt len {len(p)}: {o}")
+    B = len(eng._slot_req)
+    if len(eng._free_slots) != B or eng._slots_reserved or eng._inflight:
+        raise SystemExit(f"slots leaked: {len(eng._free_slots)} free of {B}")
+    L = cfg.num_layers
+    if stats["prefills"] != len(prompts) \
+            or counts["mamba_scan"] < L * stats["prefills"]:
+        raise SystemExit(f"K3 launches {counts['mamba_scan']} < {L} x "
+                         f"{stats['prefills']} prefills")
+    ttft = sorted(r.ttft for r in reqs)
+    tok = len(prompts) * MAX_NEW
+    log(f"[ssm] {len(prompts)} requests, prompts {list(PROMPT_LENS)}, "
+        f"max_new {MAX_NEW}: {tok} tokens in {wall:.3f}s = "
+        f"{tok / wall:.1f} tok/s | TTFT p50 {ttft[len(ttft) // 2]:.4f}s "
+        f"max {ttft[-1]:.4f}s | stats {stats}")
+    log(f"[ssm] launches {counts} over {stats['prefills']} prefills and "
+        f"{stats['decode_cycles'] * eng.decode_chunk} decode steps; weights "
+        f"{wbytes / 1e9:.3f} GB, slot pool {pool_bytes / 1e6:.1f} MB, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; all {B} "
+        f"slots free")
+    log(f"[ssm] sample: {outs[0][:16].tolist()}")
+    return cfg, params, prompts, counts
+
+
+# ------------------------------------------------------------------ phase 8
+def phase_steps_ssm(cfg, params, prompts, dev):
+    import dataclasses
+
+    from repro_torch.models import lm
+    toks = torch.from_numpy(prompts[-1][None]).to(dev)      # 300 tokens
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        for dt, c in (("bfloat16", cfg), ("float32", cfg32)):
+            p = params if dt == "bfloat16" else {
+                k: ({kk: vv.float() for kk, vv in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+            lk, ck = lm.prefill(c, p, toks, impl="kernel")
+            lp, cp = lm.prefill(c, p, toks, impl="plain")
+            _compare(f"{dt} prefill S={toks.shape[1]} K3 vs plain scan", lk,
+                     lp, STEP_REL_TOL[dt])
+            hk, hp = ck["ssm"][1], cp["ssm"][1]
+            rel = (hk - hp).abs().max().item() / hp.abs().max().item()
+            log(f"[ssmstep] {dt} returned h states ({c.num_layers} layers): "
+                f"max|d|/max|plain| = {rel:.3e} (tol {STEP_REL_TOL[dt]}); "
+                f"conv tails equal: {torch.equal(ck['ssm'][0], cp['ssm'][0])}")
+            if not (rel <= STEP_REL_TOL[dt] and torch.isfinite(hk).all()):
+                raise SystemExit(f"{dt} prefill states disagree: {rel}")
+            del p, ck, cp
+
+
+# ------------------------------------------------------------------ phase 9
 def phase_k4(dev):
     from repro_torch.bench.fig13_lsdnn import make_hpec
     from repro_torch.kernels import lsdnn_layer as lsdnn_mod
@@ -486,7 +684,7 @@ def phase_k4(dev):
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-# ------------------------------------------------------------------ phase 7
+# ------------------------------------------------------------------ phase 10
 def phase_lsdnn(dev) -> int:
     from repro_torch.bench import fig13_lsdnn as fb
     from repro_torch.kernels import ops
@@ -549,7 +747,7 @@ def phase_lsdnn(dev) -> int:
     return k4
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------------ phase 11
 def phase_device_task(dev) -> None:
     from repro_torch.core import ACCEL, HOST, DeviceFlow, Executor, Taskflow
     n = 1 << 16
@@ -583,27 +781,47 @@ def phase_device_task(dev) -> None:
 # ------------------------------------------------------------------ main
 def main() -> None:
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def done(phase: str) -> None:   # each phase's seconds, for the budget
+        now = time.perf_counter()
+        log(f"[time] {phase} {now - t_phase[0]:.1f}s")
+        t_phase[0] = now
+
     smi = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
     report = phase_kernels(dev)
+    done("card, build, K1/K2")
     cfg, params, prompts, frozen, counts = phase_serve(dev)
     phase_steps(cfg, params, prompts, frozen, dev)
     del params, frozen
     gc.collect()              # free the serve phase's weights and pool
     torch.cuda.empty_cache()
+    done("stablelm serve and steps")
+    report["mamba_scan"] = phase_k3(dev)
+    done("K3")
+    mcfg, mparams, mprompts, mcounts = phase_serve_ssm(dev)
+    phase_steps_ssm(mcfg, mparams, mprompts, dev)
+    del mparams
+    gc.collect()              # free falcon-mamba's weights and slot pool
+    torch.cuda.empty_cache()
+    done("falcon-mamba serve and steps")
     torch.backends.cuda.matmul.allow_tf32 = False   # K4's plain version
     report["lsdnn_layer"] = phase_k4(dev)
     report["lsdnn_layer"]["launches"] = phase_lsdnn(dev)
     phase_device_task(dev)
+    done("K4, LSDNN, DEVICE task")
     report["paged_attention"]["launches"] = counts["paged_attention"]
     report["flash_attention"]["launches"] = counts["flash_attention"]
+    report["mamba_scan"]["launches"] = mcounts["mamba_scan"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{k: report[n][k] for k in keys}
-               for n in ("paged_attention", "flash_attention", "lsdnn_layer")]
+               for n in ("paged_attention", "flash_attention", "mamba_scan",
+                         "lsdnn_layer")]
     if "jax" in sys.modules:
         raise SystemExit("jax was imported")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

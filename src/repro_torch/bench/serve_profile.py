@@ -1,4 +1,6 @@
-"""Where a decode step's time goes on the GPU (full-width stablelm-1.6b).
+"""Where a decode step's time goes on the GPU, at full width.
+
+``--arch stablelm-1.6b`` (default; the paged path):
 
 Seeds a paged pool with 8 rows at the chip smoke run's prompt lengths
 (prefilled through the port's own ``prefill``), then, for each paged read
@@ -14,13 +16,23 @@ materializing oracle):
 Window-0 prefill (4 x 128 tokens) is timed the same way with ``flash``
 (K2) and ``chunked`` (the plain path).
 
+``--arch falcon-mamba-7b`` (the slot-state path): the 8 rows' states are
+prefilled at B=1 (K3 scans) and copied into an 8-slot
+:func:`repro_torch.models.lm.init_cache` pool, as the engine does; then
+``decode_chunk_slots`` is timed and traced the same way (one decode step
+has no kernel of the port: it is GEMVs and elementwise ops), and one
+300-token prefill with ``kernel`` (K3) and ``plain`` scans.
+
     PYTHONPATH=src python -m repro_torch.bench.serve_profile
+    PYTHONPATH=src python -m repro_torch.bench.serve_profile \
+        --arch falcon-mamba-7b
 
 Needs one CUDA device; writes nothing but stdout (the last line is a JSON
 summary).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -71,25 +83,84 @@ def _profile(fn):
     return busy, launches, rows[:8]
 
 
-def main() -> None:
+def _report(summary, kind, name, fn, steps: int = 1) -> None:
+    """Time ``fn`` (``steps`` model steps) on the host clock and trace it:
+    wall and device-busy ms per step, idle share, launches per step, top
+    kernels."""
+    wall = _wall_ms(fn) / steps
+    busy, launches, top = _profile(fn)
+    busy /= steps
+    summary[kind][name] = {
+        "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+        "idle_share": 1.0 - busy / wall, "launches_per_step": launches / steps,
+        "top": [(k, ms / steps, c // steps) for k, ms, c in top]}
+    print(f"[{kind}:{name}] wall {wall:.3f} ms/step | device busy "
+          f"{busy:.3f} ms/step | idle {1 - busy / wall:.1%} | "
+          f"{launches / steps:.0f} launches/step", flush=True)
+    for k, ms, c in top[:6]:
+        print(f"    {ms / steps:8.4f} ms/step  x{c // steps:<5d} {k[:90]}",
+              flush=True)
+
+
+def _slot_path(cfg, params, dev, rng, summary) -> None:
+    """falcon-mamba: one decode step over an 8-slot state pool, and one
+    300-token prefill with each scan."""
+    B = len(PROMPT_LENS)
+    state = {k: v for k, v in lm.init_cache(cfg, B, device=dev).items()
+             if k != "pos"}
+    conv, h = state["ssm"]
+    layers = lm.layer_views(params)
+    with torch.inference_mode():
+        for b, n in enumerate(PROMPT_LENS):
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
+            _, cache = lm.prefill(cfg, params, toks, layers=layers)
+            conv[:, b].copy_(cache["ssm"][0][:, 0])
+            h[:, b].copy_(cache["ssm"][1][:, 0])
+        lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=dev)
+        last = torch.zeros(B, dtype=torch.int32, device=dev)
+        rem = torch.full((B,), 1 << 20, dtype=torch.int32, device=dev)
+
+        def chunk():
+            lm.decode_chunk_slots(cfg, params, state, (lengths, last, rem),
+                                  STEPS, layers=layers)
+        _report(summary, "decode", "slots", chunk, STEPS)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, PROMPT_LENS[-1])).astype(np.int32)
+            ).to(dev)
+        for impl in ("kernel", "plain"):
+            def pre():
+                lm.prefill(cfg, params, toks, impl=impl, layers=layers)
+            _report(summary, "prefill", impl, pre)
+
+
+def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("serve_profile needs a CUDA device")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    choices=["stablelm-1.6b", "falcon-mamba-7b"])
+    args = ap.parse_args(argv)
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[card] {smi}", flush=True)
-    cfg = get_config("stablelm-1.6b")
+    cfg = get_config(args.arch)
     params = init_params(cfg, torch.Generator(dev).manual_seed(0),
                          device=dev)
+    rng = np.random.default_rng(0)
+    summary = {"card": smi, "arch": cfg.name, "decode": {}, "prefill": {}}
+    if cfg.ssm:
+        _slot_path(cfg, params, dev, rng, summary)
+        print(json.dumps(summary))
+        return
     bs, nblk = 16, 128
     B = len(PROMPT_LENS)
     mb = 32
-    rng = np.random.default_rng(0)
     pool = init_kv_pool(cfg, nblk, bs, dev)
     tables = np.zeros((B, mb), np.int32)
     nxt = 1
-    summary = {"card": smi, "decode": {}, "prefill": {}}
     with torch.inference_mode():
         for b, n in enumerate(PROMPT_LENS):
             toks = torch.from_numpy(rng.integers(
@@ -112,36 +183,13 @@ def main() -> None:
                 lm.decode_chunk_paged(cfg, params, pool, tables_d,
                                       (lengths, last, rem), STEPS,
                                       impl=impl, layers=layers)
-            wall = _wall_ms(chunk) / STEPS
-            busy, launches, top = _profile(chunk)
-            busy /= STEPS
-            summary["decode"][impl] = {
-                "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
-                "idle_share": 1.0 - busy / wall,
-                "launches_per_step": launches / STEPS,
-                "top": [(k, ms / STEPS, c // STEPS) for k, ms, c in top]}
-            print(f"[decode:{impl}] B={B} wall {wall:.3f} ms/step | device "
-                  f"busy {busy:.3f} ms/step | idle {1 - busy / wall:.1%} | "
-                  f"{launches / STEPS:.0f} launches/step", flush=True)
-            for k, ms, c in top:
-                print(f"    {ms / STEPS:8.4f} ms/step  x{c // STEPS:<5d} "
-                      f"{k[:90]}", flush=True)
+            _report(summary, "decode", impl, chunk, STEPS)
         toks = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (4, 128)).astype(np.int32)).to(dev)
         for impl in ("flash", "chunked"):
             def pre():
                 lm.prefill(cfg, params, toks, impl=impl)
-            wall = _wall_ms(pre)
-            busy, launches, top = _profile(pre)
-            summary["prefill"][impl] = {
-                "wall_ms": wall, "device_busy_ms": busy,
-                "idle_share": 1.0 - busy / wall, "launches": launches,
-                "top": top}
-            print(f"[prefill:{impl}] 4x128 wall {wall:.3f} ms | device busy"
-                  f" {busy:.3f} ms | idle {1 - busy / wall:.1%} | "
-                  f"{launches} launches", flush=True)
-            for k, ms, c in top[:5]:
-                print(f"    {ms:8.4f} ms  x{c:<5d} {k[:90]}", flush=True)
+            _report(summary, "prefill", impl, pre)
     print(json.dumps(summary))
 
 

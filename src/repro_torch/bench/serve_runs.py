@@ -1,8 +1,10 @@
 """Repeat ``chip_smoke.py``'s serve workload and account for its TTFT.
 
-Full-width stablelm-1.6b (random bf16 weights from a seeded generator),
-``ServeEngine(decode_chunk=8, max_batch=8, kv_blocks=128, block_size=16)``,
-8 requests with prompts of 16 to 300 tokens submitted 20 ms apart. Each of
+Full-width stablelm-1.6b (default) or falcon-mamba-7b (``--arch``; the
+slot-state pool), random bf16 weights from a seeded generator,
+``ServeEngine(decode_chunk=8, max_batch=8, kv_blocks=128, block_size=16)``
+(the pool geometry applies to the paged arch only), 8 requests with
+prompts of 16 to 300 tokens submitted 20 ms apart. Each of
 ``--runs`` runs builds a fresh engine with ``record_stages=True``, serves a
 warm-up request, then the 8 requests, and prints:
 
@@ -16,7 +18,7 @@ warm-up request, then the 8 requests, and prints:
 The last line is a JSON summary with the per-run numbers and their spread.
 
     PYTHONPATH=src python -m repro_torch.bench.serve_runs [--runs 3]
-        [--max-new 32]
+        [--max-new 32] [--arch falcon-mamba-7b]
 
 Needs one CUDA device.
 """
@@ -85,6 +87,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    choices=["stablelm-1.6b", "falcon-mamba-7b"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve_runs needs a CUDA device")
@@ -93,7 +97,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[card] {smi}", flush=True)
-    cfg = get_config("stablelm-1.6b")
+    cfg = get_config(args.arch)
     params = init_params(cfg, torch.Generator(dev).manual_seed(0),
                          device=dev)
     rng = np.random.default_rng(0)
@@ -114,7 +118,7 @@ def main(argv=None) -> None:
             print(f"    cycle {c}", flush=True)
     tps = [r["tok_s"] for r in runs]
     p50 = [r["ttft_p50_s"] for r in runs]
-    print(json.dumps({"card": smi, "max_new": args.max_new,
+    print(json.dumps({"card": smi, "arch": cfg.name, "max_new": args.max_new,
                       "tok_s": tps, "tok_s_min": min(tps),
                       "tok_s_max": max(tps), "ttft_p50_s": p50,
                       "runs": runs}))

@@ -30,7 +30,8 @@ FLOAT32 = 0
 BFLOAT16 = 1
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "flash_attention.cu", "lsdnn_layer.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu", "lsdnn_layer.cu",
+           "mamba_scan.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,6 +54,9 @@ _SIGNATURES = {
                               _i, _i, _f, _vp),
     # dtype, y, w, b, out, T, F, G, cap, stream
     "repro_lsdnn_layer": (_i, _vp, _vp, _vp, _vp, _i, _i, _i, _f, _vp),
+    # dtype, dt, x, Bc, Cc, A, h0, y, hT, B, S, dI, N, stream
+    "repro_mamba_scan": (_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                         _i, _i, _vp),
 }
 
 

@@ -23,12 +23,14 @@ import torch
 
 from . import flash_attention as _flash_mod
 from . import lsdnn_layer as _lsdnn_mod
+from . import mamba_scan as _scan_mod
 from . import paged_attention as _paged_mod
 from ._build import build_info, ensure_built
 from .ref import paged_attention_ref
 
 __all__ = ["PAGED_IMPLS", "default_paged_impl", "paged_attention",
-           "flash_attention", "lsdnn_layer", "ensure_built", "build_info",
+           "flash_attention", "mamba_scan", "lsdnn_layer", "ensure_built",
+           "build_info",
            "launch_counts", "reset_launch_counts"]
 
 PAGED_IMPLS = ("kernel", "loop", "gather")
@@ -60,6 +62,10 @@ def flash_attention(q, k, v, causal: bool = True):
     return _flash_mod.flash_attention(q, k, v, causal=causal)
 
 
+def mamba_scan(dt, x, Bc, Cc, A, h0=None):
+    return _scan_mod.mamba_scan(dt, x, Bc, Cc, A, h0=h0)
+
+
 def lsdnn_layer(y, w, b, cap: float = 32.0):
     return _lsdnn_mod.lsdnn_layer(y, w, b, cap=cap)
 
@@ -69,10 +75,12 @@ def launch_counts() -> Dict[str, int]:
     into a CUDA graph counts once, at capture)."""
     return {"paged_attention": _paged_mod.launches,
             "flash_attention": _flash_mod.launches,
+            "mamba_scan": _scan_mod.launches,
             "lsdnn_layer": _lsdnn_mod.launches}
 
 
 def reset_launch_counts() -> None:
     _paged_mod.launches = 0
     _flash_mod.launches = 0
+    _scan_mod.launches = 0
     _lsdnn_mod.launches = 0

@@ -7,10 +7,12 @@ scores from the compute-dtype operands) and are no yardstick of speed.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-__all__ = ["flash_attention_ref", "paged_attention_ref", "lsdnn_layer_ref",
-           "NEG_INF"]
+__all__ = ["flash_attention_ref", "paged_attention_ref", "mamba_scan_ref",
+           "lsdnn_layer_ref", "NEG_INF"]
 
 NEG_INF = -2.0 ** 30  # large-but-finite, as the reference kernels
 
@@ -81,6 +83,30 @@ def paged_attention_ref(q: torch.Tensor, pool_kv: torch.Tensor,
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l).reshape(B, H, hd).to(q.dtype)
+
+
+def mamba_scan_ref(dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, x: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential selective scan of the reference's ``mamba_scan_ref``
+    (the reference's argument order): dt, x (B, S, dI); A (dI, N); Bc, Cc
+    (B, S, N); h0 (B, dI, N) or None for a zero state. dt, x, B and C are
+    upcast to fp32 and the recurrence runs in fp32, one time step at a time.
+    Returns y (B, S, dI) fp32 and the final state (B, dI, N) fp32."""
+    Bb, S, dI = x.shape
+    N = A.shape[1]
+    dt, x, Bc, Cc, A = dt.float(), x.float(), Bc.float(), Cc.float(), \
+        A.float()
+    h = torch.zeros((Bb, dI, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t]
+        a = torch.exp(dt_t[..., None] * A)                   # (B, dI, N)
+        h = a * h + (dt_t * x[:, t])[..., None] * Bc[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t]))
+    return torch.stack(ys, dim=1), h
 
 
 def lsdnn_layer_ref(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

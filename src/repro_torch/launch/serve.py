@@ -7,8 +7,13 @@ CUDA; without a CUDA device it raises unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --preset full \
         --batch 8 --prompt-len 128 --max-new 32 --stagger 0.05
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --device cpu
 
-Weights are random, drawn from ``--seed`` (``torch.Generator``).
+Dense attention archs page their KV (``--kv-blocks``, ``--block-size``,
+``--prefill-chunk``); Mamba1 archs keep one recurrent state per batch slot
+(``--max-seq-len`` bounds prompt + new tokens). Weights are random, drawn
+from ``--seed`` (``torch.Generator``).
 """
 from __future__ import annotations
 
@@ -27,7 +32,9 @@ from ..serve.engine import ServeEngine
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b",
-                    help="model architecture (dense attention archs)")
+                    help="model architecture of a family the port serves: "
+                         "dense attention (e.g. stablelm-1.6b, qwen3-14b) "
+                         "or Mamba1 SSM (falcon-mamba-7b)")
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -38,6 +45,9 @@ def main(argv=None) -> None:
                          "(default: decode_chunk * block_size)")
     ap.add_argument("--kv-blocks", type=int, default=128)
     ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--max-seq-len", type=int, default=None,
+                    help="slot-state (SSM) archs: cap on prompt + new "
+                         "tokens per request (default 512)")
     ap.add_argument("--stagger", type=float, default=0.0,
                     help="seconds between submissions (0 = all at once)")
     ap.add_argument("--seed", type=int, default=0)
@@ -57,10 +67,13 @@ def main(argv=None) -> None:
                .astype(np.int32) for _ in range(args.batch)]
     total_new = args.batch * args.max_new
 
+    if cfg.ssm:
+        geom = dict(max_seq_len=args.max_seq_len)
+    else:
+        geom = dict(prefill_chunk=args.prefill_chunk,
+                    kv_blocks=args.kv_blocks, block_size=args.block_size)
     with ServeEngine(cfg, params, decode_chunk=args.decode_chunk,
-                     prefill_chunk=args.prefill_chunk,
-                     kv_blocks=args.kv_blocks, block_size=args.block_size,
-                     device=dev) as eng:
+                     device=dev, **geom) as eng:
         t0 = time.time()
         reqs = []
         for p in prompts:

@@ -1,22 +1,26 @@
-"""Decoder LM serving entry points, dense attention archs (torch port of
-``repro.models.lm``).
+"""Decoder LM serving entry points, dense attention and Mamba1 archs (torch
+port of ``repro.models.lm``).
 
 Params are the plain dict of :mod:`repro_torch.params`: stacked per-layer
 leaves under ``blocks``. Each ``lax.scan`` over layers of the reference is a
 Python loop here, and the paged pool ``(L, 2, N, KV, bs, hd)`` is indexed
 ``pool[l]`` — a contiguous view that the attention code writes IN PLACE
 (the reference returns a new pool; these functions return the same tensor
-so call sites read alike).
+so call sites read alike). The SSM slot-state pool of :func:`init_cache`
+is written in place the same way by the slot entry points.
 
-Entry points: :func:`init_params`, :func:`prefill` (dense branch, with
-``last_positions``), :func:`prefill_window_paged`,
-:func:`decode_step_paged`, :func:`decode_chunk_paged`. MoE, SSM, hybrid and
+Entry points: :func:`init_params`, :func:`prefill` (dense and Mamba1
+branches, with ``last_positions``), :func:`init_cache` (Mamba1 slot
+state), the paged path :func:`prefill_window_paged`,
+:func:`decode_step_paged`, :func:`decode_chunk_paged` (attention archs
+only, as in the reference), and the slot path :func:`decode_step_slots`,
+:func:`decode_chunk_slots` (Mamba1 only). MoE, Mamba2/hybrid and
 modality-frontend configs raise ``ValueError`` (later slices).
 
-One device sync per decode chunk: :func:`decode_chunk_paged` keeps the
-``(lengths, last, rem)`` carry on the device through its ``n`` steps (no
-``.item()``/``.cpu()`` inside), so the engine's read of the chunk's tokens
-is its only sync, as in the reference.
+One device sync per decode chunk: :func:`decode_chunk_paged` and
+:func:`decode_chunk_slots` keep the ``(lengths, last, rem)`` carry on the
+device through their ``n`` steps (no ``.item()``/``.cpu()`` inside), so the
+engine's read of the chunk's tokens is its only sync, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,13 +29,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..device import resolve_device
 from .attention import (attention, paged_decode_attention,
                         paged_prefill_window_attention)
 from .layers import dtype_of, matmul_f32, rms_norm, sinusoidal_positions
+from .mamba import init_mamba_state, mamba_forward, mamba_step
 from .mlp import mlp
 
-__all__ = ["init_params", "prefill", "prefill_window_paged",
-           "decode_step_paged", "decode_chunk_paged", "layer_views"]
+__all__ = ["init_params", "init_cache", "prefill", "prefill_window_paged",
+           "decode_step_paged", "decode_chunk_paged", "decode_step_slots",
+           "decode_chunk_slots", "layer_views"]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -41,11 +48,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return _init(cfg, generator, device=device)
 
 
+def _unported(cfg: ModelConfig) -> bool:
+    """MoE, Mamba2/hybrid and modality-frontend archs: later slices."""
+    return bool(cfg.moe or cfg.hybrid_attn_every or cfg.frontend != "none"
+                or (cfg.ssm and cfg.ssm_version != 1))
+
+
 def _require_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.moe or cfg.ssm or cfg.hybrid_attn_every or cfg.frontend != "none":
+    """The paged entry points: attention archs only, as in the reference
+    (SSM state is O(1) per sequence and lives in the slot pool)."""
+    if cfg.ssm or _unported(cfg):
         raise ValueError(f"{cfg.name}: {what} in repro_torch covers dense "
                          f"attention archs only (family {cfg.family!r}, "
-                         f"frontend {cfg.frontend!r} are not ported yet)")
+                         f"frontend {cfg.frontend!r})")
+
+
+def _require_ported(cfg: ModelConfig, what: str) -> None:
+    if _unported(cfg):
+        raise ValueError(f"{cfg.name}: {what} in repro_torch covers dense "
+                         "attention and Mamba1 archs only (family "
+                         f"{cfg.family!r}, frontend {cfg.frontend!r} are not "
+                         "ported yet)")
+
+
+def _require_slots(cfg: ModelConfig, what: str) -> None:
+    """The slot-state entry points: Mamba1 only (zamba2's hybrid slots come
+    with its slice; attention archs page their KV instead)."""
+    _require_ported(cfg, what)
+    if not cfg.ssm:
+        raise ValueError(f"{cfg.name}: {what} is the SSM path; attention "
+                         "archs page their KV instead")
 
 
 def layer_views(params) -> List[Dict[str, torch.Tensor]]:
@@ -81,8 +113,12 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 def _block_decode(p, x1, cfg: ModelConfig, layer_cache, attn_fn):
     """One layer, one token. x1: (B, D). ``attn_fn(p, h1, layer_cache) ->
     (y, layer_cache)`` is the paged attention read/write; ln1, residuals,
-    ln2 and the MLP are shared with the window path."""
+    ln2 and the MLP are shared with the window path. A Mamba1 layer steps
+    its ``(conv_buf, h)`` state instead (``attn_fn`` unused)."""
     h = rms_norm(x1, p["ln1"], cfg.rms_eps)
+    if cfg.ssm:
+        y, st = mamba_step(p, h, cfg, layer_cache)
+        return x1 + y, st
     y, layer_cache = attn_fn(p, h[:, None, :], layer_cache)
     x1 = x1 + y[:, 0]
     h2 = rms_norm(x1, p["ln2"], cfg.rms_eps)
@@ -197,26 +233,47 @@ def prefill_window_paged(cfg: ModelConfig, params, pool_kv, tables, tokens,
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int = 0,
             last_positions=None, impl: Optional[str] = None, layers=None):
-    """Process a prompt: last-position logits + a primed contiguous cache
-    ``{"pos", "k", "v"}`` with k/v (L, B, KV, max_len, hd) in the compute
-    dtype (dense branch of the reference).
+    """Process a prompt: last-position logits (B, padded_vocab) fp32 and a
+    primed cache.
+
+    Dense archs: ``{"pos", "k", "v"}`` with k/v (L, B, KV, max_len, hd) in
+    the compute dtype; ``impl`` is the attention path, ``"flash"`` (K2) by
+    default on CUDA and ``"chunked"`` (the reference's default, also the
+    plain oracle) on the CPU.
+
+    Mamba1 archs: ``{"pos", "ssm": (conv (L, B, K-1, dI) in the compute
+    dtype, h (L, B, dI, N) fp32)}``, the per-layer state a decode continues
+    from (``max_len`` is unused); ``impl`` is the scan, ``"kernel"`` by
+    default (K3 on CUDA, the plain scan for CPU tensors) or ``"plain"``.
 
     ``last_positions`` ((B,) int, optional) picks a per-row logit position.
-    ``impl`` is the attention path: ``"flash"`` (K2) by default on CUDA,
-    ``"chunked"`` (the reference's default, also the plain oracle) on the
-    CPU. ``layers`` as in :func:`decode_step_paged`.
+    ``layers`` as in :func:`decode_step_paged`.
     """
-    _require_dense(cfg, "prefill")
-    if impl is None:
-        impl = "flash" if tokens.is_cuda else "chunked"
+    _require_ported(cfg, "prefill")
     B, S = tokens.shape
-    max_len = max(max_len, S)
-    cdt = dtype_of(cfg.compute_dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = _embed_tokens(cfg, params, tokens, positions)
-    pad = max_len - S
+    layers = layers or layer_views(params)
+    if cfg.ssm:
+        x, cache = _prefill_ssm(cfg, layers, x, impl or "kernel")
+    else:
+        if impl is None:
+            impl = "flash" if tokens.is_cuda else "chunked"
+        x, cache = _prefill_attention(cfg, layers, x, positions,
+                                      max(max_len, S), impl)
+    x_last = x[:, -1] if last_positions is None \
+        else x[torch.arange(B, device=x.device), last_positions.long()]
+    logits = _logits(cfg, params, x_last)
+    cache["pos"] = S
+    return logits, cache
+
+
+def _prefill_attention(cfg: ModelConfig, layers, x, positions, max_len: int,
+                       impl: str):
+    cdt = dtype_of(cfg.compute_dtype)
+    pad = max_len - x.shape[1]
     ks, vs = [], []
-    for lp in layers or layer_views(params):
+    for lp in layers:
         h = rms_norm(x, lp["ln1"], cfg.rms_eps)
         y, (k, v) = attention(lp, h, cfg, positions, impl=impl,
                               return_kv=True)
@@ -230,8 +287,73 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int = 0,
             v = torch.nn.functional.pad(v, (0, 0, 0, pad))
         ks.append(k.to(cdt))
         vs.append(v.to(cdt))
-    x_last = x[:, -1] if last_positions is None \
-        else x[torch.arange(B, device=x.device), last_positions.long()]
-    logits = _logits(cfg, params, x_last)
-    cache = {"pos": S, "k": torch.stack(ks), "v": torch.stack(vs)}
-    return logits, cache
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _prefill_ssm(cfg: ModelConfig, layers, x, impl: str):
+    cdt = dtype_of(cfg.compute_dtype)
+    convs, hs = [], []
+    for lp in layers:
+        h = rms_norm(x, lp["ln1"], cfg.rms_eps)
+        y, (conv, hh) = mamba_forward(lp, h, cfg, return_state=True,
+                                      impl=impl)
+        x = x + y
+        convs.append(conv.to(cdt))
+        hs.append(hh)
+    return x, {"ssm": (torch.stack(convs), torch.stack(hs))}
+
+
+# ------------------------------------------------------------ slot state
+def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
+               device=None) -> Dict[str, Any]:
+    """The decode cache of a Mamba1 arch (the SSM branch of the
+    reference's ``init_cache``): ``{"pos": 0, "ssm": (conv (L, batch, K-1,
+    dI) in the compute dtype, h (L, batch, dI, N) fp32)}``, zeros.
+    ``max_len`` is unused (an SSM's state does not grow); ``device`` None
+    means CUDA. The serve engine's fixed-slot pool is this minus ``pos``."""
+    _require_slots(cfg, "init_cache")
+    L = cfg.num_layers
+    conv, h = init_mamba_state(cfg, batch, dtype_of(cfg.compute_dtype),
+                               resolve_device(device))
+    return {"pos": 0,
+            "ssm": (conv.unsqueeze(0).repeat(L, 1, 1, 1),
+                    h.unsqueeze(0).repeat(L, 1, 1, 1))}
+
+
+def decode_step_slots(cfg: ModelConfig, params, state, token, pos,
+                      layers=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step over the SLOT-RESIDENT state pool of a Mamba1 arch,
+    with per-row positions (the counterpart of :func:`decode_step_paged`).
+
+    ``state`` is :func:`init_cache`'s dict minus ``pos``; its ``ssm``
+    tensors are updated IN PLACE (each layer's new ``(conv, h)`` is copied
+    into them) and the same dict is returned. Every op is row-wise, so a
+    row's tokens do not depend on who shares the batch; inactive slots step
+    on stale state harmlessly (the engine discards their tokens and
+    overwrites the slot at the next admission). token: (B,) int; pos: (B,)
+    int per-row position. Returns (logits (B, padded_vocab) fp32, state).
+    """
+    _require_slots(cfg, "slot-state decode")
+    x1 = _embed_tokens(cfg, params, token, pos)
+    conv, h = state["ssm"]
+    for l, lp in enumerate(layers or layer_views(params)):
+        x1, (conv_l, h_l) = _block_decode(lp, x1, cfg, (conv[l], h[l]),
+                                          None)
+        conv[l].copy_(conv_l)
+        h[l].copy_(h_l)
+    return _logits(cfg, params, x1), state
+
+
+def decode_chunk_slots(cfg: ModelConfig, params, state, carry, n: int,
+                       layers=None):
+    """``n`` greedy decode steps over the slot-state pool — the Mamba1
+    counterpart of :func:`decode_chunk_paged`, with the same device-resident
+    ``(lengths, last, rem)`` carry. Returns ``(state, (lengths, last, rem),
+    toks)`` with ``toks`` (B, n) int32."""
+    _require_slots(cfg, "slot-state decode")
+    layers = layers or layer_views(params)
+
+    def step(st, tok, ln, active):
+        return decode_step_slots(cfg, params, st, tok, ln, layers=layers)
+
+    return _decode_chunk_scan(step, state, carry, n)

@@ -11,11 +11,14 @@ Load-time cast: the reference casts every fp32 weight matrix to the compute
 dtype at each use (``p["wq"].astype(cdt)``). Rounding once at load gives the
 same bits and halves resident weights (stablelm-1.6b at full width: ~3.3 GB
 bf16 instead of 6.6 GB fp32), so the matrices ``wq wk wv wo wi wg wd embed
-lm_head`` are stored in the compute dtype (``from_reference(cast=False)``
-keeps the reference's dtypes, for a bit-exact copy). Norm scales stay in
-``param_dtype``: ``rms_norm`` upcasts the scale to fp32, and a bf16 round
-trip would change it. Biases stay too (they are cast at use, as in the
-reference).
+lm_head`` and the Mamba1 leaves the reference casts the same way
+(``in_proj x_proj dt_proj out_proj conv_w conv_b``) are stored in the
+compute dtype (``from_reference(cast=False)`` keeps the reference's dtypes,
+for a bit-exact copy). Norm scales stay in ``param_dtype``: ``rms_norm``
+upcasts the scale to fp32, and a bf16 round trip would change it. Biases
+stay too (they are cast at use, as in the reference), and so do the Mamba1
+leaves read in fp32: ``A_log`` and ``ssm_D`` (fp32 in the tree) and
+``dt_bias`` (upcast at use).
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ __all__ = ["from_reference", "init_params", "MATRICES", "to_torch",
 
 #: weight names stored in the compute dtype (the load-time cast)
 MATRICES = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "wd", "embed",
-                      "lm_head"})
+                      "lm_head", "in_proj", "x_proj", "dt_proj", "out_proj",
+                      "conv_w", "conv_b"})
 
 
 def to_torch(x, device=None) -> torch.Tensor:
@@ -77,27 +81,53 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with the reference tree's names and shapes, drawn on
     the generator's device and moved to ``device`` (None: CUDA); matrices
     in the compute dtype, norm scales and biases in ``param_dtype``. Dense
-    attention families only (MoE, SSM and hybrid trees come with their
-    slices)."""
-    if cfg.moe or cfg.ssm or cfg.hybrid_attn_every:
+    attention and Mamba1 (falcon-mamba) families; MoE and Mamba2/hybrid
+    trees come with their slices."""
+    if cfg.moe or cfg.hybrid_attn_every or (cfg.ssm and cfg.ssm_version != 1):
         raise ValueError(f"{cfg.name}: repro_torch.init_params covers dense "
-                         "attention configs only (family "
+                         "attention and Mamba1 configs only (family "
                          f"{cfg.family!r} is not ported yet)")
     dev = resolve_device(device)
     pdt = dtype_of(cfg.param_dtype)
     mdt = dtype_of(cfg.compute_dtype)
     g = generator
-    L, D, H, KV, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads,
-                       cfg.num_kv_heads, cfg.hd)
+    L, D = cfg.num_layers, cfg.d_model
     Vp = cfg.padded_vocab
 
-    def dense(shape):   # per-layer init stacked over L, as the vmapped ref
-        return torch.stack([dense_init(g, shape, mdt) for _ in range(L)]
-                           ).to(dev)
+    def stacked(draw, shape, dtype):
+        # per-layer draws stacked over L, as the vmapped ref; filled layer
+        # by layer so the peak is one stack, not a list plus its stack
+        out = torch.empty((L, *shape), dtype=dtype, device=dev)
+        for l in range(L):
+            out[l] = draw()
+        return out
 
-    def const(shape, value):
-        return torch.full(shape, value, dtype=pdt, device=dev)
+    def dense(shape):
+        return stacked(lambda: dense_init(g, shape, mdt), shape, mdt)
 
+    def const(shape, value, dtype=pdt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    if cfg.ssm:
+        blocks = _init_m1(cfg, g, dev, stacked, dense, const, pdt, mdt)
+    else:
+        blocks = _init_attention_mlp(cfg, dense, const)
+    params: Dict[str, Any] = {
+        "embed": normal_init(g, (Vp, D), 0.02, mdt).to(dev),
+        "final_norm": const((D,), 1.0),
+        "blocks": blocks,
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal_init(g, (D, Vp), 0.02, mdt).to(dev)
+    return params
+
+
+def _init_attention_mlp(cfg: ModelConfig, dense, const
+                        ) -> Dict[str, torch.Tensor]:
+    """A dense attention + MLP layer stack (the reference's ``_init_block``
+    for attention archs)."""
+    L, D, H, KV, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.hd)
     blocks: Dict[str, torch.Tensor] = {
         "ln1": const((L, D), 1.0),
         "wq": dense((D, H * hd)),
@@ -117,14 +147,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.mlp_gated:
         blocks["wg"] = dense((D, cfg.d_ff))
     blocks["wd"] = dense((cfg.d_ff, D))
-    params: Dict[str, Any] = {
-        "embed": normal_init(g, (Vp, D), 0.02, mdt).to(dev),
-        "final_norm": const((D,), 1.0),
-        "blocks": blocks,
+    return blocks
+
+
+def _init_m1(cfg: ModelConfig, g: torch.Generator, dev: torch.device,
+             stacked, dense, const, pdt, mdt) -> Dict[str, torch.Tensor]:
+    """A Mamba1 layer stack with ``ln1`` and the reference ``_init_m1``'s
+    names, shapes and distributions (``repro.models.mamba``)."""
+    L, D = cfg.num_layers, cfg.d_model
+    dI, N, R, K = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_, cfg.ssm_conv
+
+    def dt_bias():   # softplus^-1 of U(1e-3, 1e-1)
+        u = torch.rand((dI,), generator=g, device=g.device) \
+            * (1e-1 - 1e-3) + 1e-3
+        return torch.log(torch.expm1(u)).to(pdt)
+
+    # A_log and ssm_D are fp32 whatever param_dtype is, as in the reference
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(dI, 1)
+    return {
+        "ln1": const((L, D), 1.0),
+        "in_proj": dense((D, 2 * dI)),
+        "conv_w": stacked(lambda: normal_init(g, (dI, K), 0.2, mdt),
+                          (dI, K), mdt),
+        "conv_b": const((L, dI), 0.0, mdt),
+        "x_proj": dense((dI, R + 2 * N)),
+        "dt_proj": stacked(lambda: normal_init(g, (R, dI), R ** -0.5, mdt),
+                           (R, dI), mdt),
+        "dt_bias": stacked(dt_bias, (dI,), pdt),
+        "A_log": torch.log(A).repeat(L, 1, 1),
+        "ssm_D": const((L, dI), 1.0, torch.float32),
+        "out_proj": dense((dI, D)),
     }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = normal_init(g, (D, Vp), 0.02, mdt).to(dev)
-    return params
 
 
 def param_bytes(params: Dict[str, Any]) -> int:

@@ -1,8 +1,10 @@
 """Continuously-batched serving engine of the port: a RESIDENT 4-stage
 Taskflow pipeline fed by a request queue, with TWO-PHASE memory admission.
 
-This is the synchronous, single-device, paged-KV subset of the reference
-``repro.serve.engine.ServeEngine``, with the same stage structure:
+This is the synchronous, single-device subset of the reference
+``repro.serve.engine.ServeEngine``, with the same stage structure. Attention
+archs page their KV (below); Mamba1 archs (falcon-mamba) keep a FIXED-SLOT
+recurrent-state pool instead (``paged == False``, see "Slot-state path"):
 
     admit (SERIAL)    -> pop an admission group (one FIFO, tiered) and
                          allocate its PROMPT-ONLY block footprint; park via
@@ -25,6 +27,17 @@ The KV pool and the device block tables are written ONLY by the SERIAL
 decode stage, in place (the reference donates and replaces them). The
 chunk's only device sync is reading its tokens back.
 
+Slot-state path (Mamba1): the pool is :func:`repro_torch.models.lm.
+init_cache`'s per-layer ``(conv, h)`` state for ``max_batch`` slots,
+allocated once. Admission is bounded by free slots alone (an SSM's state
+does not grow with the sequence, so there are no blocks, windows, growth or
+preemption); the prefill stage runs one whole-prompt prefill per member at
+B=1 (on CUDA its scans are K3, the selective-scan kernel); the decode stage
+copies each member's prefilled state into its slot and advances every row
+with :func:`repro_torch.models.lm.decode_chunk_slots`, which updates the
+slot state in place. ``max_seq_len`` (default 512) only bounds ``prompt +
+max_new`` at submit, as in the reference.
+
 Threads: the stages run on :class:`repro_torch.core.Executor` worker
 threads, and ``torch.inference_mode`` is thread-local, so every stage
 enters it (and the engine's CUDA device) itself.
@@ -36,8 +49,9 @@ and marks the engine broken.
 Not in this slice (queued in ROADMAP.md): async decode lookahead, the
 prefix cache and its copy-on-write guard, SLO shedding/deadlines/watchdog,
 fault injection, journal/snapshot/drain/recover, observability, meshes, the
-SSM/hybrid slot-state path and the per-call grouped baseline. The engine
-raises :class:`UnsupportedArch` on archs it cannot serve yet.
+checkpoint preemption of SSM slots, the zamba2 hybrid slots and the
+per-call grouped baseline. The engine raises :class:`UnsupportedArch` on
+archs it cannot serve yet (MoE, Mamba2/hybrid, modality frontends).
 """
 from __future__ import annotations
 
@@ -68,8 +82,8 @@ PIPELINE_LINES = 3
 
 
 class UnsupportedArch(ServeError, ValueError):
-    """The port's engine cannot serve this architecture yet (MoE, SSM,
-    hybrid or modality-frontend configs come with later slices)."""
+    """The port's engine cannot serve this architecture yet (MoE,
+    Mamba2/hybrid or modality-frontend configs come with later slices)."""
 
 
 class ServeEngine:
@@ -78,7 +92,7 @@ class ServeEngine:
     Parameters
     ----------
     cfg, params:
-        a dense attention config and its weights
+        a dense attention or Mamba1 config and its weights
         (:func:`repro_torch.params.init_params` / ``from_reference``) on
         the engine's device.
     decode_chunk:
@@ -86,24 +100,28 @@ class ServeEngine:
     prefill_chunk:
         prompt tokens per prefill window (default ``decode_chunk *
         block_size``); longer prompts stream their remaining windows
-        through the decode stage while resident rows keep decoding.
+        through the decode stage while resident rows keep decoding. Paged
+        path only.
     max_batch:
         decode slot count; the chunk always runs this many rows (inactive
         rows masked).
     kv_blocks / block_size:
-        paged KV pool geometry. Block 0 is the reserved sink.
+        paged KV pool geometry. Block 0 is the reserved sink. Paged path
+        only.
     max_admit:
         cap on requests admitted per cycle (one prefill launch).
     max_seq_len:
-        per-sequence cap on ``prompt + max_new`` (sets the block-table
-        width). Defaults to 32 blocks worth, clamped to the pool size.
+        per-sequence cap on ``prompt + max_new``. Paged: sets the
+        block-table width; defaults to 32 blocks worth, clamped to the pool
+        size. Slot-state: defaults to 512.
     paged_impl:
         decode read path: ``"kernel"`` (K1 on CUDA), ``"loop"`` (plain page
         loop) or ``"gather"`` (materializing oracle). None resolves via
         :func:`repro_torch.kernels.ops.default_paged_impl` (honours
         ``REPRO_PAGED_IMPL``; kernel on CUDA, loop on the CPU). Window-0
         prefill attention follows the device: K2 (``flash``) on CUDA, the
-        reference's ``chunked`` path on the CPU.
+        reference's ``chunked`` path on the CPU. None on the slot-state
+        path.
     record_stages:
         keep an in-memory (stage, cycle-token, info, t) event log.
     device:
@@ -122,13 +140,14 @@ class ServeEngine:
                  paged_impl: Optional[str] = None,
                  record_stages: bool = False,
                  device=None):
-        if cfg.moe or cfg.ssm or cfg.hybrid_attn_every \
-                or cfg.frontend != "none":
+        if cfg.moe or cfg.hybrid_attn_every or cfg.frontend != "none" \
+                or (cfg.ssm and cfg.ssm_version != 1):
             raise UnsupportedArch(
                 f"{cfg.name} (family {cfg.family!r}, frontend "
                 f"{cfg.frontend!r}): the repro_torch engine serves dense "
-                "attention archs only in this slice")
+                "attention and Mamba1 archs only in this slice")
         self.cfg = cfg
+        self.paged = not (cfg.ssm or cfg.hybrid_attn_every)
         self.device = resolve_device(device)
         for name, t in _leaves(params):
             if t.device != self.device:
@@ -146,7 +165,8 @@ class ServeEngine:
         if paged_impl is not None and paged_impl not in PAGED_IMPLS:
             raise ValueError(f"paged_impl={paged_impl!r}: expected one of "
                              f"{PAGED_IMPLS} (or None for the default)")
-        self.paged_impl = paged_impl or default_paged_impl(self.device)
+        self.paged_impl = (paged_impl or default_paged_impl(self.device)) \
+            if self.paged else None
         self._closing = False
         self._broken: Optional[BaseException] = None
         self._stage_log = [] if record_stages else None
@@ -174,11 +194,21 @@ class ServeEngine:
                       "prefill_windows": 0, "tokens_out": 0, "retired": 0,
                       "grown_blocks": 0, "preempted": 0, "stalls": 0}
 
+        if self.paged:
+            self._init_paged(B, kv_blocks, block_size, max_seq_len,
+                             prefill_chunk)
+        else:
+            self._init_slots(B, max_seq_len)
+
+    def _init_paged(self, B: int, kv_blocks: int, block_size: int,
+                    max_seq_len: Optional[int],
+                    prefill_chunk: Optional[int]) -> None:
         self._pool = BlockPool(kv_blocks, block_size)
-        self._pkv = init_kv_pool(cfg, kv_blocks, block_size, self.device)
+        self._pkv = init_kv_pool(self.cfg, kv_blocks, block_size,
+                                 self.device)
         self._max_seq = min(max_seq_len or 32 * block_size,
                             (kv_blocks - 1) * block_size)
-        self.prefill_chunk = prefill_chunk or decode_chunk * block_size
+        self.prefill_chunk = prefill_chunk or self.decode_chunk * block_size
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         mb = self._pool.blocks_for(self._max_seq)
@@ -200,6 +230,16 @@ class ServeEngine:
         # a row whose growth failed because every victim outranks it is
         # STALLED (rem masked to 0) with its remaining steps parked here
         self._stall_rem = np.zeros((B,), np.int32)
+
+    def _init_slots(self, B: int, max_seq_len: Optional[int]) -> None:
+        # fixed-slot recurrent-state pool: init_cache's dict with the scalar
+        # pos replaced by the per-row _lengths mirror; written in place by
+        # the SERIAL decode stage only (merge and the decode chunk)
+        self._max_seq = max_seq_len or 512
+        self.prefill_chunk = None
+        self._pool = None
+        self._sstate = {k: v for k, v in lm.init_cache(
+            self.cfg, B, self._max_seq, self.device).items() if k != "pos"}
 
     # ------------------------------------------------------------- helpers
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -291,27 +331,15 @@ class ServeEngine:
             # submit() re-arms the SAME resident grid
             pf.stop()
             return None
-        # phase 1 of two-phase admission: budget the PROMPT footprint only;
-        # decode-time blocks are granted lazily by the decode stage. The
-        # budget excludes the stalled-row reservation floor.
         group = None
-
-        def need_for(r):
-            return self._pool.blocks_for(r.prompt_len)
-        popped = self._scheduler.try_admit(free_slots,
-                                           self._pool.num_free_unreserved,
-                                           need_for)
-        if popped is not None:
-            needs = [need_for(r) for r in popped]
-            ids = self._pool.alloc(sum(needs))      # all-or-nothing
-            if ids is None:
-                # raced a concurrent mid-decode grow: put the group back
-                self._scheduler.requeue_front(popped)
-            else:
-                group, i = [], 0
-                for r, need in zip(popped, needs):
-                    group.append((r, ids[i:i + need]))
-                    i += need
+        if self.paged:
+            group = self._admit_paged(free_slots)
+        else:
+            # slot-state pool: recurrent state is pre-allocated per slot, so
+            # admission is bounded by free slots alone
+            popped = self._scheduler.try_admit(free_slots, None)
+            if popped is not None:
+                group = [(r, None) for r in popped]
         if group is not None:
             now = time.perf_counter()
             for r, _ in group:
@@ -341,6 +369,29 @@ class ServeEngine:
         self._log("pump", pf.token, None)
         return ("pump", None)
 
+    def _admit_paged(self, free_slots: int) -> Optional[List[tuple]]:
+        """Phase 1 of two-phase admission: budget the PROMPT footprint only;
+        decode-time blocks are granted lazily by the decode stage. The
+        budget excludes the stalled-row reservation floor."""
+        def need_for(r):
+            return self._pool.blocks_for(r.prompt_len)
+        popped = self._scheduler.try_admit(free_slots,
+                                           self._pool.num_free_unreserved,
+                                           need_for)
+        if popped is None:
+            return None
+        needs = [need_for(r) for r in popped]
+        ids = self._pool.alloc(sum(needs))      # all-or-nothing
+        if ids is None:
+            # raced a concurrent mid-decode grow: put the group back
+            self._scheduler.requeue_front(popped)
+            return None
+        group, i = [], 0
+        for r, need in zip(popped, needs):
+            group.append((r, ids[i:i + need]))
+            i += need
+        return group
+
     def _st_prefill(self, pf, msg):
         kind, payload = msg
         if kind != "admit":
@@ -349,11 +400,24 @@ class ServeEngine:
             return self._prefill_group(pf, payload)
 
     def _prefill_group(self, pf, group):
-        """One launch for the group's FIRST prompt window: prompts are
-        right-padded to one window shape, a power of two capped at
+        """Paged: one launch for the group's FIRST prompt window: prompts
+        are right-padded to one window shape, a power of two capped at
         ``prefill_chunk`` (pad rows repeat the last request and scatter to
-        the sink). Remaining windows stream through the decode stage."""
+        the sink). Remaining windows stream through the decode stage.
+        Slot-state: one whole-prompt prefill per member at B=1 (the state
+        is O(1) per sequence; there is no per-token KV to window)."""
         reqs = [r for r, _ in group]
+        if not self.paged:
+            out = []
+            for req in reqs:
+                logits, cache = lm.prefill(
+                    self.cfg, self.params, self._to_dev(req.prompt[None]),
+                    layers=self._layers)
+                out.append((req, cache, int(torch.argmax(logits[0]))))
+            with self._state_lock:
+                self.stats["prefills"] += len(reqs)
+            self._log("prefill", pf.token, [r.id for r in reqs])
+            return ("admit", out)
         longest = max(r.prompt_len for r in reqs)
         C0 = min(self.prefill_chunk, 1 << max(0, longest - 1).bit_length())
         A = self._scheduler.max_admit
@@ -426,6 +490,28 @@ class ServeEngine:
             row = blocks[:nb0]
             blocks2d[i, :len(row)] = row
         scatter_prefill_rows(self._pkv, self._to_dev(blocks2d), ck, cv)
+
+    def _merge_group_slots(self, payload) -> None:
+        """Seat an admitted slot-state group: copy each member's prefilled
+        ``(conv, h)`` into its slot of the state pool and start it
+        decoding from its first token."""
+        now = time.perf_counter()
+        conv, h = self._sstate["ssm"]
+        for req, cache, first in payload:
+            with self._state_lock:
+                slot = self._free_slots.pop()
+                self._slots_reserved -= 1
+                self._slot_req[slot] = req
+                self._slot_out[slot] = [first]
+                self._slot_phase[slot] = "decode"
+            pconv, ph = cache["ssm"]
+            conv[:, slot].copy_(pconv[:, 0])
+            h[:, slot].copy_(ph[:, 0])
+            self._lengths[slot] = req.prompt_len
+            self._last[slot] = first
+            self._rem[slot] = req.max_new - 1
+            req.state = "decoding"
+            self._note_first_token(req, now)
 
     def _note_first_token(self, req, now: float) -> None:
         if req.first_token_at is None:
@@ -627,9 +713,13 @@ class ServeEngine:
     def _st_decode_sync(self, pf, msg):
         kind, payload = msg
         if kind == "admit":
-            self._merge_group(pf, payload)
-        self._window_prefill_step(pf)
-        self._grow_or_preempt(pf)
+            if self.paged:
+                self._merge_group(pf, payload)
+            else:
+                self._merge_group_slots(payload)
+        if self.paged:
+            self._window_prefill_step(pf)
+            self._grow_or_preempt(pf)
         rem_before = self._rem.copy()
         if not (rem_before > 0).any():
             self._log("decode", pf.token, 0)
@@ -638,10 +728,15 @@ class ServeEngine:
         t0 = time.perf_counter()
         carry = self._to_dev(np.stack([self._lengths, self._last,
                                        self._rem]))
-        _, (ln, tok, rm), toks = lm.decode_chunk_paged(
-            self.cfg, self.params, self._pkv, self._tables_dev,
-            (carry[0], carry[1], carry[2]), n, impl=self.paged_impl,
-            layers=self._layers)
+        carry = (carry[0], carry[1], carry[2])
+        if self.paged:
+            _, (ln, tok, rm), toks = lm.decode_chunk_paged(
+                self.cfg, self.params, self._pkv, self._tables_dev, carry, n,
+                impl=self.paged_impl, layers=self._layers)
+        else:
+            _, (ln, tok, rm), toks = lm.decode_chunk_slots(
+                self.cfg, self.params, self._sstate, carry, n,
+                layers=self._layers)
         # the chunk's one device sync: tokens and the advanced carry in a
         # single copy back
         host = torch.cat([toks, torch.stack([ln, tok, rm], dim=1)],
@@ -671,8 +766,10 @@ class ServeEngine:
         zero_rows = []
         for b in range(len(self._rem)):
             if self._slot_req[b] is None or self._slot_phase[b] != "decode" \
-                    or self._rem[b] != 0 or self._stall_rem[b] > 0:
+                    or self._rem[b] != 0:
                 continue
+            if self.paged and self._stall_rem[b] > 0:
+                continue        # stalled for blocks, not finished
             req = self._slot_req[b]
             out = np.asarray(self._slot_out[b], np.int32)
             with self._state_lock:
@@ -681,12 +778,13 @@ class ServeEngine:
                 self._slot_phase[b] = None
             self._lengths[b] = 0
             self._last[b] = 0
-            self._tables[b] = 0
-            self._pref_pos[b] = 0
-            self._slot_prompt[b] = None
+            if self.paged:
+                self._tables[b] = 0
+                self._pref_pos[b] = 0
+                self._slot_prompt[b] = None
             zero_rows.append(b)
             retire.append((b, req, out))
-        if zero_rows:
+        if zero_rows and self.paged:
             set_table_rows(self._tables_dev,
                            self._to_dev(np.asarray(zero_rows, np.int32)),
                            self._to_dev(np.zeros(
@@ -702,8 +800,9 @@ class ServeEngine:
             with self._state_lock:
                 self._inflight.discard(req)
                 self.stats["retired"] += 1
-                self._pool.free(self._slot_blocks[slot])
-                self._slot_blocks[slot] = None
+                if self.paged:
+                    self._pool.free(self._slot_blocks[slot])
+                    self._slot_blocks[slot] = None
                 self._free_slots.append(slot)
         with self._state_lock:
             self._cycle_tokens.discard(pf.token)

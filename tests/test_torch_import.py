@@ -27,7 +27,8 @@ def test_import_without_gpu_leaves_jax_out():
         "repro_torch.launch.serve, repro_torch.kernels.ops, "
         "repro_torch.params, repro_torch.core, repro_torch.pipeline, "
         "repro_torch.core.deviceflow, repro_torch.core.algorithms, "
-        "repro_torch.bench.fig13_lsdnn\n"
+        "repro_torch.bench.fig13_lsdnn, repro_torch.models.mamba, "
+        "repro_torch.kernels.mamba_scan, repro_torch.bench.serve_profile\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -61,7 +62,7 @@ def test_forbidden_pattern_spares_repro_torch():
 
 
 @pytest.mark.parametrize("src", ["paged_attention.cu", "flash_attention.cu",
-                                 "lsdnn_layer.cu"])
+                                 "lsdnn_layer.cu", "mamba_scan.cu"])
 def test_kernel_sources_name_the_tpu_kernel_they_replace(src):
     text = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / src) \
         .read_text()

@@ -175,4 +175,5 @@ def test_launch_counts_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"paged_attention": 0,
                                    "flash_attention": 0,
+                                   "mamba_scan": 0,
                                    "lsdnn_layer": 0}

@@ -149,10 +149,14 @@ def test_prefill_window_paged(arch, dt):
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b",
                                   "zamba2-1.2b", "musicgen-large"])
 def test_entry_points_refuse_unported_archs(arch):
+    """The paged entry points take attention archs only, as the
+    reference's do (an SSM keeps O(1) state per sequence in the slot pool);
+    prefill takes falcon-mamba (Mamba1) and refuses the unported rest."""
     cfg = smoke_cfg(arch)
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        tlm.prefill(cfg, {}, toks)
+    if arch != "falcon-mamba-7b":
+        with pytest.raises(ValueError):
+            tlm.prefill(cfg, {}, toks)
     with pytest.raises(ValueError):
         tlm.decode_step_paged(cfg, {}, None, None, None, None, None)
     with pytest.raises(ValueError):

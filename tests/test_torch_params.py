@@ -1,7 +1,10 @@
 """The param bridge: ``from_reference`` copies every leaf of the reference
 tree name for name (bit-exact, bf16 leaves included), the load-time cast
 rounds exactly as the reference's per-use ``astype``, and the port's own
-``init_params`` gives the reference tree's names and shapes."""
+``init_params`` gives the reference tree's names and shapes — for the dense
+smoke configs and for falcon-mamba's Mamba1 tree."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,10 @@ def _flat(tree, prefix=""):
             yield prefix + k, v
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+WITH_SSM = ARCHS + ("falcon-mamba-7b",)
+
+
+@pytest.mark.parametrize("arch", WITH_SSM)
 def test_from_reference_copies_every_leaf_exactly(arch):
     cfg = smoke_cfg(arch)
     jp = jlm.init_params(cfg, jax.random.PRNGKey(0))
@@ -42,7 +48,7 @@ def test_from_reference_copies_every_leaf_exactly(arch):
             assert np.array_equal(t.numpy(), j), name
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", WITH_SSM)
 def test_load_time_cast_matches_per_use_astype(arch):
     cfg = smoke_cfg(arch)
     jp = jlm.init_params(cfg, jax.random.PRNGKey(0))
@@ -80,6 +86,61 @@ def test_init_params_names_and_shapes_match_reference(arch):
     assert abs(std - cfg.d_model ** -0.5) < 0.02
 
 
+def test_init_params_mamba1_tree_matches_reference():
+    """falcon-mamba smoke: the reference tree's names and shapes; matrices
+    in bf16, ``A_log``/``ssm_D`` fp32, ``dt_bias`` in param_dtype, and the
+    reference's distributions (A = 1..N per channel, D = 1, dt = softplus
+    of the bias in [1e-3, 1e-1])."""
+    cfg = smoke_cfg("falcon-mamba-7b")
+    jp = jax.eval_shape(lambda: jlm.init_params(cfg, jax.random.PRNGKey(0)))
+    tp = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jflat, tflat = dict(_flat(jp)), dict(_flat(tp))
+    assert sorted(jflat) == sorted(tflat)
+    for name, j in jflat.items():
+        leaf = name.split(".")[-1]
+        assert tuple(tflat[name].shape) == tuple(j.shape), name
+        want = torch.bfloat16 if leaf in MATRICES else \
+            torch.float32 if leaf in ("A_log", "ssm_D") \
+            else getattr(torch, cfg.param_dtype)
+        assert tflat[name].dtype == want, name
+    blk = tp["blocks"]
+    N = cfg.ssm_state
+    assert torch.equal(blk["A_log"], torch.log(
+        torch.arange(1, N + 1.0)).expand_as(blk["A_log"]))
+    assert torch.equal(blk["ssm_D"], torch.ones_like(blk["ssm_D"]))
+    dt = torch.nn.functional.softplus(blk["dt_bias"].float())
+    assert 1e-3 - 1e-6 <= dt.min() and dt.max() <= 1e-1 + 1e-6
+    assert abs(blk["in_proj"].float().std().item()
+               - cfg.d_model ** -0.5) < 0.02
+    assert abs(blk["conv_w"].float().std().item() - 0.2) < 0.02
+
+
+def test_mamba1_param_count_at_full_width(monkeypatch):
+    """Full-width falcon-mamba-7b on the meta device (shapes only, nothing
+    drawn): the port's tree holds exactly the reference tree's 7.27 B
+    parameters, 14.56 GB with the matrices in bf16. ``cfg.param_count()``
+    is short of both by L * (dI - D) + D = 266,240 (its Mamba1 formula
+    counts two of the three per-channel vectors and a second norm per
+    layer, and omits the final norm)."""
+    from repro_torch import params as tparams
+    cfg = get_config("falcon-mamba-7b")
+
+    def meta(g, shape, *a, dtype=torch.float32, **k):
+        dtype = a[-1] if a and isinstance(a[-1], torch.dtype) else dtype
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+    monkeypatch.setattr(tparams, "dense_init", meta)
+    monkeypatch.setattr(tparams, "normal_init", meta)
+    tp = tparams.init_params(cfg, torch.Generator(), device="meta")
+    n = sum(v.numel() for _, v in _flat(tp))
+    jp = jax.eval_shape(lambda: jlm.init_params(cfg, jax.random.PRNGKey(0)))
+    assert n == sum(math.prod(j.shape) for j in jax.tree_util.tree_leaves(jp))
+    assert n - cfg.param_count() \
+        == cfg.num_layers * (cfg.d_inner - cfg.d_model) + cfg.d_model
+    assert 7.27e9 < n < 7.28e9
+    assert 14.5e9 < param_bytes(tp) < 14.6e9
+
+
 def test_param_bytes_count_bf16_matrices_and_fp32_norms():
     """Matrices resident in bf16 (2 B), norms in fp32 (4 B); at full width
     stablelm-1.6b's weights are then ~3.3 GB (6.6 GB if left fp32)."""
@@ -92,7 +153,9 @@ def test_param_bytes_count_bf16_matrices_and_fp32_norms():
 
 
 def test_init_params_refuses_unported_families():
-    for arch in ("qwen2-moe-a2.7b", "falcon-mamba-7b", "zamba2-1.2b"):
+    """MoE and Mamba2/hybrid trees come with their slices (falcon-mamba's
+    Mamba1 tree is covered by the tests below)."""
+    for arch in ("qwen2-moe-a2.7b", "zamba2-1.2b"):
         with pytest.raises(ValueError):
             init_params(get_config(arch).smoke(), torch.Generator(),
                         device="cpu")

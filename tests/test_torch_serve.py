@@ -20,7 +20,7 @@ from repro.configs import get_config
 from repro.models import lm as jlm
 from repro.serve.engine import ServeEngine as JEngine
 from repro_torch.launch import serve as launcher
-from repro_torch.params import from_reference
+from repro_torch.params import from_reference, init_params
 from repro_torch.serve import engine as tengine
 from repro_torch.serve.engine import ServeEngine, UnsupportedArch
 
@@ -112,8 +112,18 @@ def test_params_on_another_device_are_refused(fp32_setup):
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b",
                                   "zamba2-1.2b", "internvl2-1b"])
 def test_unported_archs_raise_typed(arch):
+    """MoE, Mamba2/hybrid and frontend archs raise typed; falcon-mamba
+    (Mamba1) is served through the slot-state pool instead of pages."""
+    cfg = get_config(arch).smoke()
+    if arch == "falcon-mamba-7b":
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        with ServeEngine(cfg, params, device="cpu") as eng:
+            assert eng.paged is False and eng.paged_impl is None
+            assert eng._pool is None and set(eng._sstate) == {"ssm"}
+        return
     with pytest.raises(UnsupportedArch):
-        ServeEngine(get_config(arch).smoke(), {}, device="cpu")
+        ServeEngine(cfg, {}, device="cpu")
 
 
 def test_stage_failure_fails_every_outstanding_future(fp32_setup,
