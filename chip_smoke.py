@@ -7,7 +7,10 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 3. kernels  — K1 (paged decode attention) and K2 (flash attention) against
               their plain PyTorch versions at the main path's shapes, in
               bf16, then timed with CUDA events beside the plain version and
-              a library yardstick the port never calls;
+              a library yardstick the port never calls; K2's report adds
+              its ptxas registers / shared memory / spills, the HMMA count
+              of its bf16 SASS, its TFLOP/s, % of its bound and its time
+              over the library's;
 4. serve    — stablelm-1.6b at full width (24 layers, random weights from a
               seeded ``torch.Generator``) through ``ServeEngine``: 8
               staggered requests of mixed prompt lengths, 32 new tokens
@@ -34,7 +37,11 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               shape T=60000, F=G=1024 (fp32 and bf16, random and HPEC
               data), at ragged shapes and at a cap-saturating case, then
               timed beside its bound, the plain version and
-              ``torch.addmm`` + ``clamp_``;
+              ``torch.addmm`` + ``clamp_``, with the same report as K2's
+              (its SASS: cp.async and FFMA, no HMMA), and timed again
+              beside copies of it built without its y copies, without
+              any copies and without copies or barriers (what its time
+              is made of);
 10. lsdnn   — the paper's sparse-DNN workload (``bench/fig13_lsdnn.py``,
               HPEC configuration: 60,000 rows x 1024 neurons x 120 layers,
               2 chained passes) through its sequential, unrolled and
@@ -81,15 +88,17 @@ FP32_FLOPS_PER_S = 67e12
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 # tolerances (absolute, bf16 outputs of magnitude <~ 2; one bf16 ulp there
-# is 2**-7 ~ 7.8e-3, and the plain flash version rounds its probabilities
-# to bf16 before p @ v where the kernel keeps them fp32)
+# is 2**-7 ~ 7.8e-3; K1 keeps its probabilities fp32 where the plain paged
+# version rounds them to bf16 before p @ v, and K2 and the plain flash
+# version both round them, K2 before normalising, the plain one after)
 KERNEL_TOL = 2e-2
 # decode_step_paged K1 vs gather and prefill K2 vs plain, max |d logits|
 # relative to the logits' spread. In bf16 the two paths round at different
 # places (the gather oracle rounds its probabilities to bf16 before p @ v,
-# the kernels keep fp32) and 24 layers of bf16 activations amplify a one-ulp
-# difference; the same step in fp32 compute (the bf16 weights and pool are
-# exact in fp32) leaves only the summation order, so its bound is tight.
+# K1 keeps fp32; K2 rounds its unnormalised ones) and 24 layers of bf16
+# activations amplify a one-ulp difference; the same step in fp32 compute
+# (the bf16 weights and pool are exact in fp32) leaves only the summation
+# order, so its bound is tight.
 STEP_REL_TOL = {"bfloat16": 0.25, "float32": 1e-3}
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
@@ -113,6 +122,17 @@ F32, BF16 = torch.float32, torch.bfloat16
 # fp32 products, summed in another order); bf16 0.3 as the reference's own
 # test (one bf16 ulp of an output near the cap is 0.125)
 K4_TOL = {F32: 1e-4 * LSDNN_CAP, BF16: 0.3}
+# K4's time taken apart: the kernel rebuilt from its source with parts of
+# its work cut out (their results are wrong; they are timed, never used),
+# each (anchor in csrc/lsdnn_layer.cu, replacement)
+_Y_COPY = ("      copy1<T>(ad + 8 * i * kAS + 32 * j, ok ? yr + 8 * i : y, "
+           "ok);\n", "")
+_W_COPY = ("      copy4<T>(bd + 32 * i, ok ? ws + 32 * i : w, ok);\n", "")
+_BARRIER = ("    __syncthreads();  // everyone's have; step - 1's stage is free "
+            "to refill\n", "")
+K4_ABLATIONS = {"no_y_copies": [_Y_COPY],
+                "no_copies": [_Y_COPY, _W_COPY],
+                "no_copies_no_barrier": [_Y_COPY, _W_COPY, _BARRIER]}
 
 
 def log(msg: str) -> None:
@@ -134,10 +154,93 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n: int = 20, replays: int = 10) -> float:
+    """Mean device time per call with the host out of the loop: ``n`` calls
+    captured into one CUDA graph, replayed ``replays`` times, CUDA events."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def _demangle(names):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return out.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+
+
+def ptxas_of(kernel: str):
+    """ptxas's registers / shared memory / spill lines for each compiled
+    entry whose name holds ``kernel``, from the build log."""
+    from repro_torch.kernels._build import build_info
+    entries, cur = {}, None
+    for ln in build_info()["ptxas"].splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+            entries[cur] = []
+        elif cur and ("spill" in ln or "Used" in ln):
+            entries[cur].append(ln.split(":", 1)[-1].strip() if "Used" in ln
+                                else ln.strip())
+    names = [n for n in entries if kernel in n]
+    return [f"{d}: {'; '.join(entries[n])}"
+            for n, d in zip(names, _demangle(names))]
+
+
+def sass_counts(kernel: str, ops=("HMMA", "LDSM", "LDGSTS", "FFMA")):
+    """Count SASS instructions (``cuobjdump -sass`` of the built library)
+    in each function whose name holds ``kernel``."""
+    from repro_torch.kernels._build import _nvcc, build_info
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", build_info()["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for ln in text.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ")[1].strip()
+            cur = name if kernel in name else None
+            if cur:
+                counts[cur] = dict.fromkeys(ops, 0)
+        elif cur:
+            for op in ops:
+                if f" {op}" in ln:
+                    counts[cur][op] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
+def kernel_report(prefix: str, kernel: str, flops: float, ms: float,
+                  b_ms: float, lib_ms, sass) -> None:
+    for ln in ptxas_of(kernel):
+        log(f"{prefix} ptxas {ln}")
+    for name, c in sass.items():
+        log(f"{prefix} sass {name}: {c}")
+    ratio = f"{ms / lib_ms:.3f}" if lib_ms else "n/a"
+    log(f"{prefix} achieved {flops / ms / 1e9:.2f} TFLOP/s, "
+        f"{100 * b_ms / ms:.1f}% of the bound, kernel / library {ratio}")
 
 
 # ------------------------------------------------------------------ phase 1
@@ -274,11 +377,18 @@ def phase_kernels(dev):
     ms = time_ms(lambda: flash_mod.flash_attention_cuda(q, k, v))
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), iters=10)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_ms = time_ms(sdpa)
+    dev_ms = graph_ms(lambda: flash_mod.flash_attention_cuda(q, k, v))
+    lib_dev_ms = graph_ms(sdpa)
     nbytes = 4 * q.numel() * 2
     flops = 4.0 * B * H * hd * (S * (S + 1) // 2)
     b_ms, b_by = bound_ms(nbytes, flops)
+    sass = sass_counts("flash_attention_bf16")
+    if not sass or not all(c["HMMA"] and c["LDGSTS"] for c in sass.values()):
+        raise SystemExit(f"K2's bf16 SASS lacks HMMA or LDGSTS: {sass}")
     report["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -287,7 +397,11 @@ def phase_kernels(dev):
         bound_by=b_by, library_ms=lib_ms)
     log(f"[kernels] K2 timing B=4 S=T=128 H=32 causal: kernel {ms:.4f} ms "
         f"| plain {plain_ms:.4f} ms | SDPA(is_causal) {lib_ms:.4f} ms | "
-        f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {flops:.3e} flop)")
+        f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {flops:.3e} flop) | "
+        f"device time in a CUDA graph: kernel {dev_ms:.4f} ms, SDPA "
+        f"{lib_dev_ms:.4f} ms")
+    kernel_report("[kernels] K2", "flash_attention", flops, ms, b_ms, lib_ms,
+                  sass)
     return report
 
 
@@ -615,10 +729,60 @@ def phase_steps_ssm(cfg, params, prompts, dev):
 
 
 # ------------------------------------------------------------------ phase 9
+def _build_k4_ablations():
+    """Start one nvcc per ablated copy of K4's source (in parallel, into
+    build/kernels/ablation/<name>/); returns {name: (dir, process)}."""
+    from repro_torch.kernels._build import BUILD_ROOT, CSRC, NVCC_FLAGS, _nvcc
+    src = (CSRC / "lsdnn_layer.cu").read_text()
+    procs = {}
+    for name, cuts in K4_ABLATIONS.items():
+        text = src
+        for anchor, repl in cuts:
+            if anchor not in text:
+                raise SystemExit(f"K4 ablation {name}: {anchor!r} is no "
+                                 "longer in lsdnn_layer.cu")
+            text = text.replace(anchor, repl)
+        d = BUILD_ROOT / "ablation" / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "lsdnn_layer.cu").write_text(text)
+        (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
+        procs[name] = (d, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+             str(d / "lsdnn_layer.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _time_k4_ablations(procs, y, w, b) -> dict:
+    """Time each ablated K4 build on (y, w, b) as the kernel is timed."""
+    import ctypes
+
+    from repro_torch.kernels._build import _SIGNATURES, current_stream
+    out = torch.empty((y.shape[0], w.shape[1]), device=y.device)
+    args = (0, y.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            y.shape[0], y.shape[1], w.shape[1], LSDNN_CAP,
+            current_stream(y.device.index))
+    times = {}
+    for name, (d, p) in procs.items():
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise SystemExit(f"K4 ablation {name} does not build:\n{text}")
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        fn = lib.repro_lsdnn_layer
+        fn.argtypes = list(_SIGNATURES["repro_lsdnn_layer"])
+        fn.restype = ctypes.c_int
+        lib.repro_lsdnn_layer_init.restype = ctypes.c_int
+        if lib.repro_lsdnn_layer_init() != 0 or fn(*args) != 0:
+            raise SystemExit(f"K4 ablation {name} does not launch")
+        times[name] = time_ms(lambda: fn(*args), iters=20)
+    return times
+
+
 def phase_k4(dev):
     from repro_torch.bench.fig13_lsdnn import make_hpec
     from repro_torch.kernels import lsdnn_layer as lsdnn_mod
     from repro_torch.kernels.ref import lsdnn_layer_ref
+    ablations = _build_k4_ablations()   # builds while the checks run
     g = torch.Generator(dev).manual_seed(4)
 
     def normal(T, F, G, dtype):
@@ -670,6 +834,11 @@ def phase_k4(dev):
     hy, hw, hb = hpec
     hpec_ms = time_ms(lambda: lsdnn_mod.lsdnn_layer_cuda(hy, hw, hb),
                       iters=20)
+    sass = sass_counts("lsdnn_layer")
+    if not sass or any(c["HMMA"] or not c["FFMA"] for c in sass.values()) \
+            or not any(c["LDGSTS"] for c in sass.values()):
+        raise SystemExit(f"K4's SASS: want FFMA and cp.async, no HMMA: "
+                         f"{sass}")
     log(f"[k4] timing T={T} F=G={Fd} fp32: kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.4f} ms | "
         f"torch.addmm + clamp_ (two calls, TF32 off) {lib_ms:.4f} ms | "
@@ -677,6 +846,11 @@ def phase_k4(dev):
         f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B, {flops:.3e} "
         f"flop) | on the HPEC layer (binary rows, 3% of W nonzero) "
         f"{hpec_ms:.4f} ms")
+    kernel_report("[k4]", "lsdnn_layer", flops, ms, b_ms, lib_ms, sass)
+    cut = _time_k4_ablations(ablations, y, w, b)
+    log(f"[k4] ablation (same shape, parts of the work cut out): kernel "
+        f"{time_ms(lambda: lsdnn_mod.lsdnn_layer_cuda(y, w, b), iters=20):.4f}"
+        f" ms | " + " | ".join(f"{n} {t:.4f} ms" for n, t in cut.items()))
     return dict(name="lsdnn_layer", route="cuda",
                 source="src/repro_torch/kernels/csrc/lsdnn_layer.cu",
                 replaces="src/repro/kernels/lsdnn_layer.py:24",

@@ -9,7 +9,11 @@ The library lands in ``build/kernels/<hash>/`` at the root of the checkout,
 keyed by a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one is loaded as it is. :func:`ensure_built` builds at first
 use, once per process, under a lock; it is never called at import time (the
-CPU tests import every module and have no ``nvcc``).
+CPU tests import every module and have no ``nvcc``). It also runs the
+sources' init entry points once on each device a wrapper launches on: they
+opt kernels in to more than 48 KB of dynamic shared memory and record K4's
+persistent grid, work that must not happen inside a launch a CUDA graph
+may be capturing.
 """
 from __future__ import annotations
 
@@ -23,7 +27,10 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["ensure_built", "build_info", "FLOAT32", "BFLOAT16"]
+import torch
+
+__all__ = ["ensure_built", "build_info", "current_stream", "FLOAT32",
+           "BFLOAT16"]
 
 #: dtype codes shared with csrc/common.cuh
 FLOAT32 = 0
@@ -40,6 +47,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: device indices whose init entry points have run
+_inited: set = set()
 #: {"path", "seconds", "built", "ptxas"} of the library this process loaded
 _info: dict = {}
 
@@ -57,7 +66,11 @@ _SIGNATURES = {
     # dtype, dt, x, Bc, Cc, A, h0, y, hT, B, S, dI, N, stream
     "repro_mamba_scan": (_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                          _i, _i, _vp),
+    # run on the current device, once per device, before any launch
+    "repro_flash_attention_init": (),
+    "repro_lsdnn_layer_init": (),
 }
+_INITS = ("repro_flash_attention_init", "repro_lsdnn_layer_init")
 
 
 def _nvcc() -> str:
@@ -123,33 +136,57 @@ def _compile(out: Path) -> str:
     return log
 
 
-def ensure_built() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; idempotent and
-    thread-safe. Raises if ``nvcc`` is missing or a source does not
-    compile: there is no fallback to the plain versions."""
+def ensure_built(device: Optional[int] = None) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, and run its init
+    entry points on CUDA device ``device`` (default: the current one) if
+    they have not run there; idempotent and thread-safe. Raises if ``nvcc``
+    is missing, a source does not compile or an init fails: there is no
+    fallback to the plain versions."""
     global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        t0 = time.perf_counter()
-        out = BUILD_ROOT / _digest() / LIB_NAME
-        built = False
-        log = ""
-        if not out.exists():
-            out.parent.mkdir(parents=True, exist_ok=True)
-            log = _compile(out)
-            built = True
-        elif (out.parent / "build.log").exists():
-            log = (out.parent / "build.log").read_text()
-        lib = ctypes.CDLL(str(out))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _info.update(path=str(out), seconds=time.perf_counter() - t0,
-                     built=built, ptxas=log)
-        _lib = lib
+    lib = _lib
+    if lib is not None and device is not None and device in _inited:
         return lib
+    with _lock:
+        if _lib is None:
+            _lib = _load()
+        idx = torch.cuda.current_device() if device is None else device
+        if idx not in _inited:
+            with torch.cuda.device(idx):
+                for name in _INITS:
+                    check(getattr(_lib, name)(), name)
+            _inited.add(idx)
+        return _lib
+
+
+def _load() -> ctypes.CDLL:
+    t0 = time.perf_counter()
+    out = BUILD_ROOT / _digest() / LIB_NAME
+    built = False
+    log = ""
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        log = _compile(out)
+        built = True
+    elif (out.parent / "build.log").exists():
+        log = (out.parent / "build.log").read_text()
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    _info.update(path=str(out), seconds=time.perf_counter() - t0,
+                 built=built, ptxas=log)
+    return lib
+
+
+def current_stream(device: int) -> int:
+    """PyTorch's current stream on CUDA device ``device`` as the raw
+    ``cudaStream_t`` the C entry points take (without building a Stream
+    object: the wrappers call this on every launch)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def build_info() -> dict:

@@ -1,7 +1,10 @@
 // Shared helpers of the port's hand-written Hopper kernels: element-type
 // conversions to and from fp32, the NEG_INF mask value of the reference
-// kernels, and the dtype codes the ctypes wrappers pass in.
+// kernels, the dtype codes the ctypes wrappers pass in, and the PTX of the
+// asynchronous copies (cp.async) that K2 and K4 stage their tiles with.
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +50,48 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy that bypasses L1; `ok == false` copies no
+// bytes and zero-fills the 16 (the src-size-0 form), so a ragged edge needs
+// no branch around the copy. Both addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4-byte form (L1-allocating: the only sizes below 16 are .ca); lets a copy
+// land one element at a transposed place.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory. Called from
+// each source's init entry point, which kernels/_build.py runs once per
+// device when the library is loaded: never inside a launch, so never while
+// a CUDA graph is being captured.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace repro_torch

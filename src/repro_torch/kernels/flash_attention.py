@@ -2,9 +2,12 @@
 
 The counterpart of ``repro.kernels.flash_attention``. On a CUDA tensor
 :func:`flash_attention` launches the hand-written Hopper kernel of
-``csrc/flash_attention.cu`` (kv tiles above the causal diagonal pruned by
-the loop bound; ragged S and T masked, where the TPU kernel asserted tile
-multiples); on a CPU tensor it runs the plain
+``csrc/flash_attention.cu``: for bf16 a tensor-core kernel (``mma.sync``
+for Q K^T and P V, K/V tiles through a ``cp.async`` ring, the online
+softmax in registers, P rounded to bf16 before P V as the plain version
+does), for fp32 an exact CUDA-core kernel; kv tiles above the causal
+diagonal are pruned by the loop bound and ragged S and T masked, where the
+TPU kernel asserted tile multiples. On a CPU tensor it runs the plain
 :func:`repro_torch.kernels.ref.flash_attention_ref`. A CUDA tensor gets the
 kernel or an exception, never the plain version.
 """
@@ -46,12 +49,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_cuda: {name} not contiguous")
-    lib = _build.ensure_built()
+    lib = _build.ensure_built(q.device.index)
     out = torch.empty_like(q)
     err = lib.repro_flash_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, S, T, H, KV, hd, int(bool(causal)),
-        float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+        float(hd ** -0.5), _build.current_stream(q.device.index))
     _build.check(err, "flash_attention")
     launches += 1
     return out

@@ -2,9 +2,10 @@
 
 The counterpart of ``repro.kernels.lsdnn_layer``. On a CUDA tensor
 :func:`lsdnn_layer` launches the hand-written Hopper kernel of
-``csrc/lsdnn_layer.cu`` (a tiled fp32 SGEMM with the bias + clamp epilogue
-in registers; ragged T, F and G masked, where the TPU kernel asserted tile
-multiples); on a CPU tensor it runs the plain
+``csrc/lsdnn_layer.cu`` (a persistent, pipelined fp32 SGEMM: exact FFMAs
+fed by a 3-stage ``cp.async`` ring, the bias + clamp epilogue in registers;
+ragged T, F and G masked, where the TPU kernel asserted tile multiples); on
+a CPU tensor it runs the plain
 :func:`repro_torch.kernels.ref.lsdnn_layer_ref`. A CUDA tensor gets the
 kernel or an exception, never the plain version.
 """
@@ -22,7 +23,7 @@ __all__ = ["lsdnn_layer", "lsdnn_layer_cuda", "launches"]
 launches = 0
 
 _DTYPES = {torch.float32: _build.FLOAT32, torch.bfloat16: _build.BFLOAT16}
-_MAX_ROWS = 65535 * 128          # the grid's row-tile axis is gridDim.y
+_MAX_ROWS = 65535 * 128          # the C entry point's bound on row tiles
 
 
 def lsdnn_layer_cuda(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -50,12 +51,12 @@ def lsdnn_layer_cuda(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     for name, t in (("y", y), ("w", w), ("b", b)):
         if not t.is_contiguous():
             raise ValueError(f"lsdnn_layer_cuda: {name} not contiguous")
-    lib = _build.ensure_built()
+    lib = _build.ensure_built(y.device.index)
     out = torch.empty((T, G), dtype=y.dtype, device=y.device)
     err = lib.repro_lsdnn_layer(
         _DTYPES[y.dtype], y.data_ptr(), w.data_ptr(), b.data_ptr(),
         out.data_ptr(), T, F, G, float(cap),
-        torch.cuda.current_stream(y.device).cuda_stream)
+        _build.current_stream(y.device.index))
     _build.check(err, "lsdnn_layer")
     launches += 1
     return out

@@ -72,14 +72,14 @@ def mamba_scan_cuda(dt: torch.Tensor, x: torch.Tensor, Bc: torch.Tensor,
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"mamba_scan_cuda: {name} not contiguous")
-    lib = _build.ensure_built()
+    lib = _build.ensure_built(x.device.index)
     y = torch.empty((B, S, dI), dtype=torch.float32, device=x.device)
     hT = torch.empty((B, dI, N), dtype=torch.float32, device=x.device)
     err = lib.repro_mamba_scan(
         _DTYPES[x.dtype], dt.data_ptr(), x.data_ptr(), Bc.data_ptr(),
         Cc.data_ptr(), A.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
-        B, S, dI, N, torch.cuda.current_stream(x.device).cuda_stream)
+        B, S, dI, N, _build.current_stream(x.device.index))
     _build.check(err, "mamba_scan")
     launches += 1
     return y, hT

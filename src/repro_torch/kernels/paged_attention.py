@@ -56,13 +56,13 @@ def paged_attention_cuda(q: torch.Tensor, pool_kv: torch.Tensor,
                     ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"paged_attention_cuda: {name} not contiguous")
-    lib = _build.ensure_built()
+    lib = _build.ensure_built(q.device.index)
     out = torch.empty_like(q)
     err = lib.repro_paged_attention(
         _DTYPES[q.dtype], q.data_ptr(), pool_kv.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         B, H, KV, N, bs, hd, tables.shape[1], float(hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.current_stream(q.device.index))
     _build.check(err, "paged_attention")
     launches += 1
     return out

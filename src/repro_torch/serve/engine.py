@@ -156,7 +156,7 @@ class ServeEngine:
         if self.device.type == "cuda":
             # build the kernels here, on the caller's thread, never inside
             # a pipeline worker
-            ensure_built()
+            ensure_built(self.device.index)
         self.params = params
         # per-layer weight views, built once for every step of this engine
         self._layers = lm.layer_views(params)

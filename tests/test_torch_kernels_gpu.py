@@ -8,9 +8,10 @@ Run them on the card with::
 
 Inputs come from numpy with a fixed seed. Tolerances: fp32 cases 2e-5 /
 1e-4 absolute (only the summation order differs from the plain version);
-bf16 cases 2e-2 absolute (outputs are rounded to bf16, ~4e-3 relative, and
-the plain flash version rounds its probabilities to bf16 before p @ v
-where the kernel keeps them fp32). K4 (LSDNN layer): fp32 1e-4 x cap
+bf16 cases 2e-2 absolute (outputs are rounded to bf16, ~4e-3 relative; K2
+and the plain flash version both round their probabilities to bf16 before
+p @ v, K2 before normalising and the plain version after, and K2 takes
+exp2 on the tensor cores' fp32 scores). K4 (LSDNN layer): fp32 1e-4 x cap
 absolute (the same exact fp32 products summed in another order; the plain
 version's product runs with TF32 off, PyTorch's default), bf16 0.3 as the
 reference's own test (a one-ulp rounding difference of an output near the
@@ -118,6 +119,66 @@ def test_flash_kernel_ragged_kv_non_causal(cuda):
     assert (out - ref).abs().max().item() < 1e-4
 
 
+def _check_flash(q, k, v, causal):
+    n0 = flash_mod.launches
+    out = flash_mod.flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 15, 100, 130])
+def test_flash_bf16_ragged_query_tile(cuda, S, causal):
+    """S not a multiple of the 64-row q tile: rows past S are computed on
+    zeros and never stored; a warp wholly past S only loads."""
+    _check_flash(*_flash_case(2, S, S, 8, 4, 64, torch.bfloat16, cuda),
+                 causal)
+
+
+@pytest.mark.parametrize("S,T", [(40, 77), (128, 65), (1, 200), (100, 31)])
+def test_flash_bf16_cross_attention_non_causal(cuda, S, T):
+    """T != S, T ragged against the 64-key tile (one real key in the last
+    tile at T = 65), non-causal."""
+    _check_flash(*_flash_case(2, S, T, 4, 2, 64, torch.bfloat16, cuda),
+                 False)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_bf16_head_dims_gqa4(cuda, hd):
+    """Every head dim, GQA with 4 query heads per kv head, causal over two
+    and a half kv tiles."""
+    _check_flash(*_flash_case(2, 150, 150, 8, 2, hd, torch.bfloat16, cuda),
+                 True)
+
+
+def test_flash_bf16_rows_that_see_one_key(cuda):
+    """The most-masked rows this API can make: causal row 0 sees key 0
+    only, the other 63 keys of its tile masked; at S = T = 65 row 64's last
+    tile holds one key it sees and 63 past T. No row has every key masked
+    (the causal mask keeps key 0 for all rows). Row 0 of a one-key softmax
+    is exactly that key's value row."""
+    q, k, v = _flash_case(1, 65, 65, 4, 4, 64, torch.bfloat16, cuda)
+    out = _check_flash(q, k, v, True)
+    assert torch.equal(out[:, 0], v[:, 0])
+
+
+def test_flash_bf16_misaligned_inputs(cuda):
+    """A q view one element into its storage: the kernel loads its tiles
+    with plain loads instead of 16-byte copies."""
+    q, k, v = _flash_case(2, 33, 33, 4, 2, 64, torch.bfloat16, cuda)
+    qs = torch.empty(q.numel() + 1, device=cuda, dtype=q.dtype)[1:] \
+        .view(q.shape)
+    qs.copy_(q)
+    assert qs.data_ptr() % 16 != 0 and qs.is_contiguous()
+    out = _check_flash(qs, k, v, True)
+    assert torch.equal(out, flash_mod.flash_attention(q, k, v))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, pool, tables, ln = _paged_case(2, 4, 2, 16, 4, 4, [3, 5],
                                       torch.float32, cuda)
@@ -179,6 +240,61 @@ def test_lsdnn_kernel_misaligned_rows(cuda):
     ys.copy_(y)
     assert ys.data_ptr() % 16 != 0 and ys.is_contiguous()
     _check_lsdnn(ys, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,F,G", [(1000, 1000, 1000), (999, 130, 257),
+                                   (5, 130, 257), (31, 33, 7)])
+def test_lsdnn_kernel_ragged_tiles_and_k_steps(cuda, dtype, T, F, G):
+    """T, F and G off the 128 x 128 tile and the 32-deep K step; G = 257
+    and 7 take the 4-byte copies of w; T = 5 and 31 are smaller than one
+    tile (every block gets a strip of it)."""
+    _check_lsdnn(*_lsdnn_case(T, F, G, dtype, cuda))
+
+
+@pytest.mark.parametrize("T", [4430, 5800, 60000])
+def test_lsdnn_kernel_persistent_rounds_and_tail(cuda, T):
+    """F = G = 1024 with more tiles than the persistent grid: on an H100
+    (132 SMs x 2 blocks) T = 4430 leaves 16 tiles after one full round
+    (cut into 4 strips each), T = 5800 104 (2 strips), T = 60000 the HPEC
+    shape, 14 rounds and 56 tiles in strips of 32 rows."""
+    _check_lsdnn(*_lsdnn_case(T, 1024, 1024, torch.float32, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lsdnn_kernel_misaligned_y_and_w(cuda, dtype):
+    """y and w views one element into their storage: y's elementwise
+    copies take any alignment, w falls back to 4-byte copies."""
+    y, w, b = _lsdnn_case(300, 128, 256, dtype, cuda)
+    ys = torch.empty(y.numel() + 1, device=cuda, dtype=dtype)[1:] \
+        .view(y.shape)
+    ws = torch.empty(w.numel() + 1, device=cuda, dtype=dtype)[1:] \
+        .view(w.shape)
+    ys.copy_(y)
+    ws.copy_(w)
+    out = _check_lsdnn(ys, ws, b)
+    assert torch.equal(out, lsdnn_mod.lsdnn_layer(y, w, b))
+
+
+def test_lsdnn_kernel_in_a_deviceflow_capture(cuda):
+    """K4 recorded into a DeviceFlow's CUDA graph (the kernel's 99,840 B of
+    dynamic shared memory was opted in when the library was loaded, not in
+    the launch the capture records): the replay equals the eager launch bit
+    for bit."""
+    from repro_torch.core import DeviceFlow
+    y, w, b = _lsdnn_case(700, 256, 300, torch.float32, cuda)
+    eager = lsdnn_mod.lsdnn_layer(y, w, b, cap=4.0).cpu().numpy()
+    df = DeviceFlow(cuda)
+    df.copy("y", y.cpu().numpy())
+    df.kernel(lambda x: lsdnn_mod.lsdnn_layer(x, w, b, cap=4.0), ["y"],
+              ["out"])
+    df.fetch("out")
+    first = df.offload()["out"]
+    again = df.offload(2)["out"]
+    assert df.captured_launches == {"lsdnn_layer": 1}
+    assert df.num_launches == 3
+    np.testing.assert_array_equal(first, eager)
+    np.testing.assert_array_equal(again, eager)
 
 
 def test_lsdnn_kernel_hpec_layer(cuda):
