@@ -7,10 +7,14 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 3. kernels  — K1 (paged decode attention) and K2 (flash attention) against
               their plain PyTorch versions at the main path's shapes, in
               bf16, then timed with CUDA events beside the plain version and
-              a library yardstick the port never calls; K2's report adds
-              its ptxas registers / shared memory / spills, the HMMA count
-              of its bf16 SASS, its TFLOP/s, % of its bound and its time
-              over the library's;
+              a library yardstick the port never calls, eagerly and as
+              device time in a CUDA graph; each report adds its ptxas
+              registers / shared memory / spills, SASS instruction counts,
+              TFLOP/s, % of its bound, time over the library's and (K1) the
+              wrapper's host time per call; K1 is also rebuilt with a
+              shallower cp.async ring and with its block table read
+              through __ldg only (no shared copy), and timed in turns
+              beside itself (an ablation);
 4. serve    — stablelm-1.6b at full width (24 layers, random weights from a
               seeded ``torch.Generator``) through ``ServeEngine``: 8
               staggered requests of mixed prompt lengths, 32 new tokens
@@ -23,8 +27,10 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               version at the SSM prefill path's shapes (B=1, dI=8192, N=16,
               S in {16, 57, 300}, bf16 x/B/C, fp32 dt), a ragged, a B=4, an
               fp32-input and an initial-state case, then timed beside its
-              bound and the plain version (no PyTorch call computes a
-              selective scan, so it has no library time);
+              bound and the plain version, eagerly and in a CUDA graph (no
+              PyTorch call computes a selective scan, so it has no library
+              time), with the same report as K1's, and rebuilt with parts of
+              its design changed and timed (an ablation);
 7. ssm      — falcon-mamba-7b at full width (64 layers, d_model 4096,
               d_inner 8192, random weights from a seeded
               ``torch.Generator``) through ``ServeEngine``'s slot-state
@@ -55,18 +61,26 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               final ``{"ok": true, ...}`` line.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --other-csrc build/parent/src/repro_torch/kernels/csrc
+
+The second form adds another tree's K1 and K3 (e.g. the parent commit's,
+unpacked with ``git archive <commit> src/repro_torch/kernels/csrc | tar -x
+-C build/parent``) to their ablations: built from its sources, timed in
+turns beside this tree's in CUDA graphs.
 
 Exits non-zero, without the final line, when a phase fails or CUDA is
 unavailable. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -130,6 +144,47 @@ _Y_COPY = ("      copy1<T>(ad + 8 * i * kAS + 32 * j, ok ? yr + 8 * i : y, "
 _W_COPY = ("      copy4<T>(bd + 32 * i, ok ? ws + 32 * i : w, ok);\n", "")
 _BARRIER = ("    __syncthreads();  // everyone's have; step - 1's stage is free "
             "to refill\n", "")
+# K1's and K3's time taken apart in the same way (timed in CUDA graphs; the
+# ex2 build's exponential is approximate, so it shows what a restated
+# tolerance would buy)
+_K1_TAB_STAGE = ("  for (int j = threadIdx.x; j < min(mb, kTabCap); j += kThreads)\n"
+                 "    s_tab[j] = tab[j];\n", "")
+_K1_TAB_BARRIER = ("  __syncthreads();  // s_tab is filled (the only barrier "
+                   "before the merge)\n", "")
+K1_ABLATIONS = {
+    "k1_1_stage": [("constexpr int kStages = 3;",
+                    "constexpr int kStages = 1;")],
+    "k1_2_stages": [("constexpr int kStages = 3;",
+                     "constexpr int kStages = 2;")],
+    "k1_table_ldg": [_K1_TAB_STAGE, _K1_TAB_BARRIER, (
+        "at.j < kTabCap ? s_tab[at.j] : __ldg(tab + at.j)",
+        "__ldg(tab + at.j)")],
+}
+_K3_AHEAD = ("    if (more) load(t0 + kChunk);   // in flight during this "
+             "chunk's steps\n")
+_K3_STAGE = "    if (more) stage(st ^ 1);\n"
+K3_ABLATIONS = {
+    "k3_2_states": [("constexpr int kStates = 4;",
+                     "constexpr int kStates = 2;")],
+    "k3_group8": [("constexpr int kGroup = 16;", "constexpr int kGroup = 8;")],
+    "k3_loads_not_ahead": [(_K3_AHEAD, ""), (_K3_STAGE, (
+        "    if (more) {\n      load(t0 + kChunk);\n      stage(st ^ 1);\n"
+        "    }\n"))],
+    "k3_ex2_approx": [
+        ("// raw bits of one value of x, B or C", (
+            "__device__ __forceinline__ float ex2f_approx(float x) {\n"
+            "  float y;\n  asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(y) : "
+            "\"f\"(x));\n  return y;\n}\n\n"
+            "// raw bits of one value of x, B or C")),
+        ("          ea[u][k] = expf(v.x * a_n[k]);",
+         "          ea[u][k] = ex2f_approx(v.x * a_n[k]);"),
+        ("    a_n[k] = live ? A[(size_t)d * N + n0 + k] : 0.f;",
+         "    a_n[k] = live ? A[(size_t)d * N + n0 + k] * "
+         "1.44269504088896341f : 0.f;")],
+}
+# SASS instructions counted in K1 and K3 (static counts over each entry)
+K1_SASS = ("ALL", "LDG", "SHFL", "MUFU", "FFMA", "BAR", "LDS", "STS")
+K3_SASS = ("ALL", "LDG", "SHFL", "MUFU", "FFMA", "FMUL", "BAR", "LDS", "STG")
 K4_ABLATIONS = {"no_y_copies": [_Y_COPY],
                 "no_copies": [_Y_COPY, _W_COPY],
                 "no_copies_no_barrier": [_Y_COPY, _W_COPY, _BARRIER]}
@@ -179,6 +234,20 @@ def graph_ms(fn, n: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (n * replays)
 
 
+def host_us(fn, iters: int = 50) -> float:
+    """Host time per call in us: ``iters`` calls enqueued back to back on
+    the host clock, the device drained before and after (the wrapper's
+    Python, its checks, the allocation of its output and the launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / iters
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / peak * 1e3
@@ -213,7 +282,8 @@ def ptxas_of(kernel: str):
 
 def sass_counts(kernel: str, ops=("HMMA", "LDSM", "LDGSTS", "FFMA")):
     """Count SASS instructions (``cuobjdump -sass`` of the built library)
-    in each function whose name holds ``kernel``."""
+    in each function whose name holds ``kernel``; ``ALL`` counts every
+    instruction."""
     from repro_torch.kernels._build import _nvcc, build_info
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", build_info()["path"]],
@@ -225,7 +295,9 @@ def sass_counts(kernel: str, ops=("HMMA", "LDSM", "LDGSTS", "FFMA")):
             cur = name if kernel in name else None
             if cur:
                 counts[cur] = dict.fromkeys(ops, 0)
-        elif cur:
+        elif cur and ln.lstrip().startswith("/*") and ";" in ln:
+            if "ALL" in ops:
+                counts[cur]["ALL"] += 1
             for op in ops:
                 if f" {op}" in ln:
                     counts[cur][op] += 1
@@ -233,14 +305,26 @@ def sass_counts(kernel: str, ops=("HMMA", "LDSM", "LDGSTS", "FFMA")):
 
 
 def kernel_report(prefix: str, kernel: str, flops: float, ms: float,
-                  b_ms: float, lib_ms, sass) -> None:
+                  b_ms: float, lib_ms, sass, dev_ms=None, lib_dev_ms=None,
+                  host=None) -> None:
+    """ptxas and SASS lines, then rate, % of the bound and kernel / library
+    of the eager time and, where given, of the device time in a CUDA graph
+    (``dev_ms``, ``lib_dev_ms``), and the wrapper's host time per call
+    (``host``, us)."""
     for ln in ptxas_of(kernel):
         log(f"{prefix} ptxas {ln}")
     for name, c in sass.items():
         log(f"{prefix} sass {name}: {c}")
-    ratio = f"{ms / lib_ms:.3f}" if lib_ms else "n/a"
-    log(f"{prefix} achieved {flops / ms / 1e9:.2f} TFLOP/s, "
-        f"{100 * b_ms / ms:.1f}% of the bound, kernel / library {ratio}")
+    for what, t, lib in (("eager", ms, lib_ms), ("device", dev_ms,
+                                                  lib_dev_ms)):
+        if t is None:
+            continue
+        ratio = f"{t / lib:.3f}" if lib else "n/a"
+        log(f"{prefix} {what}: {t:.5f} ms, {flops / t / 1e9:.3f} TFLOP/s, "
+            f"{100 * b_ms / t:.1f}% of the bound, kernel / library {ratio}")
+    if host is not None:
+        log(f"{prefix} wrapper host time per call {host:.2f} us (eager "
+            f"calls are bound by the larger of host and device time)")
 
 
 # ------------------------------------------------------------------ phase 1
@@ -288,11 +372,13 @@ def _paged_case(B, H, KV, hd, bs, N, mb, lengths, dev, seed):
             torch.from_numpy(ln).to(dev))
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, other=None):
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import paged_attention as paged_mod
     from repro_torch.kernels.ref import (flash_attention_ref,
                                          paged_attention_ref)
+    ablations = _build_ablations("paged_attention.cu", K1_ABLATIONS, other)
+    # (they build while the checks run)
     report = {}
     # ---- K1 at the serve path's shapes: one layer's pool (2, 128, KV, 16,
     # 64), tables (8, 32); ragged lengths with a sink row (-1) and
@@ -330,12 +416,19 @@ def phase_kernels(dev):
     q4 = q[:, :, None, :]
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q4, kc, vc, attn_mask=mask))
+    # the kernel reads the table entries of the active pages and, of those
+    # pages, only the keys that attend (keys 0..pos; the rest are
+    # zero-filled, not read)
     nb = (ln.long() // bs + 1).clamp(max=mb)
-    keys = int(nb.sum()) * bs
+    keys = int((ln.long() + 1).clamp(max=mb * bs).sum())
     nbytes = 2 * q.numel() * 2 + keys * 32 * 64 * 2 * 2 \
         + int(nb.sum()) * 4 + 8 * 4
     flops = 4.0 * keys * 32 * 64
     b_ms, b_by = bound_ms(nbytes, flops)
+    dev_ms = graph_ms(lambda: paged_mod.paged_attention_cuda(q, pool, tables,
+                                                             ln))
+    lib_dev_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask))
     report["paged_attention"] = dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -345,7 +438,21 @@ def phase_kernels(dev):
     log(f"[kernels] K1 timing B=8 H=KV=32: kernel {ms:.4f} ms | plain "
         f"{plain_ms:.4f} ms | SDPA on contiguous cache {lib_ms:.4f} ms "
         f"(gather excluded) | bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
-        f"{flops:.3e} flop)")
+        f"{flops:.3e} flop) | device time in a CUDA graph: kernel "
+        f"{dev_ms:.5f} ms, SDPA {lib_dev_ms:.5f} ms")
+    host = host_us(lambda: paged_mod.paged_attention_cuda(q, pool, tables, ln))
+    kernel_report("[kernels] K1", "paged_attention", flops, ms, b_ms, lib_ms,
+                  sass_counts("paged_attention", K1_SASS), dev_ms, lib_dev_ms,
+                  host)
+    out = torch.empty_like(q)
+    cut = _time_ablations(
+        ablations, "repro_paged_attention",
+        (1, q.data_ptr(), pool.data_ptr(), tables.data_ptr(), ln.data_ptr(),
+         out.data_ptr(), 8, 32, 32, N, bs, 64, mb, 64 ** -0.5),
+        lambda: paged_mod.paged_attention_cuda(q, pool, tables, ln),
+        "repro_paged_attention_init", timer=graph_ms)
+    log(f"[kernels] K1 ablation (same inputs, one part of the design "
+        f"changed; device time in CUDA graphs, in turns): {_turns(cut)}")
 
     # ---- K2 at the window-0 prefill shape (max_admit=4, C0=128, H=32,
     # hd=64), plus a ragged S and a GQA case
@@ -561,9 +668,11 @@ def _rel(a, b) -> float:
     return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
 
 
-def phase_k3(dev):
+def phase_k3(dev, other=None):
     from repro_torch.kernels import mamba_scan as scan_mod
     from repro_torch.kernels.ref import mamba_scan_ref
+    ablations = _build_ablations("mamba_scan.cu", K3_ABLATIONS, other)
+    # (they build while the checks run)
     g = torch.Generator(dev).manual_seed(3)
 
     def inputs(B, S, dI, N, dtype, h0):
@@ -617,11 +726,25 @@ def phase_k3(dev):
     t_fma = flops / FP32_FLOPS_PER_S * 1e3
     b_ms = max(t_b, t_exp, t_fma)
     b_by = "bytes" if t_b >= max(t_exp, t_fma) else "operations"
+    dev_ms = graph_ms(lambda: scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A))
     log(f"[k3] timing B=1 S=300 dI=8192 N=16 bf16: kernel {ms:.4f} ms | "
         f"plain {plain_ms:.4f} ms | no library call computes a selective "
         f"scan | bound {b_ms:.5f} ms ({b_by}: bytes {t_b:.5f} ms for "
         f"{nbytes} B, exps {t_exp:.5f} ms for {elems} at "
-        f"{SFU_EXP_PER_S:.3e}/s, fp32 {t_fma:.5f} ms for {flops:.3e} flop)")
+        f"{SFU_EXP_PER_S:.3e}/s, fp32 {t_fma:.5f} ms for {flops:.3e} flop) "
+        f"| device time in a CUDA graph {dev_ms:.5f} ms")
+    host = host_us(lambda: scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A))
+    kernel_report("[k3]", "mamba_scan", flops, ms, b_ms, None,
+                  sass_counts("mamba_scan", K3_SASS), dev_ms, host=host)
+    y = torch.empty((B, S, dI), device=dev)
+    hT = torch.empty((B, dI, N), device=dev)
+    cut = _time_ablations(
+        ablations, "repro_mamba_scan",
+        (1, dt.data_ptr(), x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+         A.data_ptr(), None, y.data_ptr(), hT.data_ptr(), B, S, dI, N),
+        lambda: scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A), timer=graph_ms)
+    log(f"[k3] ablation (same shape, one part of the design changed; "
+        f"device time in CUDA graphs, in turns): {_turns(cut)}")
     return dict(name="mamba_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/mamba_scan.cu",
                 replaces="src/repro/kernels/mamba_scan.py:29",
@@ -729,60 +852,80 @@ def phase_steps_ssm(cfg, params, prompts, dev):
 
 
 # ------------------------------------------------------------------ phase 9
-def _build_k4_ablations():
-    """Start one nvcc per ablated copy of K4's source (in parallel, into
-    build/kernels/ablation/<name>/); returns {name: (dir, process)}."""
+def _build_ablations(source: str, table: dict, other=None) -> dict:
+    """Start one nvcc per altered copy of ``csrc/<source>`` (in parallel,
+    into build/kernels/ablation/<stem>/<name>/); ``table`` maps each name
+    to its (anchor, replacement) edits. ``other``, a directory of another
+    tree's kernel sources (e.g. the parent commit's ``csrc``), adds its
+    ``source`` unaltered as the build ``other``. Returns {name: (dir,
+    process)}."""
     from repro_torch.kernels._build import BUILD_ROOT, CSRC, NVCC_FLAGS, _nvcc
-    src = (CSRC / "lsdnn_layer.cu").read_text()
+    builds = {name: (CSRC, cuts) for name, cuts in table.items()}
+    if other is not None:
+        builds["other"] = (Path(other), [])
     procs = {}
-    for name, cuts in K4_ABLATIONS.items():
-        text = src
+    for name, (csrc, cuts) in builds.items():
+        text = (csrc / source).read_text()
         for anchor, repl in cuts:
             if anchor not in text:
-                raise SystemExit(f"K4 ablation {name}: {anchor!r} is no "
-                                 "longer in lsdnn_layer.cu")
+                raise SystemExit(f"ablation {name}: {anchor!r} is no "
+                                 f"longer in {source}")
             text = text.replace(anchor, repl)
-        d = BUILD_ROOT / "ablation" / name
+        d = BUILD_ROOT / "ablation" / Path(source).stem / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "lsdnn_layer.cu").write_text(text)
-        (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
+        (d / source).write_text(text)
+        (d / "common.cuh").write_text((csrc / "common.cuh").read_text())
         procs[name] = (d, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "lsdnn_layer.cu")], stdout=subprocess.PIPE,
+             str(d / source)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     return procs
 
 
-def _time_k4_ablations(procs, y, w, b) -> dict:
-    """Time each ablated K4 build on (y, w, b) as the kernel is timed."""
+def _time_ablations(procs, entry: str, args, own, init=None,
+                    timer=time_ms) -> dict:
+    """Time each build's C entry point ``entry`` on ``args`` and the current
+    stream (after its ``init`` entry, where the build has one) beside
+    ``own``, the kernel through its wrapper, with ``timer``, in turns: own,
+    the builds, the builds backwards, own. Returns {name: [ms, ms]}, own's
+    times under "kernel"."""
     import ctypes
 
     from repro_torch.kernels._build import _SIGNATURES, current_stream
-    out = torch.empty((y.shape[0], w.shape[1]), device=y.device)
-    args = (0, y.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            y.shape[0], y.shape[1], w.shape[1], LSDNN_CAP,
-            current_stream(y.device.index))
-    times = {}
+    idx = torch.cuda.current_device()
+    calls = {"kernel": own}
     for name, (d, p) in procs.items():
         text, _ = p.communicate()
         if p.returncode != 0:
-            raise SystemExit(f"K4 ablation {name} does not build:\n{text}")
+            raise SystemExit(f"ablation {name} does not build:\n{text}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        fn = lib.repro_lsdnn_layer
-        fn.argtypes = list(_SIGNATURES["repro_lsdnn_layer"])
+        fn = getattr(lib, entry)
+        fn.argtypes = list(_SIGNATURES[entry])
         fn.restype = ctypes.c_int
-        lib.repro_lsdnn_layer_init.restype = ctypes.c_int
-        if lib.repro_lsdnn_layer_init() != 0 or fn(*args) != 0:
-            raise SystemExit(f"K4 ablation {name} does not launch")
-        times[name] = time_ms(lambda: fn(*args), iters=20)
+        if init is not None and hasattr(lib, init):
+            getattr(lib, init).restype = ctypes.c_int
+            if getattr(lib, init)() != 0:
+                raise SystemExit(f"ablation {name}: {init} failed")
+        if fn(*args, current_stream(idx)) != 0:
+            raise SystemExit(f"ablation {name} does not launch")
+        calls[name] = lambda fn=fn: fn(*args, current_stream(idx))
+    times = {name: [] for name in calls}
+    for name in [*calls, *reversed(calls)]:
+        times[name].append(timer(calls[name]))
     return times
+
+
+def _turns(times: dict) -> str:
+    return " | ".join(f"{n} {min(t):.5f}-{max(t):.5f} ms"
+                      for n, t in times.items())
 
 
 def phase_k4(dev):
     from repro_torch.bench.fig13_lsdnn import make_hpec
     from repro_torch.kernels import lsdnn_layer as lsdnn_mod
     from repro_torch.kernels.ref import lsdnn_layer_ref
-    ablations = _build_k4_ablations()   # builds while the checks run
+    ablations = _build_ablations("lsdnn_layer.cu", K4_ABLATIONS)
+    # (they build while the checks run)
     g = torch.Generator(dev).manual_seed(4)
 
     def normal(T, F, G, dtype):
@@ -847,10 +990,14 @@ def phase_k4(dev):
         f"flop) | on the HPEC layer (binary rows, 3% of W nonzero) "
         f"{hpec_ms:.4f} ms")
     kernel_report("[k4]", "lsdnn_layer", flops, ms, b_ms, lib_ms, sass)
-    cut = _time_k4_ablations(ablations, y, w, b)
-    log(f"[k4] ablation (same shape, parts of the work cut out): kernel "
-        f"{time_ms(lambda: lsdnn_mod.lsdnn_layer_cuda(y, w, b), iters=20):.4f}"
-        f" ms | " + " | ".join(f"{n} {t:.4f} ms" for n, t in cut.items()))
+    out = torch.empty((T, G), device=dev)
+    cut = _time_ablations(
+        ablations, "repro_lsdnn_layer",
+        (0, y.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), T, Fd,
+         G, LSDNN_CAP), lambda: lsdnn_mod.lsdnn_layer_cuda(y, w, b),
+        "repro_lsdnn_layer_init", timer=lambda fn: time_ms(fn, iters=20))
+    log(f"[k4] ablation (same shape, parts of the work cut out; in turns): "
+        f"{_turns(cut)}")
     return dict(name="lsdnn_layer", route="cuda",
                 source="src/repro_torch/kernels/csrc/lsdnn_layer.cu",
                 replaces="src/repro/kernels/lsdnn_layer.py:24",
@@ -953,7 +1100,14 @@ def phase_device_task(dev) -> None:
 
 
 # ------------------------------------------------------------------ main
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other-csrc", type=Path, default=None, help=(
+        "a directory of another tree's kernel sources (csrc/*.cu and "
+        "common.cuh, e.g. the parent commit's); its K1 and K3 are then "
+        "built and timed in turns beside this tree's, as one more build of "
+        "their ablations"))
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     t_phase = [t_start]
 
@@ -966,7 +1120,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    report = phase_kernels(dev)
+    report = phase_kernels(dev, args.other_csrc)
     done("card, build, K1/K2")
     cfg, params, prompts, frozen, counts = phase_serve(dev)
     phase_steps(cfg, params, prompts, frozen, dev)
@@ -974,7 +1128,7 @@ def main() -> None:
     gc.collect()              # free the serve phase's weights and pool
     torch.cuda.empty_cache()
     done("stablelm serve and steps")
-    report["mamba_scan"] = phase_k3(dev)
+    report["mamba_scan"] = phase_k3(dev, args.other_csrc)
     done("K3")
     mcfg, mparams, mprompts, mcounts = phase_serve_ssm(dev)
     phase_steps_ssm(mcfg, mparams, mprompts, dev)

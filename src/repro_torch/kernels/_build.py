@@ -67,10 +67,12 @@ _SIGNATURES = {
     "repro_mamba_scan": (_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                          _i, _i, _vp),
     # run on the current device, once per device, before any launch
+    "repro_paged_attention_init": (),
     "repro_flash_attention_init": (),
     "repro_lsdnn_layer_init": (),
 }
-_INITS = ("repro_flash_attention_init", "repro_lsdnn_layer_init")
+_INITS = ("repro_paged_attention_init", "repro_flash_attention_init",
+          "repro_lsdnn_layer_init")
 
 
 def _nvcc() -> str:

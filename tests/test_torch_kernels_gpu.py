@@ -6,7 +6,9 @@ Run them on the card with::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Inputs come from numpy with a fixed seed. Tolerances: fp32 cases 2e-5 /
+K1 also on rows longer than its 8 warps' first round of pages, past its
+shared copy of the block table, on misaligned views and inside a CUDA
+graph. Inputs come from numpy with a fixed seed. Tolerances: fp32 cases 2e-5 /
 1e-4 absolute (only the summation order differs from the plain version);
 bf16 cases 2e-2 absolute (outputs are rounded to bf16, ~4e-3 relative; K2
 and the plain flash version both round their probabilities to bf16 before
@@ -82,6 +84,82 @@ def test_paged_kernel_block_size_not_dividing_pos(cuda, bs, pos):
     out = paged_mod.paged_attention(q, pool, tables, ln)
     ref = paged_attention_ref(q, pool, tables, ln)
     assert (out - ref).abs().max().item() < 2e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_paged_kernel_long_rows(cuda, dtype, tol, bs, hd, G):
+    """Rows longer than the 8 warps' first round of tiles (2,048 keys: 8 to
+    128 tiles a row), beside a short row and a sink row; G query heads per
+    kv head (G = 8 takes two blocks of 4 heads each)."""
+    mb = 2048 // bs
+    lengths = [2047, 1000, -1, 5]
+    q, pool, tables, ln = _paged_case(4, 2 * G, 2, hd, bs, mb, lengths,
+                                      dtype, cuda, seed=bs + hd + G)
+    out = paged_mod.paged_attention(q, pool, tables, ln)
+    ref = paged_attention_ref(q, pool, tables, ln)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() < tol
+
+
+def test_paged_kernel_table_past_its_shared_copy(cuda):
+    """1,251 pages in a row (bs = 2): the kernel stages the first 1,024
+    block-table entries in shared memory and reads the rest from global
+    memory."""
+    q, pool, tables, ln = _paged_case(2, 4, 2, 16, 2, 1300, [2501, 40],
+                                      torch.float32, cuda)
+    out = paged_mod.paged_attention(q, pool, tables, ln)
+    ref = paged_attention_ref(q, pool, tables, ln)
+    assert (out - ref).abs().max().item() < 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_misaligned_inputs(cuda, dtype):
+    """q and pool views one element into their storage: the kernel reads
+    them element by element instead of 16 bytes at a time, with the same
+    arithmetic."""
+    q, pool, tables, ln = _paged_case(3, 8, 2, 64, 16, 8, [100, 0, 37],
+                                      dtype, cuda)
+    qs = torch.empty(q.numel() + 1, device=cuda, dtype=dtype)[1:] \
+        .view(q.shape)
+    ps = torch.empty(pool.numel() + 1, device=cuda, dtype=dtype)[1:] \
+        .view(pool.shape)
+    qs.copy_(q)
+    ps.copy_(pool)
+    assert qs.data_ptr() % 16 and ps.data_ptr() % 16
+    out = paged_mod.paged_attention(qs, ps, tables, ln)
+    assert torch.equal(out, paged_mod.paged_attention(q, pool, tables, ln))
+
+
+def test_paged_kernel_in_a_cuda_graph(cuda):
+    """K1 captured into a CUDA graph and replayed equals the eager launch
+    bit for bit; the graph reads lengths and tables from device memory, so
+    a replay after they change (a decode step later) sees the new rows."""
+    q, pool, tables, ln = _paged_case(4, 8, 8, 64, 16, 8, [0, 17, 64, 120],
+                                      torch.bfloat16, cuda)
+    eager = paged_mod.paged_attention(q, pool, tables, ln)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_mod.paged_attention(q, pool, tables, ln)   # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = paged_mod.launches
+    with torch.cuda.graph(graph):
+        out = paged_mod.paged_attention(q, pool, tables, ln)
+    assert paged_mod.launches == n0 + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    ln.add_(3)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, paged_mod.paged_attention(q, pool, tables, ln))
+    assert not torch.equal(out, eager)
 
 
 def _flash_case(B, S, T, H, KV, hd, dtype, dev, seed=0):

@@ -8,8 +8,10 @@ sm_90a and has no interpret mode. Run on the card:
 * K3 against its plain sequential version at the prefill path's shapes
   (B=1, dI=8192, N=16, S in {16, 57, 300}, bf16 x/B/C, fp32 dt), a ragged
   case (dI not a multiple of the 16-channel block, odd S), B=4, fp32
-  inputs, a non-zero initial state and N=24 (the 32-lane variant); and the
-  inputs it refuses.
+  inputs, a non-zero initial state and N=24 (the 8-lane variant); the
+  edges of its chunk ring and lane groups (S = 1, S off the 8-step groups
+  and 32-step chunks, dI off the 8-channel rows, N < 16, N = 32) and
+  misaligned views; and the inputs it refuses.
 * Under float32 compute the CUDA engine (K3 prefill, slot decode) emits the
   CPU engine's greedy tokens on falcon-mamba smoke, and a K3 prefill's
   logits match the plain scan's.
@@ -69,7 +71,7 @@ def _rel_err(a, b) -> float:
     (4, 300, 8192, 16, torch.bfloat16, False),
     (1, 300, 8192, 16, torch.float32, False),
     (2, 70, 8192, 16, torch.bfloat16, True),       # initial state
-    (1, 65, 200, 24, torch.float32, True),         # 32-lane variant
+    (1, 65, 200, 24, torch.float32, True),         # 8 lanes a channel
     (3, 1, 16, 1, torch.float32, False),
 ])
 def test_k3_matches_plain(cuda, B, S, dI, N, dtype, h0):
@@ -84,6 +86,44 @@ def test_k3_matches_plain(cuda, B, S, dI, N, dtype, h0):
     assert torch.isfinite(y).all() and torch.isfinite(hT).all()
     assert _rel_err(y, yr) <= K3_REL_TOL
     assert _rel_err(hT, hr) <= K3_REL_TOL
+
+
+@pytest.mark.parametrize("B,S,dI,N,dtype,h0", [
+    (1, 1, 8192, 16, torch.bfloat16, True),        # one step
+    (2, 37, 520, 16, torch.bfloat16, True),        # S % 8, S % 32 != 0
+    (1, 64, 512, 16, torch.float32, False),        # two whole chunks
+    (1, 100, 1001, 5, torch.float32, True),        # dI % 8 != 0, N < 16
+    (3, 45, 300, 32, torch.bfloat16, True),        # N = 32
+    (1, 70, 96, 17, torch.bfloat16, False),        # 8 lanes, N = 17
+])
+def test_k3_edges(cuda, B, S, dI, N, dtype, h0):
+    """The edges of the 4-states-per-thread layout and the 32-step chunk
+    ring: S of one step and ragged against the 8-step groups and the
+    chunks, dI off the 8-channel rows (element loads), N below a lane
+    group's 4 states and over 16 (8 lanes per channel)."""
+    dt, x, Bc, Cc, A, init = _inputs(B, S, dI, N, dtype, cuda, seed=S + N,
+                                     h0=h0)
+    y, hT = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A, h0=init)
+    yr, hr = mamba_scan_ref(dt, A, Bc, Cc, x, h0=init)
+    assert torch.isfinite(y).all() and torch.isfinite(hT).all()
+    assert _rel_err(y, yr) <= K3_REL_TOL
+    assert _rel_err(hT, hr) <= K3_REL_TOL
+
+
+def test_k3_misaligned_inputs(cuda):
+    """dt and x views one element into their storage: the staging reads
+    them element by element, with the same arithmetic."""
+    dt, x, Bc, Cc, A, init = _inputs(1, 40, 256, 16, torch.bfloat16, cuda,
+                                     h0=True)
+    dts = torch.empty(dt.numel() + 1, device=cuda)[1:].view(dt.shape)
+    xs = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)[1:] \
+        .view(x.shape)
+    dts.copy_(dt)
+    xs.copy_(x)
+    assert dts.data_ptr() % 16 and xs.data_ptr() % 16
+    y, hT = scan_mod.mamba_scan_cuda(dts, xs, Bc, Cc, A, h0=init)
+    y0, h0 = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A, h0=init)
+    assert torch.equal(y, y0) and torch.equal(hT, h0)
 
 
 def test_k3_refuses_what_it_does_not_take(cuda):
