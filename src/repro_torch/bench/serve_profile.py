@@ -16,16 +16,22 @@ materializing oracle):
 Window-0 prefill (4 x 128 tokens) is timed the same way with ``flash``
 (K2) and ``chunked`` (the plain path).
 
-``--arch falcon-mamba-7b`` (the slot-state path): the 8 rows' states are
-prefilled at B=1 (K3 scans) and copied into an 8-slot
-:func:`repro_torch.models.lm.init_cache` pool, as the engine does; then
+``--arch falcon-mamba-7b`` or ``zamba2-1.2b`` (the slot-state path): the
+8 rows' states are prefilled at B=1 and copied into an 8-slot
+:func:`repro_torch.models.lm.init_cache` pool (zamba2: KV spans of the
+engine's default ``max_seq_len``, 512), as the engine does; then
 ``decode_chunk_slots`` is timed and traced the same way (one decode step
-has no kernel of the port: it is GEMVs and elementwise ops), and one
-300-token prefill with ``kernel`` (K3) and ``plain`` scans.
+has no kernel of the port: it is GEMVs and elementwise ops, and zamba2's
+shared-block decode attention is plain torch, as in the reference), and
+one 300-token prefill with each path: falcon-mamba's ``kernel`` (K3) and
+``plain`` scans, zamba2's ``flash`` (K2) and ``chunked`` shared-block
+attention.
 
     PYTHONPATH=src python -m repro_torch.bench.serve_profile
     PYTHONPATH=src python -m repro_torch.bench.serve_profile \
         --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.bench.serve_profile \
+        --arch zamba2-1.2b
 
 Needs one CUDA device; writes nothing but stdout (the last line is a JSON
 summary).
@@ -43,10 +49,13 @@ import torch
 from ..configs import get_config
 from ..models import lm
 from ..params import init_params
+from ..serve.engine import write_slot_state
 from ..serve.kvcache import init_kv_pool, scatter_prefill_row
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
 STEPS = 8
+#: the slot pool's KV span per row (zamba2): the engine's default
+MAX_SEQ = 512
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -103,20 +112,19 @@ def _report(summary, kind, name, fn, steps: int = 1) -> None:
 
 
 def _slot_path(cfg, params, dev, rng, summary) -> None:
-    """falcon-mamba: one decode step over an 8-slot state pool, and one
-    300-token prefill with each scan."""
+    """falcon-mamba or zamba2: one decode step over an 8-slot state pool,
+    and one 300-token prefill with each path."""
     B = len(PROMPT_LENS)
-    state = {k: v for k, v in lm.init_cache(cfg, B, device=dev).items()
+    state = {k: v for k, v in lm.init_cache(cfg, B, MAX_SEQ,
+                                            device=dev).items()
              if k != "pos"}
-    conv, h = state["ssm"]
     layers = lm.layer_views(params)
     with torch.inference_mode():
         for b, n in enumerate(PROMPT_LENS):
             toks = torch.from_numpy(rng.integers(
                 0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
             _, cache = lm.prefill(cfg, params, toks, layers=layers)
-            conv[:, b].copy_(cache["ssm"][0][:, 0])
-            h[:, b].copy_(cache["ssm"][1][:, 0])
+            write_slot_state(state, b, cache, n)
         lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=dev)
         last = torch.zeros(B, dtype=torch.int32, device=dev)
         rem = torch.full((B,), 1 << 20, dtype=torch.int32, device=dev)
@@ -128,7 +136,9 @@ def _slot_path(cfg, params, dev, rng, summary) -> None:
         toks = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (1, PROMPT_LENS[-1])).astype(np.int32)
             ).to(dev)
-        for impl in ("kernel", "plain"):
+        impls = ("flash", "chunked") if cfg.hybrid_attn_every \
+            else ("kernel", "plain")
+        for impl in impls:
             def pre():
                 lm.prefill(cfg, params, toks, impl=impl, layers=layers)
             _report(summary, "prefill", impl, pre)
@@ -139,7 +149,8 @@ def main(argv=None) -> None:
         raise SystemExit("serve_profile needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b",
-                    choices=["stablelm-1.6b", "falcon-mamba-7b"])
+                    choices=["stablelm-1.6b", "falcon-mamba-7b",
+                             "zamba2-1.2b"])
     args = ap.parse_args(argv)
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,8 @@
 """Repeat ``chip_smoke.py``'s serve workload and account for its TTFT.
 
-Full-width stablelm-1.6b (default) or falcon-mamba-7b (``--arch``; the
-slot-state pool), random bf16 weights from a seeded generator,
+Full-width stablelm-1.6b (default), falcon-mamba-7b or zamba2-1.2b
+(``--arch``; the slot-state pool), random bf16 weights from a seeded
+generator,
 ``ServeEngine(decode_chunk=8, max_batch=8, kv_blocks=128, block_size=16)``
 (the pool geometry applies to the paged arch only), 8 requests with
 prompts of 16 to 300 tokens submitted 20 ms apart. Each of
@@ -18,7 +19,7 @@ warm-up request, then the 8 requests, and prints:
 The last line is a JSON summary with the per-run numbers and their spread.
 
     PYTHONPATH=src python -m repro_torch.bench.serve_runs [--runs 3]
-        [--max-new 32] [--arch falcon-mamba-7b]
+        [--max-new 32] [--arch falcon-mamba-7b | zamba2-1.2b]
 
 Needs one CUDA device.
 """
@@ -88,7 +89,8 @@ def main(argv=None) -> None:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--arch", default="stablelm-1.6b",
-                    choices=["stablelm-1.6b", "falcon-mamba-7b"])
+                    choices=["stablelm-1.6b", "falcon-mamba-7b",
+                             "zamba2-1.2b"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve_runs needs a CUDA device")

@@ -9,11 +9,14 @@ CUDA; without a CUDA device it raises unless ``--device cpu`` is given.
         --batch 8 --prompt-len 128 --max-new 32 --stagger 0.05
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon-mamba-7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch zamba2-1.2b --device cpu
 
 Dense attention archs page their KV (``--kv-blocks``, ``--block-size``,
-``--prefill-chunk``); Mamba1 archs keep one recurrent state per batch slot
-(``--max-seq-len`` bounds prompt + new tokens). Weights are random, drawn
-from ``--seed`` (``torch.Generator``).
+``--prefill-chunk``); Mamba1 archs and the zamba2 hybrid keep one state
+per batch slot (``--max-seq-len`` bounds prompt + new tokens, and sizes
+zamba2's shared-block KV span per slot). Weights are random, drawn from
+``--seed`` (``torch.Generator``).
 """
 from __future__ import annotations
 
@@ -33,8 +36,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b",
                     help="model architecture of a family the port serves: "
-                         "dense attention (e.g. stablelm-1.6b, qwen3-14b) "
-                         "or Mamba1 SSM (falcon-mamba-7b)")
+                         "dense attention (e.g. stablelm-1.6b, qwen3-14b), "
+                         "Mamba1 SSM (falcon-mamba-7b) or the Mamba2 "
+                         "hybrid (zamba2-1.2b)")
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -46,8 +50,8 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-blocks", type=int, default=128)
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--max-seq-len", type=int, default=None,
-                    help="slot-state (SSM) archs: cap on prompt + new "
-                         "tokens per request (default 512)")
+                    help="slot-state (SSM, hybrid) archs: cap on prompt "
+                         "+ new tokens per request (default 512)")
     ap.add_argument("--stagger", type=float, default=0.0,
                     help="seconds between submissions (0 = all at once)")
     ap.add_argument("--seed", type=int, default=0)

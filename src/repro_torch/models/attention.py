@@ -14,7 +14,9 @@ Implementations of full-sequence attention (prefill):
 Paged decode (:func:`paged_decode_attention`) reads through K1 or its plain
 page loop or the gather oracle; chunked-prefill windows
 (:func:`paged_prefill_window_attention`) keep the gather read, as in the
-reference.
+reference. The zamba2 shared block's slot decode
+(:func:`decode_attention_rows`) reads a per-slot contiguous span, in plain
+torch as in the reference.
 
 fp32-accumulated products: the reference computes scores with
 ``preferred_element_type=float32`` from compute-dtype operands, and a torch
@@ -31,7 +33,8 @@ from ..configs.base import ModelConfig
 from .layers import dtype_of, rms_norm, rope
 
 __all__ = ["attention", "paged_decode_attention",
-           "paged_prefill_window_attention", "NEG_INF"]
+           "paged_prefill_window_attention", "decode_attention_rows",
+           "NEG_INF"]
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps bf16 softmax NaN-free
 
@@ -200,3 +203,36 @@ def paged_prefill_window_attention(p, x, cfg: ModelConfig, pool_kv, tables,
     out = torch.einsum("bkgcs,bksh->bckgh", probs, vs)
     y = out.reshape(B, C, H * hd).to(cdt) @ p["wo"].to(cdt)
     return y, pool_kv
+
+
+def decode_attention_rows(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
+    """One-token decode against per-slot contiguous KV spans, each row at
+    its own position (the zamba2 shared block's slot decode).
+
+    x: (B, 1, D); cache_[kv]: (B, KV, S_max, hd), written IN PLACE: row
+    ``b`` stores its token's K and V at ``pos[b]`` and attends to keys
+    ``0..pos[b]``; pos: (B,) int with every ``pos[b] < S_max`` (the
+    reference's scatter drops an out-of-range index, torch's raises; the
+    engine's submit check keeps positions in range). The probabilities are
+    rounded to the cache dtype before P V, as in the reference. Returns
+    (y (B, 1, D), cache_k, cache_v).
+    """
+    B = x.shape[0]
+    hd = cfg.hd
+    H = p["wq"].shape[-1] // hd
+    KV = p["wk"].shape[-1] // hd
+    cdt = dtype_of(cfg.compute_dtype)
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None])
+    bidx = torch.arange(B, device=x.device)
+    pl = pos.long()
+    cache_k[bidx, :, pl] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, :, pl] = v[:, 0].to(cache_v.dtype)
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bksh->bkgs", qg.float(), cache_k.float()) \
+        * (hd ** -0.5)
+    kpos = torch.arange(cache_k.shape[2], device=x.device)
+    mask = (kpos[None, :] <= pl[:, None])[:, None, None, :]
+    probs = _softmax_attend(s, cache_v, mask)
+    out = torch.einsum("bkgs,bksh->bkgh", probs, cache_v)
+    y = out.reshape(B, H * hd).to(cdt) @ p["wo"].to(cdt)
+    return y[:, None, :], cache_k, cache_v

@@ -1,20 +1,30 @@
-"""Decoder LM serving entry points, dense attention and Mamba1 archs (torch
-port of ``repro.models.lm``).
+"""Decoder LM serving entry points, dense attention, Mamba1 and the zamba2
+hybrid (torch port of ``repro.models.lm``).
 
 Params are the plain dict of :mod:`repro_torch.params`: stacked per-layer
-leaves under ``blocks``. Each ``lax.scan`` over layers of the reference is a
-Python loop here, and the paged pool ``(L, 2, N, KV, bs, hd)`` is indexed
-``pool[l]`` — a contiguous view that the attention code writes IN PLACE
-(the reference returns a new pool; these functions return the same tensor
-so call sites read alike). The SSM slot-state pool of :func:`init_cache`
-is written in place the same way by the slot entry points.
+leaves under ``blocks`` (the hybrid: ``gblocks`` (G, every, ...),
+``tail_blocks`` and one ``shared_block``). Each ``lax.scan`` over layers of
+the reference is a Python loop here, and the paged pool ``(L, 2, N, KV, bs,
+hd)`` is indexed ``pool[l]`` — a contiguous view that the attention code
+writes IN PLACE (the reference returns a new pool; these functions return
+the same tensor so call sites read alike). The slot-state pool of
+:func:`init_cache` is written in place the same way by the slot entry
+points.
 
-Entry points: :func:`init_params`, :func:`prefill` (dense and Mamba1
-branches, with ``last_positions``), :func:`init_cache` (Mamba1 slot
-state), the paged path :func:`prefill_window_paged`,
+zamba2 (``hybrid_attn_every``): G groups of ``every`` Mamba2 layers, each
+followed by ONE shared transformer block (weights reused by every group)
+fed ``concat([x, x0]) @ fused_proj``, x0 being the embeddings; then the
+``L % every`` tail layers. Each group's shared-block call keeps its own KV
+span: ``shared_k/v`` (G, B, KV, S_max, hd). Its prefill attention is K2 on
+CUDA, like the dense prefill's; its slot decode reads the span in plain
+torch (:func:`repro_torch.models.attention.decode_attention_rows`).
+
+Entry points: :func:`init_params`, :func:`prefill` (dense, Mamba1 and
+hybrid branches, with ``last_positions``), :func:`init_cache` (SSM and
+hybrid slot state), the paged path :func:`prefill_window_paged`,
 :func:`decode_step_paged`, :func:`decode_chunk_paged` (attention archs
 only, as in the reference), and the slot path :func:`decode_step_slots`,
-:func:`decode_chunk_slots` (Mamba1 only). MoE, Mamba2/hybrid and
+:func:`decode_chunk_slots` (Mamba1 and the hybrid). MoE and
 modality-frontend configs raise ``ValueError`` (later slices).
 
 One device sync per decode chunk: :func:`decode_chunk_paged` and
@@ -30,7 +40,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import (attention, paged_decode_attention,
+from .attention import (attention, decode_attention_rows,
+                        paged_decode_attention,
                         paged_prefill_window_attention)
 from .layers import dtype_of, matmul_f32, rms_norm, sinusoidal_positions
 from .mamba import init_mamba_state, mamba_forward, mamba_step
@@ -49,9 +60,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _unported(cfg: ModelConfig) -> bool:
-    """MoE, Mamba2/hybrid and modality-frontend archs: later slices."""
-    return bool(cfg.moe or cfg.hybrid_attn_every or cfg.frontend != "none"
-                or (cfg.ssm and cfg.ssm_version != 1))
+    """MoE and modality-frontend archs: later slices."""
+    return bool(cfg.moe or cfg.frontend != "none")
 
 
 def _require_dense(cfg: ModelConfig, what: str) -> None:
@@ -66,14 +76,14 @@ def _require_dense(cfg: ModelConfig, what: str) -> None:
 def _require_ported(cfg: ModelConfig, what: str) -> None:
     if _unported(cfg):
         raise ValueError(f"{cfg.name}: {what} in repro_torch covers dense "
-                         "attention and Mamba1 archs only (family "
-                         f"{cfg.family!r}, frontend {cfg.frontend!r} are not "
-                         "ported yet)")
+                         "attention, Mamba1 and Mamba2-hybrid archs only "
+                         f"(family {cfg.family!r}, frontend {cfg.frontend!r} "
+                         "are not ported yet)")
 
 
 def _require_slots(cfg: ModelConfig, what: str) -> None:
-    """The slot-state entry points: Mamba1 only (zamba2's hybrid slots come
-    with its slice; attention archs page their KV instead)."""
+    """The slot-state entry points: SSM and hybrid archs (attention archs
+    page their KV instead)."""
     _require_ported(cfg, what)
     if not cfg.ssm:
         raise ValueError(f"{cfg.name}: {what} is the SSM path; attention "
@@ -82,11 +92,26 @@ def _require_slots(cfg: ModelConfig, what: str) -> None:
 
 def layer_views(params) -> List[Dict[str, torch.Tensor]]:
     """Layer ``l``'s weights as views into the stacked leaves (no copy),
-    for every ``l``. Making ~a dozen views per layer per decode step costs
-    more host time than a small model's layer math, so a caller on the hot
-    path (the engine) builds this list once and passes it as ``layers=``
-    to the entry points; without it each call builds its own."""
-    leaves = tuple(params["blocks"].items())
+    for every ``l`` in execution order (the hybrid: group 0's layers, group
+    1's, ..., then the tail's; its shared block is read from
+    ``params["shared_block"]``). Making ~a dozen views per layer per decode
+    step costs more host time than a small model's layer math, so a caller
+    on the hot path (the engine) builds this list once and passes it as
+    ``layers=`` to the entry points; without it each call builds its
+    own."""
+    if "gblocks" not in params:
+        return _stack_views(params["blocks"])
+    leaves = tuple(params["gblocks"].items())
+    G, every = leaves[0][1].shape[:2]
+    views = [{k: v[g, l] for k, v in leaves}
+             for g in range(G) for l in range(every)]
+    if "tail_blocks" in params:
+        views += _stack_views(params["tail_blocks"])
+    return views
+
+
+def _stack_views(stack) -> List[Dict[str, torch.Tensor]]:
+    leaves = tuple(stack.items())
     return [{k: v[l] for k, v in leaves}
             for l in range(leaves[0][1].shape[0])]
 
@@ -246,6 +271,11 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int = 0,
     from (``max_len`` is unused); ``impl`` is the scan, ``"kernel"`` by
     default (K3 on CUDA, the plain scan for CPU tensors) or ``"plain"``.
 
+    The zamba2 hybrid: :func:`init_cache`'s hybrid leaves, ``g_ssm`` (conv
+    (G, every, B, K-1, dI+2N), h (G, every, B, nh, hp, N)), ``tail_ssm``
+    and ``shared_k/v`` (G, B, KV, max(max_len, S), hd); ``impl`` is the
+    shared block's attention, as for dense archs (K2 on CUDA by default).
+
     ``last_positions`` ((B,) int, optional) picks a per-row logit position.
     ``layers`` as in :func:`decode_step_paged`.
     """
@@ -254,13 +284,15 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int = 0,
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = _embed_tokens(cfg, params, tokens, positions)
     layers = layers or layer_views(params)
-    if cfg.ssm:
+    attn_impl = impl or ("flash" if tokens.is_cuda else "chunked")
+    if cfg.hybrid_attn_every:
+        x, cache = _prefill_hybrid(cfg, params, layers, x, positions,
+                                   max(max_len, S), attn_impl)
+    elif cfg.ssm:
         x, cache = _prefill_ssm(cfg, layers, x, impl or "kernel")
     else:
-        if impl is None:
-            impl = "flash" if tokens.is_cuda else "chunked"
         x, cache = _prefill_attention(cfg, layers, x, positions,
-                                      max(max_len, S), impl)
+                                      max(max_len, S), attn_impl)
     x_last = x[:, -1] if last_positions is None \
         else x[torch.arange(B, device=x.device), last_positions.long()]
     logits = _logits(cfg, params, x_last)
@@ -268,10 +300,20 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int = 0,
     return logits, cache
 
 
+def _kv_span(k, v, max_len: int, cdt):
+    """A prefill's (B, S, KV, hd) K and V as (B, KV, max_len, hd) cache
+    spans in the compute dtype, zero past S."""
+    pad = max_len - k.shape[1]
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    return k.to(cdt), v.to(cdt)
+
+
 def _prefill_attention(cfg: ModelConfig, layers, x, positions, max_len: int,
                        impl: str):
     cdt = dtype_of(cfg.compute_dtype)
-    pad = max_len - x.shape[1]
     ks, vs = [], []
     for lp in layers:
         h = rms_norm(x, lp["ln1"], cfg.rms_eps)
@@ -280,13 +322,9 @@ def _prefill_attention(cfg: ModelConfig, layers, x, positions, max_len: int,
         x = x + y
         h2 = rms_norm(x, lp["ln2"], cfg.rms_eps)
         x = x + mlp(lp, h2, cfg)
-        k = k.transpose(1, 2)                      # (B, KV, S, hd)
-        v = v.transpose(1, 2)
-        if pad:
-            k = torch.nn.functional.pad(k, (0, 0, 0, pad))
-            v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-        ks.append(k.to(cdt))
-        vs.append(v.to(cdt))
+        k, v = _kv_span(k, v, max_len, cdt)
+        ks.append(k)
+        vs.append(v)
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -303,31 +341,112 @@ def _prefill_ssm(cfg: ModelConfig, layers, x, impl: str):
     return x, {"ssm": (torch.stack(convs), torch.stack(hs))}
 
 
+def _shared_block_prefill(sb, x, x0, cfg: ModelConfig, positions,
+                          max_len: int, impl: str):
+    """zamba2's shared block over the whole prompt (the reference's
+    ``_shared_block_apply`` with its K/V kept): concat([x, x0]) @ fused_proj
+    -> attention -> MLP, added to x. Returns (x, k, v) with k/v (B, KV,
+    max_len, hd) in the compute dtype."""
+    cdt = dtype_of(cfg.compute_dtype)
+    h = torch.cat([x, x0], dim=-1) @ sb["fused_proj"].to(cdt)
+    a, (k, v) = attention(sb, rms_norm(h, sb["ln1"], cfg.rms_eps), cfg,
+                          positions, impl=impl, return_kv=True)
+    h = h + a
+    h = h + mlp(sb, rms_norm(h, sb["ln2"], cfg.rms_eps), cfg)
+    return (x + h, *_kv_span(k, v, max_len, cdt))
+
+
+def _prefill_hybrid(cfg: ModelConfig, params, layers, x, positions,
+                    max_len: int, impl: str):
+    """Each group's Mamba2 layers, then the shared block on (x, x0) with its
+    own KV span, then the tail layers (the reference's hybrid prefill)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    every = cfg.hybrid_attn_every
+    G = cfg.num_layers // every
+    x0 = x
+    convs, hs, ks, vs = [], [], [], []
+    for i, lp in enumerate(layers):
+        h = rms_norm(x, lp["ln1"], cfg.rms_eps)
+        y, (conv, hh) = mamba_forward(lp, h, cfg, return_state=True)
+        x = x + y
+        convs.append(conv.to(cdt))
+        hs.append(hh)
+        if i < G * every and i % every == every - 1:
+            x, k, v = _shared_block_prefill(params["shared_block"], x, x0,
+                                            cfg, positions, max_len, impl)
+            ks.append(k)
+            vs.append(v)
+    n = G * every
+
+    def groups(ts):
+        return torch.stack(ts[:n]).unflatten(0, (G, every))
+
+    cache = {"g_ssm": (groups(convs), groups(hs)),
+             "shared_k": torch.stack(ks), "shared_v": torch.stack(vs)}
+    if len(layers) > n:
+        cache["tail_ssm"] = (torch.stack(convs[n:]), torch.stack(hs[n:]))
+    return x, cache
+
+
 # ------------------------------------------------------------ slot state
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
                device=None) -> Dict[str, Any]:
-    """The decode cache of a Mamba1 arch (the SSM branch of the
-    reference's ``init_cache``): ``{"pos": 0, "ssm": (conv (L, batch, K-1,
-    dI) in the compute dtype, h (L, batch, dI, N) fp32)}``, zeros.
-    ``max_len`` is unused (an SSM's state does not grow); ``device`` None
-    means CUDA. The serve engine's fixed-slot pool is this minus ``pos``."""
+    """The decode cache of an SSM or hybrid arch (the reference's
+    ``init_cache`` branches), zeros; ``device`` None means CUDA. The serve
+    engine's fixed-slot pool is this minus ``pos``.
+
+    Mamba1: ``{"pos": 0, "ssm": (conv (L, batch, K-1, dI) in the compute
+    dtype, h (L, batch, dI, N) fp32)}``; ``max_len`` is unused (an SSM's
+    state does not grow). The zamba2 hybrid: ``g_ssm`` (conv (G, every,
+    batch, K-1, dI+2N), h (G, every, batch, nh, hp, N) fp32), ``tail_ssm``
+    ((tail, batch, ...) likewise, when ``L % every``) and ``shared_k``,
+    ``shared_v`` (G, batch, KV, max_len, hd) in the compute dtype."""
     _require_slots(cfg, "init_cache")
-    L = cfg.num_layers
-    conv, h = init_mamba_state(cfg, batch, dtype_of(cfg.compute_dtype),
-                               resolve_device(device))
-    return {"pos": 0,
-            "ssm": (conv.unsqueeze(0).repeat(L, 1, 1, 1),
-                    h.unsqueeze(0).repeat(L, 1, 1, 1))}
+    cdt = dtype_of(cfg.compute_dtype)
+    dev = resolve_device(device)
+    conv, h = init_mamba_state(cfg, batch, cdt, dev)
+
+    def stack(t, lead):
+        return t.expand(*lead, *t.shape).clone()
+
+    L, every = cfg.num_layers, cfg.hybrid_attn_every
+    if not every:
+        return {"pos": 0, "ssm": (stack(conv, (L,)), stack(h, (L,)))}
+    G, tail = divmod(L, every)
+    kv = (G, batch, cfg.num_kv_heads, max_len, cfg.hd)
+    cache = {"pos": 0,
+             "g_ssm": (stack(conv, (G, every)), stack(h, (G, every))),
+             "shared_k": torch.zeros(kv, dtype=cdt, device=dev),
+             "shared_v": torch.zeros(kv, dtype=cdt, device=dev)}
+    if tail:
+        cache["tail_ssm"] = (stack(conv, (tail,)), stack(h, (tail,)))
+    return cache
+
+
+def _shared_block_decode_rows(p, x1, x0, cfg: ModelConfig, ck, cv, pos):
+    """Per-row-position zamba2 shared block (slot-resident decode); ck/cv
+    are this group's (B, KV, S_max, hd) spans, written in place."""
+    cdt = dtype_of(cfg.compute_dtype)
+    h = torch.cat([x1, x0], dim=-1) @ p["fused_proj"].to(cdt)
+    a, _, _ = decode_attention_rows(
+        p, rms_norm(h, p["ln1"], cfg.rms_eps)[:, None, :], cfg, ck, cv, pos)
+    h = h + a[:, 0]
+    h = h + mlp(p, rms_norm(h, p["ln2"], cfg.rms_eps)[:, None, :],
+                cfg)[:, 0]
+    return x1 + h
 
 
 def decode_step_slots(cfg: ModelConfig, params, state, token, pos,
                       layers=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One decode step over the SLOT-RESIDENT state pool of a Mamba1 arch,
-    with per-row positions (the counterpart of :func:`decode_step_paged`).
+    """One decode step over the SLOT-RESIDENT state pool of an SSM or
+    hybrid arch, with per-row positions (the counterpart of
+    :func:`decode_step_paged`).
 
-    ``state`` is :func:`init_cache`'s dict minus ``pos``; its ``ssm``
-    tensors are updated IN PLACE (each layer's new ``(conv, h)`` is copied
-    into them) and the same dict is returned. Every op is row-wise, so a
+    ``state`` is :func:`init_cache`'s dict minus ``pos``; its tensors are
+    updated IN PLACE (each layer's new ``(conv, h)`` is copied into them;
+    the hybrid's shared block writes each row's K and V at ``pos[b]`` of
+    its group's span, so every ``pos[b]`` must be below the span's length)
+    and the same dict is returned. Every op is row-wise, so a
     row's tokens do not depend on who shares the batch; inactive slots step
     on stale state harmlessly (the engine discards their tokens and
     overwrites the slot at the next admission). token: (B,) int; pos: (B,)
@@ -335,20 +454,42 @@ def decode_step_slots(cfg: ModelConfig, params, state, token, pos,
     """
     _require_slots(cfg, "slot-state decode")
     x1 = _embed_tokens(cfg, params, token, pos)
-    conv, h = state["ssm"]
-    for l, lp in enumerate(layers or layer_views(params)):
+    layers = layers or layer_views(params)
+    if not cfg.hybrid_attn_every:
+        x1 = _ssm_layers_step(cfg, layers, x1, state["ssm"])
+        return _logits(cfg, params, x1), state
+    every = cfg.hybrid_attn_every
+    x0 = x1
+    conv, h = state["g_ssm"]
+    for g in range(conv.shape[0]):
+        x1 = _ssm_layers_step(cfg, layers[g * every:(g + 1) * every], x1,
+                              (conv[g], h[g]))
+        x1 = _shared_block_decode_rows(params["shared_block"], x1, x0, cfg,
+                                       state["shared_k"][g],
+                                       state["shared_v"][g], pos)
+    if "tail_ssm" in state:
+        x1 = _ssm_layers_step(cfg, layers[conv.shape[0] * every:], x1,
+                              state["tail_ssm"])
+    return _logits(cfg, params, x1), state
+
+
+def _ssm_layers_step(cfg: ModelConfig, layers, x1, ssm):
+    """One token through a run of Mamba layers; ``ssm`` = (conv, h) stacked
+    over those layers, each layer's new state copied in place."""
+    conv, h = ssm
+    for l, lp in enumerate(layers):
         x1, (conv_l, h_l) = _block_decode(lp, x1, cfg, (conv[l], h[l]),
                                           None)
         conv[l].copy_(conv_l)
         h[l].copy_(h_l)
-    return _logits(cfg, params, x1), state
+    return x1
 
 
 def decode_chunk_slots(cfg: ModelConfig, params, state, carry, n: int,
                        layers=None):
-    """``n`` greedy decode steps over the slot-state pool — the Mamba1
-    counterpart of :func:`decode_chunk_paged`, with the same device-resident
-    ``(lengths, last, rem)`` carry. Returns ``(state, (lengths, last, rem),
+    """``n`` greedy decode steps over the slot-state pool — the SSM and
+    hybrid counterpart of :func:`decode_chunk_paged`, with the same
+    device-resident ``(lengths, last, rem)`` carry. Returns ``(state, (lengths, last, rem),
     toks)`` with ``toks`` (B, n) int32."""
     _require_slots(cfg, "slot-state decode")
     layers = layers or layer_views(params)

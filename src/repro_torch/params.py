@@ -11,14 +11,15 @@ Load-time cast: the reference casts every fp32 weight matrix to the compute
 dtype at each use (``p["wq"].astype(cdt)``). Rounding once at load gives the
 same bits and halves resident weights (stablelm-1.6b at full width: ~3.3 GB
 bf16 instead of 6.6 GB fp32), so the matrices ``wq wk wv wo wi wg wd embed
-lm_head`` and the Mamba1 leaves the reference casts the same way
-(``in_proj x_proj dt_proj out_proj conv_w conv_b``) are stored in the
-compute dtype (``from_reference(cast=False)`` keeps the reference's dtypes,
-for a bit-exact copy). Norm scales stay in ``param_dtype``: ``rms_norm``
+lm_head``, the Mamba leaves the reference casts the same way (``in_proj
+x_proj dt_proj out_proj conv_w conv_b``) and zamba2's shared-block
+``fused_proj`` are stored in the compute dtype (``from_reference(cast=False)``
+keeps the reference's dtypes, for a bit-exact copy). Norm scales stay in
+``param_dtype`` (Mamba2's gated-norm ``ssm_norm`` too): ``rms_norm``
 upcasts the scale to fp32, and a bf16 round trip would change it. Biases
-stay too (they are cast at use, as in the reference), and so do the Mamba1
+stay too (they are cast at use, as in the reference), and so do the Mamba
 leaves read in fp32: ``A_log`` and ``ssm_D`` (fp32 in the tree) and
-``dt_bias`` (upcast at use).
+``dt_bias`` (upcast at use; fp32 in the Mamba2 tree).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ __all__ = ["from_reference", "init_params", "MATRICES", "to_torch",
 #: weight names stored in the compute dtype (the load-time cast)
 MATRICES = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "wd", "embed",
                       "lm_head", "in_proj", "x_proj", "dt_proj", "out_proj",
-                      "conv_w", "conv_b"})
+                      "conv_w", "conv_b", "fused_proj"})
 
 
 def to_torch(x, device=None) -> torch.Tensor:
@@ -81,41 +82,56 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with the reference tree's names and shapes, drawn on
     the generator's device and moved to ``device`` (None: CUDA); matrices
     in the compute dtype, norm scales and biases in ``param_dtype``. Dense
-    attention and Mamba1 (falcon-mamba) families; MoE and Mamba2/hybrid
-    trees come with their slices."""
-    if cfg.moe or cfg.hybrid_attn_every or (cfg.ssm and cfg.ssm_version != 1):
+    attention, Mamba1 (falcon-mamba) and the Mamba2 hybrid (zamba2:
+    ``gblocks`` stacked (G, every, ...), ``tail_blocks`` (tail, ...) and
+    one ``shared_block``); MoE trees come with their slice."""
+    if cfg.moe:
         raise ValueError(f"{cfg.name}: repro_torch.init_params covers dense "
-                         "attention and Mamba1 configs only (family "
-                         f"{cfg.family!r} is not ported yet)")
+                         "attention, Mamba1 and Mamba2-hybrid configs only "
+                         f"(family {cfg.family!r} is not ported yet)")
     dev = resolve_device(device)
     pdt = dtype_of(cfg.param_dtype)
     mdt = dtype_of(cfg.compute_dtype)
     g = generator
-    L, D = cfg.num_layers, cfg.d_model
-    Vp = cfg.padded_vocab
+    D, Vp = cfg.d_model, cfg.padded_vocab
 
-    def stacked(draw, shape, dtype):
-        # per-layer draws stacked over L, as the vmapped ref; filled layer
-        # by layer so the peak is one stack, not a list plus its stack
-        out = torch.empty((L, *shape), dtype=dtype, device=dev)
-        for l in range(L):
-            out[l] = draw()
-        return out
+    def layer_stack(n: int) -> Dict[str, torch.Tensor]:
+        """``n`` layers' leaves, each stacked over a leading axis of n."""
+        def stacked(draw, shape, dtype):
+            # per-layer draws stacked, as the vmapped ref; filled layer by
+            # layer so the peak is one stack, not a list plus its stack
+            out = torch.empty((n, *shape), dtype=dtype, device=dev)
+            for l in range(n):
+                out[l] = draw()
+            return out
 
-    def dense(shape):
-        return stacked(lambda: dense_init(g, shape, mdt), shape, mdt)
+        def dense(shape):
+            return stacked(lambda: dense_init(g, shape, mdt), shape, mdt)
 
-    def const(shape, value, dtype=pdt):
-        return torch.full(shape, value, dtype=dtype, device=dev)
+        def const(shape, value, dtype=pdt):
+            return torch.full((n, *shape), value, dtype=dtype, device=dev)
 
-    if cfg.ssm:
-        blocks = _init_m1(cfg, g, dev, stacked, dense, const, pdt, mdt)
+        if not cfg.ssm:
+            return _init_attention_mlp(cfg, dense, const)
+        init = _init_m1 if cfg.ssm_version == 1 else _init_m2
+        return {"ln1": const((D,), 1.0),
+                **init(cfg, g, stacked, dense, const, pdt, mdt)}
+
+    every = cfg.hybrid_attn_every
+    stacks: Dict[str, Any] = {}
+    if every:
+        G, tail = divmod(cfg.num_layers, every)
+        stacks["gblocks"] = {k: v.reshape(G, every, *v.shape[1:])
+                             for k, v in layer_stack(G * every).items()}
+        if tail:
+            stacks["tail_blocks"] = layer_stack(tail)
+        stacks["shared_block"] = _init_shared_block(cfg, g, dev, pdt, mdt)
     else:
-        blocks = _init_attention_mlp(cfg, dense, const)
+        stacks["blocks"] = layer_stack(cfg.num_layers)
     params: Dict[str, Any] = {
         "embed": normal_init(g, (Vp, D), 0.02, mdt).to(dev),
-        "final_norm": const((D,), 1.0),
-        "blocks": blocks,
+        "final_norm": torch.ones((D,), dtype=pdt, device=dev),
+        **stacks,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(g, (D, Vp), 0.02, mdt).to(dev)
@@ -126,23 +142,22 @@ def _init_attention_mlp(cfg: ModelConfig, dense, const
                         ) -> Dict[str, torch.Tensor]:
     """A dense attention + MLP layer stack (the reference's ``_init_block``
     for attention archs)."""
-    L, D, H, KV, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads,
-                       cfg.num_kv_heads, cfg.hd)
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     blocks: Dict[str, torch.Tensor] = {
-        "ln1": const((L, D), 1.0),
+        "ln1": const((D,), 1.0),
         "wq": dense((D, H * hd)),
         "wk": dense((D, KV * hd)),
         "wv": dense((D, KV * hd)),
         "wo": dense((H * hd, D)),
     }
     if cfg.qkv_bias:
-        blocks["bq"] = const((L, H * hd), 0.0)
-        blocks["bk"] = const((L, KV * hd), 0.0)
-        blocks["bv"] = const((L, KV * hd), 0.0)
+        blocks["bq"] = const((H * hd,), 0.0)
+        blocks["bk"] = const((KV * hd,), 0.0)
+        blocks["bv"] = const((KV * hd,), 0.0)
     if cfg.qk_norm:
-        blocks["q_norm"] = const((L, hd), 1.0)
-        blocks["k_norm"] = const((L, hd), 1.0)
-    blocks["ln2"] = const((L, D), 1.0)
+        blocks["q_norm"] = const((hd,), 1.0)
+        blocks["k_norm"] = const((hd,), 1.0)
+    blocks["ln2"] = const((D,), 1.0)
     blocks["wi"] = dense((D, cfg.d_ff))
     if cfg.mlp_gated:
         blocks["wg"] = dense((D, cfg.d_ff))
@@ -150,34 +165,78 @@ def _init_attention_mlp(cfg: ModelConfig, dense, const
     return blocks
 
 
-def _init_m1(cfg: ModelConfig, g: torch.Generator, dev: torch.device,
-             stacked, dense, const, pdt, mdt) -> Dict[str, torch.Tensor]:
-    """A Mamba1 layer stack with ``ln1`` and the reference ``_init_m1``'s
-    names, shapes and distributions (``repro.models.mamba``)."""
-    L, D = cfg.num_layers, cfg.d_model
+def _softplus_inv_uniform(g: torch.Generator, n: int) -> torch.Tensor:
+    """softplus^-1 of U(1e-3, 1e-1), fp32: the reference's ``dt_bias``."""
+    u = torch.rand((n,), generator=g, device=g.device) * (1e-1 - 1e-3) + 1e-3
+    return torch.log(torch.expm1(u))
+
+
+def _init_m1(cfg: ModelConfig, g: torch.Generator, stacked, dense, const,
+             pdt, mdt) -> Dict[str, torch.Tensor]:
+    """A Mamba1 layer stack with the reference ``_init_m1``'s names, shapes
+    and distributions (``repro.models.mamba``), without ``ln1``."""
+    D = cfg.d_model
     dI, N, R, K = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_, cfg.ssm_conv
-
-    def dt_bias():   # softplus^-1 of U(1e-3, 1e-1)
-        u = torch.rand((dI,), generator=g, device=g.device) \
-            * (1e-1 - 1e-3) + 1e-3
-        return torch.log(torch.expm1(u)).to(pdt)
-
     # A_log and ssm_D are fp32 whatever param_dtype is, as in the reference
-    A = torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(dI, 1)
+    A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32)
+                      ).repeat(dI, 1)
     return {
-        "ln1": const((L, D), 1.0),
         "in_proj": dense((D, 2 * dI)),
         "conv_w": stacked(lambda: normal_init(g, (dI, K), 0.2, mdt),
                           (dI, K), mdt),
-        "conv_b": const((L, dI), 0.0, mdt),
+        "conv_b": const((dI,), 0.0, mdt),
         "x_proj": dense((dI, R + 2 * N)),
         "dt_proj": stacked(lambda: normal_init(g, (R, dI), R ** -0.5, mdt),
                            (R, dI), mdt),
-        "dt_bias": stacked(dt_bias, (dI,), pdt),
-        "A_log": torch.log(A).repeat(L, 1, 1),
-        "ssm_D": const((L, dI), 1.0, torch.float32),
+        "dt_bias": stacked(lambda: _softplus_inv_uniform(g, dI).to(pdt),
+                           (dI,), pdt),
+        "A_log": stacked(lambda: A_log, (dI, N), torch.float32),
+        "ssm_D": const((dI,), 1.0, torch.float32),
         "out_proj": dense((dI, D)),
     }
+
+
+def _init_m2(cfg: ModelConfig, g: torch.Generator, stacked, dense, const,
+             pdt, mdt) -> Dict[str, torch.Tensor]:
+    """A Mamba2 layer stack with the reference ``_init_m2``'s names, shapes
+    and distributions, without ``ln1``; ``A_log``, ``dt_bias`` and
+    ``ssm_D`` are fp32 as there."""
+    D, dI, N, K, nh = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv,
+                       cfg.ssm_heads)
+    conv_dim = dI + 2 * N
+    A_log = torch.log(torch.linspace(1.0, 16.0, nh))
+    return {
+        "in_proj": dense((D, 2 * dI + 2 * N + nh)),
+        "conv_w": stacked(lambda: normal_init(g, (conv_dim, K), 0.2, mdt),
+                          (conv_dim, K), mdt),
+        "conv_b": const((conv_dim,), 0.0, mdt),
+        "A_log": stacked(lambda: A_log, (nh,), torch.float32),
+        "dt_bias": stacked(lambda: _softplus_inv_uniform(g, nh), (nh,),
+                           torch.float32),
+        "ssm_D": const((nh,), 1.0, torch.float32),
+        "ssm_norm": const((dI,), 1.0),
+        "out_proj": dense((dI, D)),
+    }
+
+
+def _init_shared_block(cfg: ModelConfig, g: torch.Generator, dev, pdt, mdt
+                       ) -> Dict[str, torch.Tensor]:
+    """zamba2's one shared transformer block (the reference's
+    ``_init_shared_block``): the (2D, D) concat in-projection, two norms,
+    attention and a gated MLP."""
+    D, H, KV, hd, Fd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                        cfg.d_ff)
+
+    def dense(shape):
+        return dense_init(g, shape, mdt).to(dev)
+
+    def ones():
+        return torch.ones((D,), dtype=pdt, device=dev)
+
+    return {"fused_proj": dense((2 * D, D)), "ln1": ones(), "ln2": ones(),
+            "wq": dense((D, H * hd)), "wk": dense((D, KV * hd)),
+            "wv": dense((D, KV * hd)), "wo": dense((H * hd, D)),
+            "wi": dense((D, Fd)), "wg": dense((D, Fd)), "wd": dense((Fd, D))}
 
 
 def param_bytes(params: Dict[str, Any]) -> int:

@@ -3,8 +3,9 @@ Taskflow pipeline fed by a request queue, with TWO-PHASE memory admission.
 
 This is the synchronous, single-device subset of the reference
 ``repro.serve.engine.ServeEngine``, with the same stage structure. Attention
-archs page their KV (below); Mamba1 archs (falcon-mamba) keep a FIXED-SLOT
-recurrent-state pool instead (``paged == False``, see "Slot-state path"):
+archs page their KV (below); Mamba1 archs (falcon-mamba) and the zamba2
+hybrid keep a FIXED-SLOT recurrent-state pool instead (``paged == False``,
+see "Slot-state path"):
 
     admit (SERIAL)    -> pop an admission group (one FIFO, tiered) and
                          allocate its PROMPT-ONLY block footprint; park via
@@ -27,16 +28,20 @@ The KV pool and the device block tables are written ONLY by the SERIAL
 decode stage, in place (the reference donates and replaces them). The
 chunk's only device sync is reading its tokens back.
 
-Slot-state path (Mamba1): the pool is :func:`repro_torch.models.lm.
-init_cache`'s per-layer ``(conv, h)`` state for ``max_batch`` slots,
-allocated once. Admission is bounded by free slots alone (an SSM's state
-does not grow with the sequence, so there are no blocks, windows, growth or
-preemption); the prefill stage runs one whole-prompt prefill per member at
-B=1 (on CUDA its scans are K3, the selective-scan kernel); the decode stage
-copies each member's prefilled state into its slot and advances every row
-with :func:`repro_torch.models.lm.decode_chunk_slots`, which updates the
-slot state in place. ``max_seq_len`` (default 512) only bounds ``prompt +
-max_new`` at submit, as in the reference.
+Slot-state path (Mamba1, hybrid): the pool is :func:`repro_torch.models.
+lm.init_cache`'s state for ``max_batch`` slots, allocated once: per-layer
+``(conv, h)`` (Mamba1: ``ssm``; zamba2: ``g_ssm`` and ``tail_ssm``) and,
+for zamba2, each group's shared-block KV span of ``max_seq_len`` positions
+per slot (``shared_k``, ``shared_v``). Admission is bounded by free slots
+alone (a slot's state is sized once, so there are no blocks, windows,
+growth or preemption); the prefill stage runs one whole-prompt prefill per
+member at B=1 (on CUDA, Mamba1's scans are K3, the selective-scan kernel,
+and zamba2's shared-block attention is K2); the decode stage copies each
+member's prefilled state into its slot and advances every row with
+:func:`repro_torch.models.lm.decode_chunk_slots`, which updates the slot
+state in place. ``max_seq_len`` (default 512) bounds ``prompt + max_new``
+at submit, as in the reference, which keeps every zamba2 row's KV write
+inside its span.
 
 Threads: the stages run on :class:`repro_torch.core.Executor` worker
 threads, and ``torch.inference_mode`` is thread-local, so every stage
@@ -49,9 +54,9 @@ and marks the engine broken.
 Not in this slice (queued in ROADMAP.md): async decode lookahead, the
 prefix cache and its copy-on-write guard, SLO shedding/deadlines/watchdog,
 fault injection, journal/snapshot/drain/recover, observability, meshes, the
-checkpoint preemption of SSM slots, the zamba2 hybrid slots and the
-per-call grouped baseline. The engine raises :class:`UnsupportedArch` on
-archs it cannot serve yet (MoE, Mamba2/hybrid, modality frontends).
+checkpoint preemption of SSM and hybrid slots and the per-call grouped
+baseline. The engine raises :class:`UnsupportedArch` on archs it cannot
+serve yet (MoE, modality frontends).
 """
 from __future__ import annotations
 
@@ -82,8 +87,8 @@ PIPELINE_LINES = 3
 
 
 class UnsupportedArch(ServeError, ValueError):
-    """The port's engine cannot serve this architecture yet (MoE,
-    Mamba2/hybrid or modality-frontend configs come with later slices)."""
+    """The port's engine cannot serve this architecture yet (MoE or
+    modality-frontend configs come with later slices)."""
 
 
 class ServeEngine:
@@ -92,7 +97,7 @@ class ServeEngine:
     Parameters
     ----------
     cfg, params:
-        a dense attention or Mamba1 config and its weights
+        a dense attention, Mamba1 or zamba2 hybrid config and its weights
         (:func:`repro_torch.params.init_params` / ``from_reference``) on
         the engine's device.
     decode_chunk:
@@ -140,12 +145,12 @@ class ServeEngine:
                  paged_impl: Optional[str] = None,
                  record_stages: bool = False,
                  device=None):
-        if cfg.moe or cfg.hybrid_attn_every or cfg.frontend != "none" \
-                or (cfg.ssm and cfg.ssm_version != 1):
+        if cfg.moe or cfg.frontend != "none":
             raise UnsupportedArch(
                 f"{cfg.name} (family {cfg.family!r}, frontend "
                 f"{cfg.frontend!r}): the repro_torch engine serves dense "
-                "attention and Mamba1 archs only in this slice")
+                "attention, Mamba1 and Mamba2-hybrid archs only in this "
+                "slice")
         self.cfg = cfg
         self.paged = not (cfg.ssm or cfg.hybrid_attn_every)
         self.device = resolve_device(device)
@@ -493,10 +498,9 @@ class ServeEngine:
 
     def _merge_group_slots(self, payload) -> None:
         """Seat an admitted slot-state group: copy each member's prefilled
-        ``(conv, h)`` into its slot of the state pool and start it
-        decoding from its first token."""
+        state into its slot of the state pool and start it decoding from
+        its first token."""
         now = time.perf_counter()
-        conv, h = self._sstate["ssm"]
         for req, cache, first in payload:
             with self._state_lock:
                 slot = self._free_slots.pop()
@@ -504,9 +508,7 @@ class ServeEngine:
                 self._slot_req[slot] = req
                 self._slot_out[slot] = [first]
                 self._slot_phase[slot] = "decode"
-            pconv, ph = cache["ssm"]
-            conv[:, slot].copy_(pconv[:, 0])
-            h[:, slot].copy_(ph[:, 0])
+            write_slot_state(self._sstate, slot, cache, req.prompt_len)
             self._lengths[slot] = req.prompt_len
             self._last[slot] = first
             self._rem[slot] = req.max_new - 1
@@ -871,6 +873,25 @@ class ServeEngine:
             return []
         reqs = [self.submit(p, max_new) for p in prompts]
         return [self.result(r, timeout=600.0) for r in reqs]
+
+
+def write_slot_state(sstate, slot: int, cache, plen: int) -> None:
+    """Copy a B=1 prefill cache into ``slot`` of a slot-state pool, in
+    place (the reference engine's ``_write_slot_state``): per-layer ``(conv,
+    h)`` and, for zamba2, the prompt's ``plen`` positions of each group's
+    KV span (later positions keep a previous occupant's values, which the
+    row's mask never reads before its own writes replace them)."""
+    if "g_ssm" in sstate:
+        for dst, src in zip(sstate["g_ssm"], cache["g_ssm"]):
+            dst[:, :, slot].copy_(src[:, :, 0])
+        for dst, src in zip(sstate.get("tail_ssm", ()),
+                            cache.get("tail_ssm", ())):
+            dst[:, slot].copy_(src[:, 0])
+        for name in ("shared_k", "shared_v"):
+            sstate[name][:, slot, :, :plen].copy_(cache[name][:, 0])
+    else:
+        for dst, src in zip(sstate["ssm"], cache["ssm"]):
+            dst[:, slot].copy_(src[:, 0])
 
 
 def _leaves(tree, prefix: str = ""):

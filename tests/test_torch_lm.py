@@ -16,7 +16,7 @@ import torch
 
 from repro.models import lm as jlm
 from repro_torch.models import lm as tlm
-from repro_torch.params import to_torch
+from repro_torch.params import init_params, to_torch
 from test_torch_parity import ARCHS, assert_close, ref_params, smoke_cfg, to_np
 
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -150,11 +150,17 @@ def test_prefill_window_paged(arch, dt):
                                   "zamba2-1.2b", "musicgen-large"])
 def test_entry_points_refuse_unported_archs(arch):
     """The paged entry points take attention archs only, as the
-    reference's do (an SSM keeps O(1) state per sequence in the slot pool);
-    prefill takes falcon-mamba (Mamba1) and refuses the unported rest."""
+    reference's do (an SSM or the zamba2 hybrid keeps its state per
+    sequence in the slot pool); prefill takes falcon-mamba (Mamba1) and
+    zamba2 (the Mamba2 hybrid) and refuses the unported rest."""
     cfg = smoke_cfg(arch)
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    if arch != "falcon-mamba-7b":
+    if arch in ("falcon-mamba-7b", "zamba2-1.2b"):
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        logits, _ = tlm.prefill(cfg, params, toks)
+        assert tuple(logits.shape) == (1, cfg.padded_vocab)
+    else:
         with pytest.raises(ValueError):
             tlm.prefill(cfg, {}, toks)
     with pytest.raises(ValueError):

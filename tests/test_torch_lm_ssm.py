@@ -146,7 +146,7 @@ def test_short_prompts_match_token_by_token_decode(S):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "zamba2-1.2b",
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "internvl2-1b",
                                   "musicgen-large"])
 def test_slot_entry_points_refuse_unported_archs(arch):
     cfg = smoke_cfg(arch)

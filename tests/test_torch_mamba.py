@@ -174,14 +174,18 @@ def test_short_prompt_conv_tail_is_left_padded(S):
 
 
 def test_init_mamba_state_and_mamba2_refusal():
-    cfg = smoke_cfg("falcon-mamba-7b")
-    conv, h = tm.init_mamba_state(cfg, 3, torch.bfloat16, device="cpu")
-    jconv, jh = jm.init_mamba_state(cfg, 3, jnp.bfloat16)
-    assert tuple(conv.shape) == jconv.shape and conv.dtype == torch.bfloat16
-    assert tuple(h.shape) == jh.shape and h.dtype == torch.float32
-    assert not conv.any() and not h.any()
+    """Mamba1's and Mamba2's decode state: the reference's shapes and
+    dtypes, zeros (Mamba2: conv over dI + 2N channels, h per head (nh, hp,
+    N)); a config that is not an SSM is refused."""
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b"):
+        cfg = smoke_cfg(arch)
+        conv, h = tm.init_mamba_state(cfg, 3, torch.bfloat16, device="cpu")
+        jconv, jh = jm.init_mamba_state(cfg, 3, jnp.bfloat16)
+        assert tuple(conv.shape) == jconv.shape \
+            and conv.dtype == torch.bfloat16
+        assert tuple(h.shape) == jh.shape and h.dtype == torch.float32
+        assert not conv.any() and not h.any()
     z2 = smoke_cfg("zamba2-1.2b")
-    with pytest.raises(ValueError, match="zamba2"):
-        tm.init_mamba_state(z2, 1, device="cpu")
-    with pytest.raises(ValueError, match="zamba2"):
-        tm.mamba_forward({}, torch.zeros((1, 2, z2.d_model)), z2)
+    assert tuple(h.shape) == (3, z2.ssm_heads, z2.ssm_head_dim, z2.ssm_state)
+    with pytest.raises(ValueError, match="not a Mamba1 or Mamba2"):
+        tm.init_mamba_state(smoke_cfg("stablelm-1.6b"), 1, device="cpu")

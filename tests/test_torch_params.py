@@ -2,7 +2,8 @@
 tree name for name (bit-exact, bf16 leaves included), the load-time cast
 rounds exactly as the reference's per-use ``astype``, and the port's own
 ``init_params`` gives the reference tree's names and shapes — for the dense
-smoke configs and for falcon-mamba's Mamba1 tree."""
+smoke configs, falcon-mamba's Mamba1 tree and zamba2's hybrid tree."""
+import dataclasses
 import math
 
 import jax
@@ -26,7 +27,7 @@ def _flat(tree, prefix=""):
             yield prefix + k, v
 
 
-WITH_SSM = ARCHS + ("falcon-mamba-7b",)
+WITH_SSM = ARCHS + ("falcon-mamba-7b", "zamba2-1.2b")
 
 
 @pytest.mark.parametrize("arch", WITH_SSM)
@@ -141,6 +142,65 @@ def test_mamba1_param_count_at_full_width(monkeypatch):
     assert 14.5e9 < param_bytes(tp) < 14.6e9
 
 
+def test_init_params_hybrid_tree_matches_reference():
+    """zamba2 smoke with two groups (5 layers, every 2): the reference
+    tree's names and shapes (``gblocks`` (G, every, ...), ``tail_blocks``,
+    ``shared_block`` with ``fused_proj``); matrices in bf16, ``A_log``,
+    ``dt_bias`` and ``ssm_D`` fp32, ``ssm_norm`` and the norm scales in
+    param_dtype, and ``_init_m2``'s distributions (A = linspace(1, 16) per
+    head, D = 1, dt = softplus of the bias in [1e-3, 1e-1])."""
+    cfg = dataclasses.replace(smoke_cfg("zamba2-1.2b"), num_layers=5)
+    jp = jax.eval_shape(lambda: jlm.init_params(cfg, jax.random.PRNGKey(0)))
+    tp = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jflat, tflat = dict(_flat(jp)), dict(_flat(tp))
+    assert sorted(jflat) == sorted(tflat)
+    for name, j in jflat.items():
+        leaf = name.split(".")[-1]
+        assert tuple(tflat[name].shape) == tuple(j.shape), name
+        want = torch.bfloat16 if leaf in MATRICES else \
+            torch.float32 if leaf in ("A_log", "dt_bias", "ssm_D") \
+            else getattr(torch, cfg.param_dtype)
+        assert tflat[name].dtype == want, name
+    gb = tp["gblocks"]
+    nh = cfg.ssm_heads
+    assert torch.equal(gb["A_log"], torch.log(
+        torch.linspace(1.0, 16.0, nh)).expand_as(gb["A_log"]))
+    assert torch.equal(gb["ssm_D"], torch.ones_like(gb["ssm_D"]))
+    dt = torch.nn.functional.softplus(tp["tail_blocks"]["dt_bias"])
+    assert 1e-3 - 1e-6 <= dt.min() and dt.max() <= 1e-1 + 1e-6
+    # one draw per layer: the two groups' layers differ
+    assert not torch.equal(gb["in_proj"][0, 0], gb["in_proj"][1, 0])
+    assert abs(tp["shared_block"]["fused_proj"].float().std().item()
+               - (2 * cfg.d_model) ** -0.5) < 0.02
+
+
+def test_zamba2_param_count_at_full_width(monkeypatch):
+    """Full-width zamba2-1.2b on the meta device (shapes only, nothing
+    drawn): the port's tree holds exactly the reference tree's
+    1,178,862,464 parameters, ~2.36 GB with the matrices in bf16.
+    ``cfg.param_count()`` says 1,178,777,728, short of both by L * (dI +
+    2N - D) + D = 84,736 (its Mamba2 formula omits ``conv_b`` and counts
+    a second norm per layer, and it omits the final norm)."""
+    from repro_torch import params as tparams
+    cfg = get_config("zamba2-1.2b")
+
+    def meta(g, shape, *a, dtype=torch.float32, **k):
+        dtype = a[-1] if a and isinstance(a[-1], torch.dtype) else dtype
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+    monkeypatch.setattr(tparams, "dense_init", meta)
+    monkeypatch.setattr(tparams, "normal_init", meta)
+    tp = tparams.init_params(cfg, torch.Generator(), device="meta")
+    n = sum(v.numel() for _, v in _flat(tp))
+    jp = jax.eval_shape(lambda: jlm.init_params(cfg, jax.random.PRNGKey(0)))
+    assert n == sum(math.prod(j.shape) for j in jax.tree_util.tree_leaves(jp))
+    assert n == 1_178_862_464
+    assert cfg.param_count() == 1_178_777_728
+    assert n - cfg.param_count() == cfg.num_layers * (
+        cfg.d_inner + 2 * cfg.ssm_state - cfg.d_model) + cfg.d_model
+    assert 2.35e9 < param_bytes(tp) < 2.37e9
+
+
 def test_param_bytes_count_bf16_matrices_and_fp32_norms():
     """Matrices resident in bf16 (2 B), norms in fp32 (4 B); at full width
     stablelm-1.6b's weights are then ~3.3 GB (6.6 GB if left fp32)."""
@@ -153,9 +213,9 @@ def test_param_bytes_count_bf16_matrices_and_fp32_norms():
 
 
 def test_init_params_refuses_unported_families():
-    """MoE and Mamba2/hybrid trees come with their slices (falcon-mamba's
-    Mamba1 tree is covered by the tests below)."""
-    for arch in ("qwen2-moe-a2.7b", "zamba2-1.2b"):
+    """MoE trees come with their slice (falcon-mamba's Mamba1 tree and
+    zamba2's hybrid tree are covered by the tests beside this one)."""
+    for arch in ("qwen2-moe-a2.7b", "arctic-480b"):
         with pytest.raises(ValueError):
             init_params(get_config(arch).smoke(), torch.Generator(),
                         device="cpu")
