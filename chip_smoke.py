@@ -55,6 +55,20 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               and one Mamba2 layer at full width in fp32, its SSD dual form
               over 256 tokens against 256 single-token recurrence steps
               from a zero state; then the weights are freed;
+8c. moe     — qwen2-moe-a2.7b at full width and depth (24 layers, d_model
+              2048, 16 heads of 128, 60 experts top-4 of F=1408 plus
+              shared experts of 5632, vocab 151936; random weights from a
+              seeded ``torch.Generator``, 28.6 GB with the matrices in
+              bf16) through ``ServeEngine``'s paged pool: the same 8
+              staggered requests, with K1's and K2's launches read around
+              the run;
+8d. moestep — K1 (B=8, H=KV=16, hd=128) and K2 (B=4, S=T=128, H=KV=16,
+              hd=128) against their plain versions and timed beside SDPA
+              and their bound; the ``steps`` checks on a frozen copy of
+              the engine's pool, in bf16 at full depth and in fp32 compute
+              at full width and 8 layers; the share of assignments the
+              window-0 prefill drops over capacity; ``moe_layer`` twice on
+              one CUDA input, bitwise equal; then the weights are freed;
 9. k4       — K4 (the LSDNN layer) against its plain version at the HPEC
               shape T=60000, F=G=1024 (fp32 and bf16, random and HPEC
               data), at ragged shapes and at a cap-saturating case, then
@@ -130,6 +144,10 @@ KERNEL_TOL = 2e-2
 # (the bf16 weights and pool are exact in fp32) leaves only the summation
 # order, so its bound is tight.
 STEP_REL_TOL = {"bfloat16": 0.25, "float32": 1e-3}
+# the moestep phase's fp32 checks cut qwen2-moe to its first 8 of 24 layers
+# (full width): an fp32 copy of all 24 would be 57 GB beside the 28.6 GB
+# bf16 weights, more than the card's 80 GB; 8 layers are 20.7 GB
+MOE_FP32_LAYERS = 8
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
 MAX_NEW = 32
@@ -425,47 +443,19 @@ def phase_kernels(dev, other=None):
     # timing at the MHA serve shape (stablelm: H = KV = 32)
     q, pool, tables, ln = _paged_case(8, 32, 32, 64, bs, N, mb, lengths,
                                       dev, seed=64)
-    ms = time_ms(lambda: paged_mod.paged_attention_cuda(q, pool, tables, ln))
-    plain_ms = time_ms(lambda: paged_attention_ref(q, pool, tables, ln),
-                       iters=10)
-    # library yardstick: SDPA over the equivalent CONTIGUOUS cache; the
-    # gather that builds it is done once here and excluded from the time
-    T = mb * bs
-    pages = pool[:, tables.long()]                # (2, B, mb, KV, bs, hd)
-    kc, vc = pages.permute(0, 1, 3, 2, 4, 5).reshape(2, 8, 32, T, 64)
-    mask = (torch.arange(T, device=dev)[None, :]
-            <= ln.long()[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask))
-    # the kernel reads the table entries of the active pages and, of those
-    # pages, only the keys that attend (keys 0..pos; the rest are
-    # zero-filled, not read)
-    nb = (ln.long() // bs + 1).clamp(max=mb)
-    keys = int((ln.long() + 1).clamp(max=mb * bs).sum())
-    nbytes = 2 * q.numel() * 2 + keys * 32 * 64 * 2 * 2 \
-        + int(nb.sum()) * 4 + 8 * 4
-    flops = 4.0 * keys * 32 * 64
-    b_ms, b_by = bound_ms(nbytes, flops)
-    dev_ms = graph_ms(lambda: paged_mod.paged_attention_cuda(q, pool, tables,
-                                                             ln))
-    lib_dev_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask))
+    t = _k1_times(q, pool, tables, ln)
+    ms, lib_ms, b_ms = t["ms"], t["lib_ms"], t["bound_ms"]
     report["paged_attention"] = dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:56",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
-    log(f"[kernels] K1 timing B=8 H=KV=32: kernel {ms:.4f} ms | plain "
-        f"{plain_ms:.4f} ms | SDPA on contiguous cache {lib_ms:.4f} ms "
-        f"(gather excluded) | bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
-        f"{flops:.3e} flop) | device time in a CUDA graph: kernel "
-        f"{dev_ms:.5f} ms, SDPA {lib_dev_ms:.5f} ms")
+        max_abs_err=max(errs), ms=ms, plain_ms=t["plain_ms"], bound_ms=b_ms,
+        bound_by=t["bound_by"], library_ms=lib_ms)
+    log(f"[kernels] K1 timing B=8 H=KV=32: {_k1_line(t)}")
     host = host_us(lambda: paged_mod.paged_attention_cuda(q, pool, tables, ln))
-    kernel_report("[kernels] K1", "paged_attention", flops, ms, b_ms, lib_ms,
-                  sass_counts("paged_attention", K1_SASS), dev_ms, lib_dev_ms,
-                  host)
+    kernel_report("[kernels] K1", "paged_attention", t["flops"], ms, b_ms,
+                  lib_ms, sass_counts("paged_attention", K1_SASS),
+                  t["dev_ms"], t["lib_dev_ms"], host)
     out = torch.empty_like(q)
     cut = _time_ablations(
         ablations, "repro_paged_attention",
@@ -501,20 +491,7 @@ def phase_kernels(dev, other=None):
         errs.append(err)
         if main is None:
             main = (q, k, v)
-    q, k, v = main
-    B, S, H, hd = q.shape
-    ms = time_ms(lambda: flash_mod.flash_attention_cuda(q, k, v))
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), iters=10)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib_ms = time_ms(sdpa)
-    dev_ms = graph_ms(lambda: flash_mod.flash_attention_cuda(q, k, v))
-    lib_dev_ms = graph_ms(sdpa)
-    nbytes = 4 * q.numel() * 2
-    flops = 4.0 * B * H * hd * (S * (S + 1) // 2)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    t = _k2_times(*main)
     sass = sass_counts("flash_attention_bf16")
     if not sass or not all(c["HMMA"] and c["LDGSTS"] for c in sass.values()):
         raise SystemExit(f"K2's bf16 SASS lacks HMMA or LDGSTS: {sass}")
@@ -522,36 +499,124 @@ def phase_kernels(dev, other=None):
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:39",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
-    log(f"[kernels] K2 timing B=4 S=T=128 H=32 causal: kernel {ms:.4f} ms "
-        f"| plain {plain_ms:.4f} ms | SDPA(is_causal) {lib_ms:.4f} ms | "
-        f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {flops:.3e} flop) | "
-        f"device time in a CUDA graph: kernel {dev_ms:.4f} ms, SDPA "
-        f"{lib_dev_ms:.4f} ms")
-    kernel_report("[kernels] K2", "flash_attention", flops, ms, b_ms, lib_ms,
-                  sass)
+        max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["lib_ms"])
+    log(f"[kernels] K2 timing B=4 S=T=128 H=32 causal: {_k2_line(t)}")
+    kernel_report("[kernels] K2", "flash_attention", t["flops"], t["ms"],
+                  t["bound_ms"], t["lib_ms"], sass)
     return report
 
 
+def _k1_times(q, pool, tables, ln) -> dict:
+    """K1 timed beside its plain version and SDPA over the equivalent
+    CONTIGUOUS cache (the gather that builds it is done once here and
+    excluded from the time), eagerly and as device time in a CUDA graph,
+    and its bound for these inputs: the table entries of the active pages
+    and, of those pages, only the keys that attend (keys 0..pos; the rest
+    are zero-filled, not read)."""
+    from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels.ref import paged_attention_ref
+    B, H, hd = q.shape
+    KV, bs = pool.shape[2], pool.shape[3]
+    mb = tables.shape[1]
+
+    def kernel():
+        return paged_mod.paged_attention_cuda(q, pool, tables, ln)
+    T = mb * bs
+    pages = pool[:, tables.long()]                # (2, B, mb, KV, bs, hd)
+    kc, vc = pages.permute(0, 1, 3, 2, 4, 5).reshape(2, B, KV, T, hd)
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= ln.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                              enable_gqa=H != KV)
+    nb = (ln.long() // bs + 1).clamp(max=mb)
+    keys = int((ln.long() + 1).clamp(max=mb * bs).sum())
+    nbytes = 2 * q.numel() * q.element_size() \
+        + keys * KV * hd * 2 * pool.element_size() + int(nb.sum()) * 4 + B * 4
+    flops = 4.0 * keys * H * hd
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return dict(ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: paged_attention_ref(q, pool, tables,
+                                                             ln), iters=10),
+                lib_ms=time_ms(sdpa), dev_ms=graph_ms(kernel),
+                lib_dev_ms=graph_ms(sdpa), bound_ms=b_ms, bound_by=b_by,
+                nbytes=nbytes, flops=flops)
+
+
+def _k1_line(t) -> str:
+    return (f"kernel {t['ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | SDPA "
+            f"on contiguous cache {t['lib_ms']:.4f} ms (gather excluded) | "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; {t['nbytes']} B,"
+            f" {t['flops']:.3e} flop) | device time in a CUDA graph: kernel "
+            f"{t['dev_ms']:.5f} ms, SDPA {t['lib_dev_ms']:.5f} ms")
+
+
+def _k2_times(q, k, v) -> dict:
+    """K2 (causal) timed beside its plain version and SDPA(is_causal),
+    eagerly and as device time in a CUDA graph, and its bound: q, k, v read
+    and the output written once; the causal half of the products at the
+    bf16 tensor rate (the fp32 rate for fp32 inputs)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels.ref import flash_attention_ref
+    B, S, H, hd = q.shape
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def kernel():
+        return flash_mod.flash_attention_cuda(q, k, v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=H != k.shape[2])
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4.0 * B * H * hd * (S * (S + 1) // 2)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S
+                          if q.dtype == BF16 else FP32_FLOPS_PER_S)
+    return dict(ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: flash_attention_ref(q, k, v),
+                                 iters=10),
+                lib_ms=time_ms(sdpa), dev_ms=graph_ms(kernel),
+                lib_dev_ms=graph_ms(sdpa), bound_ms=b_ms, bound_by=b_by,
+                nbytes=nbytes, flops=flops)
+
+
+def _k2_line(t) -> str:
+    return (f"kernel {t['ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | "
+            f"SDPA(is_causal) {t['lib_ms']:.4f} ms | bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['nbytes']} B, "
+            f"{t['flops']:.3e} flop) | device time in a CUDA graph: kernel "
+            f"{t['dev_ms']:.5f} ms, SDPA {t['lib_dev_ms']:.5f} ms")
+
+
 # ------------------------------------------------------------------ phase 4
-def phase_serve(dev):
+def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
+                card: str = ""):
+    """A paged arch at full width and depth through the engine: stablelm
+    (dense) or qwen2-moe (``tag`` "moe"; 60 experts top-4 and shared
+    experts in each layer's FFN); ``card`` is printed beside the serve
+    numbers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.params import init_params, param_bytes
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config("stablelm-1.6b")             # full width and depth
+    cfg = get_config(arch)                        # full width and depth
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(dev).manual_seed(0),
                          device=dev)
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: L={cfg.num_layers} D={cfg.d_model} "
+    wbytes = param_bytes(params)
+    ffn = (f"E={cfg.num_experts} top-{cfg.num_experts_per_tok} "
+           f"F={cfg.moe_d_ff} shared={cfg.shared_expert_d_ff}") if cfg.moe \
+        else f"F={cfg.d_ff}"
+    log(f"[{tag}] {cfg.name}: L={cfg.num_layers} D={cfg.d_model} "
         f"H={cfg.num_heads} KV={cfg.num_kv_heads} hd={cfg.hd} "
-        f"F={cfg.d_ff} V={cfg.vocab_size}; weights "
-        f"{param_bytes(params) / 1e9:.3f} GB bf16 in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{ffn} V={cfg.vocab_size}; weights {wbytes / 1e9:.3f} GB "
+        f"(matrices bf16) in {time.perf_counter() - t0:.1f}s")
 
     # freeze one mid-run decode chunk's inputs for phase 5: the engine
     # calls lm.decode_chunk_paged through the module, so a wrapper sees the
@@ -574,8 +639,9 @@ def phase_serve(dev):
                       kv_blocks=128, block_size=16, device=dev)
     try:
         mem0 = torch.cuda.memory_allocated()
-        log(f"[serve] engine: pool {tuple(eng._pkv.shape)} "
-            f"{eng._pkv.numel() * 2 / 1e6:.1f} MB, paged_impl="
+        pool_bytes = eng._pkv.numel() * eng._pkv.element_size()
+        log(f"[{tag}] engine: pool {tuple(eng._pkv.shape)} "
+            f"{pool_bytes / 1e6:.1f} MB, paged_impl="
             f"{eng.paged_impl}, "
             f"prefill_chunk={eng.prefill_chunk}")
         # warm-up request (cuBLAS handles, allocator), outside the counts
@@ -615,38 +681,41 @@ def phase_serve(dev):
                          f"{L} x {stats['prefills']} window-0 prefills")
     ttft = sorted(r.ttft for r in reqs)
     tok = len(prompts) * MAX_NEW
-    log(f"[serve] {len(prompts)} requests, prompts {list(PROMPT_LENS)}, "
+    log(f"[{tag}] {len(prompts)} requests, prompts {list(PROMPT_LENS)}, "
         f"max_new {MAX_NEW}: {tok} tokens in {wall:.3f}s = "
         f"{tok / wall:.1f} tok/s | TTFT p50 {ttft[len(ttft) // 2]:.4f}s "
-        f"max {ttft[-1]:.4f}s | stats {stats}")
-    log(f"[serve] launches {counts} over {steps} decode steps and "
-        f"{stats['prefills']} window-0 prefills; peak memory "
+        f"max {ttft[-1]:.4f}s on {card} | stats {stats}")
+    log(f"[{tag}] launches {counts} over {steps} decode steps and "
+        f"{stats['prefills']} window-0 prefills; weights "
+        f"{wbytes / 1e9:.3f} GB, pool {pool_bytes / 1e6:.1f} MB, peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
         f"(resident before run {mem0 / 1e9:.2f} GB); all "
         f"{eng._pool.num_blocks - 1} non-sink blocks free")
-    log(f"[serve] sample: {outs[0][:16].tolist()}")
+    log(f"[{tag}] sample: {outs[0][:16].tolist()}")
     if "pool" not in frozen:
         raise SystemExit("no decode chunk with a full batch was seen")
     return cfg, params, prompts, frozen, counts
 
 
 # ------------------------------------------------------------------ phase 5
-def _fp32_params(params):
+def _fp32_params(params, layers=None):
     """A copy of a param dict with every leaf in fp32 (the fp32-compute
-    checks: bf16 weights are exact in fp32)."""
-    return {k: ({kk: vv.float() for kk, vv in v.items()}
+    checks: bf16 weights are exact in fp32); ``layers`` keeps only the
+    first that many layers of the stacks (a cut of depth, never of
+    width)."""
+    return {k: ({kk: vv[:layers].float() for kk, vv in v.items()}
                 if isinstance(v, dict) else v.float())
             for k, v in params.items()}
 
 
-def _compare(name, a, b, tol):
+def _compare(name, a, b, tol, tag="steps"):
     """Logit agreement of two (B, V) fp32 tensors: relative max error, top-1
     agreement, and at the first disagreeing row its top-2 margin."""
     spread = b.std().item()
     rel = (a - b).abs().max().item() / spread
     ta, tb = a.argmax(-1), b.argmax(-1)
     agree = (ta == tb).float().mean().item()
-    msg = f"[steps] {name}: max|d|/std = {rel:.3e} (tol {tol}), " \
+    msg = f"[{tag}] {name}: max|d|/std = {rel:.3e} (tol {tol}), " \
           f"top-1 agreement {agree:.3f} over {len(ta)} rows"
     bad = (ta != tb).nonzero()
     if len(bad):
@@ -659,36 +728,51 @@ def _compare(name, a, b, tol):
         raise SystemExit(f"{name}: logits disagree ({rel} > {tol})")
 
 
-def phase_steps(cfg, params, prompts, frozen, dev):
+def _window0(prompts, dev):
+    """The window-0 prefill shape: max_admit=4 rows of C0=128 tokens."""
+    return torch.from_numpy(np.stack([np.resize(p, 128)
+                                      for p in prompts[4:]])).to(dev)
+
+
+def phase_steps(cfg, params, prompts, frozen, dev, tag="steps",
+                fp32_layers=None):
+    """One decode step on the frozen pool with K1 and with the gather
+    oracle, and one window-0 prefill with K2 and with the plain path,
+    compared in bf16 at full depth and in fp32 compute at full width and
+    ``fp32_layers`` layers (None: full depth; a layer's KV depends only on
+    the layers below it, so the pool's first layers serve the cut model)."""
     import dataclasses
 
     from repro_torch.models import lm
     ln, last, rem = frozen["carry"]
     active = rem > 0
     rows = active.nonzero()[:, 0]
-    # the window-0 shape: max_admit=4 rows of C0=128 tokens
-    toks = torch.from_numpy(np.stack([np.resize(p, 128)
-                                      for p in prompts[4:]])).to(dev)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    params32 = _fp32_params(params)
+    toks = _window0(prompts, dev)
+    L32 = fp32_layers or cfg.num_layers
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                num_layers=L32)
     with torch.inference_mode():
-        for dt, c, p in (("bfloat16", cfg, params),
-                         ("float32", cfg32, params32)):
-            pool = frozen["pool"].to(getattr(torch, dt))
+        for dt, c in (("bfloat16", cfg), ("float32", cfg32)):
+            p = params if dt == "bfloat16" else _fp32_params(params,
+                                                             fp32_layers)
+            pool = frozen["pool"][:c.num_layers].to(getattr(torch, dt))
             out = {}
             for impl in ("kernel", "gather"):
                 out[impl], _ = lm.decode_step_paged(
                     c, p, pool.clone(), frozen["tables"], ln, last, active,
                     impl=impl)
-            _compare(f"{dt} decode_step_paged K1 vs gather",
+            what = f"{dt} L={c.num_layers}"
+            _compare(f"{what} decode_step_paged K1 vs gather",
                      out["kernel"][rows], out["gather"][rows],
-                     STEP_REL_TOL[dt])
+                     STEP_REL_TOL[dt], tag)
             lf, cf = lm.prefill(c, p, toks, impl="flash")
             lp, cp = lm.prefill(c, p, toks, impl="chunked")
-            _compare(f"{dt} prefill K2 vs plain", lf, lp, STEP_REL_TOL[dt])
+            _compare(f"{what} prefill K2 vs plain", lf, lp, STEP_REL_TOL[dt],
+                     tag)
             kd = (cf["k"].float() - cp["k"].float()).abs().max().item()
-            log(f"[steps] {dt} prefill cache k max|flash-plain| = {kd:.3e}")
-            del pool, out
+            log(f"[{tag}] {what} prefill cache k max|flash-plain| = "
+                f"{kd:.3e}")
+            del p, pool, out, cf, cp
 
 
 # ------------------------------------------------------------------ phase 6
@@ -925,25 +1009,9 @@ def _k2_at_hybrid_shape(dev) -> None:
         if not torch.isfinite(out.float()).all().item() or err > KERNEL_TOL:
             raise SystemExit(f"K2 disagrees with its plain version at the "
                              f"hybrid shape: {err}")
-        ms = time_ms(lambda: flash_mod.flash_attention_cuda(q, k, v))
-        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), iters=10)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        lib_ms = time_ms(sdpa)
-        dev_ms = graph_ms(lambda: flash_mod.flash_attention_cuda(q, k, v))
-        lib_dev_ms = graph_ms(sdpa)
-        nbytes = 4 * q.numel() * q.element_size()
-        flops = 4.0 * 32 * 64 * (S * (S + 1) // 2)
-        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S
-                              if dtype == BF16 else FP32_FLOPS_PER_S)
         log(f"[hybridstep] K2 B=1 S=T={S} H=KV=32 hd=64 causal "
             f"{str(dtype)[6:]}: max|kernel-plain|={err:.3e} (tol "
-            f"{KERNEL_TOL}) | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-            f"SDPA(is_causal) {lib_ms:.4f} ms | bound {b_ms:.5f} ms "
-            f"({b_by}) | device time in a CUDA graph: kernel {dev_ms:.5f} "
-            f"ms, SDPA {lib_dev_ms:.5f} ms")
+            f"{KERNEL_TOL}) | {_k2_line(_k2_times(q, k, v))}")
 
 
 def phase_steps_hybrid(cfg, params, prompts, dev):
@@ -1010,6 +1078,95 @@ def phase_steps_hybrid(cfg, params, prompts, dev):
         if not (max(ey, eh) <= SSD_REL_TOL and torch.isfinite(y).all()
                 and et <= SSD_REL_TOL):
             raise SystemExit(f"SSD disagrees with the recurrence: {ey}, {eh}")
+
+
+# ------------------------------------------------------------------ phase 8d
+def _k1_k2_at_moe_shape(dev) -> None:
+    """K1 and K2 against their plain versions at qwen2-moe's attention
+    shapes (H = KV = 16, hd = 128, bf16): K1 over a decode batch of 8 rows
+    at the serve phase's ragged lengths, K2 over the window-0 prefill of 4
+    rows of 128 tokens; each timed beside its plain version, SDPA and its
+    bound (printed; the kernels line keeps stablelm's shapes)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         paged_attention_ref)
+    lengths = [-1, 15, 16, 47, 100, 200, 331, 255]
+    q, pool, tables, ln = _paged_case(8, 16, 16, 128, 16, 128, 32, lengths,
+                                      dev, seed=128)
+    out = paged_mod.paged_attention_cuda(q, pool, tables, ln)
+    ref = paged_attention_ref(q, pool, tables, ln)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.isfinite(out.float()).all().item() or err > KERNEL_TOL:
+        raise SystemExit(f"K1 disagrees with its plain version at hd=128: "
+                         f"{err}")
+    log(f"[moestep] K1 B=8 H=KV=16 hd=128 bs=16 lengths={lengths} bf16: "
+        f"max|kernel-plain|={err:.3e} (tol {KERNEL_TOL}) | "
+        f"{_k1_line(_k1_times(q, pool, tables, ln))}")
+    g = torch.Generator(dev).manual_seed(7)
+    q, k, v = (torch.randn((4, 128, 16, 128), generator=g, device=dev
+                           ).bfloat16() for _ in range(3))
+    out = flash_mod.flash_attention_cuda(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.isfinite(out.float()).all().item() or err > KERNEL_TOL:
+        raise SystemExit(f"K2 disagrees with its plain version at hd=128: "
+                         f"{err}")
+    log(f"[moestep] K2 B=4 S=T=128 H=KV=16 hd=128 causal bf16: "
+        f"max|kernel-plain|={err:.3e} (tol {KERNEL_TOL}) | "
+        f"{_k2_line(_k2_times(q, k, v))}")
+
+
+def phase_steps_moe(cfg, params, prompts, frozen, dev) -> None:
+    """K1 and K2 at the MoE shapes; the decode step and window-0 prefill
+    checks of ``phase_steps`` (fp32 at MOE_FP32_LAYERS layers); the share of
+    (token, expert) assignments the window-0 prefill drops over capacity;
+    and ``moe_layer`` run twice on the same CUDA input, which must agree
+    bit for bit (the combine sums in a fixed order, without atomics)."""
+    from repro_torch.models import lm
+    from repro_torch.models import moe
+    _k1_k2_at_moe_shape(dev)
+    phase_steps(cfg, params, prompts, frozen, dev, tag="moestep",
+                fp32_layers=MOE_FP32_LAYERS)
+    seen = []
+    real = lm.moe_layer
+
+    def spy(p, x, cfg_, **kw):
+        seen.append((p, x.clone()))
+        return real(p, x, cfg_, **kw)
+
+    lm.moe_layer = spy
+    try:
+        with torch.inference_mode():
+            lm.prefill(cfg, params, _window0(prompts, dev))
+    finally:
+        lm.moe_layer = real
+    with torch.inference_mode():
+        dropped, total = 0, 0
+        for p, x in seen:
+            r = moe.route(p, x.reshape(-1, cfg.d_model), cfg)
+            dropped += int((r.rank >= r.capacity).sum())
+            total += r.rank.numel()
+        T = total // cfg.num_experts_per_tok // len(seen)
+        load = T * cfg.num_experts_per_tok / cfg.num_experts
+        log(f"[moestep] window-0 prefill (4 x 128 tokens, T={T}, capacity "
+            f"{r.capacity} per expert, mean load {load:.1f}): {dropped} of "
+            f"{total} assignments dropped over {len(seen)} layers = "
+            f"{dropped / total:.4%}")
+        p, x = seen[-1]
+        for what, xx in (("window-0 T=512", x),
+                         ("decode B=8", x.reshape(-1, cfg.d_model)[:8, None])):
+            a, b = moe.moe_layer(p, xx, cfg), moe.moe_layer(p, xx, cfg)
+            a, b = moe.moe_layer(p, x, cfg), moe.moe_layer(p, x, cfg)
+            torch.cuda.synchronize()
+            same = torch.equal(a, b)
+            log(f"[moestep] moe_layer twice on one CUDA input ({what}): "
+                f"bitwise equal {same}, finite "
+                f"{bool(torch.isfinite(a.float()).all())}")
+            if not same:
+                raise SystemExit(f"moe_layer is not repeatable ({what})")
 
 
 # ------------------------------------------------------------------ phase 9
@@ -1283,7 +1440,7 @@ def main(argv=None) -> None:
     phase_build()
     report = phase_kernels(dev, args.other_csrc)
     done("card, build, K1/K2")
-    cfg, params, prompts, frozen, counts = phase_serve(dev)
+    cfg, params, prompts, frozen, counts = phase_serve(dev, card=smi)
     phase_steps(cfg, params, prompts, frozen, dev)
     del params, frozen
     gc.collect()              # free the serve phase's weights and pool
@@ -1304,14 +1461,22 @@ def main(argv=None) -> None:
     gc.collect()              # free zamba2's weights and slot pool
     torch.cuda.empty_cache()
     done("zamba2 serve and steps")
+    qcfg, qparams, qprompts, qfrozen, qcounts = phase_serve(
+        dev, "qwen2-moe-a2.7b", "moe", smi)
+    phase_steps_moe(qcfg, qparams, qprompts, qfrozen, dev)
+    del qparams, qfrozen
+    gc.collect()              # free qwen2-moe's weights and frozen pool
+    torch.cuda.empty_cache()
+    done("qwen2-moe serve and steps")
     torch.backends.cuda.matmul.allow_tf32 = False   # K4's plain version
     report["lsdnn_layer"] = phase_k4(dev)
     report["lsdnn_layer"]["launches"] = phase_lsdnn(dev)
     phase_device_task(dev)
     done("K4, LSDNN, DEVICE task")
-    report["paged_attention"]["launches"] = counts["paged_attention"]
+    report["paged_attention"]["launches"] = counts["paged_attention"] \
+        + qcounts["paged_attention"]
     report["flash_attention"]["launches"] = counts["flash_attention"] \
-        + zcounts["flash_attention"]
+        + zcounts["flash_attention"] + qcounts["flash_attention"]
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

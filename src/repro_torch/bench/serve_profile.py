@@ -14,7 +14,9 @@ materializing oracle):
   launches per step and the top kernels by device time.
 
 Window-0 prefill (4 x 128 tokens) is timed the same way with ``flash``
-(K2) and ``chunked`` (the plain path).
+(K2) and ``chunked`` (the plain path). ``--arch qwen2-moe-a2.7b`` (60
+experts top-4 plus shared experts in each layer's FFN) takes the same
+paged path.
 
 ``--arch falcon-mamba-7b`` or ``zamba2-1.2b`` (the slot-state path): the
 8 rows' states are prefilled at B=1 and copied into an 8-slot
@@ -28,6 +30,8 @@ one 300-token prefill with each path: falcon-mamba's ``kernel`` (K3) and
 attention.
 
     PYTHONPATH=src python -m repro_torch.bench.serve_profile
+    PYTHONPATH=src python -m repro_torch.bench.serve_profile \
+        --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.bench.serve_profile \
         --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.bench.serve_profile \
@@ -149,8 +153,8 @@ def main(argv=None) -> None:
         raise SystemExit("serve_profile needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b",
-                    choices=["stablelm-1.6b", "falcon-mamba-7b",
-                             "zamba2-1.2b"])
+                    choices=["stablelm-1.6b", "qwen2-moe-a2.7b",
+                             "falcon-mamba-7b", "zamba2-1.2b"])
     args = ap.parse_args(argv)
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

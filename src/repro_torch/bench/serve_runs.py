@@ -1,8 +1,8 @@
 """Repeat ``chip_smoke.py``'s serve workload and account for its TTFT.
 
-Full-width stablelm-1.6b (default), falcon-mamba-7b or zamba2-1.2b
-(``--arch``; the slot-state pool), random bf16 weights from a seeded
-generator,
+Full-width stablelm-1.6b (default), qwen2-moe-a2.7b (``--arch``; the
+same paged pool), falcon-mamba-7b or zamba2-1.2b (``--arch``; the
+slot-state pool), random bf16 weights from a seeded generator,
 ``ServeEngine(decode_chunk=8, max_batch=8, kv_blocks=128, block_size=16)``
 (the pool geometry applies to the paged arch only), 8 requests with
 prompts of 16 to 300 tokens submitted 20 ms apart. Each of
@@ -19,7 +19,8 @@ warm-up request, then the 8 requests, and prints:
 The last line is a JSON summary with the per-run numbers and their spread.
 
     PYTHONPATH=src python -m repro_torch.bench.serve_runs [--runs 3]
-        [--max-new 32] [--arch falcon-mamba-7b | zamba2-1.2b]
+        [--max-new 32]
+        [--arch qwen2-moe-a2.7b | falcon-mamba-7b | zamba2-1.2b]
 
 Needs one CUDA device.
 """
@@ -89,8 +90,8 @@ def main(argv=None) -> None:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--arch", default="stablelm-1.6b",
-                    choices=["stablelm-1.6b", "falcon-mamba-7b",
-                             "zamba2-1.2b"])
+                    choices=["stablelm-1.6b", "qwen2-moe-a2.7b",
+                             "falcon-mamba-7b", "zamba2-1.2b"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve_runs needs a CUDA device")

@@ -8,15 +8,17 @@ CUDA; without a CUDA device it raises unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --preset full \
         --batch 8 --prompt-len 128 --max-new 32 --stagger 0.05
     PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-moe-a2.7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon-mamba-7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch zamba2-1.2b --device cpu
 
-Dense attention archs page their KV (``--kv-blocks``, ``--block-size``,
-``--prefill-chunk``); Mamba1 archs and the zamba2 hybrid keep one state
-per batch slot (``--max-seq-len`` bounds prompt + new tokens, and sizes
-zamba2's shared-block KV span per slot). Weights are random, drawn from
-``--seed`` (``torch.Generator``).
+Attention archs, dense and MoE, page their KV (``--kv-blocks``,
+``--block-size``, ``--prefill-chunk``); Mamba1 archs and the zamba2 hybrid
+keep one state per batch slot (``--max-seq-len`` bounds prompt + new
+tokens, and sizes zamba2's shared-block KV span per slot). Weights are
+random, drawn from ``--seed`` (``torch.Generator``).
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="stablelm-1.6b",
                     help="model architecture of a family the port serves: "
                          "dense attention (e.g. stablelm-1.6b, qwen3-14b), "
-                         "Mamba1 SSM (falcon-mamba-7b) or the Mamba2 "
-                         "hybrid (zamba2-1.2b)")
+                         "MoE (qwen2-moe-a2.7b, arctic-480b), Mamba1 SSM "
+                         "(falcon-mamba-7b) or the Mamba2 hybrid "
+                         "(zamba2-1.2b)")
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,5 +1,5 @@
-"""Decoder LM serving entry points, dense attention, Mamba1 and the zamba2
-hybrid (torch port of ``repro.models.lm``).
+"""Decoder LM serving entry points, dense attention, MoE, Mamba1 and the
+zamba2 hybrid (torch port of ``repro.models.lm``).
 
 Params are the plain dict of :mod:`repro_torch.params`: stacked per-layer
 leaves under ``blocks`` (the hybrid: ``gblocks`` (G, every, ...),
@@ -19,13 +19,18 @@ span: ``shared_k/v`` (G, B, KV, S_max, hd). Its prefill attention is K2 on
 CUDA, like the dense prefill's; its slot decode reads the span in plain
 torch (:func:`repro_torch.models.attention.decode_attention_rows`).
 
+MoE archs (qwen2-moe, arctic) are attention archs whose FFN is
+:func:`repro_torch.models.moe.moe_layer`: they page their KV and take the
+dense entry points; its load-balancing loss is never computed here (the
+reference's serving call sites discard it).
+
 Entry points: :func:`init_params`, :func:`prefill` (dense, Mamba1 and
 hybrid branches, with ``last_positions``), :func:`init_cache` (SSM and
 hybrid slot state), the paged path :func:`prefill_window_paged`,
-:func:`decode_step_paged`, :func:`decode_chunk_paged` (attention archs
-only, as in the reference), and the slot path :func:`decode_step_slots`,
-:func:`decode_chunk_slots` (Mamba1 and the hybrid). MoE and
-modality-frontend configs raise ``ValueError`` (later slices).
+:func:`decode_step_paged`, :func:`decode_chunk_paged` (attention archs,
+MoE included, as in the reference), and the slot path
+:func:`decode_step_slots`, :func:`decode_chunk_slots` (Mamba1 and the
+hybrid). Modality-frontend configs raise ``ValueError`` (a later slice).
 
 One device sync per decode chunk: :func:`decode_chunk_paged` and
 :func:`decode_chunk_slots` keep the ``(lengths, last, rem)`` carry on the
@@ -46,6 +51,7 @@ from .attention import (attention, decode_attention_rows,
 from .layers import dtype_of, matmul_f32, rms_norm, sinusoidal_positions
 from .mamba import init_mamba_state, mamba_forward, mamba_step
 from .mlp import mlp
+from .moe import moe_layer
 
 __all__ = ["init_params", "init_cache", "prefill", "prefill_window_paged",
            "decode_step_paged", "decode_chunk_paged", "decode_step_slots",
@@ -60,25 +66,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _unported(cfg: ModelConfig) -> bool:
-    """MoE and modality-frontend archs: later slices."""
-    return bool(cfg.moe or cfg.frontend != "none")
+    """Modality-frontend archs: a later slice."""
+    return cfg.frontend != "none"
 
 
 def _require_dense(cfg: ModelConfig, what: str) -> None:
     """The paged entry points: attention archs only, as in the reference
     (SSM state is O(1) per sequence and lives in the slot pool)."""
     if cfg.ssm or _unported(cfg):
-        raise ValueError(f"{cfg.name}: {what} in repro_torch covers dense "
-                         f"attention archs only (family {cfg.family!r}, "
-                         f"frontend {cfg.frontend!r})")
+        raise ValueError(f"{cfg.name}: {what} in repro_torch covers "
+                         "attention archs (dense and MoE) only (family "
+                         f"{cfg.family!r}, frontend {cfg.frontend!r})")
 
 
 def _require_ported(cfg: ModelConfig, what: str) -> None:
     if _unported(cfg):
         raise ValueError(f"{cfg.name}: {what} in repro_torch covers dense "
-                         "attention, Mamba1 and Mamba2-hybrid archs only "
-                         f"(family {cfg.family!r}, frontend {cfg.frontend!r} "
-                         "are not ported yet)")
+                         "attention, MoE, Mamba1 and Mamba2-hybrid archs "
+                         f"only (family {cfg.family!r}, frontend "
+                         f"{cfg.frontend!r} are not ported yet)")
 
 
 def _require_slots(cfg: ModelConfig, what: str) -> None:
@@ -135,11 +141,17 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ blocks
+def _ffn(p, h2, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's FFN on (B, S, D): the MoE layer (its aux loss not
+    computed) or the MLP."""
+    return moe_layer(p, h2, cfg) if cfg.moe else mlp(p, h2, cfg)
+
+
 def _block_decode(p, x1, cfg: ModelConfig, layer_cache, attn_fn):
     """One layer, one token. x1: (B, D). ``attn_fn(p, h1, layer_cache) ->
     (y, layer_cache)`` is the paged attention read/write; ln1, residuals,
-    ln2 and the MLP are shared with the window path. A Mamba1 layer steps
-    its ``(conv_buf, h)`` state instead (``attn_fn`` unused)."""
+    ln2 and the FFN (MLP or MoE) are shared with the window path. A Mamba1
+    layer steps its ``(conv_buf, h)`` state instead (``attn_fn`` unused)."""
     h = rms_norm(x1, p["ln1"], cfg.rms_eps)
     if cfg.ssm:
         y, st = mamba_step(p, h, cfg, layer_cache)
@@ -147,7 +159,7 @@ def _block_decode(p, x1, cfg: ModelConfig, layer_cache, attn_fn):
     y, layer_cache = attn_fn(p, h[:, None, :], layer_cache)
     x1 = x1 + y[:, 0]
     h2 = rms_norm(x1, p["ln2"], cfg.rms_eps)
-    x1 = x1 + mlp(p, h2[:, None, :], cfg)[:, 0]
+    x1 = x1 + _ffn(p, h2[:, None, :], cfg)[:, 0]
     return x1, layer_cache
 
 
@@ -158,7 +170,7 @@ def _block_window(p, x, cfg: ModelConfig, attn_fn, pkv_l):
     y, pkv_l = attn_fn(p, h, pkv_l)
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.rms_eps)
-    x = x + mlp(p, h2, cfg)
+    x = x + _ffn(p, h2, cfg)
     return x, pkv_l
 
 
@@ -321,7 +333,7 @@ def _prefill_attention(cfg: ModelConfig, layers, x, positions, max_len: int,
                               return_kv=True)
         x = x + y
         h2 = rms_norm(x, lp["ln2"], cfg.rms_eps)
-        x = x + mlp(lp, h2, cfg)
+        x = x + _ffn(lp, h2, cfg)
         k, v = _kv_span(k, v, max_len, cdt)
         ks.append(k)
         vs.append(v)

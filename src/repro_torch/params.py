@@ -12,14 +12,17 @@ dtype at each use (``p["wq"].astype(cdt)``). Rounding once at load gives the
 same bits and halves resident weights (stablelm-1.6b at full width: ~3.3 GB
 bf16 instead of 6.6 GB fp32), so the matrices ``wq wk wv wo wi wg wd embed
 lm_head``, the Mamba leaves the reference casts the same way (``in_proj
-x_proj dt_proj out_proj conv_w conv_b``) and zamba2's shared-block
-``fused_proj`` are stored in the compute dtype (``from_reference(cast=False)``
+x_proj dt_proj out_proj conv_w conv_b``), zamba2's shared-block
+``fused_proj`` and the MoE expert, shared-expert and dense-residual
+matrices (``e_wi e_wg e_wd shared_w* dense_w*``) are stored in the compute
+dtype (``from_reference(cast=False)``
 keeps the reference's dtypes, for a bit-exact copy). Norm scales stay in
 ``param_dtype`` (Mamba2's gated-norm ``ssm_norm`` too): ``rms_norm``
 upcasts the scale to fp32, and a bf16 round trip would change it. Biases
 stay too (they are cast at use, as in the reference), and so do the Mamba
 leaves read in fp32: ``A_log`` and ``ssm_D`` (fp32 in the tree) and
-``dt_bias`` (upcast at use; fp32 in the Mamba2 tree).
+``dt_bias`` (upcast at use; fp32 in the Mamba2 tree), and the MoE leaves
+read in fp32: ``router`` (fp32 in the tree) and ``shared_gate``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from .configs.base import ModelConfig
 from .device import resolve_device
 from .models.layers import dense_init, dtype_of, normal_init
+from .models.moe import init_moe
 
 __all__ = ["from_reference", "init_params", "MATRICES", "to_torch",
            "param_bytes"]
@@ -38,7 +42,9 @@ __all__ = ["from_reference", "init_params", "MATRICES", "to_torch",
 #: weight names stored in the compute dtype (the load-time cast)
 MATRICES = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "wd", "embed",
                       "lm_head", "in_proj", "x_proj", "dt_proj", "out_proj",
-                      "conv_w", "conv_b", "fused_proj"})
+                      "conv_w", "conv_b", "fused_proj", "e_wi", "e_wg",
+                      "e_wd", "shared_wi", "shared_wg", "shared_wd",
+                      "dense_wi", "dense_wg", "dense_wd"})
 
 
 def to_torch(x, device=None) -> torch.Tensor:
@@ -82,13 +88,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with the reference tree's names and shapes, drawn on
     the generator's device and moved to ``device`` (None: CUDA); matrices
     in the compute dtype, norm scales and biases in ``param_dtype``. Dense
-    attention, Mamba1 (falcon-mamba) and the Mamba2 hybrid (zamba2:
-    ``gblocks`` stacked (G, every, ...), ``tail_blocks`` (tail, ...) and
-    one ``shared_block``); MoE trees come with their slice."""
-    if cfg.moe:
-        raise ValueError(f"{cfg.name}: repro_torch.init_params covers dense "
-                         "attention, Mamba1 and Mamba2-hybrid configs only "
-                         f"(family {cfg.family!r} is not ported yet)")
+    attention, MoE (the FFN's leaves from :func:`repro_torch.models.moe.
+    init_moe`, ``router`` fp32), Mamba1 (falcon-mamba) and the Mamba2
+    hybrid (zamba2: ``gblocks`` stacked (G, every, ...), ``tail_blocks``
+    (tail, ...) and one ``shared_block``). The ``padded_vocab -
+    vocab_size`` padded rows of ``embed`` and columns of ``lm_head`` are
+    zero."""
     dev = resolve_device(device)
     pdt = dtype_of(cfg.param_dtype)
     mdt = dtype_of(cfg.compute_dtype)
@@ -111,6 +116,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         def const(shape, value, dtype=pdt):
             return torch.full((n, *shape), value, dtype=dtype, device=dev)
 
+        if cfg.moe:
+            # one layer's MoE leaves at a time, each written into its stack
+            blocks = _init_attention_mlp(cfg, dense, const)
+            for l in range(n):
+                for k, v in init_moe(g, cfg, dev).items():
+                    if k not in blocks:
+                        blocks[k] = torch.empty((n, *v.shape),
+                                                dtype=v.dtype, device=dev)
+                    blocks[k][l] = v
+            return blocks
         if not cfg.ssm:
             return _init_attention_mlp(cfg, dense, const)
         init = _init_m1 if cfg.ssm_version == 1 else _init_m2
@@ -135,13 +150,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(g, (D, Vp), 0.02, mdt).to(dev)
+        params["lm_head"][:, cfg.vocab_size:] = 0
+    # the padded vocabulary's rows and columns are zero, as in a checkpoint
+    # padded at load: the logits stay unmasked (as the reference's), and a
+    # padded id then never wins the greedy argmax over random real ones
+    params["embed"][cfg.vocab_size:] = 0
     return params
 
 
 def _init_attention_mlp(cfg: ModelConfig, dense, const
                         ) -> Dict[str, torch.Tensor]:
     """A dense attention + MLP layer stack (the reference's ``_init_block``
-    for attention archs)."""
+    for attention archs; an MoE arch's stack gets its FFN from
+    ``init_moe`` instead of the MLP)."""
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     blocks: Dict[str, torch.Tensor] = {
         "ln1": const((D,), 1.0),
@@ -158,6 +179,8 @@ def _init_attention_mlp(cfg: ModelConfig, dense, const
         blocks["q_norm"] = const((hd,), 1.0)
         blocks["k_norm"] = const((hd,), 1.0)
     blocks["ln2"] = const((D,), 1.0)
+    if cfg.moe:
+        return blocks
     blocks["wi"] = dense((D, cfg.d_ff))
     if cfg.mlp_gated:
         blocks["wg"] = dense((D, cfg.d_ff))

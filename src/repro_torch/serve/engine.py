@@ -3,9 +3,9 @@ Taskflow pipeline fed by a request queue, with TWO-PHASE memory admission.
 
 This is the synchronous, single-device subset of the reference
 ``repro.serve.engine.ServeEngine``, with the same stage structure. Attention
-archs page their KV (below); Mamba1 archs (falcon-mamba) and the zamba2
-hybrid keep a FIXED-SLOT recurrent-state pool instead (``paged == False``,
-see "Slot-state path"):
+archs, MoE included, page their KV (below); Mamba1 archs (falcon-mamba) and
+the zamba2 hybrid keep a FIXED-SLOT recurrent-state pool instead (``paged ==
+False``, see "Slot-state path"):
 
     admit (SERIAL)    -> pop an admission group (one FIFO, tiered) and
                          allocate its PROMPT-ONLY block footprint; park via
@@ -56,7 +56,7 @@ prefix cache and its copy-on-write guard, SLO shedding/deadlines/watchdog,
 fault injection, journal/snapshot/drain/recover, observability, meshes, the
 checkpoint preemption of SSM and hybrid slots and the per-call grouped
 baseline. The engine raises :class:`UnsupportedArch` on archs it cannot
-serve yet (MoE, modality frontends).
+serve yet (modality frontends).
 """
 from __future__ import annotations
 
@@ -87,8 +87,8 @@ PIPELINE_LINES = 3
 
 
 class UnsupportedArch(ServeError, ValueError):
-    """The port's engine cannot serve this architecture yet (MoE or
-    modality-frontend configs come with later slices)."""
+    """The port's engine cannot serve this architecture yet
+    (modality-frontend configs come with a later slice)."""
 
 
 class ServeEngine:
@@ -97,9 +97,9 @@ class ServeEngine:
     Parameters
     ----------
     cfg, params:
-        a dense attention, Mamba1 or zamba2 hybrid config and its weights
-        (:func:`repro_torch.params.init_params` / ``from_reference``) on
-        the engine's device.
+        a dense attention, MoE, Mamba1 or zamba2 hybrid config and its
+        weights (:func:`repro_torch.params.init_params` /
+        ``from_reference``) on the engine's device.
     decode_chunk:
         decode steps per chunk — also the admission granularity.
     prefill_chunk:
@@ -145,12 +145,12 @@ class ServeEngine:
                  paged_impl: Optional[str] = None,
                  record_stages: bool = False,
                  device=None):
-        if cfg.moe or cfg.frontend != "none":
+        if cfg.frontend != "none":
             raise UnsupportedArch(
                 f"{cfg.name} (family {cfg.family!r}, frontend "
                 f"{cfg.frontend!r}): the repro_torch engine serves dense "
-                "attention, Mamba1 and Mamba2-hybrid archs only in this "
-                "slice")
+                "attention, MoE, Mamba1 and Mamba2-hybrid archs only in "
+                "this slice")
         self.cfg = cfg
         self.paged = not (cfg.ssm or cfg.hybrid_attn_every)
         self.device = resolve_device(device)

@@ -149,13 +149,14 @@ def test_prefill_window_paged(arch, dt):
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b",
                                   "zamba2-1.2b", "musicgen-large"])
 def test_entry_points_refuse_unported_archs(arch):
-    """The paged entry points take attention archs only, as the
+    """The paged entry points take attention archs, MoE included, as the
     reference's do (an SSM or the zamba2 hybrid keeps its state per
-    sequence in the slot pool); prefill takes falcon-mamba (Mamba1) and
-    zamba2 (the Mamba2 hybrid) and refuses the unported rest."""
+    sequence in the slot pool); prefill takes qwen2-moe, falcon-mamba
+    (Mamba1) and zamba2 (the Mamba2 hybrid) and refuses the unported rest
+    (modality frontends)."""
     cfg = smoke_cfg(arch)
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    if arch in ("falcon-mamba-7b", "zamba2-1.2b"):
+    if arch != "musicgen-large":
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
         logits, _ = tlm.prefill(cfg, params, toks)
@@ -163,6 +164,25 @@ def test_entry_points_refuse_unported_archs(arch):
     else:
         with pytest.raises(ValueError):
             tlm.prefill(cfg, {}, toks)
+    if cfg.moe:
+        # MoE pages its KV: the three paged entry points serve it
+        pool = torch.zeros((cfg.num_layers, 2, 8, cfg.num_kv_heads, 4,
+                            cfg.hd), dtype=torch.bfloat16)
+        tables = torch.arange(1, 5, dtype=torch.int32)[None]
+        first, _ = tlm.prefill_window_paged(
+            cfg, params, pool, tables, toks, torch.tensor([0]),
+            torch.ones((1, 4), dtype=torch.bool), torch.tensor([3]))
+        assert int(first[0]) == int(torch.argmax(logits[0]))
+        step, _ = tlm.decode_step_paged(
+            cfg, params, pool, tables, torch.tensor([4], dtype=torch.int32),
+            first, torch.tensor([True]))
+        assert tuple(step.shape) == (1, cfg.padded_vocab)
+        _, _, chunk = tlm.decode_chunk_paged(
+            cfg, params, pool, tables,
+            (torch.tensor([5], dtype=torch.int32), first,
+             torch.tensor([3], dtype=torch.int32)), 3)
+        assert tuple(chunk.shape) == (1, 3)
+        return
     with pytest.raises(ValueError):
         tlm.decode_step_paged(cfg, {}, None, None, None, None, None)
     with pytest.raises(ValueError):

@@ -2,7 +2,8 @@
 tree name for name (bit-exact, bf16 leaves included), the load-time cast
 rounds exactly as the reference's per-use ``astype``, and the port's own
 ``init_params`` gives the reference tree's names and shapes — for the dense
-smoke configs, falcon-mamba's Mamba1 tree and zamba2's hybrid tree."""
+smoke configs, the MoE trees (qwen2-moe, arctic), falcon-mamba's Mamba1
+tree and zamba2's hybrid tree."""
 import dataclasses
 import math
 
@@ -27,10 +28,17 @@ def _flat(tree, prefix=""):
             yield prefix + k, v
 
 
-WITH_SSM = ARCHS + ("falcon-mamba-7b", "zamba2-1.2b")
+MOE = ("qwen2-moe-a2.7b", "arctic-480b")
+ALL_FAMILIES = ARCHS + MOE + ("falcon-mamba-7b", "zamba2-1.2b")
 
 
-@pytest.mark.parametrize("arch", WITH_SSM)
+def _meta(g, shape, *a, dtype=torch.float32, **k):
+    """A stand-in for the draws: an empty tensor on the meta device."""
+    dtype = a[-1] if a and isinstance(a[-1], torch.dtype) else dtype
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("arch", ALL_FAMILIES)
 def test_from_reference_copies_every_leaf_exactly(arch):
     cfg = smoke_cfg(arch)
     jp = jlm.init_params(cfg, jax.random.PRNGKey(0))
@@ -49,7 +57,7 @@ def test_from_reference_copies_every_leaf_exactly(arch):
             assert np.array_equal(t.numpy(), j), name
 
 
-@pytest.mark.parametrize("arch", WITH_SSM)
+@pytest.mark.parametrize("arch", ALL_FAMILIES)
 def test_load_time_cast_matches_per_use_astype(arch):
     cfg = smoke_cfg(arch)
     jp = jlm.init_params(cfg, jax.random.PRNGKey(0))
@@ -85,6 +93,12 @@ def test_init_params_names_and_shapes_match_reference(arch):
     # per-layer fan-in scale, as the reference's vmapped dense_init
     std = tp["blocks"]["wi"].float().std().item()
     assert abs(std - cfg.d_model ** -0.5) < 0.02
+    # the padded vocabulary's embedding rows and head columns are zero
+    V = cfg.vocab_size
+    assert V < cfg.padded_vocab and not tp["embed"][V:].any()
+    assert tp["embed"][V - 1].any()
+    if "lm_head" in tp:
+        assert not tp["lm_head"][:, V:].any() and tp["lm_head"][:, :V].any()
 
 
 def test_init_params_mamba1_tree_matches_reference():
@@ -213,12 +227,66 @@ def test_param_bytes_count_bf16_matrices_and_fp32_norms():
 
 
 def test_init_params_refuses_unported_families():
-    """MoE trees come with their slice (falcon-mamba's Mamba1 tree and
-    zamba2's hybrid tree are covered by the tests beside this one)."""
-    for arch in ("qwen2-moe-a2.7b", "arctic-480b"):
-        with pytest.raises(ValueError):
-            init_params(get_config(arch).smoke(), torch.Generator(),
-                        device="cpu")
+    """init_params refuses no family any more: the MoE trees (qwen2-moe's
+    shared experts, arctic's dense residual) match the reference's names,
+    shapes and dtypes, with ``router`` in fp32 and qwen2-moe's
+    ``shared_gate`` in its fp32 ``param_dtype`` (arctic's is bf16: its
+    norms too); the experts' matrices and the shared and dense MLPs in the
+    compute dtype; the reference's distributions (router N(0, 0.02),
+    expert fan-in over every axis but the last, a zero shared gate)."""
+    for arch in MOE:
+        cfg = smoke_cfg(arch)
+        jp = jax.eval_shape(lambda: jlm.init_params(cfg,
+                                                    jax.random.PRNGKey(0)))
+        tp = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+        jflat, tflat = dict(_flat(jp)), dict(_flat(tp))
+        assert sorted(jflat) == sorted(tflat)
+        for name, j in jflat.items():
+            leaf = name.split(".")[-1]
+            assert tuple(tflat[name].shape) == tuple(j.shape), name
+            want = torch.bfloat16 if leaf in MATRICES \
+                else getattr(torch, j.dtype.name)
+            assert tflat[name].dtype == want, name
+        blk = tp["blocks"]
+        assert blk["router"].dtype == torch.float32
+        assert "router" not in MATRICES and "shared_gate" not in MATRICES
+        assert abs(blk["router"].std().item() - 0.02) < 0.005
+        E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+        assert abs(blk["e_wi"].float().std().item() - (E * D) ** -0.5) \
+            < 0.2 * (E * D) ** -0.5
+        assert abs(blk["e_wd"].float().std().item() - (E * F) ** -0.5) \
+            < 0.2 * (E * F) ** -0.5
+        if cfg.shared_expert_d_ff:
+            assert blk["shared_gate"].dtype == torch.float32
+            assert not blk["shared_gate"].any()
+        else:
+            assert blk["dense_wi"].shape[-1] == cfg.d_ff
+        # one draw per layer
+        assert not torch.equal(blk["e_wi"][0], blk["e_wi"][1])
+
+
+def test_moe_param_count_at_full_width(monkeypatch):
+    """Full-width qwen2-moe-a2.7b on the meta device (shapes only, nothing
+    drawn): the port's tree holds exactly the reference tree's
+    14,316,308,480 parameters, 28.64 GB with the matrices in bf16, of
+    which the experts are 24.91 GB; ``cfg.param_count()`` is short by the
+    final norm's d_model."""
+    from repro_torch import params as tparams
+    from repro_torch.models import moe as tmoe
+    cfg = get_config("qwen2-moe-a2.7b")
+    for mod in (tparams, tmoe):
+        monkeypatch.setattr(mod, "dense_init", _meta)
+        monkeypatch.setattr(mod, "normal_init", _meta)
+    tp = tparams.init_params(cfg, torch.Generator(), device="meta")
+    n = sum(v.numel() for _, v in _flat(tp))
+    jp = jax.eval_shape(lambda: jlm.init_params(cfg, jax.random.PRNGKey(0)))
+    assert n == sum(math.prod(j.shape) for j in jax.tree_util.tree_leaves(jp))
+    assert n == 14_316_308_480 == cfg.param_count() + cfg.d_model
+    experts = sum(v.numel() * v.element_size() for name, v in _flat(tp)
+                  if name.split(".")[-1] in ("e_wi", "e_wg", "e_wd"))
+    assert experts == 24_914_165_760
+    assert param_bytes(tp) == 28_639_109_120
 
 
 def test_default_device_is_cuda():

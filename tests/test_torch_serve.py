@@ -112,18 +112,22 @@ def test_params_on_another_device_are_refused(fp32_setup):
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b",
                                   "zamba2-1.2b", "internvl2-1b"])
 def test_unported_archs_raise_typed(arch):
-    """MoE and frontend archs raise typed; falcon-mamba (Mamba1) and zamba2
-    (the Mamba2 hybrid) are served through the slot-state pool instead of
-    pages."""
+    """Frontend archs raise typed; qwen2-moe (MoE) is served through the
+    paged pool like a dense arch, falcon-mamba (Mamba1) and zamba2 (the
+    Mamba2 hybrid) through the slot-state pool instead of pages."""
     cfg = get_config(arch).smoke()
     slots = {"falcon-mamba-7b": {"ssm"},
              "zamba2-1.2b": {"g_ssm", "tail_ssm", "shared_k", "shared_v"}}
-    if arch in slots:
+    if arch in slots or cfg.moe:
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
         with ServeEngine(cfg, params, device="cpu") as eng:
-            assert eng.paged is False and eng.paged_impl is None
-            assert eng._pool is None and set(eng._sstate) == slots[arch]
+            if cfg.moe:
+                assert eng.paged is True and eng.paged_impl == "loop"
+                assert eng._pool is not None
+            else:
+                assert eng.paged is False and eng.paged_impl is None
+                assert eng._pool is None and set(eng._sstate) == slots[arch]
         return
     with pytest.raises(UnsupportedArch):
         ServeEngine(cfg, {}, device="cpu")
