@@ -69,6 +69,19 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               at full width and 8 layers; the share of assignments the
               window-0 prefill drops over capacity; ``moe_layer`` twice on
               one CUDA input, bitwise equal; then the weights are freed;
+8e. train   — stablelm-1.6b at full width and depth (fp32 masters from a
+              seeded ``torch.Generator``, AdamW with fp32 moments, bf16
+              compute with remat) trained through the port's ``Trainer``
+              (the cyclic conditional taskflow) for 6 steps of 8 x 2048
+              tokens, cut from the ``full`` preset's 256 x 4096: step
+              walls, tok/s, MFU, peak memory and the loss curve; then a
+              step under ``set_sync_debug_mode("error")``, a step traced
+              with ``torch.profiler`` (device busy, launches, kernels by
+              class), the ``ckpt-save`` snapshot timed (not written); bf16
+              against fp32 compute at full width and 4 layers; the
+              checkpoint branch with an injected failure at smoke size.
+              No kernel of the port runs here: training takes the plain
+              chunked attention, as the reference does;
 9. k4       — K4 (the LSDNN layer) against its plain version at the HPEC
               shape T=60000, F=G=1024 (fp32 and bf16, random and HPEC
               data), at ragged shapes and at a cap-saturating case, then
@@ -148,6 +161,20 @@ STEP_REL_TOL = {"bfloat16": 0.25, "float32": 1e-3}
 # (full width): an fp32 copy of all 24 would be 57 GB beside the 28.6 GB
 # bf16 weights, more than the card's 80 GB; 8 layers are 20.7 GB
 MOE_FP32_LAYERS = 8
+
+# the train phase: stablelm-1.6b at full width and depth, the full
+# preset's batch of 256 x 4096 cut to 8 x 2048 (one sequence per
+# microbatch) so that the phase stays near 90 s
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 8, 2048, 8, 6
+# its checks: bf16 against fp32 compute at full width and 4 layers, |d
+# loss| in nats and the grad norm's relative difference (measured on the
+# H100: 2.6e-4 nats and 2.7e-4; the bounds are ~20x that)
+TRAIN_CHECK_LAYERS = 4
+TRAIN_BF16_TOL = {"loss": 5e-3, "grad_norm": 5e-3}
+# the checkpoint branch on the card: the re-run step's loss against the
+# first run's, relative (the same weights and batch; the embedding
+# backward's atomics may change the last bits)
+TRAIN_RERUN_REL = 1e-5
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
 MAX_NEW = 32
@@ -1169,6 +1196,275 @@ def phase_steps_moe(cfg, params, prompts, frozen, dev) -> None:
                 raise SystemExit(f"moe_layer is not repeatable ({what})")
 
 
+# ------------------------------------------------------------------ phase 8e
+def train_model_flops(cfg, batch: int, seq: int):
+    """One step's model FLOPs by the PaLM count, ``6 N tokens + 12 L D S
+    tokens`` with N the matmul weights (attention, MLP and LM head; the
+    embedding gather is no matmul); remat's second forward is not counted.
+    Returns (flops, N)."""
+    D, L = cfg.d_model, cfg.num_layers
+    attn = 2 * D * cfg.num_heads * cfg.hd + 2 * D * cfg.num_kv_heads * cfg.hd
+    mlp = (3 if cfg.mlp_gated else 2) * D * cfg.d_ff
+    n = L * (attn + mlp) + D * cfg.padded_vocab
+    tokens = batch * seq
+    return 6.0 * n * tokens + 12.0 * L * D * seq * tokens, n
+
+
+def _profile_rows(fn):
+    """(device busy ms, kernel launches, every kernel's (name, ms, count)
+    by time) of one call, from ``torch.profiler``'s device activity alone,
+    read from its raw events (a step launches ~130k kernels: the
+    per-operator tables would cost minutes to build)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            r = by_name.setdefault(e.name(), [0.0, 0])
+            r[0] += e.duration_ns() / 1e6
+            r[1] += 1
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
+                  key=lambda r: -r[1])
+    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+
+def _gemm_class(name: str) -> str:
+    """A kernel's class in the train profile: cuBLAS's fp32 FFMA GEMMs
+    (the chunked attention's fp32 QK products and the fp32 logits
+    products), the other GEMMs (bf16 on the tensor cores), or the rest."""
+    if "f32f32_f32f32" in name or "sgemm" in name:
+        return "fp32 gemm"
+    if any(k in name for k in ("gemm", "nvjet", "cutlass")):
+        return "other gemm"
+    return "other"
+
+
+def _weights_probe(params) -> dict:
+    return {"wq": params["blocks"]["wq"][:, :8, :8].clone(),
+            "wd": params["blocks"]["wd"][:, :8, :8].clone(),
+            "embed": params["embed"][:8, :8].clone()}
+
+
+def phase_train(dev, card: str = "") -> dict:
+    """stablelm-1.6b at full width and depth (24 layers, d_model 2048, 32
+    heads of 64, d_ff 5632, vocab 100352) trained through the port's
+    ``Trainer`` (the cyclic conditional taskflow: prefetch, train-step,
+    ckpt?, loop?) for TRAIN_STEPS steps: fp32 masters from a seeded
+    ``torch.Generator``, AdamW with fp32 moments, bf16 compute with remat,
+    the launcher's ``full`` preset with its batch cut from 256 x 4096 to
+    TRAIN_BATCH x TRAIN_SEQ (one sequence per microbatch) so the phase
+    stays near 90 s; no checkpoint directory. Then, from the trained
+    state: one step under ``torch.cuda.set_sync_debug_mode("error")`` with
+    its batch on the card (a step that is not a log step makes no host
+    sync), one step traced with ``torch.profiler``, and one timed
+    snapshot of params and optimizer state into host memory (what
+    ``ckpt-save`` does on the critical path; nothing is written to disk).
+    Then ``phase_train_checks``."""
+    from repro_torch.launch.train import build_cfg
+    from repro_torch.optim import OptConfig
+    from repro_torch.tree import leaves
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import host_snapshot
+
+    cfg, full_batch, full_seq = build_cfg("stablelm-1.6b", "full")
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    flops, n_matmul = train_model_flops(cfg, B, S)
+    # the launcher's schedule for a TRAIN_STEPS-step run
+    opt = OptConfig(lr=3e-4, warmup_steps=max(10, TRAIN_STEPS // 20),
+                    total_steps=TRAIN_STEPS)
+    tc = TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                       microbatches=TRAIN_MB)
+    tr = Trainer(cfg, tc, batch=B, seq_len=S, opt=opt, device=dev)
+    probe = {}
+    draw = tr.init_state
+
+    def init_state():
+        st = draw()
+        probe.update(_weights_probe(st["params"]))
+        return st
+
+    tr.init_state = init_state
+    log(f"[train] {cfg.name}: L={cfg.num_layers} D={cfg.d_model} "
+        f"H={cfg.num_heads} hd={cfg.hd} F={cfg.d_ff} V={cfg.vocab_size} "
+        f"remat={cfg.remat} compute {cfg.compute_dtype}, fp32 masters and "
+        f"moments; batch {B} x seq {S} (the full preset's {full_batch} x "
+        f"{full_seq}, cut), {TRAIN_MB} microbatches; model FLOPs/step "
+        f"{flops:.4e} (N_matmul {n_matmul})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = tr.run()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = out["history"]
+    walls = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
+    wall = float(np.median(walls))
+    for h in hist:
+        log(f"[train] step {h['step']} loss {h['loss']:.6f} ce "
+            f"{h['ce']:.6f} grad_norm {h['grad_norm']:.6f} lr "
+            f"{h['lr']:.3e}")
+    tok_s = B * S / wall
+    mfu = flops / wall / BF16_FLOPS_PER_S
+    log(f"[train] {card}: {len(hist)} steps in {run_s:.2f}s (init "
+        f"included); step wall, steps 2-{len(hist)}: "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s, median {wall:.4f} s | "
+        f"{tok_s:.1f} tok/s | MFU {mfu:.4f} of {BF16_FLOPS_PER_S / 1e12:.0f}"
+        f" TFLOP/s bf16 ({flops / wall / 1e12:.1f} TFLOP/s) | peak device "
+        f"memory {peak / 1e9:.3f} GB")
+    losses = [h["loss"] for h in hist] + [h["grad_norm"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise SystemExit(f"train: want {TRAIN_STEPS} finite steps: {hist}")
+    if abs(hist[0]["loss"] - np.log(cfg.vocab_size)) > 1.0:
+        raise SystemExit(f"train: first loss {hist[0]['loss']} is not "
+                         f"within 1 nat of ln(V) = {np.log(cfg.vocab_size)}")
+    state = out["state"]
+    moved = {k: float((probe[k] - v).abs().max())
+             for k, v in _weights_probe(state["params"]).items()}
+    log(f"[train] weights moved (max |after - before| on probes): {moved}")
+    if not all(v > 0 for v in moved.values()):
+        raise SystemExit("train: the weights did not change")
+
+    params, opt_state = state["params"], state["opt"]
+    del out, state
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MB)
+    batch = {"tokens": torch.from_numpy(
+        tr.data.batch_at(TRAIN_STEPS)["tokens"]).to(dev)}
+    torch.cuda.synchronize()
+    log(f"[time] train: {TRAIN_STEPS} trainer steps "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt_state, m = step(params, opt_state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[train] one step under set_sync_debug_mode('error'), batch on "
+        f"the card: no host sync; loss {float(m['loss']):.6f}")
+    if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+        raise SystemExit("train: the sync-debug step is not finite")
+
+    t0 = time.perf_counter()
+    busy, launches, rows = _profile_rows(
+        lambda: step(params, opt_state, batch))
+    classes = {}
+    for name, ms, count in rows:
+        c = classes.setdefault(_gemm_class(name), [0.0, 0])
+        c[0] += ms
+        c[1] += count
+    log(f"[train] profile of one step ({time.perf_counter() - t0:.1f} s "
+        f"with the trace): device busy {busy:.1f} ms | idle "
+        f"{1 - busy / (wall * 1e3):.1%} of the {wall * 1e3:.1f} ms step "
+        f"wall | {launches} kernel launches | by class: "
+        + "; ".join(f"{k} {v[0]:.1f} ms x{v[1]}"
+                    for k, v in sorted(classes.items())))
+    for name, ms, count in rows[:14]:
+        log(f"    {ms:10.2f} ms  {ms / busy:6.1%}  x{count:<6d} {name[:100]}")
+    for name, ms, count in rows:
+        if _gemm_class(name) == "fp32 gemm":
+            log(f"    fp32 gemm {ms:10.2f} ms  x{count:<6d} {name[:100]}")
+
+    snap_tree = {"params": params, "opt": opt_state}
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(snap_tree))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = host_snapshot(snap_tree)
+    snap_s = time.perf_counter() - t0
+    del snap, snap_tree
+    log(f"[train] ckpt-save snapshot (synchronous copy to host memory, on "
+        f"the critical path): {nbytes / 1e9:.3f} GB in {snap_s:.3f} s "
+        f"({nbytes / snap_s / 1e9:.2f} GB/s); not written to disk")
+    del params, opt_state, m, batch, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"wall_s": walls, "median_wall_s": wall, "tokens_per_s": tok_s,
+               "model_flops": flops, "mfu": mfu, "peak_bytes": peak,
+               "busy_ms": busy, "launches": launches,
+               "loss": [h["loss"] for h in hist],
+               "grad_norm": [h["grad_norm"] for h in hist],
+               "snapshot_bytes": nbytes, "snapshot_s": snap_s,
+               "top": [(n, ms, c) for n, ms, c in rows[:14]]}
+    t0 = time.perf_counter()
+    summary.update(phase_train_checks(dev, cfg, opt))
+    log(f"[time] train: bf16/fp32 and checkpoint checks "
+        f"{time.perf_counter() - t0:.1f}s")
+    log(f"[train] summary {json.dumps(summary)}")
+    return summary
+
+
+def phase_train_checks(dev, cfg, opt) -> dict:
+    """At full width and TRAIN_CHECK_LAYERS layers: one ``train_step`` in
+    bf16 and in fp32 compute from the same fp32 weights and batch (2 x
+    TRAIN_SEQ, 2 microbatches), loss and grad norm within TRAIN_BF16_TOL.
+    Then the checkpoint branch at smoke size on the card: ``ckpt_every=2``,
+    ``fail_at_step=3`` gives one restart from the step-2 checkpoint, the
+    run ends at step 4, and the re-run step 2's loss equals the first
+    run's within TRAIN_RERUN_REL (the embedding backward's atomics may
+    change the last bits)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.params import init_params
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_map
+
+    c4 = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS)
+    base = init_params(c4, torch.Generator(dev).manual_seed(1), device=dev,
+                       cast=False)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, c4.vocab_size, (2, TRAIN_SEQ)).astype(np.int32)).to(dev)
+    got = {}
+    for dt in ("bfloat16", "float32"):
+        cc = dataclasses.replace(c4, compute_dtype=dt)
+        p = tree_map(torch.clone, base)
+        _, _, m = make_train_step(cc, opt, microbatches=2)(
+            p, init_opt_state(p, opt), {"tokens": toks})
+        got[dt] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        del p, m
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_loss = abs(got["bfloat16"]["loss"] - got["float32"]["loss"])
+    d_gn = abs(got["bfloat16"]["grad_norm"] - got["float32"]["grad_norm"]) \
+        / got["float32"]["grad_norm"]
+    log(f"[train] {TRAIN_CHECK_LAYERS} layers, full width, 2 x {TRAIN_SEQ}: "
+        f"bf16 {got['bfloat16']} | fp32 {got['float32']} | |d loss| "
+        f"{d_loss:.6f} nats (tol {TRAIN_BF16_TOL['loss']}), grad norm "
+        f"{d_gn:.6f} relative (tol {TRAIN_BF16_TOL['grad_norm']})")
+    if d_loss > TRAIN_BF16_TOL["loss"] or d_gn > TRAIN_BF16_TOL["grad_norm"]:
+        raise SystemExit("train: bf16 and fp32 compute disagree")
+
+    ckdir = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tc = TrainerConfig(total_steps=4, ckpt_every=2, log_every=1,
+                       fail_at_step=3)
+    try:
+        out = Trainer(get_config("stablelm-1.6b").smoke(), tc, batch=4,
+                      seq_len=64, opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=4),
+                      ckpt_dir=str(ckdir), device=dev).run()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    steps = [h["step"] for h in out["history"]]
+    first, again = [h["loss"] for h in out["history"] if h["step"] == 2][:2] \
+        if steps.count(2) == 2 else (float("nan"), float("nan"))
+    rel = abs(first - again) / abs(first)
+    log(f"[train] checkpoint branch (smoke size, on the card): restarts "
+        f"{out['restarts']}, final step {out['state']['step']}, steps "
+        f"logged {steps}, re-run step 2 loss {again!r} vs {first!r} "
+        f"(relative {rel:.3e}, tol {TRAIN_RERUN_REL})")
+    if out["restarts"] != 1 or out["state"]["step"] != 4 \
+            or not rel <= TRAIN_RERUN_REL:
+        raise SystemExit("train: the checkpoint branch failed")
+    return {"bf16_vs_fp32": got, "rerun_rel": rel}
+
+
 # ------------------------------------------------------------------ phase 9
 def _build_ablations(source: str, table: dict, other=None) -> dict:
     """Start one nvcc per altered copy of ``csrc/<source>`` (in parallel,
@@ -1468,6 +1764,8 @@ def main(argv=None) -> None:
     gc.collect()              # free qwen2-moe's weights and frozen pool
     torch.cuda.empty_cache()
     done("qwen2-moe serve and steps")
+    phase_train(dev, smi)
+    done("train")
     torch.backends.cuda.matmul.allow_tf32 = False   # K4's plain version
     report["lsdnn_layer"] = phase_k4(dev)
     report["lsdnn_layer"]["launches"] = phase_lsdnn(dev)

@@ -7,9 +7,10 @@ scheduler) is carried over as JAX-free copies. The serving hot path runs
 through hand-written CUDA kernels for Hopper (``kernels/csrc``) on a CUDA
 tensor and through their plain PyTorch versions on a CPU tensor.
 
-Slice 1 covers greedy serving of dense attention models:
-``repro_torch.serve.engine.ServeEngine`` and
-``python -m repro_torch.launch.serve``.
+Serving: ``repro_torch.serve.engine.ServeEngine`` and
+``python -m repro_torch.launch.serve``. Training (attention archs, dense
+and MoE): ``repro_torch.train.Trainer`` and
+``python -m repro_torch.launch.train``.
 """
-__all__ = ["configs", "core", "kernels", "models", "params", "pipeline",
-           "serve"]
+__all__ = ["configs", "core", "data", "kernels", "models", "optim",
+           "params", "pipeline", "serve", "train", "tree"]

@@ -32,6 +32,15 @@ MoE included, as in the reference), and the slot path
 :func:`decode_step_slots`, :func:`decode_chunk_slots` (Mamba1 and the
 hybrid). Modality-frontend configs raise ``ValueError`` (a later slice).
 
+Training (:func:`forward`, :func:`loss_fn`): teacher-forced fp32 logits
+over the padded vocabulary and the reference's cross-entropy + z-loss +
+router aux, for attention archs (dense and MoE), differentiated by
+``torch.autograd``. Each layer is recomputed in the backward when
+``cfg.remat`` (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint(..., nothing_saveable)`` over its layer scan). The master
+weights may be fp32 (``param_dtype``): every layer casts at use, so the
+gradients land in the fp32 leaves.
+
 One device sync per decode chunk: :func:`decode_chunk_paged` and
 :func:`decode_chunk_slots` keep the ``(lengths, last, rem)`` carry on the
 device through their ``n`` steps (no ``.item()``/``.cpu()`` inside), so the
@@ -42,6 +51,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -53,7 +64,8 @@ from .mamba import init_mamba_state, mamba_forward, mamba_step
 from .mlp import mlp
 from .moe import moe_layer
 
-__all__ = ["init_params", "init_cache", "prefill", "prefill_window_paged",
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
+           "prefill_window_paged",
            "decode_step_paged", "decode_chunk_paged", "decode_step_slots",
            "decode_chunk_slots", "layer_views"]
 
@@ -117,15 +129,18 @@ def layer_views(params) -> List[Dict[str, torch.Tensor]]:
 
 
 def _stack_views(stack) -> List[Dict[str, torch.Tensor]]:
-    leaves = tuple(stack.items())
-    return [{k: v[l] for k, v in leaves}
-            for l in range(leaves[0][1].shape[0])]
+    # unbind, not v[l]: under autograd each leaf then gets ONE backward
+    # node that stacks the L layer gradients, where L separate selects
+    # would each scatter into a zero tensor of the whole stack
+    names = tuple(stack)
+    return [dict(zip(names, views))
+            for views in zip(*(stack[k].unbind(0) for k in names))]
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     cdt = dtype_of(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(cdt)
+    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(cdt)
     return x
@@ -172,6 +187,78 @@ def _block_window(p, x, cfg: ModelConfig, attn_fn, pkv_l):
     h2 = rms_norm(x, p["ln2"], cfg.rms_eps)
     x = x + _ffn(p, h2, cfg)
     return x, pkv_l
+
+
+# ------------------------------------------------------------------ training
+def _require_trainable(cfg: ModelConfig) -> None:
+    if cfg.ssm:
+        raise NotImplementedError(
+            f"{cfg.name}: training in repro_torch covers attention archs "
+            "(dense and MoE); Mamba1 and zamba2-hybrid training wait for "
+            "ROADMAP Queue 1 item 13(b)")
+    if _unported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training of the frontend archs ({cfg.frontend!r}) "
+            "waits for ROADMAP Queue 1 item 10 (the frontend prefix), then "
+            "item 13(b)")
+
+
+def _block_train(p, x, cfg: ModelConfig, positions):
+    """One layer over the whole sequence (the reference's ``_block_apply``
+    for attention archs, chunked attention). Returns (x, MoE aux)."""
+    x = x + attention(p, rms_norm(x, p["ln1"], cfg.rms_eps), cfg, positions)
+    h2 = rms_norm(x, p["ln2"], cfg.rms_eps)
+    if cfg.moe:
+        y, aux = moe_layer(p, h2, cfg, return_aux=True)
+        return x + y, aux
+    return x + mlp(p, h2, cfg), torch.zeros((), device=x.device)
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced logits: ``(logits (B, S, padded_vocab) fp32, MoE aux
+    loss)``. Attention archs only: the others, the frontend archs among
+    them (the reference's ``frontend_embeds`` argument), raise
+    ``NotImplementedError``. The recomputation keeps no RNG state: no
+    layer draws random numbers."""
+    _require_trainable(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = _embed_tokens(cfg, params, tokens, positions)
+    aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in layer_views(params):
+        if remat:
+            x, a = checkpoint(_block_train, lp, x, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _block_train(lp, x, cfg, positions)
+        aux = aux + a
+    return _logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy in fp32 over the real vocabulary (the
+    padded columns masked to -1e30), + ``1e-4 * mean(logz^2)`` +
+    ``router_aux_weight * aux``. The gold logit is a gather: the
+    reference's one-hot sum has one nonzero term, so it is the same
+    number, without a (B, S, V) one-hot. Returns (total, {"ce", "aux",
+    "zloss", "ppl_proxy"})."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens)
+    S = tokens.shape[1]
+    pred = logits[:, :S - 1]
+    labels = tokens[:, 1:].long()
+    padded = torch.arange(cfg.padded_vocab, device=pred.device) \
+        >= cfg.vocab_size
+    pred = pred.masked_fill(padded, -1e30)
+    logz = torch.logsumexp(pred, dim=-1)
+    gold = pred.gather(-1, labels[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    zloss = 1e-4 * torch.mean(torch.square(logz))
+    total = ce + zloss + cfg.router_aux_weight * aux
+    return total, {"ce": ce, "aux": aux, "zloss": zloss,
+                   "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
 
 # ------------------------------------------------------------------ serving

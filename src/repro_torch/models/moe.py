@@ -37,23 +37,24 @@ from .mlp import mlp
 __all__ = ["init_moe", "moe_layer", "route", "Routing"]
 
 
-def init_moe(generator: torch.Generator, cfg: ModelConfig, device=None
-             ) -> Dict[str, torch.Tensor]:
+def init_moe(generator: torch.Generator, cfg: ModelConfig, device=None,
+             cast: bool = True) -> Dict[str, torch.Tensor]:
     """One layer's MoE leaves with the reference ``init_moe``'s names,
     shapes and distributions: ``router`` N(0, 0.02) in fp32; the expert
     matrices ``e_wi``/``e_wg`` (E, D, F) and ``e_wd`` (E, F, D) fan-in
     scaled over every axis but the last, as the reference's
     ``dense_init``; the shared experts' gated MLP and their zero
     ``shared_gate`` (D, 1) in ``param_dtype``; arctic's ``dense_`` MLP.
-    Matrices come in the compute dtype (the port's load-time cast), drawn on
-    the generator's device and moved to ``device`` (None: the generator's).
+    Matrices come in the compute dtype (the port's load-time cast; with
+    ``cast=False`` in ``param_dtype``, the training masters), drawn on the
+    generator's device and moved to ``device`` (None: the generator's).
     """
     g = generator
     dev = g.device if device is None else device
     D, Fe = cfg.d_model, cfg.moe_d_ff
     E = cfg.num_experts + cfg.moe_expert_pad
     pdt = dtype_of(cfg.param_dtype)
-    mdt = dtype_of(cfg.compute_dtype)
+    mdt = dtype_of(cfg.compute_dtype) if cast else pdt
 
     def dense(shape):
         return dense_init(g, shape, mdt).to(dev)

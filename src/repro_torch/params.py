@@ -84,10 +84,12 @@ def from_reference(tree: Dict[str, Any], cfg: ModelConfig, device=None,
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Dict[str, Any]:
+                device=None, cast: bool = True) -> Dict[str, Any]:
     """Random weights with the reference tree's names and shapes, drawn on
     the generator's device and moved to ``device`` (None: CUDA); matrices
-    in the compute dtype, norm scales and biases in ``param_dtype``. Dense
+    in the compute dtype, norm scales and biases in ``param_dtype``
+    (``cast=False``: every leaf in ``param_dtype``, the fp32 masters a
+    trainer updates; the draws are the same, only not rounded). Dense
     attention, MoE (the FFN's leaves from :func:`repro_torch.models.moe.
     init_moe`, ``router`` fp32), Mamba1 (falcon-mamba) and the Mamba2
     hybrid (zamba2: ``gblocks`` stacked (G, every, ...), ``tail_blocks``
@@ -96,7 +98,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     zero."""
     dev = resolve_device(device)
     pdt = dtype_of(cfg.param_dtype)
-    mdt = dtype_of(cfg.compute_dtype)
+    mdt = dtype_of(cfg.compute_dtype) if cast else pdt
     g = generator
     D, Vp = cfg.d_model, cfg.padded_vocab
 
@@ -120,7 +122,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             # one layer's MoE leaves at a time, each written into its stack
             blocks = _init_attention_mlp(cfg, dense, const)
             for l in range(n):
-                for k, v in init_moe(g, cfg, dev).items():
+                for k, v in init_moe(g, cfg, dev, cast).items():
                     if k not in blocks:
                         blocks[k] = torch.empty((n, *v.shape),
                                                 dtype=v.dtype, device=dev)

@@ -28,7 +28,11 @@ def test_import_without_gpu_leaves_jax_out():
         "repro_torch.params, repro_torch.core, repro_torch.pipeline, "
         "repro_torch.core.deviceflow, repro_torch.core.algorithms, "
         "repro_torch.bench.fig13_lsdnn, repro_torch.models.mamba, "
-        "repro_torch.kernels.mamba_scan, repro_torch.bench.serve_profile\n"
+        "repro_torch.kernels.mamba_scan, repro_torch.bench.serve_profile, "
+        "repro_torch.optim, repro_torch.data, repro_torch.train, "
+        "repro_torch.train.trainer, repro_torch.launch.train, "
+        "repro_torch.tree\n"
+        "from repro_torch.models.lm import forward, loss_fn\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
