@@ -100,8 +100,26 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               checked across the paths and against the plain version;
 11. device  — a DEVICE task (saxpy) through the Executor on the card,
               checked against numpy;
-12. report  — one JSON line of per-kernel numbers, the card line, and the
-              final ``{"ok": true, ...}`` line.
+11a. condgraph — in-graph conditional tasking (``CondGraph``, one CUDA
+              graph with a WHILE node and an IF node per block,
+              ``kernels/csrc/cond_graph.cu``): the programs of
+              ``tests/test_jaxgraph.py`` with torch state, a bounded fig17
+              loop (x at unit spectral norm, k = 256) and a loop that stops
+              on a device-side norm test, each compiled on the card and
+              held to ``lower()`` on the card and on the CPU (integers
+              exact, fp32 rel <= 1e-5), one graph launch per call, a call
+              under ``set_sync_debug_mode("error")``, a second call on
+              re-bound state, ``max_iters`` and an out-of-range index as on
+              the CPU (``bench/condgraph_check.py``); fig17's device panel
+              (nodes at k = 8 and 256, capture, replay and pool bytes of
+              the WHILE program and the unrolled graph, the host-driven
+              loop); then a quick pass of ``bench.run --only
+              table2,fig9,fig17,paged_decode --quick`` whose
+              ``BENCH_*.json`` must hold each suite's row names
+              (paged_decode runs K1 at stablelm-1.6b's full-width heads);
+12. report  — one JSON line of per-kernel numbers (K1-K4 and
+              ``cond_graph``), the card line, and the final
+              ``{"ok": true, ...}`` line.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --other-csrc build/parent/src/repro_torch/kernels/csrc
@@ -1713,6 +1731,104 @@ def phase_device_task(dev) -> None:
         raise SystemExit("DEVICE task saxpy failed")
 
 
+# the row names each suite of the quick bench pass must write
+BENCH_ROWS = {
+    "table2": ["table2/S_task_bytes", "table2/T_task_ns", "table2/T_edge_ns",
+               "rho_<10%_work_us", "rho_<5%_work_us", "rho_<1%_work_us"],
+    "fig9": [f"fig9/n{n}/{m}" for n in (1000, 5000) for m in (
+        "sequential_ms", "levelized_ms", "futures_ms", "taskflow_ms",
+        "taskflow_tasks_per_s", "steals_ok", "sleep_residency")]
+    + ["fig9/peak_rss_mb", "fig9/host_cores"],
+    "fig17": [f"fig17/host/{f}_k{k}_{m}" for k in (8, 64, 512)
+              for f in ("cyclic", "unrolled") for m in ("tasks", "bytes")]
+    + [f"fig17/cuda/{f}_nodes_k{k}" for f in ("while", "unrolled")
+       for k in (8, 256)]
+    + ["fig17/cuda/node_ratio", "fig17/cuda/host_loop_ms"]
+    + [f"fig17/cuda/{f}_{m}" for f in ("while", "unrolled")
+       for m in ("capture_ms", "replay_ms", "pool_bytes")],
+    "paged_decode": [f"{p}_read_{o}_occ_ms" for p in ("paged", "plain",
+                                                      "gather")
+                     for o in ("low", "mid", "full")]
+    + ["decode_step_paged_low_occ_ms", "decode_step_gather_low_occ_ms",
+       "paged_read_kernel_launches"],
+}
+FIG17_K, FIG17_N = 256, 256
+
+
+def phase_condgraph(dev, card: str) -> dict:
+    """CondGraph's programs against lower() on the card and the CPU,
+    fig17's device panel, and the quick bench pass. Returns the
+    ``cond_graph`` entry of the kernels line and K1's launches in the
+    paged_decode sweep (``"k1_sweep"``)."""
+    from repro_torch.bench import condgraph_check, fig17_conditional_memory
+    from repro_torch.bench import run as bench_run
+    from repro_torch.kernels import cond_graph, ops
+
+    t0 = time.perf_counter()
+    log(f"[condgraph] CUDA versions {cond_graph.versions(dev.index)}")
+    cond_graph.launches = 0
+    rep = condgraph_check.check_device(dev, FIG17_K, FIG17_N, log=log)
+    p = fig17_conditional_memory.device_panel(dev, FIG17_K, FIG17_N)
+    launches = cond_graph.launches
+    log(f"[condgraph] {len(rep['programs'])} programs equal to lower() on "
+        f"the card and the CPU (largest error {rep['max_abs_err']:.3g}), "
+        f"one launch per call, no host sync ({time.perf_counter() - t0:.1f}"
+        "s)")
+    log(f"[condgraph] fig17 (x {FIG17_N}x{FIG17_N} fp32 ones, x <- x @ x * "
+        f"0.5, TF32 off) on {card}: nodes WHILE k=8 "
+        f"{p['while_nodes_k8']}, k={FIG17_K} {p[f'while_nodes_k{FIG17_K}']}"
+        f" | unrolled k=8 {p['unrolled_nodes_k8']}, k={FIG17_K} "
+        f"{p[f'unrolled_nodes_k{FIG17_K}']}")
+    log(f"[condgraph] fig17 k={FIG17_K}: WHILE capture "
+        f"{p['while_capture_ms']:.3f} ms, call {p['while_replay_ms']:.4f} "
+        f"ms, pool {p['while_pool_bytes']} B | unrolled capture "
+        f"{p['unrolled_capture_ms']:.3f} ms, call "
+        f"{p['unrolled_replay_ms']:.4f} ms, pool {p['unrolled_pool_bytes']}"
+        f" B | host loop {p['host_loop_ms']:.3f} ms | WHILE without the "
+        f"matmul ({p['while_count_only_nodes']} nodes) "
+        f"{p['while_count_only_ms']:.4f} ms")
+    if p[f"while_nodes_k{FIG17_K}"] != p["while_nodes_k8"] or             p[f"unrolled_nodes_k{FIG17_K}"] <= p["unrolled_nodes_k8"]:
+        raise SystemExit("condgraph: the WHILE program's nodes grew with k, "
+                         "or the unrolled graph's did not")
+    if p["while_iters"] != FIG17_K:
+        raise SystemExit(f"condgraph: the fig17 program ran "
+                         f"{p['while_iters']} iterations, not {FIG17_K}")
+
+    out_dir = Path(__file__).resolve().parent / "build" / "bench"
+    suites = ",".join(BENCH_ROWS)
+    t1 = time.perf_counter()
+    before = ops.launch_counts()["paged_attention"]
+    rc = bench_run.main(["--only", suites, "--quick", "--bench-dir",
+                         str(out_dir)])
+    k1_sweep = ops.launch_counts()["paged_attention"] - before
+    if rc != 0:
+        raise SystemExit(f"condgraph: bench.run --only {suites} failed")
+    for suite, names in BENCH_ROWS.items():
+        data = json.loads((out_dir / f"BENCH_{suite}.json").read_text())
+        got = {r["name"] for r in data["rows"]}
+        missing = [n for n in names if n not in got]
+        if missing or data["suite"] != suite or not {
+                "config", "git_sha", "timestamp", "timestamp_iso",
+                "elapsed_s", "metrics"} <= set(data):
+            raise SystemExit(f"condgraph: BENCH_{suite}.json lacks "
+                             f"{missing or 'schema keys'}")
+    if k1_sweep <= 0:
+        raise SystemExit("condgraph: the paged_decode sweep launched no K1")
+    log(f"[condgraph] bench.run --only {suites} --quick: every BENCH_*.json "
+        f"holds its rows; K1 launched {k1_sweep} times in the sweep "
+        f"({time.perf_counter() - t1:.1f}s)")
+    # the bound: k times the body matmul's (x @ x, fp32 on the CUDA cores)
+    n = FIG17_N
+    b_ms, b_by = bound_ms(3 * n * n * 4, 2.0 * n ** 3, FP32_FLOPS_PER_S)
+    return {"name": "cond_graph", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cond_graph.cu",
+            "replaces": "src/repro/core/jaxgraph.py:274",
+            "launches": launches, "max_abs_err": rep["max_abs_err"],
+            "ms": p["while_replay_ms"], "plain_ms": p["host_loop_ms"],
+            "bound_ms": FIG17_K * b_ms, "bound_by": b_by,
+            "library_ms": p["unrolled_replay_ms"], "k1_sweep": k1_sweep}
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1771,8 +1887,10 @@ def main(argv=None) -> None:
     report["lsdnn_layer"]["launches"] = phase_lsdnn(dev)
     phase_device_task(dev)
     done("K4, LSDNN, DEVICE task")
+    report["cond_graph"] = phase_condgraph(dev, smi)
+    done("condgraph and the quick bench pass")
     report["paged_attention"]["launches"] = counts["paged_attention"] \
-        + qcounts["paged_attention"]
+        + qcounts["paged_attention"] + report["cond_graph"]["k1_sweep"]
     report["flash_attention"]["launches"] = counts["flash_attention"] \
         + zcounts["flash_attention"] + qcounts["flash_attention"]
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"]
@@ -1781,7 +1899,7 @@ def main(argv=None) -> None:
             "library_ms")
     kernels = [{k: report[n][k] for k in keys}
                for n in ("paged_attention", "flash_attention", "mamba_scan",
-                         "lsdnn_layer")]
+                         "lsdnn_layer", "cond_graph")]
     if "jax" in sys.modules:
         raise SystemExit("jax was imported")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -9,11 +9,14 @@ Host layer (copies of the reference host runtime):
 Device layer:
     DeviceFlow                      cudaFlow over a CUDA graph, one replay
                                     per launch (§3.5)
-
-The reference's in-XLA conditional graphs (``JaxGraph``) are not ported.
+    CondGraph / STOP                in-graph conditional tasking (§3.4): a
+                                    cyclic graph of state transformers as
+                                    ONE CUDA graph with WHILE/IF nodes (the
+                                    counterpart of ``JaxGraph``)
 """
 from . import algorithms
 from .atomic import AtomicInt
+from .condgraph import STOP, CondGraph
 from .deviceflow import DeviceFlow
 from .executor import Executor, TaskError, Topology
 from .graph import ACCEL, HOST, GraphBuilder, Subflow, Task, Taskflow, TaskType
@@ -22,7 +25,7 @@ from .observer import Observer, Profiler
 from .wsq import WorkStealingQueue
 
 __all__ = [
-    "AtomicInt", "DeviceFlow", "Executor", "TaskError", "Topology",
+    "AtomicInt", "CondGraph", "DeviceFlow", "STOP", "Executor", "TaskError", "Topology",
     "ACCEL", "HOST", "GraphBuilder", "Subflow", "Task", "Taskflow",
     "TaskType", "EventNotifier", "Waiter",
     "Observer", "Profiler", "WorkStealingQueue", "algorithms",

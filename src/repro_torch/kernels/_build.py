@@ -38,7 +38,7 @@ BFLOAT16 = 1
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "flash_attention.cu", "lsdnn_layer.cu",
-           "mamba_scan.cu")
+           "mamba_scan.cu", "cond_graph.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,6 +53,8 @@ _inited: set = set()
 _info: dict = {}
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_pi, _pll = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
+_pvp = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     # dtype, q, pool, tables, lengths, out, B, H, KV, N, bs, hd, mb,
     # scale, stream
@@ -66,6 +68,18 @@ _SIGNATURES = {
     # dtype, dt, x, Bc, Cc, A, h0, y, hT, B, S, dI, N, stream
     "repro_mamba_scan": (_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                          _i, _i, _vp),
+    # the conditional-graph program (csrc/cond_graph.cu): versions(out[3]);
+    # check(graph, bad); count(graph, total); create(blocks, nblocks,
+    # start, max_iters, ctrl, succ, meta, width, ifs, device, out);
+    # launch(program, stream); nodes(program, total); destroy(program)
+    "repro_cond_graph_versions": (_pi,),
+    "repro_cond_graph_check": (_vp, _pi),
+    "repro_cond_graph_count": (_vp, _pll),
+    "repro_cond_graph_create": (_pvp, _i, _i, _i, _vp, _vp, _vp, _i, _vp,
+                                _i, _pvp),
+    "repro_cond_graph_launch": (_vp, _vp),
+    "repro_cond_graph_nodes": (_vp, _pll),
+    "repro_cond_graph_destroy": (_vp,),
     # run on the current device, once per device, before any launch
     "repro_paged_attention_init": (),
     "repro_flash_attention_init": (),

@@ -1,0 +1,135 @@
+"""The port's benchmark suite (``repro_torch.bench``) against the JAX
+package's (``benchmarks/``), on the CPU.
+
+The host suites (table2, fig9, fig11, fig21) run on both packages at tiny
+sizes: the port's rows carry every one of the reference's row names (the
+port adds ``*/host_cores``). fig17's host rows keep their names and shape
+(constant for the cyclic graph, growing with k unrolled). The harness
+writes ``BENCH_<suite>.json`` with the keys of the reference's
+``benchmarks/run.py:_write_trajectory``. Timings are host-clock numbers of
+this machine and are not compared.
+"""
+import json
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.bench import (fig9_micro_random_dag, fig11_corun_throughput,
+                               fig17_conditional_memory,
+                               fig21_incremental_timing,
+                               paged_decode_microbench, pipeline_throughput)
+from repro_torch.bench import run as trun
+from repro_torch.bench import table2_task_overhead
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:      # the reference's benchmarks package
+    sys.path.insert(0, str(ROOT))
+
+from benchmarks import fig9_micro_random_dag as jfig9  # noqa: E402
+from benchmarks import fig11_corun_throughput as jfig11  # noqa: E402
+from benchmarks import fig21_incremental_timing as jfig21  # noqa: E402
+from benchmarks import run as jrun  # noqa: E402
+from benchmarks import table2_task_overhead as jtable2  # noqa: E402
+
+HOST_SUITES = {
+    "table2": (jtable2.bench, table2_task_overhead.bench, {"n_ops": 2_000}),
+    "fig9": (jfig9.bench, fig9_micro_random_dag.bench,
+             {"sizes": (200,), "workers": 2}),
+    "fig11": (jfig11.bench, fig11_corun_throughput.bench,
+              {"n_tasks": 200, "coruns": (1, 2)}),
+    "fig21": (jfig21.bench, fig21_incremental_timing.bench,
+              {"n_gates": 200, "iters": 2}),
+}
+
+
+def _names(rows):
+    return [r[0] for r in rows]
+
+
+@pytest.mark.parametrize("suite", sorted(HOST_SUITES))
+def test_host_suite_rows_carry_the_reference_names(suite):
+    ref_bench, port_bench, kw = HOST_SUITES[suite]
+    want = _names(ref_bench(**kw))
+    rows = port_bench(**kw)
+    got = _names(rows)
+    assert [n for n in got if n in want] == want
+    assert all(isinstance(v, (int, float)) for _, v, _ in rows)
+    extra = set(got) - set(want)
+    assert extra <= {f"{suite}/host_cores"}, extra
+
+
+def test_fig17_host_rows():
+    rows = fig17_conditional_memory.bench(iters=(8, 64), device="cpu")
+    val = dict((n, v) for n, v, _ in rows)
+    assert sorted(val) == sorted(
+        f"fig17/host/{f}_k{k}_{m}" for k in (8, 64)
+        for f in ("cyclic", "unrolled") for m in ("tasks", "bytes"))
+    assert val["fig17/host/cyclic_k8_tasks"] == \
+        val["fig17/host/cyclic_k64_tasks"] == 3
+    assert val["fig17/host/cyclic_k8_bytes"] == \
+        val["fig17/host/cyclic_k64_bytes"]
+    assert (val["fig17/host/unrolled_k8_tasks"],
+            val["fig17/host/unrolled_k64_tasks"]) == (8, 64)
+    assert val["fig17/host/unrolled_k64_bytes"] > \
+        val["fig17/host/unrolled_k8_bytes"]
+
+
+def test_run_writes_the_reference_trajectory_schema(tmp_path):
+    rc = trun.main(["--device", "cpu", "--quick", "--only", "table2,fig21",
+                    "--bench-dir", str(tmp_path)])
+    assert rc == 0
+    ref = json.loads(Path(jrun._write_trajectory(
+        str(tmp_path / "ref"), "table2", {}, [("a", 1.0, "")], 0.1))
+        .read_text())
+    for suite in ("table2", "fig21"):
+        data = json.loads((tmp_path / f"BENCH_{suite}.json").read_text())
+        assert set(data) == set(ref)
+        assert data["suite"] == suite
+        assert data["config"]["device"] == "cpu"
+        assert data["config"]["quick"] is True
+        assert set(data["rows"][0]) == {"name", "value", "derived"}
+    names = [r["name"] for r in json.loads(
+        (tmp_path / "BENCH_table2.json").read_text())["rows"]]
+    assert names == _names(jtable2.bench(2_000))
+
+
+def test_run_refuses_unported_and_unknown_suites():
+    with pytest.raises(SystemExit, match="item 6"):
+        trun.main(["--device", "cpu", "--only", "serve_slo"])
+    with pytest.raises(SystemExit, match="unknown suite"):
+        trun.main(["--device", "cpu", "--only", "fig99"])
+
+
+def test_run_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trun.main(["--only", "table2"])
+
+
+def test_paged_decode_rows_on_cpu():
+    rows = list(paged_decode_microbench.bench(quick=True, device="cpu"))
+    names = _names(rows)
+    assert names == [f"{p}_read_{o}_occ_ms" for o in ("low", "mid", "full")
+                     for p in ("paged", "plain", "gather")] + [
+        "decode_step_paged_low_occ_ms", "decode_step_gather_low_occ_ms",
+        "paged_read_kernel_launches"]
+    assert all(float(v) > 0 for _, v, _ in rows[:-1])
+
+
+def test_pipeline_rows_carry_the_reference_names():
+    names = _names(pipeline_throughput.bench(quick=True, device="cpu"))
+    assert names == [
+        "pipeline_micro_loop_tok_per_s", "pipeline_micro_L1S4_tok_per_s",
+        "pipeline_micro_L4S4_tok_per_s", "prefetch_manual_batch_per_s",
+        "prefetch_pipeline_batch_per_s", "serve_loop_tok_per_s",
+        "serve_pipeline_tok_per_s"]
+
+
+def test_quickstart_runs_on_cpu(capsys):
+    from repro_torch.examples import quickstart
+    quickstart.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "saxpy ok on cpu: True" in out
+    assert out.rstrip().endswith("quickstart complete")

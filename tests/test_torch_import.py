@@ -31,7 +31,13 @@ def test_import_without_gpu_leaves_jax_out():
         "repro_torch.kernels.mamba_scan, repro_torch.bench.serve_profile, "
         "repro_torch.optim, repro_torch.data, repro_torch.train, "
         "repro_torch.train.trainer, repro_torch.launch.train, "
-        "repro_torch.tree\n"
+        "repro_torch.tree, repro_torch.core.condgraph, "
+        "repro_torch.kernels.cond_graph, repro_torch.bench.run, "
+        "repro_torch.bench.condgraph_check, "
+        "repro_torch.bench.fig17_conditional_memory, "
+        "repro_torch.bench.paged_decode_microbench, "
+        "repro_torch.bench.pipeline_throughput, "
+        "repro_torch.examples.quickstart\n"
         "from repro_torch.models.lm import forward, loss_fn\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -72,6 +78,14 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace(src):
         .read_text()
     head = text[:2000]
     assert "src/repro/kernels/" in head and "Replaces" in head
+    assert "bound" in head and "Design" in head
+
+
+def test_cond_graph_source_names_what_it_replaces():
+    text = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+            "cond_graph.cu").read_text()
+    head = text[:3000]
+    assert "src/repro/core/jaxgraph.py" in head and "Replaces" in head
     assert "bound" in head and "Design" in head
 
 
