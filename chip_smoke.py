@@ -22,7 +22,23 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 5. steps    — one ``decode_step_paged`` on a frozen copy of the engine's
               pool and tables with K1 and with the gather oracle, and one
               ``prefill`` with K2 and with the plain path; logits compared;
-              then stablelm's weights and pool are freed;
+5a. prefix  — the port's serve suite (``bench/serve_continuous.py``) at
+              stablelm-1.6b's full width and depth with the same weights:
+              the continuous trace (``choice`` lengths 16/24/32, 32 new
+              tokens, decode chunk 8, block 8, a 16-token window, Poisson
+              at 20 Hz, 128 requests) and the prefix-share trace (4
+              prefixes of 96 tokens x 4-8-token suffixes, 24 requests, 16
+              new tokens, 80 blocks of 8) cold and warm, each with an
+              ``Observability`` and its Chrome trace in ``build/prefix/``;
+              each run fails unless every request returns in-vocab tokens,
+              ``serve.ttft_s.count`` equals the requests, the trace has
+              engine, slot and line spans, every slot is free and every
+              block is free at refcount 0 once the trie is evicted; the
+              warm run must hit, save prefill tokens and fork, K1 must run
+              in both; warm tokens must equal cold in fp32 compute at full
+              width and 4 layers, and their bf16 match share and first
+              flip's top-2 margin are printed; the obs gate's on/off ratio
+              is printed (not gated); then stablelm's weights are freed;
 6. k3       — K3 (the Mamba1 selective scan) against its plain sequential
               version at the SSM prefill path's shapes (B=1, dI=8192, N=16,
               S in {16, 57, 300}, bf16 x/B/C, fp32 dt), a ragged, a B=4, an
@@ -196,6 +212,13 @@ TRAIN_RERUN_REL = 1e-5
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
 MAX_NEW = 32
+
+# the prefix phase: the serve suite's continuous trace at the reference's
+# non-quick shapes with 128 requests (so that p99 is not the maximum), and
+# its fp32 check of warm against cold tokens at full width and 4 layers
+PREFIX_N_REQ = 128
+PREFIX_FP32_LAYERS = 4
+PREFIX_DIR = Path("build") / "prefix"
 
 # the hybridstep phase's Mamba2 layer: SSD dual form against the
 # recurrence, max |ssd - steps| <= SSD_REL_TOL x max |steps| on the layer's
@@ -1830,6 +1853,183 @@ def phase_condgraph(dev, card: str) -> dict:
 
 
 # ------------------------------------------------------------------ main
+def _check_serve_run(run, tag: str, n_req: int, vocab: int) -> dict:
+    """The gates every serve-suite run holds: in-vocab tokens for every
+    request, TTFT counted once per request, spans on the engine, slot and
+    line tracks, every slot free, and every block free with refcount 0
+    once the prefix trie (if any) is evicted. Returns the run's metric
+    snapshot."""
+    eng, obs = run["eng"], run["obs"]
+    for o in run["outs"]:
+        if o.ndim != 1 or len(o) == 0 \
+                or not ((o >= 0) & (o < vocab)).all():
+            raise SystemExit(f"[{tag}] bad output {o}")
+    if len(run["outs"]) != n_req:
+        raise SystemExit(f"[{tag}] {len(run['outs'])} of {n_req} results")
+    snap = obs.metrics.snapshot()
+    if snap["serve.ttft_s"]["count"] != n_req:
+        raise SystemExit(f"[{tag}] serve.ttft_s.count "
+                         f"{snap['serve.ttft_s']['count']} != {n_req}")
+    tracks = {s[1] for s in obs.tracer.spans()}
+    for kind in ("engine", "slot", "line"):
+        if not any(t.startswith(kind) for t in tracks):
+            raise SystemExit(f"[{tag}] no span on a {kind} track: {tracks}")
+    if len(eng._free_slots) != len(eng._slot_req) \
+            or any(r is not None for r in eng._slot_req):
+        raise SystemExit(f"[{tag}] slots still held at the end")
+    pool, px = eng._pool, eng._prefix
+    parked = px.num_parked if px is not None else 0
+    if px is not None:
+        px.evict(px.num_nodes)
+    refs = [pool.refcount(b) for b in range(1, pool.num_blocks)]
+    if pool.num_free != pool.num_blocks - 1 or any(refs) \
+            or (px is not None and px.num_nodes):
+        raise SystemExit(f"[{tag}] blocks leaked: {pool.num_free} free of "
+                         f"{pool.num_blocks - 1}, refcounts {sum(refs)}")
+    log(f"[{tag}] {n_req} requests in {run['dt']:.3f}s, "
+        f"{len(obs.tracer)} spans ({obs.tracer.dropped} dropped), every "
+        f"slot free, {parked} parked blocks evicted, all "
+        f"{pool.num_blocks - 1} blocks free at refcount 0; stats "
+        f"{run['stats']}")
+    return snap
+
+
+def _first_flip_margin(cfg, params, prompt, a, b, dev) -> str:
+    """Where two token streams of one prompt first differ: the position
+    and the top-2 logit margin of a contiguous prefill of the prompt and
+    the shared tokens before it."""
+    from repro_torch.models import lm
+    j = int(np.nonzero(np.asarray(a) != np.asarray(b))[0][0])
+    seq = np.concatenate([prompt, np.asarray(a[:j], np.int32)])
+    with torch.inference_mode():
+        logits, _ = lm.prefill(cfg, params,
+                               torch.from_numpy(seq[None]).to(dev))
+    top2 = logits[0].float().topk(2).values
+    return f"token {j}, top-2 margin {(top2[0] - top2[1]).item():.4e}"
+
+
+def phase_prefix(dev, cfg, params, card: str) -> dict:
+    """The port's serve suite at stablelm-1.6b's full width and depth
+    (``params``: the serve phase's seeded bf16 weights): the continuous
+    trace at the reference's non-quick shapes with PREFIX_N_REQ requests,
+    then the prefix-share trace cold and warm, each with an
+    ``Observability`` attached and its trace exported; every run's gates
+    (``_check_serve_run``); the warm run's hits, saved tokens and forks;
+    K1 in both prefix-share runs; warm against cold tokens, equal in fp32
+    compute at full width and PREFIX_FP32_LAYERS layers, and their match
+    share and first flip's margin in bf16; then the obs gate's measurement
+    (printed, not gated: host timing is noisy). Returns the bf16 runs'
+    K1 and K2 launches."""
+    import dataclasses
+
+    from repro_torch.bench import obs_overhead_gate
+    from repro_torch.bench import serve_continuous as sc
+    from repro_torch.kernels import ops
+
+    PREFIX_DIR.mkdir(parents=True, exist_ok=True)
+    V = cfg.vocab_size
+    L = cfg.num_layers
+    total = {"paged_attention": 0, "flash_attention": 0}
+
+    def counted(fn, *a, **kw):
+        ops.reset_launch_counts()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        return out, counts
+
+    rng = np.random.default_rng(0)
+    sizes = sc._sample_lens(rng, PREFIX_N_REQ, "choice", False)
+    trace = sc._trace(rng, sizes, 20.0, 32)
+    cont, counts = counted(sc.continuous_run, cfg, params, trace, chunk=8,
+                           device=dev,
+                           trace_path=str(PREFIX_DIR / "TRACE_serve.json"))
+    _check_serve_run(cont, "prefix/continuous", PREFIX_N_REQ, V)
+    st = cont["stats"]
+    if counts["paged_attention"] < L * st["decode_cycles"] * 8 \
+            or counts["flash_attention"] < L * st["prefills"]:
+        raise SystemExit(f"[prefix] continuous launches {counts} short of "
+                         f"{L} x {st['decode_cycles']} chunks of 8 and "
+                         f"{L} x {st['prefills']} prefills")
+    for k in total:
+        total[k] += counts[k]
+    for name, val, derived in sc.continuous_rows(cont, sizes, "choice"):
+        log(f"[prefix] {name},{val},{derived}")
+    log(f"[prefix] continuous launches {counts} on {card}")
+
+    ptrace, geom = sc.prefix_share_trace(False)
+    runs = {}
+    for warm in (False, True):
+        tag = "warm" if warm else "cold"
+        run, counts = counted(
+            sc.prefix_share_run, cfg, params, ptrace, geom, warm,
+            device=dev, trace_path=str(PREFIX_DIR / f"TRACE_{tag}.json"))
+        _check_serve_run(run, f"prefix/{tag}", len(ptrace), V)
+        if counts["paged_attention"] == 0:
+            raise SystemExit(f"[prefix] {tag}: K1 was not launched")
+        if counts["flash_attention"] < L * run["stats"]["prefills"]:
+            raise SystemExit(f"[prefix] {tag}: K2 launches "
+                             f"{counts['flash_attention']} < {L} x "
+                             f"{run['stats']['prefills']} prefills")
+        log(f"[prefix] {tag} launches {counts}")
+        for k in total:
+            total[k] += counts[k]
+        runs[tag] = run
+    st = runs["warm"]["stats"]
+    if not (st["prefix_hits"] > 0 and st["prefix_tokens_saved"] > 0
+            and st["cow_forks"] > 0):
+        raise SystemExit(f"[prefix] warm run: hits {st['prefix_hits']}, "
+                         f"saved {st['prefix_tokens_saved']}, forks "
+                         f"{st['cow_forks']}: the cache did not serve")
+    for name, val, derived in sc.prefix_share_rows(runs["cold"],
+                                                   runs["warm"], geom):
+        log(f"[prefix] {name},{val},{derived}")
+    cold_t = [o.tolist() for o in runs["cold"]["outs"]]
+    warm_t = [o.tolist() for o in runs["warm"]["outs"]]
+    same = sum(a == b for a, b in zip(cold_t, warm_t))
+    msg = f"[prefix] bf16 L={L}: warm tokens equal cold on {same} of " \
+          f"{len(cold_t)} requests"
+    flips = [i for i, (a, b) in enumerate(zip(cold_t, warm_t)) if a != b]
+    if flips:
+        i = flips[0]
+        msg += f"; first flip request {i}: " + _first_flip_margin(
+            cfg, params, ptrace[i][1], cold_t[i], warm_t[i], dev)
+    log(msg)
+    del runs, cont
+    gc.collect()
+
+    # fp32 compute at full width and PREFIX_FP32_LAYERS layers: the warm
+    # pass must emit the cold pass's tokens exactly
+    L32 = min(PREFIX_FP32_LAYERS, L)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", num_layers=L32)
+    p32 = _fp32_params(params, L32)
+    outs = {}
+    for warm in (False, True):
+        run = sc.prefix_share_run(c32, p32, ptrace, geom, warm, device=dev)
+        _check_serve_run(run, f"prefix/fp32-{'warm' if warm else 'cold'}",
+                         len(ptrace), V)
+        outs[warm] = [o.tolist() for o in run["outs"]]
+        if warm:
+            st32 = run["stats"]
+    if outs[True] != outs[False]:
+        bad = [i for i, (a, b) in enumerate(zip(outs[False], outs[True]))
+               if a != b]
+        raise SystemExit(f"[prefix] fp32 L={L32}: warm "
+                         f"tokens differ from cold on requests {bad}")
+    log(f"[prefix] fp32 L={L32}: warm tokens equal cold on "
+        f"all {len(ptrace)} requests (hits {st32['prefix_hits']}, saved "
+        f"{st32['prefix_tokens_saved']}, forks {st32['cow_forks']})")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g = obs_overhead_gate.measure(quick=True, device=dev)
+    log(f"[prefix] obs_gate (smoke config, best of {g['reps']}): off "
+        f"{g['off']:.1f} tok/s, on {g['on']:.1f} tok/s, on/off "
+        f"{g['ratio']:.4f} on {card}")
+    return total
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other-csrc", type=Path, default=None, help=(
@@ -1854,10 +2054,13 @@ def main(argv=None) -> None:
     done("card, build, K1/K2")
     cfg, params, prompts, frozen, counts = phase_serve(dev, card=smi)
     phase_steps(cfg, params, prompts, frozen, dev)
-    del params, frozen
+    del frozen
+    done("stablelm serve and steps")
+    pcounts = phase_prefix(dev, cfg, params, smi)
+    del params
     gc.collect()              # free the serve phase's weights and pool
     torch.cuda.empty_cache()
-    done("stablelm serve and steps")
+    done("prefix (serve suite, prefix cache, obs)")
     report["mamba_scan"] = phase_k3(dev, args.other_csrc)
     done("K3")
     mcfg, mparams, mprompts, mcounts = phase_serve_ssm(dev, card=smi)
@@ -1890,9 +2093,11 @@ def main(argv=None) -> None:
     report["cond_graph"] = phase_condgraph(dev, smi)
     done("condgraph and the quick bench pass")
     report["paged_attention"]["launches"] = counts["paged_attention"] \
-        + qcounts["paged_attention"] + report["cond_graph"]["k1_sweep"]
+        + pcounts["paged_attention"] + qcounts["paged_attention"] \
+        + report["cond_graph"]["k1_sweep"]
     report["flash_attention"]["launches"] = counts["flash_attention"] \
-        + zcounts["flash_attention"] + qcounts["flash_attention"]
+        + pcounts["flash_attention"] + zcounts["flash_attention"] \
+        + qcounts["flash_attention"]
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

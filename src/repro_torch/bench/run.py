@@ -4,6 +4,7 @@ The port of ``benchmarks/run.py``:
 
     PYTHONPATH=src python -m repro_torch.bench.run [--only fig9,...]
         [--quick] [--bench-dir DIR] [--device cuda|cpu]
+        [--prompt-dist choice|lognormal] [--prefix-share]
 
 table2       — task/edge creation overheads (paper Table 2)
 fig9         — random-DAG runtime/memory vs baselines (paper Figure 9)
@@ -18,16 +19,23 @@ pipeline     — task-parallel pipeline throughput vs hand-rolled loops
 paged_decode — K1 vs its plain page loop and the gather oracle across
                pool occupancies at stablelm-1.6b's full-width heads, and
                the full-width decode step
+serve        — continuous batching under a Poisson trace, percentiles
+               read from the ``repro_torch.obs`` registry (``--prompt-dist``);
+               ``--prefix-share`` runs the prefix-cache workload, cold
+               against warm; its trace lands in ``TRACE_serve.json``
+obs_gate     — serve throughput with observability on against off
 
-Not ported yet (ROADMAP.md Queue 1): ``serve`` (the continuous-batching
-suite) waits for items 3 and 8, ``serve_slo`` for item 6,
-``decode_overlap`` for item 4, ``journal_gate`` for item 7, ``obs_gate``
-for item 8, ``serve_mesh`` for item 11 and ``roofline`` for item 14.
+Not ported yet (ROADMAP.md Queue 1): ``serve_slo`` waits for item 6,
+``decode_overlap`` for item 4, ``journal_gate`` for item 7,
+``serve_mesh`` for item 11 and ``roofline`` for item 14; the ``serve``
+suite's per-call baseline rows are not ported (the port's engine has no
+per-call grouped path).
 
 ``--quick`` shrinks every suite to seconds: table2 20,000 operations,
 fig9 graphs of 1,000 and 5,000 tasks, fig11 1,000 tasks, fig21 1,000
 gates over 5 iterations, fig13 8 layers, the pipeline and paged_decode
-suites their own quick sizes (paged_decode keeps the full-width heads).
+suites their own quick sizes (paged_decode keeps the full-width heads),
+serve and obs_gate the reference's quick sizes.
 The suites run on the card unless ``--device cpu`` is given (the tests);
 without a card the default raises. Each completed suite drops
 ``BENCH_<suite>.json`` into ``--bench-dir`` with the schema of
@@ -51,9 +59,8 @@ _METRIC_SUFFIXES = ("tok_per_s", "p50_ms", "p99_ms")
 
 #: suites of ``benchmarks/run.py`` the port does not have yet, with the
 #: ROADMAP Queue 1 item each waits for
-NOT_PORTED = {"serve": "items 3 and 8", "serve_slo": "item 6",
-              "decode_overlap": "item 4", "journal_gate": "item 7",
-              "obs_gate": "item 8", "serve_mesh": "item 11",
+NOT_PORTED = {"serve_slo": "item 6", "decode_overlap": "item 4",
+              "journal_gate": "item 7", "serve_mesh": "item 11",
               "roofline": "item 14"}
 
 
@@ -111,11 +118,14 @@ def _card(dev) -> str:
         return "unknown"
 
 
-def suites(dev, quick: bool) -> dict:
+def suites(dev, quick: bool, prompt_dist: str = "choice",
+           prefix_share: bool = False, trace_dir: str = ".") -> dict:
     from . import (fig9_micro_random_dag, fig11_corun_throughput,
                    fig13_lsdnn, fig17_conditional_memory,
-                   fig21_incremental_timing, paged_decode_microbench,
-                   pipeline_throughput, table2_task_overhead)
+                   fig21_incremental_timing, obs_overhead_gate,
+                   paged_decode_microbench, pipeline_throughput,
+                   serve_continuous, table2_task_overhead)
+    trace = os.path.join(trace_dir, "TRACE_serve.json")
     return {
         "table2": lambda: table2_task_overhead.bench(
             20_000 if quick else 200_000),
@@ -132,6 +142,14 @@ def suites(dev, quick: bool) -> dict:
                                                       device=dev),
         "paged_decode": lambda: paged_decode_microbench.bench(
             quick=quick, device=dev),
+        "serve": lambda: (
+            serve_continuous.bench_prefix_share(
+                quick=quick, trace_path=trace, device=dev)
+            if prefix_share else
+            serve_continuous.bench(quick=quick, prompt_dist=prompt_dist,
+                                   trace_path=trace, device=dev)),
+        "obs_gate": lambda: obs_overhead_gate.bench(quick=quick,
+                                                    device=dev),
     }
 
 
@@ -149,11 +167,20 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="default: CUDA (raises without it); 'cpu' runs "
                          "the host suites and the plain versions")
+    ap.add_argument("--prompt-dist", default="choice",
+                    choices=("choice", "lognormal"),
+                    help="serve suite prompt-length distribution "
+                         "(lognormal = heavy tail)")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="serve suite: shared-prefix workload, cold vs "
+                         "warm prefix cache over one trace")
     args = ap.parse_args(argv)
 
     from ..device import resolve_device
     dev = resolve_device(args.device)
-    table = suites(dev, args.quick)
+    os.makedirs(args.bench_dir, exist_ok=True)
+    table = suites(dev, args.quick, args.prompt_dist, args.prefix_share,
+                   args.bench_dir)
     only = [s for s in args.only.split(",") if s]
     for name in only:
         if name not in table:
@@ -167,7 +194,11 @@ def main(argv=None) -> int:
     config = {"quick": args.quick, "only": args.only,
               "device": str(dev), "card": card,
               "host_cores": os.cpu_count(),
-              "paged_impl_env": os.environ.get("REPRO_PAGED_IMPL", "")}
+              "prompt_dist": args.prompt_dist,
+              "prefix_share": args.prefix_share,
+              "paged_impl_env": os.environ.get("REPRO_PAGED_IMPL", ""),
+              "obs_gate_budget_env":
+                  os.environ.get("REPRO_OBS_GATE_BUDGET", "")}
     failures = 0
     for name, fn in table.items():
         if only and name not in only:

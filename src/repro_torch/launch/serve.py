@@ -13,12 +13,19 @@ CUDA; without a CUDA device it raises unless ``--device cpu`` is given.
         --arch falcon-mamba-7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch zamba2-1.2b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --trace /tmp/t.json --stats-interval 1
 
 Attention archs, dense and MoE, page their KV (``--kv-blocks``,
 ``--block-size``, ``--prefill-chunk``); Mamba1 archs and the zamba2 hybrid
 keep one state per batch slot (``--max-seq-len`` bounds prompt + new
 tokens, and sizes zamba2's shared-block KV span per slot). Weights are
 random, drawn from ``--seed`` (``torch.Generator``).
+
+``--stats-interval`` prints a one-line runtime summary every N seconds and
+``--trace`` writes a Chrome trace-event JSON of the run (Perfetto); each
+turns observability on, as ``REPRO_OBS=1`` does. ``REPRO_PREFIX_CACHE=1``
+turns the prefix cache on (paged archs).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from ..configs import get_config
 from ..device import resolve_device
+from ..obs import Observability, StatsLogger
 from ..params import init_params
 from ..serve.engine import ServeEngine
 
@@ -61,6 +69,13 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs the "
                          "plain PyTorch path)")
+    ap.add_argument("--stats-interval", type=float, default=None,
+                    help="print a one-line runtime stats summary every N "
+                         "seconds (implies observability on)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON (Perfetto/"
+                         "chrome://tracing) of the run (implies "
+                         "observability on)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -79,8 +94,15 @@ def main(argv=None) -> None:
     else:
         geom = dict(prefill_chunk=args.prefill_chunk,
                     kv_blocks=args.kv_blocks, block_size=args.block_size)
+    obs = Observability() \
+        if (args.stats_interval is not None or args.trace) else None
+    logger = None
+    if args.stats_interval is not None:
+        logger = StatsLogger(obs.metrics, interval=args.stats_interval)
     with ServeEngine(cfg, params, decode_chunk=args.decode_chunk,
-                     device=dev, **geom) as eng:
+                     device=dev, obs=obs, **geom) as eng:
+        if logger is not None:
+            logger.start()
         t0 = time.time()
         reqs = []
         for p in prompts:
@@ -94,6 +116,12 @@ def main(argv=None) -> None:
               f"device={dev}, mode=continuous)")
         print("engine stats:", eng.stats)
         print("sample:", outs[0][:16].tolist())
+        if logger is not None:
+            logger.stop()
+    if args.trace:
+        obs.export(args.trace)
+        print(f"trace written to {args.trace} "
+              f"({len(obs.tracer)} spans; open at https://ui.perfetto.dev)")
 
 
 if __name__ == "__main__":

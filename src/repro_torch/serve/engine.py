@@ -51,19 +51,41 @@ Failure: an exception in any stage cancels the pipeline topology, fails
 every outstanding request future (``result()`` raises instead of hanging)
 and marks the engine broken.
 
-Not in this slice (queued in ROADMAP.md): async decode lookahead, the
-prefix cache and its copy-on-write guard, SLO shedding/deadlines/watchdog,
-fault injection, journal/snapshot/drain/recover, observability, meshes, the
-checkpoint preemption of SSM and hybrid slots and the per-call grouped
-baseline. The engine raises :class:`UnsupportedArch` on archs it cannot
-serve yet (modality frontends).
+Prefix caching (``prefix_cache=`` / ``REPRO_PREFIX_CACHE``, paged archs
+only, off by default): full prompt chunks are indexed in a
+:class:`repro_torch.serve.prefix.PrefixCache` trie; a cache-hit admission
+budgets and prefills only its uncached suffix (it takes no window-0 row:
+its windows start at the first uncached token, which need not be a
+multiple of the block or the window), seats its table with the shared,
+refcount-pinned blocks, and forks a partially matched tail block copy-on-
+write (:func:`repro_torch.serve.kvcache.copy_blocks`) before its own writes
+land in it. Under pool pressure, parked prefix blocks are evicted by reuse
+score before any row is preempted, and ``_cow_guard`` forks any block
+still shared that a row is about to write.
+
+Observability (``obs=`` / ``REPRO_OBS``, off by default): request
+lifecycle spans on ``slotN`` tracks, cycle phases on the ``engine`` track,
+the pipeline's pipe bodies on ``lineN`` tracks, and the metrics of
+:mod:`repro_torch.obs` (TTFT, queue wait, per-cycle dispatch / sync /
+bookkeeping seconds, pool and queue gauges). On CUDA ``engine.dispatch_s``
+is host enqueue time (carry upload and the chunk's launches) and
+``engine.chunk_sync_s`` the wait at the chunk's only sync, the token read-
+back; the engine adds no synchronisation for them. Disabled, each site
+costs one ``is None`` check.
+
+Not in this slice (queued in ROADMAP.md): async decode lookahead, SLO
+shedding/deadlines/watchdog, fault injection, journal/snapshot/drain/
+recover, meshes, the checkpoint preemption of SSM and hybrid slots and the
+per-call grouped baseline. The engine raises :class:`UnsupportedArch` on
+archs it cannot serve yet (modality frontends).
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -73,10 +95,13 @@ from ..core import ACCEL, HOST, Executor
 from ..device import resolve_device
 from ..kernels.ops import PAGED_IMPLS, default_paged_impl, ensure_built
 from ..models import lm
+from ..obs import TRACK_ENGINE
+from ..obs import from_env as _obs_from_env
 from ..pipeline import DataPipe, DataPipeline, PipeType
 from .errors import EngineClosed, ServeError
-from .kvcache import (BlockPool, extend_block_tables, init_kv_pool,
-                      scatter_prefill_rows, set_table_rows)
+from .kvcache import (BlockPool, copy_blocks, extend_block_tables,
+                      init_kv_pool, scatter_prefill_rows, set_table_rows)
+from .prefix import PrefixCache
 from .scheduler import Scheduler, ServeRequest
 
 __all__ = ["ServeEngine", "ServeRequest", "UnsupportedArch"]
@@ -127,8 +152,17 @@ class ServeEngine:
         prefill attention follows the device: K2 (``flash``) on CUDA, the
         reference's ``chunked`` path on the CPU. None on the slot-state
         path.
+    prefix_cache:
+        share KV blocks across requests with a common prompt prefix (see
+        the module docstring). None resolves via ``REPRO_PREFIX_CACHE``
+        (default off: the uncached path is the reference). Paged archs
+        only; ignored on the slot-state path.
     record_stages:
         keep an in-memory (stage, cycle-token, info, t) event log.
+    obs:
+        a :class:`repro_torch.obs.Observability` (tracer + metrics
+        registry). None resolves via ``REPRO_OBS`` (default off).
+        Rebindable at idle via :meth:`set_obs`.
     device:
         None means CUDA and raises when no CUDA device is present; pass
         ``"cpu"`` for the plain PyTorch path.
@@ -143,7 +177,9 @@ class ServeEngine:
                  max_admit: int = 4,
                  max_seq_len: Optional[int] = None,
                  paged_impl: Optional[str] = None,
+                 prefix_cache: Optional[bool] = None,
                  record_stages: bool = False,
+                 obs=None,
                  device=None):
         if cfg.frontend != "none":
             raise UnsupportedArch(
@@ -172,6 +208,11 @@ class ServeEngine:
                              f"{PAGED_IMPLS} (or None for the default)")
         self.paged_impl = (paged_impl or default_paged_impl(self.device)) \
             if self.paged else None
+        if prefix_cache is None:
+            prefix_cache = os.environ.get("REPRO_PREFIX_CACHE", "") \
+                .strip().lower() in ("1", "true", "yes", "on")
+        #: cross-request KV block sharing (paged archs only)
+        self.prefix_cache = bool(prefix_cache) and self.paged
         self._closing = False
         self._broken: Optional[BaseException] = None
         self._stage_log = [] if record_stages else None
@@ -197,13 +238,20 @@ class ServeEngine:
         self.stats = {"admitted": 0, "admit_parks": 0, "pump_cycles": 0,
                       "decode_cycles": 0, "prefills": 0,
                       "prefill_windows": 0, "tokens_out": 0, "retired": 0,
-                      "grown_blocks": 0, "preempted": 0, "stalls": 0}
+                      "grown_blocks": 0, "preempted": 0, "stalls": 0,
+                      "prefix_hits": 0, "prefix_tokens_saved": 0,
+                      "cow_forks": 0}
 
+        self._prefix: Optional[PrefixCache] = None
         if self.paged:
             self._init_paged(B, kv_blocks, block_size, max_seq_len,
                              prefill_chunk)
         else:
             self._init_slots(B, max_seq_len)
+        # observability: one open phase span per seated slot (name, t0);
+        # None obs = disabled (every site guards on self._tr / self._mh)
+        self._slot_span: List[Optional[tuple]] = [None] * B
+        self.set_obs(obs if obs is not None else _obs_from_env())
 
     def _init_paged(self, B: int, kv_blocks: int, block_size: int,
                     max_seq_len: Optional[int],
@@ -211,6 +259,8 @@ class ServeEngine:
         self._pool = BlockPool(kv_blocks, block_size)
         self._pkv = init_kv_pool(self.cfg, kv_blocks, block_size,
                                  self.device)
+        if self.prefix_cache:
+            self._prefix = PrefixCache(self._pool)
         self._max_seq = min(max_seq_len or 32 * block_size,
                             (kv_blocks - 1) * block_size)
         self.prefill_chunk = prefill_chunk or self.decode_chunk * block_size
@@ -273,6 +323,76 @@ class ServeEngine:
         with self._log_lock:
             return list(self._stage_log or [])
 
+    # ---------------------------------------------------------- observability
+    def set_obs(self, obs) -> None:
+        """Attach (or detach, with None) a :class:`repro_torch.obs
+        .Observability`: every metric handle is cached once here, the
+        registry goes to the scheduler, the block pool and the prefix cache,
+        and the tracer to the resident pipeline. Rebindable while the engine
+        is idle (the overhead gate toggles it on one engine)."""
+        self.obs = obs
+        self._tr = obs.tracer if obs is not None else None
+        metrics = obs.metrics if obs is not None else None
+        self._scheduler.set_metrics(metrics)
+        if self.paged:
+            self._pool.set_metrics(metrics)
+        if self._prefix is not None:
+            self._prefix.set_metrics(metrics)
+        if self._pipeline is not None:
+            self._pipeline.tracer = self._tr
+        #: per-tier TTFT histograms (serve.ttft_s.tier<N>), made lazily
+        self._mh_tier: Dict[int, Any] = {}
+        if metrics is None:
+            self._mh = None
+            return
+        self._mh = {
+            "tokens_out": metrics.counter("serve.tokens_out"),
+            "admitted": metrics.counter("serve.requests.admitted"),
+            "retired": metrics.counter("serve.requests.retired"),
+            "preempted": metrics.counter("serve.requests.preempted"),
+            "stalled": metrics.counter("serve.requests.stalled"),
+            "grown_blocks": metrics.counter("pool.grown_blocks"),
+            "prefill_saved": metrics.counter("serve.prefill_tokens_saved"),
+            "resident": metrics.gauge("serve.resident_rows"),
+            "ttft": metrics.histogram("serve.ttft_s"),
+            "qwait": metrics.histogram("serve.queue_wait_s"),
+            "cycle": metrics.histogram("engine.cycle_s"),
+            "dispatch": metrics.histogram("engine.dispatch_s"),
+            "sync": metrics.histogram("engine.chunk_sync_s"),
+            "book": metrics.histogram("engine.book_s"),
+            "gap": metrics.histogram("engine.gap_s"),
+            "chunk": metrics.histogram("engine.chunk_s"),
+        }
+
+    def _phase_begin(self, slot: int, name: str, t: float) -> None:
+        self._slot_span[slot] = (name, t)
+
+    def _phase_end(self, slot: int, t: float, req=None) -> None:
+        cur = self._slot_span[slot]
+        self._slot_span[slot] = None
+        if cur is not None and self._tr is not None:
+            args = {"req": req.id} if req is not None else None
+            self._tr.add(cur[0], f"slot{slot}", cur[1], t, args)
+
+    def _note_seated(self, slot: int, req, now: float) -> None:
+        """Lifecycle spans emitted at seat time (the slot is unknown until
+        the merge): ``queued`` [enqueue -> admission], ``admitted``
+        [admission -> merge], then the open ``prefill``/``decode`` span. A
+        preempted request re-enters here at its next admission."""
+        tr = self._tr
+        track = f"slot{slot}"
+        adm = req.last_admitted_at or now
+        if req.queued_since is not None:
+            tr.add("queued", track, req.queued_since, adm,
+                   {"req": req.id, "preempted": req.preempted_count})
+        tr.add("admitted", track, adm, now, {"req": req.id})
+        self._phase_begin(slot, self._slot_phase[slot], now)
+
+    def _note_resident(self) -> None:
+        if self._mh is not None:
+            self._mh["resident"].set(
+                sum(r is not None for r in self._slot_req))
+
     # ------------------------------------------------------------- lifecycle
     def _ensure_executor(self) -> Executor:
         if self._executor is None:
@@ -290,6 +410,8 @@ class ServeEngine:
                 DataPipe(PipeType.PARALLEL, self._st_complete,
                          name="complete"),
                 name="serve-continuous")
+            # pipe-body intervals become lineN spans when tracing is on
+            self._pipeline.tracer = self._tr
         return self._pipeline
 
     def _busy(self) -> bool:
@@ -325,6 +447,7 @@ class ServeEngine:
 
     # ------------------------------------------------------- stage callables
     def _st_admit(self, pf):
+        t_adm = time.perf_counter()
         with self._state_lock:
             occupied = any(r is not None for r in self._slot_req)
             reserved = self._slots_reserved
@@ -347,16 +470,24 @@ class ServeEngine:
                 group = [(r, None) for r in popped]
         if group is not None:
             now = time.perf_counter()
-            for r, _ in group:
+            for g in group:
+                r = g[0]
                 r.state = "prefilling"
                 if r.admitted_at is None:
                     r.admitted_at = now
+                    if self._mh is not None and r.submitted_at is not None:
+                        self._mh["qwait"].record(now - r.submitted_at)
             with self._state_lock:
                 self._slots_reserved += len(group)
-                self._inflight.update(r for r, _ in group)
+                self._inflight.update(g[0] for g in group)
                 self._cycle_tokens.add(pf.token)
                 self.stats["admitted"] += len(group)
-            self._log("admit", pf.token, [r.id for r, _ in group])
+            if self._mh is not None:
+                self._mh["admitted"].inc(len(group))
+            if self._tr is not None:
+                self._tr.add("admission", TRACK_ENGINE, t_adm, now,
+                             {"reqs": [g[0].id for g in group]})
+            self._log("admit", pf.token, [g[0].id for g in group])
             return ("admit", group)
         if waiting and deps:
             # the head does not fit: park THIS cycle until the oldest
@@ -371,30 +502,75 @@ class ServeEngine:
         with self._state_lock:
             self._cycle_tokens.add(pf.token)
             self.stats["pump_cycles"] += 1
+        if self._tr is not None:
+            self._tr.add("admission", TRACK_ENGINE, t_adm,
+                         time.perf_counter(), {"pump": True})
         self._log("pump", pf.token, None)
         return ("pump", None)
 
     def _admit_paged(self, free_slots: int) -> Optional[List[tuple]]:
         """Phase 1 of two-phase admission: budget the PROMPT footprint only;
         decode-time blocks are granted lazily by the decode stage. The
-        budget excludes the stalled-row reservation floor."""
-        def need_for(r):
-            return self._pool.blocks_for(r.prompt_len)
-        popped = self._scheduler.try_admit(free_slots,
-                                           self._pool.num_free_unreserved,
-                                           need_for)
+        budget excludes the stalled-row reservation floor. With the prefix
+        cache, a prompt's cached full chunks leave its budget (the peek is
+        conservative: registration can only grow a match before the pin)
+        and parked cached blocks count as free, being evictable on demand.
+        Returns ``(request, own block ids, PrefixHit or None)`` triples."""
+        px = self._prefix
+        if px is not None:
+            bs = self._pool.block_size
+
+            def need_for(r):
+                return self._pool.blocks_for(r.prompt_len) \
+                    - px.peek(r.prompt) // bs
+            budget = self._pool.num_free_unreserved + px.num_parked
+        else:
+            def need_for(r):
+                return self._pool.blocks_for(r.prompt_len)
+            budget = self._pool.num_free_unreserved
+        popped = self._scheduler.try_admit(free_slots, budget, need_for)
         if popped is None:
             return None
-        needs = [need_for(r) for r in popped]
+        # pin the longest cached prefix per member (a reference on every
+        # matched block) and allocate only the uncached suffixes
+        hits = [px.match_and_pin(r.prompt) if px is not None else None
+                for r in popped]
+        needs = [self._pool.blocks_for(r.prompt_len)
+                 - (len(h.blocks) if h is not None else 0)
+                 for r, h in zip(popped, hits)]
         ids = self._pool.alloc(sum(needs))      # all-or-nothing
+        if ids is None and px is not None:
+            # release cold PARKED prefix blocks before giving up on the
+            # group, long before the grow pass would preempt a row
+            short = sum(needs) - self._pool.num_free_unreserved
+            if short > 0:
+                px.evict(short)
+            ids = self._pool.alloc(sum(needs))
         if ids is None:
-            # raced a concurrent mid-decode grow: put the group back
+            # raced a concurrent mid-decode grow: unpin, put the group back
+            for h in hits:
+                if h is None:
+                    continue
+                pins = list(h.blocks)
+                if h.partial_block is not None:
+                    pins.append(h.partial_block)
+                if pins:
+                    px.unpin(pins)
             self._scheduler.requeue_front(popped)
             return None
-        group, i = [], 0
-        for r, need in zip(popped, needs):
-            group.append((r, ids[i:i + need]))
+        group, i, saved, nhit = [], 0, 0, 0
+        for r, h, need in zip(popped, hits, needs):
+            group.append((r, ids[i:i + need], h))
             i += need
+            if h is not None and h.tokens > 0:
+                nhit += 1
+                saved += h.tokens
+        if nhit:
+            with self._state_lock:
+                self.stats["prefix_hits"] += nhit
+                self.stats["prefix_tokens_saved"] += saved
+            if self._mh is not None:
+                self._mh["prefill_saved"].inc(saved)
         return group
 
     def _st_prefill(self, pf, msg):
@@ -409,9 +585,12 @@ class ServeEngine:
         are right-padded to one window shape, a power of two capped at
         ``prefill_chunk`` (pad rows repeat the last request and scatter to
         the sink). Remaining windows stream through the decode stage.
+        Prefix-cache HIT rows take no row of this launch: the group is
+        reordered misses first, so launch row i is group member i for every
+        window-0 member, and a group of hits launches nothing.
         Slot-state: one whole-prompt prefill per member at B=1 (the state
         is O(1) per sequence; there is no per-token KV to window)."""
-        reqs = [r for r, _ in group]
+        reqs = [g[0] for g in group]
         if not self.paged:
             out = []
             for req in reqs:
@@ -423,18 +602,25 @@ class ServeEngine:
                 self.stats["prefills"] += len(reqs)
             self._log("prefill", pf.token, [r.id for r in reqs])
             return ("admit", out)
-        longest = max(r.prompt_len for r in reqs)
+        miss = [g for g in group if g[2] is None or g[2].tokens == 0]
+        hitg = [g for g in group if not (g[2] is None or g[2].tokens == 0)]
+        group = miss + hitg
+        if not miss:
+            self._log("prefill", pf.token, [r.id for r in reqs])
+            return ("admit", (group, 0, None, None, None, 0))
+        longest = max(g[0].prompt_len for g in miss)
         C0 = min(self.prefill_chunk, 1 << max(0, longest - 1).bit_length())
         A = self._scheduler.max_admit
         toks = np.zeros((A, C0), np.int32)
         lastp = np.zeros((A,), np.int32)
-        for i, r in enumerate(reqs):
+        for i, g in enumerate(miss):
+            r = g[0]
             k = min(r.prompt_len, C0)
             toks[i, :k] = r.prompt[:k]
             lastp[i] = k - 1
-        for i in range(len(reqs), A):
-            toks[i] = toks[len(reqs) - 1]
-            lastp[i] = lastp[len(reqs) - 1]
+        for i in range(len(miss), A):
+            toks[i] = toks[len(miss) - 1]
+            lastp[i] = lastp[len(miss) - 1]
         logits, cache = lm.prefill(self.cfg, self.params, self._to_dev(toks),
                                    max_len=C0,
                                    last_positions=self._to_dev(lastp),
@@ -443,21 +629,34 @@ class ServeEngine:
         with self._state_lock:
             self.stats["prefills"] += 1
         self._log("prefill", pf.token, [r.id for r in reqs])
-        return ("admit", (group, C0, cache["k"], cache["v"], first))
+        return ("admit", (group, C0, cache["k"], cache["v"], first,
+                          len(miss)))
 
     # ------------------------------------------------- decode-stage helpers
     def _merge_group(self, pf, payload) -> None:
         """Seat an admitted group: assign slots, install block tables, and
         scatter the window-0 KV into the pool. Rows whose whole prompt fits
         window 0 enter decode immediately; longer ones enter the prefill
-        phase and stream their remaining windows in later cycles."""
-        group, C0, ck, cv, first = payload
-        first = first.cpu().numpy()
-        nb0 = self._pool.blocks_for(C0)
+        phase and stream their remaining windows in later cycles.
+
+        Prefix-cache HIT rows (members past ``n_miss``) seat their table
+        with the pinned SHARED prefix blocks followed by their own suffix
+        blocks and enter the prefill phase at the first uncached token; a
+        partially matched tail block is forked copy-on-write here (a device
+        copy into the row's first own block, which the table already points
+        at), so the row's writes never touch the shared original. The copy
+        is issued on the decode stage's stream before any window reads the
+        block."""
+        group, C0, ck, cv, first, n_miss = payload
+        first = first.cpu().numpy() if first is not None else None
+        nb0 = self._pool.blocks_for(C0) if C0 else 0
         now = time.perf_counter()
         rows_idx, rows_tab = [], []
-        for i, (req, blocks) in enumerate(group):
-            tab = list(blocks)
+        fork_src, fork_dst = [], []
+        reg_slots = []
+        for i, (req, blocks, hit) in enumerate(group):
+            is_hit = hit is not None and i >= n_miss
+            tab = (list(hit.blocks) if is_hit else []) + list(blocks)
             with self._state_lock:
                 slot = self._free_slots.pop()
                 self._slots_reserved -= 1
@@ -469,32 +668,77 @@ class ServeEngine:
             self._stall_rem[slot] = 0
             self._tables[slot] = 0
             self._tables[slot, :len(tab)] = tab
-            self._pref_pos[slot] = min(req.prompt_len, C0)
+            if is_hit:
+                # the cached tokens are already in the pool: the window walk
+                # starts at the first uncached token
+                self._pref_pos[slot] = hit.tokens
+                if hit.partial_block is not None:
+                    # fork the partially matched tail block into the row's
+                    # first own block (table column len(hit.blocks)): its
+                    # cached leading tokens come along, the row's own writes
+                    # land past them
+                    fork_src.append(hit.partial_block)
+                    fork_dst.append(blocks[0])
+                    with self._state_lock:
+                        self.stats["cow_forks"] += 1
+                    if self._tr is not None:
+                        self._tr.instant(
+                            "cow_fork", f"slot{slot}", now,
+                            {"req": req.id, "src": int(hit.partial_block),
+                             "dst": int(blocks[0])})
+            else:
+                self._pref_pos[slot] = min(req.prompt_len, C0)
             self._lengths[slot] = self._pref_pos[slot]
-            if req.prompt_len <= C0:
+            if i < n_miss and req.prompt_len <= C0:
                 self._slot_phase[slot] = "decode"
                 self._last[slot] = first[i]
                 self._rem[slot] = req.max_new - 1
                 self._slot_out[slot].append(int(first[i]))
                 req.state = "decoding"
                 self._note_first_token(req, now)
+                reg_slots.append(slot)
             else:
                 self._slot_phase[slot] = "prefill"
                 self._last[slot] = 0
                 self._rem[slot] = 0   # masked out of decode until prefilled
+            if self._tr is not None:
+                self._note_seated(slot, req, now)
             rows_idx.append(slot)
             rows_tab.append(self._tables[slot].copy())
         set_table_rows(self._tables_dev,
                        self._to_dev(np.asarray(rows_idx, np.int32)),
                        self._to_dev(np.stack(rows_tab)))
-        # window-0 scatter: per-row block lists trimmed/padded to the window
-        # footprint (sink beyond a short prompt's own blocks and for the
-        # group's pad rows)
-        blocks2d = np.zeros((ck.shape[1], nb0), np.int32)
-        for i, (_, blocks) in enumerate(group):
-            row = blocks[:nb0]
-            blocks2d[i, :len(row)] = row
-        scatter_prefill_rows(self._pkv, self._to_dev(blocks2d), ck, cv)
+        if fork_src:
+            # one copy for the group's forks, unpadded: its destinations are
+            # distinct fresh blocks (duplicate destinations of an indexed
+            # copy would be written in no set order on CUDA)
+            copy_blocks(self._pkv, self._to_dev(np.asarray(fork_src,
+                                                           np.int32)),
+                        self._to_dev(np.asarray(fork_dst, np.int32)))
+            self._prefix.unpin(fork_src)   # fork done: drop the tail pins
+        if n_miss:
+            # window-0 scatter: per-row block lists trimmed/padded to the
+            # window footprint (sink beyond a short prompt's own blocks and
+            # for the group's pad rows)
+            blocks2d = np.zeros((ck.shape[1], nb0), np.int32)
+            for i, (_, blocks, _) in enumerate(group[:n_miss]):
+                row = blocks[:nb0]
+                blocks2d[i, :len(row)] = row
+            scatter_prefill_rows(self._pkv, self._to_dev(blocks2d), ck, cv)
+        for slot in reg_slots:
+            self._register_prefix(slot)
+        self._note_resident()
+
+    def _register_prefix(self, slot: int) -> None:
+        """Index a just-prefilled row's FULL prompt chunks in the prefix
+        trie (decode entry is the registration point: every full prompt
+        block is final, decode writes land strictly past the prompt)."""
+        if self._prefix is None:
+            return
+        prompt = self._slot_prompt[slot]
+        blocks = self._slot_blocks[slot]
+        if prompt is not None and blocks is not None:
+            self._prefix.register(prompt, blocks)
 
     def _merge_group_slots(self, payload) -> None:
         """Seat an admitted slot-state group: copy each member's prefilled
@@ -512,12 +756,24 @@ class ServeEngine:
             self._lengths[slot] = req.prompt_len
             self._last[slot] = first
             self._rem[slot] = req.max_new - 1
-            req.state = "decoding"
             self._note_first_token(req, now)
+            req.state = "decoding"
+            if self._tr is not None:
+                self._note_seated(slot, req, now)
+        self._note_resident()
 
     def _note_first_token(self, req, now: float) -> None:
         if req.first_token_at is None:
             req.first_token_at = now
+            if self._mh is not None and req.submitted_at is not None:
+                ttft = now - req.submitted_at
+                self._mh["ttft"].record(ttft)
+                h = self._mh_tier.get(req.priority)
+                if h is None:
+                    h = self.obs.metrics.histogram(
+                        f"serve.ttft_s.tier{req.priority}")
+                    self._mh_tier[req.priority] = h
+                h.record(ttft)
 
     def _window_prefill_step(self, pf) -> None:
         """Synchronous chunked prefill: build, launch and complete ONE
@@ -558,7 +814,8 @@ class ServeEngine:
             self._to_dev(last_idx), layers=self._layers)
         with self._state_lock:
             self.stats["prefill_windows"] += 1
-        return {"first": first, "rows": pref, "k": ks, "token": pf.token}
+        return {"first": first, "rows": pref, "k": ks, "token": pf.token,
+                "t_disp": time.perf_counter()}
 
     def _finish_window(self, pend: dict) -> None:
         """Complete a dispatched prefill window: advance per-row prompt
@@ -570,6 +827,10 @@ class ServeEngine:
             prompt = self._slot_prompt[b]
             self._pref_pos[b] += pend["k"][b]
             self._lengths[b] = self._pref_pos[b]
+            if self._tr is not None:
+                self._tr.add("prefill_window", f"slot{b}", pend["t_disp"],
+                             now, {"req": self._slot_req[b].id,
+                                   "pos": int(self._pref_pos[b])})
             if self._pref_pos[b] >= len(prompt):
                 req = self._slot_req[b]
                 self._slot_phase[b] = "decode"
@@ -578,7 +839,11 @@ class ServeEngine:
                 self._slot_out[b].append(int(first[b]))
                 req.state = "decoding"
                 self._note_first_token(req, now)
+                if self._tr is not None:
+                    self._phase_end(b, now, req)     # close "prefill"
+                    self._phase_begin(b, "decode", now)
                 self._wp_valid[b] = False
+                self._register_prefix(b)
         self._log("prefill_chunk", pend["token"],
                   [(b, int(self._pref_pos[b])) for b in pend["rows"]])
 
@@ -637,8 +902,14 @@ class ServeEngine:
                     grow_ids.extend(ids)
                     with self._state_lock:
                         self.stats["grown_blocks"] += len(ids)
+                    if self._mh is not None:
+                        self._mh["grown_blocks"].inc(len(ids))
                     covered = True
                     break
+                if self._prefix is not None \
+                        and self._prefix.evict(need - cur) > 0:
+                    continue    # cold parked prefix blocks released: retry
+                    # growth before stalling or preempting any row
                 while vi < len(victims) \
                         and self._slot_req[victims[vi]] is None:
                     vi += 1
@@ -658,6 +929,10 @@ class ServeEngine:
                 if self._stall_rem[b]:      # blocks found: resume the row
                     self._rem[b] += self._stall_rem[b]
                     self._stall_rem[b] = 0
+                    if self._tr is not None:
+                        _t = time.perf_counter()
+                        self._phase_end(b, _t, self._slot_req[b])  # stalled
+                        self._phase_begin(b, "decode", _t)
                     self._log("resume", pf.token, b)
             elif self._rem[b] > 0:
                 # newly stalled: mask the row out of the next chunk
@@ -665,6 +940,12 @@ class ServeEngine:
                 self._rem[b] = 0
                 with self._state_lock:
                     self.stats["stalls"] += 1
+                if self._mh is not None:
+                    self._mh["stalled"].inc()
+                if self._tr is not None:
+                    _t = time.perf_counter()
+                    self._phase_end(b, _t, self._slot_req[b])  # close decode
+                    self._phase_begin(b, "stalled", _t)
                 self._log("stall", pf.token, b)
         unmet = 0
         for b in range(len(self._slot_req)):
@@ -680,6 +961,82 @@ class ServeEngine:
                 self._to_dev(np.asarray(grow_rows, np.int32)),
                 self._to_dev(np.asarray(grow_cols, np.int32)),
                 self._to_dev(np.asarray(grow_ids, np.int32)))
+
+    def _cow_guard(self, pf) -> None:
+        """Copy-on-write safety net, run before the window-prefill and
+        decode-chunk launches of every cycle: a row about to WRITE into a
+        block that is still shared (refcount > 1) forks it first (device
+        copy, table repoint on the host mirror and the device, one
+        reference dropped on the original). The engine's own flows never
+        trip it (admission forks partial tail blocks at the merge, and full
+        shared prompt blocks are never written again), but a write into a
+        shared block would corrupt its co-holders silently, so the
+        invariant is enforced here."""
+        if self._prefix is None:
+            return
+        bs = self._pool.block_size
+        srcs, dsts, rows, cols = [], [], [], []
+        for b in range(len(self._slot_req)):
+            if self._slot_req[b] is None or self._slot_blocks[b] is None:
+                continue
+            if self._slot_phase[b] == "decode":
+                lo = int(self._lengths[b])
+                k = int(min(self.decode_chunk,
+                            int(self._rem[b]) + int(self._stall_rem[b])))
+            elif self._slot_phase[b] == "prefill":
+                lo = int(self._pref_pos[b])
+                k = int(min(self.prefill_chunk,
+                            len(self._slot_prompt[b]) - lo))
+            else:
+                continue
+            if k <= 0:
+                continue
+            blocks = self._slot_blocks[b]
+            hi = min((lo + k - 1) // bs + 1, len(blocks))
+            for col in range(lo // bs, hi):
+                old = blocks[col]
+                if self._pool.refcount(old) <= 1:
+                    continue
+                ids = self._pool.alloc(1)
+                if ids is None:
+                    self._prefix.evict(1)
+                    ids = self._pool.alloc(1)
+                if ids is None:
+                    # cannot fork and must not write the shared block:
+                    # requeue the row, it replays later (deterministic)
+                    self._preempt(b, pf)
+                    break
+                new = ids[0]
+                blocks[col] = new
+                self._tables[b, col] = new
+                srcs.append(old)
+                dsts.append(new)
+                rows.append(b)
+                cols.append(col)
+                # drop OUR reference on the original (its co-holders keep
+                # it alive, so nothing is released here)
+                self._pool.free([old])
+                with self._state_lock:
+                    self.stats["cow_forks"] += 1
+                if self._tr is not None:
+                    self._tr.instant("cow_fork", f"slot{b}",
+                                     time.perf_counter(),
+                                     {"req": self._slot_req[b].id,
+                                      "src": int(old), "dst": int(new)})
+        # a row preempted mid-pass zeroed its table and freed its blocks:
+        # drop its queued forks
+        live = [j for j in range(len(rows))
+                if self._slot_req[rows[j]] is not None]
+        if srcs and live:
+            srcs = [srcs[j] for j in live]
+            dsts = [dsts[j] for j in live]
+            copy_blocks(self._pkv, self._to_dev(np.asarray(srcs, np.int32)),
+                        self._to_dev(np.asarray(dsts, np.int32)))
+            extend_block_tables(
+                self._tables_dev,
+                self._to_dev(np.asarray([rows[j] for j in live], np.int32)),
+                self._to_dev(np.asarray([cols[j] for j in live], np.int32)),
+                self._to_dev(np.asarray(dsts, np.int32)))
 
     def _preempt(self, slot: int, pf) -> None:
         req = self._slot_req[slot]
@@ -705,6 +1062,13 @@ class ServeEngine:
                        self._to_dev(np.asarray([slot], np.int32)),
                        self._to_dev(np.zeros((1, self._tables.shape[1]),
                                              np.int32)))
+        if self._mh is not None:
+            self._mh["preempted"].inc()
+            self._note_resident()
+        if self._tr is not None:
+            _t = time.perf_counter()
+            self._phase_end(slot, _t, req)
+            self._tr.instant("preempted", f"slot{slot}", _t, {"req": req.id})
         self._scheduler.requeue_front([req])
         self._log("preempt", pf.token, req.id)
 
@@ -713,6 +1077,7 @@ class ServeEngine:
             return self._st_decode_sync(pf, msg)
 
     def _st_decode_sync(self, pf, msg):
+        t0 = time.perf_counter()
         kind, payload = msg
         if kind == "admit":
             if self.paged:
@@ -720,14 +1085,19 @@ class ServeEngine:
             else:
                 self._merge_group_slots(payload)
         if self.paged:
+            tg0 = time.perf_counter()
+            self._cow_guard(pf)
             self._window_prefill_step(pf)
             self._grow_or_preempt(pf)
+            if self._tr is not None:
+                self._tr.add("growth", TRACK_ENGINE, tg0,
+                             time.perf_counter())
         rem_before = self._rem.copy()
         if not (rem_before > 0).any():
             self._log("decode", pf.token, 0)
             return ("cycle", self._collect_finished())
         n = self.decode_chunk
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         carry = self._to_dev(np.stack([self._lengths, self._last,
                                        self._rem]))
         carry = (carry[0], carry[1], carry[2])
@@ -739,14 +1109,17 @@ class ServeEngine:
             _, (ln, tok, rm), toks = lm.decode_chunk_slots(
                 self.cfg, self.params, self._sstate, carry, n,
                 layers=self._layers)
+        t1b = time.perf_counter()   # carry upload + launches (host enqueue)
         # the chunk's one device sync: tokens and the advanced carry in a
         # single copy back
         host = torch.cat([toks, torch.stack([ln, tok, rm], dim=1)],
                          dim=1).cpu().numpy()
+        t2a = time.perf_counter()
         toks = host[:, :n]
         self._lengths = host[:, n].copy()
         self._last = host[:, n + 1].copy()
         self._rem = host[:, n + 2].copy()
+        t2 = time.perf_counter()
         emitted = 0
         for b in np.nonzero(rem_before > 0)[0]:
             k = int(min(n, rem_before[b]))
@@ -756,7 +1129,26 @@ class ServeEngine:
             self.stats["decode_cycles"] += 1
             self.stats["tokens_out"] += emitted
         retire = self._collect_finished()
-        self._log("decode", pf.token, (emitted, time.perf_counter() - t0))
+        t3 = time.perf_counter()
+        if self._mh is not None:
+            # dispatch = host enqueue; sync = the wait at the token read-
+            # back; book = host work with nothing queued on the device
+            mh = self._mh
+            book = (t1 - t0) + (t2 - t2a) + (t3 - t2)
+            mh["cycle"].record(t3 - t0)
+            mh["dispatch"].record(t1b - t1)
+            mh["sync"].record(t2a - t1b)
+            mh["book"].record(book)
+            mh["gap"].record(book)
+            mh["chunk"].record(t2a - t1)
+            mh["tokens_out"].inc(emitted)
+        if self._tr is not None:
+            tr = self._tr
+            tr.add("cycle", TRACK_ENGINE, t0, t3, {"emitted": emitted})
+            tr.add("dispatch", TRACK_ENGINE, t1, t1b)
+            tr.add("sync", TRACK_ENGINE, t1b, t2a)
+            tr.add("bookkeeping", TRACK_ENGINE, t2a, t3)
+        self._log("decode", pf.token, (emitted, t3 - t1))
         return ("cycle", retire)
 
     def _collect_finished(self) -> List[tuple]:
@@ -786,6 +1178,11 @@ class ServeEngine:
                 self._slot_prompt[b] = None
             zero_rows.append(b)
             retire.append((b, req, out))
+            if self._tr is not None:
+                _t = time.perf_counter()
+                self._phase_end(b, _t, req)
+                self._tr.instant("retired", f"slot{b}", _t,
+                                 {"req": req.id, "tokens": len(out)})
         if zero_rows and self.paged:
             set_table_rows(self._tables_dev,
                            self._to_dev(np.asarray(zero_rows, np.int32)),
@@ -808,6 +1205,9 @@ class ServeEngine:
                 self._free_slots.append(slot)
         with self._state_lock:
             self._cycle_tokens.discard(pf.token)
+        if retire and self._mh is not None:
+            self._mh["retired"].inc(len(retire))
+            self._note_resident()
         self._log("complete", pf.token, len(retire))
         return None
 

@@ -20,8 +20,8 @@ Two halves:
   picks an arbitrary writer, which is fine because the sink's contents are
   garbage by contract (tests comparing pool bytes mask block 0 out).
 
-``copy_blocks`` and ``set_carry_rows`` (prefix cache, async decode) come
-with the slices that port those engine paths.
+``copy_blocks`` is the prefix cache's copy-on-write fork; ``set_carry_rows``
+(async decode) comes with the slice that ports that engine path.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from ..configs.base import ModelConfig
 __all__ = ["BlockPool", "init_kv_pool", "scatter_prefill_row",
            "scatter_prefill_rows", "scatter_token_window", "gather_pages",
            "gather_read_attention", "append_kv", "extend_block_tables",
-           "set_table_rows", "SINK_BLOCK"]
+           "set_table_rows", "copy_blocks", "SINK_BLOCK"]
 
 #: Block id 0 is reserved: never allocated, target of masked-row KV writes.
 SINK_BLOCK = 0
@@ -449,6 +449,24 @@ def set_table_rows(tables: torch.Tensor, rows: torch.Tensor,
     tables: (B, mb); rows: (M,) int; new_rows: (M, mb) int."""
     tables[rows.long()] = new_rows.to(tables.dtype)
     return tables
+
+
+def copy_blocks(pool: torch.Tensor, srcs: torch.Tensor,
+                dsts: torch.Tensor) -> torch.Tensor:
+    """Copy whole KV blocks ``srcs[i] -> dsts[i]`` across every layer, in
+    place: the copy-on-write fork of prefix caching. Before a row's first
+    write into a shared block, the engine clones the block and points the
+    row's table at the clone, so co-holders keep reading the original.
+
+    pool: (L, 2, N, KV, bs, hd); srcs/dsts: (M,) int. The gather completes
+    before the write, so a destination may also be a source. Destinations
+    must be distinct: an indexed copy with duplicate destinations writes
+    them in no set order on CUDA, so callers pass no padding (the
+    reference pads with sink-to-sink copies to fix its compiled shapes).
+    Returns the (same) pool.
+    """
+    pool[:, :, dsts.long()] = pool[:, :, srcs.long()]
+    return pool
 
 
 def gather_pages(pool_l: torch.Tensor, tables: torch.Tensor):

@@ -6,10 +6,14 @@ sizes: the port's rows carry every one of the reference's row names (the
 port adds ``*/host_cores``). fig17's host rows keep their names and shape
 (constant for the cyclic graph, growing with k unrolled). The harness
 writes ``BENCH_<suite>.json`` with the keys of the reference's
-``benchmarks/run.py:_write_trajectory``. Timings are host-clock numbers of
-this machine and are not compared.
+``benchmarks/run.py:_write_trajectory``. The serve suite's rows carry the
+reference's continuous and prefix-share row names (its per-call rows are
+not ported; the port adds the cycle split), read from the port's registry,
+and its trace file loads as Chrome trace-event JSON. Timings are
+host-clock numbers of this machine and are not compared.
 """
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -18,8 +22,9 @@ import torch
 
 from repro_torch.bench import (fig9_micro_random_dag, fig11_corun_throughput,
                                fig17_conditional_memory,
-                               fig21_incremental_timing,
-                               paged_decode_microbench, pipeline_throughput)
+                               fig21_incremental_timing, obs_overhead_gate,
+                               paged_decode_microbench, pipeline_throughput,
+                               serve_continuous)
 from repro_torch.bench import run as trun
 from repro_torch.bench import table2_task_overhead
 
@@ -133,3 +138,67 @@ def test_quickstart_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "saxpy ok on cpu: True" in out
     assert out.rstrip().endswith("quickstart complete")
+
+
+def _reference_serve_rows(func: str):
+    """The row names a function of ``benchmarks/serve_continuous.py``
+    yields, read from its source (running it would compile the JAX
+    engine)."""
+    src = (ROOT / "benchmarks" / "serve_continuous.py").read_text()
+    body = src.split(f"def {func}(")[1].split("\ndef ")[0]
+    return re.findall(r'yield \(\s*"([a-z0-9_]+)"', body)
+
+
+def test_serve_rows_carry_the_reference_names(tmp_path):
+    trace = tmp_path / "t.json"
+    rows = list(serve_continuous.bench(quick=True, device="cpu",
+                                       trace_path=str(trace)))
+    got = _names(rows)
+    want = [n for n in _reference_serve_rows("bench")
+            if not n.startswith("serve_percall")]
+    assert [n for n in got if n in want] == want
+    assert set(got) - set(want) == {"serve_cycle_mean_ms"}
+    val = {n: v for n, v, _ in rows}
+    der = {n: d for n, _, d in rows}
+    assert float(val["serve_continuous_tok_per_s"]) > 0
+    assert der["serve_ttft_p50_ms"] == "count_8"
+    assert val["serve_continuous_paged_impl"] == "loop"
+    payload = json.loads(trace.read_text())
+    assert payload["otherData"]["spans"] == int(val["serve_trace_spans"])
+    assert payload["otherData"]["metrics"]["serve.ttft_s"]["count"] == 8
+
+
+def test_serve_prefix_share_rows_on_cpu():
+    rows = list(serve_continuous.bench_prefix_share(quick=True,
+                                                    device="cpu"))
+    assert _names(rows) == _reference_serve_rows("bench_prefix_share")
+    val = {n: v for n, v, _ in rows}
+    der = {n: d for n, _, d in rows}
+    assert float(val["serve_prefix_hit_rate"]) > 0
+    assert int(val["serve_prefix_tokens_saved"]) > 0
+    assert der["serve_prefix_workload"] == "loop"
+
+
+def test_run_serves_prefix_share_and_the_obs_gate(tmp_path, monkeypatch):
+    calls = []
+    monkeypatch.setattr(obs_overhead_gate, "measure", lambda quick, dev: (
+        calls.append((quick, str(dev))) or
+        {"off": 100.0, "on": 99.5, "ratio": 0.995, "reps": 5}))
+    rc = trun.main(["--device", "cpu", "--quick", "--only",
+                    "serve,obs_gate", "--prefix-share",
+                    "--bench-dir", str(tmp_path)])
+    assert rc == 0 and calls == [(True, "cpu")]
+    serve = json.loads((tmp_path / "BENCH_serve.json").read_text())
+    assert serve["config"]["prefix_share"] is True
+    assert serve["rows"][0]["name"] == "serve_prefix_hit_rate"
+    assert (tmp_path / "TRACE_serve.json").exists()
+    gate = json.loads((tmp_path / "BENCH_obs_gate.json").read_text())
+    assert [r["name"] for r in gate["rows"]] == [
+        "obs_gate_off_tok_per_s", "obs_gate_on_tok_per_s",
+        "obs_gate_overhead_frac", "obs_gate"]
+
+
+def test_obs_gate_measures_both_modes_on_cpu():
+    r = obs_overhead_gate.measure(quick=True, device="cpu")
+    assert r["off"] > 0 and r["on"] > 0 and r["reps"] == 5
+    assert r["ratio"] == r["on"] / r["off"]

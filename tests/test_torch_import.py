@@ -37,7 +37,9 @@ def test_import_without_gpu_leaves_jax_out():
         "repro_torch.bench.fig17_conditional_memory, "
         "repro_torch.bench.paged_decode_microbench, "
         "repro_torch.bench.pipeline_throughput, "
-        "repro_torch.examples.quickstart\n"
+        "repro_torch.examples.quickstart, repro_torch.obs, "
+        "repro_torch.serve.prefix, repro_torch.bench.serve_continuous, "
+        "repro_torch.bench.obs_overhead_gate\n"
         "from repro_torch.models.lm import forward, loss_fn\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

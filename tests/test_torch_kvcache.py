@@ -6,7 +6,8 @@ view (bf16 as uint16, fp32 as uint32) with the sink block 0 masked out —
 masked and inactive entries all land there with duplicate indices, and
 which duplicate wins is unspecified (on CUDA ``index_put_`` picks any).
 Gathers are exact; the gather oracle is compared at 2e-5 (fp32) / 2e-2
-(bf16). The host ``BlockPool`` copy hands out the same ids as the
+(bf16). ``copy_blocks``, the prefix cache's fork, is compared the same
+way. The host ``BlockPool`` copy hands out the same ids as the
 reference's on one alloc/grow/free/deferred call sequence.
 """
 import jax.numpy as jnp
@@ -148,6 +149,24 @@ def test_table_updates_in_place():
     tkv.set_table_rows(tt, torch.tensor([0, 3]), torch.from_numpy(new))
     assert np.array_equal(tt.numpy(), np.asarray(jt))
     assert tt.dtype == torch.int32
+
+
+@pytest.mark.parametrize("name,jdt", DTYPES)
+def test_copy_blocks(name, jdt):
+    """The copy-on-write fork: whole blocks across every layer, in place,
+    the same bytes as the reference's; block 3 is a source and a
+    destination in one call (the gather reads it before the write)."""
+    L, N, KV, bs, hd = 3, 12, 2, 4, 8
+    jp, tp = _pool((L, 2, N, KV, bs, hd), jdt, seed=7)
+    srcs = np.array([3, 5, 9], np.int32)
+    dsts = np.array([7, 3, 11], np.int32)
+    before = tp.clone()
+    jp = jkv.copy_blocks(jp, jnp.asarray(srcs), jnp.asarray(dsts))
+    out = tkv.copy_blocks(tp, torch.from_numpy(srcs), torch.from_numpy(dsts))
+    assert out is tp
+    _same_bytes(tp, jp)
+    assert torch.equal(tp[:, :, 3], before[:, :, 5])
+    assert torch.equal(tp[:, :, 7], before[:, :, 3])
 
 
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
