@@ -16,27 +16,45 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               through __ldg only (no shared copy), and timed in turns
               beside itself (an ablation);
 4. serve    — stablelm-1.6b at full width (24 layers, random weights from a
-              seeded ``torch.Generator``) through ``ServeEngine``: 8
-              staggered requests of mixed prompt lengths, 32 new tokens
-              each, with every kernel's launch count read around the run;
+              seeded ``torch.Generator``) through ``ServeEngine``, whose
+              decode chunk is one captured CUDA graph replayed per chunk:
+              8 staggered requests of mixed prompt lengths, 32 new tokens
+              each, with every kernel's launch count read around the run
+              (K1's exactly one per layer and step, added by each replay);
+              then a frozen mid-run chunk through the graph and through the
+              same body eagerly on the engine's own tensors (tokens and
+              carry equal, the written pool compared), and its device time
+              both ways (CUDA events behind a ``torch.cuda._sleep``) beside
+              the host's enqueue time of each;
 5. steps    — one ``decode_step_paged`` on a frozen copy of the engine's
               pool and tables with K1 and with the gather oracle, and one
               ``prefill`` with K2 and with the plain path; logits compared;
-5a. prefix  — the port's serve suite (``bench/serve_continuous.py``) at
+5a. async   — the port's serve suite (``bench/serve_continuous.py``) at
               stablelm-1.6b's full width and depth with the same weights:
               the continuous trace (``choice`` lengths 16/24/32, 32 new
               tokens, decode chunk 8, block 8, a 16-token window, Poisson
-              at 20 Hz, 128 requests) and the prefix-share trace (4
-              prefixes of 96 tokens x 4-8-token suffixes, 24 requests, 16
-              new tokens, 80 blocks of 8) cold and warm, each with an
-              ``Observability`` and its Chrome trace in ``build/prefix/``;
-              each run fails unless every request returns in-vocab tokens,
+              at 20 Hz, 128 requests) in three modes — eager-sync (the
+              eager chunk), graph-sync (the default), graph-async (the
+              async decode lookahead): in fp32 compute at full width and 4
+              layers their tokens must be equal, with PyTorch's stream
+              syncs counted by engine function; in bf16 at full depth one
+              warmed engine per mode, three rounds in turns, each run held to
+              the suite's gates below, its launches counted, and per mode
+              tok/s, TTFT and admission p50/p99 and the mean cycle split
+              (dispatch, sync, bookkeeping, gap) printed, with a JSON line
+              of them; async-vs-sync token equality in bf16 is printed;
+5b. prefix  — the prefix-share trace (4 prefixes of 96 tokens x
+              4-8-token suffixes, 24 requests, 16 new tokens, 80 blocks of
+              8) cold and warm, each with an ``Observability`` and its
+              Chrome trace in ``build/prefix/``; each run (and each run of
+              the async phase) fails unless every request returns in-vocab tokens,
               ``serve.ttft_s.count`` equals the requests, the trace has
               engine, slot and line spans, every slot is free and every
               block is free at refcount 0 once the trie is evicted; the
               warm run must hit, save prefill tokens and fork, K1 must run
               in both; warm tokens must equal cold in fp32 compute at full
-              width and 4 layers, and their bf16 match share and first
+              width and 4 layers (and the cold pass on the eager chunk the
+              captured chunk's), and their bf16 match share and first
               flip's top-2 margin are printed; the obs gate's on/off ratio
               is printed (not gated); then stablelm's weights are freed;
 6. k3       — K3 (the Mamba1 selective scan) against its plain sequential
@@ -51,7 +69,8 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               d_inner 8192, random weights from a seeded
               ``torch.Generator``) through ``ServeEngine``'s slot-state
               pool: the same 8 staggered requests, 32 new tokens each, with
-              the launch counts read around the run;
+              the launch counts read around the run, and a frozen chunk
+              through the graph and eagerly (tokens equal);
 8. ssmstep  — one ``prefill`` of the 300-token prompt with K3 and with the
               plain scan, in bf16 and in fp32 compute: logits and the
               returned SSM states compared; then the weights are freed;
@@ -61,7 +80,8 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               seeded ``torch.Generator``) through ``ServeEngine``'s
               slot-state pool: the same 8 staggered requests, with K2's
               launches (the shared block's prefill attention, 6 per
-              prefill) read around the run;
+              prefill) read around the run, and a frozen chunk through the
+              graph and eagerly (tokens equal);
 8b. hybridstep — K2 against its plain version at the shared block's
               prefill shape (B=1, S=300, H=KV=32, hd=64, bf16 and fp32) and
               timed; one ``prefill`` of the 300-token prompt (one ragged
@@ -77,7 +97,8 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               seeded ``torch.Generator``, 28.6 GB with the matrices in
               bf16) through ``ServeEngine``'s paged pool: the same 8
               staggered requests, with K1's and K2's launches read around
-              the run;
+              the run, the frozen chunk through the graph and eagerly, and
+              its device time both ways;
 8d. moestep — K1 (B=8, H=KV=16, hd=128) and K2 (B=4, S=T=128, H=KV=16,
               hd=128) against their plain versions and timed beside SDPA
               and their bound; the ``steps`` checks on a frozen copy of
@@ -151,6 +172,7 @@ unavailable. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -659,6 +681,142 @@ def _k2_line(t) -> str:
             f"{t['dev_ms']:.5f} ms, SDPA {t['lib_dev_ms']:.5f} ms")
 
 
+# ------------------------------------------------- the captured chunk
+def _cycle_split(obs) -> str:
+    """The mean decode cycle and its split, ms, from an engine's registry."""
+    m = obs.metrics
+    parts = {k: m.get(f"engine.{k}_s").summary()
+             for k in ("cycle", "dispatch", "chunk_sync", "book", "gap")}
+    return f"{parts['cycle']['count']} decode cycles, mean ms: " + ", ".join(
+        f"{k} {1e3 * v['mean']:.3f}" for k, v in parts.items())
+
+
+def _chunk_state(eng):
+    """The tensors a decode chunk writes besides its carry and output: the
+    paged pool, or the slot-state pool's leaves."""
+    if eng.paged:
+        return [eng._pkv]
+    return [t for _, t in _pool_leaves(eng._sstate)]
+
+
+def _freeze_chunk(eng, rows: int) -> dict:
+    """Wrap ``eng``'s chunk program (an instance attribute; ``del
+    eng._chunk.run`` unwraps it) so that the first chunk with at least
+    ``rows`` active rows has its inputs copied before it runs: ``state``
+    (and, paged, ``pool``, ``tables``), ``carry`` (3, B)."""
+    frozen = {}
+    chunk = eng._chunk
+    real = chunk.run
+
+    def spy():
+        if "state" not in frozen and int((chunk.carry[2] > 0).sum()) >= rows:
+            frozen["state"] = [t.clone() for t in _chunk_state(eng)]
+            frozen["carry"] = chunk.carry.clone()
+            if eng.paged:
+                frozen["pool"] = frozen["state"][0]
+                frozen["tables"] = eng._tables_dev.clone()
+        real()
+
+    chunk.run = spy
+    return frozen
+
+
+def _restore_chunk(eng, frozen) -> None:
+    """Put the frozen chunk inputs back into the engine's own tensors."""
+    for t, f in zip(_chunk_state(eng), frozen["state"]):
+        t.copy_(f)
+    if eng.paged:
+        eng._tables_dev.copy_(frozen["tables"])
+    eng._chunk.carry.copy_(frozen["carry"])
+
+
+def _graph_vs_eager(eng, frozen, tag: str) -> None:
+    """The frozen chunk through the engine's captured graph (one replay)
+    and through the same body run eagerly, on the engine's own tensors:
+    tokens and advanced carry must be equal, and the state they write is
+    compared (paged: the sink block, garbage by contract, masked out)."""
+    chunk = eng._chunk
+    if chunk.graph is None:
+        raise SystemExit(f"[{tag}] the engine did not capture its chunk")
+    res = {}
+    with torch.inference_mode():
+        for name, fn in (("graph", chunk.run), ("eager", chunk._body)):
+            _restore_chunk(eng, frozen)
+            fn()
+            torch.cuda.synchronize()
+            st = [t.clone() for t in _chunk_state(eng)]
+            if eng.paged:
+                st[0][:, :, 0] = 0
+            res[name] = (chunk.out.clone(), st)
+    (g_out, g_st), (e_out, e_st) = res["graph"], res["eager"]
+    same = torch.equal(g_out, e_out)
+    state_eq = all(torch.equal(a, b) for a, b in zip(g_st, e_st))
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(g_st, e_st))
+    active = int((frozen["carry"][2] > 0).sum())
+    log(f"[{tag}] captured chunk vs eager on a frozen mid-run chunk "
+        f"({active} active rows, n={chunk.n}, L={eng.cfg.num_layers}, "
+        f"{eng.cfg.compute_dtype}): tokens and carry equal {same}, written "
+        f"state equal {state_eq} (max |d| {diff:.3e})")
+    if not same:
+        bad = (g_out != e_out).any(1).nonzero()[:, 0].tolist()
+        raise SystemExit(f"[{tag}] graph tokens differ from eager on rows "
+                         f"{bad}")
+
+
+def _chunk_device_ms(eng, frozen, tag: str, card: str, reps: int = 3
+                     ) -> dict:
+    """The frozen chunk as one replay and eagerly, medians of ``reps``:
+    the host's time in the call (enqueue), the CUDA-event time from before
+    the call to after it (for the eager chunk the device waits on the
+    host's enqueue, so this is its wall on the device) and the device busy
+    time (``torch.profiler``'s kernel durations summed, one call); and the
+    host time of a replay enqueued right behind another (the graph launch
+    while the device is busy, as the async engine issues it)."""
+    chunk = eng._chunk
+    out = {}
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        for name, fn in (("graph", chunk.run), ("eager", chunk._body)):
+            dev_ms, host_ms = [], []
+            for _ in range(reps):
+                _restore_chunk(eng, frozen)
+                torch.cuda.synchronize()
+                e0.record()
+                t0 = time.perf_counter()
+                fn()
+                host_ms.append(1e3 * (time.perf_counter() - t0))
+                e1.record()
+                torch.cuda.synchronize()
+                dev_ms.append(e0.elapsed_time(e1))
+            _restore_chunk(eng, frozen)
+            busy, launches, _ = _profile_rows(fn)
+            out[name] = {"event_ms": float(np.median(dev_ms)),
+                         "host_ms": float(np.median(host_ms)),
+                         "busy_ms": busy, "kernels": launches}
+        behind = []
+        for _ in range(reps):
+            _restore_chunk(eng, frozen)
+            torch.cuda.synchronize()
+            chunk.run()
+            t0 = time.perf_counter()
+            chunk.run()
+            behind.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        out["graph"]["host_behind_ms"] = float(np.median(behind))
+    g, e = out["graph"], out["eager"]
+    log(f"[{tag}] decode chunk (B={chunk.carry.shape[1]}, n={chunk.n}, "
+        f"L={eng.cfg.num_layers}, {eng.cfg.compute_dtype}): one replay "
+        f"{g['event_ms']:.3f} ms on the device (busy {g['busy_ms']:.3f} ms, "
+        f"{g['kernels']} kernels), host {g['host_ms']:.3f} ms, "
+        f"{g['host_behind_ms']:.3f} ms behind a running replay; eager "
+        f"{e['event_ms']:.3f} ms on the device (busy {e['busy_ms']:.3f} ms, "
+        f"{e['kernels']} kernels), host enqueue {e['host_ms']:.3f} ms; on "
+        f"{card}")
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
                 card: str = ""):
@@ -668,7 +826,7 @@ def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
     numbers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import lm
+    from repro_torch.obs import Observability
     from repro_torch.params import init_params, param_bytes
     from repro_torch.serve.engine import ServeEngine
 
@@ -686,25 +844,19 @@ def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
         f"{ffn} V={cfg.vocab_size}; weights {wbytes / 1e9:.3f} GB "
         f"(matrices bf16) in {time.perf_counter() - t0:.1f}s")
 
-    # freeze one mid-run decode chunk's inputs for phase 5: the engine
-    # calls lm.decode_chunk_paged through the module, so a wrapper sees the
-    # exact pool/tables/carry (copied before the chunk writes to the pool)
-    frozen = {}
-    real_chunk = lm.decode_chunk_paged
-
-    def spy(cfg_, params_, pool, tables, carry, n, **kw):
-        if "pool" not in frozen and int((carry[2] > 0).sum()) \
-                >= len(PROMPT_LENS) // 2:
-            frozen.update(pool=pool.clone(), tables=tables.clone(),
-                          carry=tuple(c.clone() for c in carry))
-        return real_chunk(cfg_, params_, pool, tables, carry, n, **kw)
-
-    lm.decode_chunk_paged = spy
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in PROMPT_LENS]
+    t0 = time.perf_counter()
+    obs = Observability()
     eng = ServeEngine(cfg, params, decode_chunk=8, max_batch=8,
-                      kv_blocks=128, block_size=16, device=dev)
+                      kv_blocks=128, block_size=16, device=dev, obs=obs)
+    log(f"[{tag}] engine built with the decode chunk captured in "
+        f"{time.perf_counter() - t0:.2f}s: {eng._chunk.captured_launches} "
+        f"launches recorded per replay")
+    # freeze one mid-run decode chunk's inputs for phase 5 and the graph
+    # against eager check (copied before the chunk writes to the pool)
+    frozen = _freeze_chunk(eng, len(PROMPT_LENS) // 2)
     try:
         mem0 = torch.cuda.memory_allocated()
         pool_bytes = eng._pkv.numel() * eng._pkv.element_size()
@@ -716,6 +868,7 @@ def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
         eng.result(eng.submit(prompts[0][:8], max_new=2))
         torch.cuda.synchronize()
         stats0 = dict(eng.stats)
+        obs.reset()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -728,7 +881,7 @@ def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
     finally:
-        lm.decode_chunk_paged = real_chunk
+        del eng._chunk.run          # the spy: back to the class's run
         eng.close()
     stats = {k: v - stats0.get(k, 0) for k, v in eng.stats.items()}
     for p, o in zip(prompts, outs):
@@ -760,9 +913,17 @@ def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
         f"(resident before run {mem0 / 1e9:.2f} GB); all "
         f"{eng._pool.num_blocks - 1} non-sink blocks free")
     log(f"[{tag}] sample: {outs[0][:16].tolist()}")
+    log(f"[{tag}] {_cycle_split(obs)}")
     if "pool" not in frozen:
         raise SystemExit("no decode chunk with a full batch was seen")
-    return cfg, params, prompts, frozen, counts
+    if counts["paged_attention"] != L * steps:
+        raise SystemExit(f"K1 launches {counts['paged_attention']} != {L} x "
+                         f"{steps}: every decode step is one replay's")
+    _graph_vs_eager(eng, frozen, tag)
+    chunk_ms = _chunk_device_ms(eng, frozen, tag, card)
+    del eng
+    gc.collect()
+    return cfg, params, prompts, frozen, counts, chunk_ms
 
 
 # ------------------------------------------------------------------ phase 5
@@ -950,6 +1111,7 @@ def phase_serve_ssm(dev, arch: str = "falcon-mamba-7b", tag: str = "ssm",
     numbers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.obs import Observability
     from repro_torch.params import init_params, param_bytes
     from repro_torch.serve.engine import ServeEngine
 
@@ -975,7 +1137,10 @@ def phase_serve_ssm(dev, arch: str = "falcon-mamba-7b", tag: str = "ssm",
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in PROMPT_LENS]
-    eng = ServeEngine(cfg, params, decode_chunk=8, max_batch=8, device=dev)
+    obs = Observability()
+    eng = ServeEngine(cfg, params, decode_chunk=8, max_batch=8, device=dev,
+                      obs=obs)
+    frozen = _freeze_chunk(eng, len(PROMPT_LENS) // 2)
     try:
         leaves = dict(_pool_leaves(eng._sstate))
         pool_bytes = sum(t.numel() * t.element_size()
@@ -990,6 +1155,7 @@ def phase_serve_ssm(dev, arch: str = "falcon-mamba-7b", tag: str = "ssm",
         eng.result(eng.submit(prompts[0][:8], max_new=2))
         torch.cuda.synchronize()
         stats0 = dict(eng.stats)
+        obs.reset()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1002,12 +1168,16 @@ def phase_serve_ssm(dev, arch: str = "falcon-mamba-7b", tag: str = "ssm",
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
     finally:
+        del eng._chunk.run          # the spy: back to the class's run
         eng.close()
     stats = {k: v - stats0.get(k, 0) for k, v in eng.stats.items()}
     for p, o in zip(prompts, outs):
         if o.shape != (MAX_NEW,) or not ((o >= 0) & (o < cfg.vocab_size)
                                          ).all():
             raise SystemExit(f"bad output for prompt len {len(p)}: {o}")
+    if "state" not in frozen:
+        raise SystemExit(f"[{tag}] no decode chunk with a full batch")
+    _graph_vs_eager(eng, frozen, tag)
     B = len(eng._slot_req)
     if len(eng._free_slots) != B or eng._slots_reserved or eng._inflight:
         raise SystemExit(f"slots leaked: {len(eng._free_slots)} free of {B}")
@@ -1031,6 +1201,7 @@ def phase_serve_ssm(dev, arch: str = "falcon-mamba-7b", tag: str = "ssm",
         f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; all {B} "
         f"slots free")
     log(f"[{tag}] sample: {outs[0][:16].tolist()}")
+    log(f"[{tag}] {_cycle_split(obs)}")
     return cfg, params, prompts, counts
 
 
@@ -1909,17 +2080,16 @@ def _first_flip_margin(cfg, params, prompt, a, b, dev) -> str:
 
 
 def phase_prefix(dev, cfg, params, card: str) -> dict:
-    """The port's serve suite at stablelm-1.6b's full width and depth
-    (``params``: the serve phase's seeded bf16 weights): the continuous
-    trace at the reference's non-quick shapes with PREFIX_N_REQ requests,
-    then the prefix-share trace cold and warm, each with an
-    ``Observability`` attached and its trace exported; every run's gates
-    (``_check_serve_run``); the warm run's hits, saved tokens and forks;
-    K1 in both prefix-share runs; warm against cold tokens, equal in fp32
-    compute at full width and PREFIX_FP32_LAYERS layers, and their match
+    """The port's prefix-share workload at stablelm-1.6b's full width and
+    depth (``params``: the serve phase's seeded bf16 weights), cold and
+    warm, each with an ``Observability`` attached and its trace exported;
+    every run's gates (``_check_serve_run``); the warm run's hits, saved
+    tokens and forks; K1 in both runs; warm against cold tokens, equal in
+    fp32 compute at full width and PREFIX_FP32_LAYERS layers (and the cold
+    pass on the eager chunk equal to the captured chunk's), and their match
     share and first flip's margin in bf16; then the obs gate's measurement
-    (printed, not gated: host timing is noisy). Returns the bf16 runs'
-    K1 and K2 launches."""
+    (printed, not gated: host timing is noisy). Returns the bf16 runs' K1
+    and K2 launches. The continuous trace runs in ``phase_async``."""
     import dataclasses
 
     from repro_torch.bench import obs_overhead_gate
@@ -1937,25 +2107,6 @@ def phase_prefix(dev, cfg, params, card: str) -> dict:
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         return out, counts
-
-    rng = np.random.default_rng(0)
-    sizes = sc._sample_lens(rng, PREFIX_N_REQ, "choice", False)
-    trace = sc._trace(rng, sizes, 20.0, 32)
-    cont, counts = counted(sc.continuous_run, cfg, params, trace, chunk=8,
-                           device=dev,
-                           trace_path=str(PREFIX_DIR / "TRACE_serve.json"))
-    _check_serve_run(cont, "prefix/continuous", PREFIX_N_REQ, V)
-    st = cont["stats"]
-    if counts["paged_attention"] < L * st["decode_cycles"] * 8 \
-            or counts["flash_attention"] < L * st["prefills"]:
-        raise SystemExit(f"[prefix] continuous launches {counts} short of "
-                         f"{L} x {st['decode_cycles']} chunks of 8 and "
-                         f"{L} x {st['prefills']} prefills")
-    for k in total:
-        total[k] += counts[k]
-    for name, val, derived in sc.continuous_rows(cont, sizes, "choice"):
-        log(f"[prefix] {name},{val},{derived}")
-    log(f"[prefix] continuous launches {counts} on {card}")
 
     ptrace, geom = sc.prefix_share_trace(False)
     runs = {}
@@ -1995,22 +2146,30 @@ def phase_prefix(dev, cfg, params, card: str) -> dict:
         msg += f"; first flip request {i}: " + _first_flip_margin(
             cfg, params, ptrace[i][1], cold_t[i], warm_t[i], dev)
     log(msg)
-    del runs, cont
+    del runs
     gc.collect()
 
     # fp32 compute at full width and PREFIX_FP32_LAYERS layers: the warm
-    # pass must emit the cold pass's tokens exactly
+    # pass must emit the cold pass's tokens exactly, and the cold pass on
+    # the eager chunk the captured chunk's
     L32 = min(PREFIX_FP32_LAYERS, L)
     c32 = dataclasses.replace(cfg, compute_dtype="float32", num_layers=L32)
     p32 = _fp32_params(params, L32)
     outs = {}
-    for warm in (False, True):
-        run = sc.prefix_share_run(c32, p32, ptrace, geom, warm, device=dev)
-        _check_serve_run(run, f"prefix/fp32-{'warm' if warm else 'cold'}",
-                         len(ptrace), V)
+    for warm in (False, True, "eager"):
+        run = sc.prefix_share_run(c32, p32, ptrace, geom, warm is True,
+                                  device=dev,
+                                  chunk_graph=warm != "eager")
+        name = {False: "cold", True: "warm", "eager": "cold-eager"}[warm]
+        _check_serve_run(run, f"prefix/fp32-{name}", len(ptrace), V)
         outs[warm] = [o.tolist() for o in run["outs"]]
-        if warm:
+        if warm is True:
             st32 = run["stats"]
+    if outs["eager"] != outs[False]:
+        raise SystemExit(f"[prefix] fp32 L={L32}: the cold pass's tokens on "
+                         "the captured chunk differ from the eager chunk's")
+    log(f"[prefix] fp32 L={L32}: cold pass on the captured chunk equals "
+        f"the eager chunk on all {len(ptrace)} requests")
     if outs[True] != outs[False]:
         bad = [i for i, (a, b) in enumerate(zip(outs[False], outs[True]))
                if a != b]
@@ -2027,6 +2186,192 @@ def phase_prefix(dev, cfg, params, card: str) -> dict:
     log(f"[prefix] obs_gate (smoke config, best of {g['reps']}): off "
         f"{g['off']:.1f} tok/s, on {g['on']:.1f} tok/s, on/off "
         f"{g['ratio']:.4f} on {card}")
+    return total
+
+
+# ------------------------------------------------------------------ phase 5b
+#: requests of the trace each async-phase engine warms up on
+ASYNC_WARM = 16
+#: the async phase's modes: (name, engine arguments)
+ASYNC_MODES = (("eager-sync", {"chunk_graph": False}),
+               ("graph-sync", {}),
+               ("graph-async", {"async_decode": True}))
+
+
+@contextlib.contextmanager
+def _sync_tally():
+    """Count the stream and device synchronisations PyTorch makes while
+    the block runs (``set_sync_debug_mode("warn")``: blocking copies,
+    ``.item()``, ``synchronize``; waits on an event are not among them), by
+    the innermost function of the serve engine on the stack."""
+    import traceback
+    import warnings
+    tally = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        site = "other"
+        for f in reversed(traceback.extract_stack()):
+            if f.filename.endswith(os.path.join("serve", "engine.py")):
+                site = f.name
+                break
+        tally[site] = tally.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield tally
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def _mode_numbers(run) -> dict:
+    """tok/s, TTFT and admission p50/p99 (ms) and the mean cycle split (ms)
+    of one measured serve run."""
+    m = run["obs"].metrics
+    tokens = sum(len(o) for o in run["outs"])
+    ttft, adm = m.get("serve.ttft_s"), m.get("bench.admission_latency_s")
+    out = {"tok_per_s": tokens / run["dt"]}
+    for q in (50, 99):
+        out[f"ttft_p{q}"] = 1e3 * ttft.percentile(q)
+        out[f"admission_p{q}"] = 1e3 * adm.percentile(q)
+    for k in ("cycle", "dispatch", "chunk_sync", "book", "gap"):
+        h = m.get(f"engine.{k}_s").summary()
+        out[k] = 1e3 * h["mean"]
+    out["cycles"] = m.get("engine.cycle_s").summary()["count"]
+    # the "growth" span: copy-on-write guard, the streamed prefill window's
+    # launch (and, sync, its completion) and table growth, per cycle
+    grow = [e - b for name, track, b, e, _ in run["obs"].tracer.spans()
+            if name == "growth" and track == "engine"]
+    out["growth"] = 1e3 * sum(grow) / max(1, out["cycles"])
+    return out
+
+
+def phase_async(dev, cfg, params, chunk_ms: dict, card: str) -> dict:
+    """The continuous trace of the serve suite (``choice`` lengths
+    16/24/32, 32 new tokens, chunk 8, block 8, a 16-token window, Poisson
+    at 20 Hz, PREFIX_N_REQ requests) in the three ASYNC_MODES. In fp32
+    compute at full width and PREFIX_FP32_LAYERS layers: the captured
+    chunk's tokens must equal the eager chunk's and the async engine's the
+    sync engine's, and PyTorch's stream syncs are counted by engine
+    function. At full width and depth in bf16 (``params``): one warmed
+    engine per mode, three rounds in turns (eager, graph, async, then
+    backwards, then forwards), each run held to ``_check_serve_run`` and
+    its launches counted; tok/s, TTFT and admission p50/p99 and the mean
+    cycle split per mode (medians over the rounds: host time varies run to
+    run), async-vs-sync token equality reported.
+    ``chunk_ms``: the serve phase's chunk device times, printed beside.
+    Returns the bf16 runs' K1 and K2 launches."""
+    import dataclasses
+
+    from repro_torch.bench import serve_continuous as sc
+    from repro_torch.kernels import ops
+
+    PREFIX_DIR.mkdir(parents=True, exist_ok=True)
+    V, L = cfg.vocab_size, cfg.num_layers
+    rng = np.random.default_rng(0)
+    sizes = sc._sample_lens(rng, PREFIX_N_REQ, "choice", False)
+    trace = sc._trace(rng, sizes, 20.0, 32)
+
+    L32 = min(PREFIX_FP32_LAYERS, L)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", num_layers=L32)
+    p32 = _fp32_params(params, L32)
+    toks32, syncs = {}, {}
+    # each engine warms up on the trace's first ASYNC_WARM requests (every
+    # prompt length, a saturating burst) rather than on all of them
+    warm = trace[:ASYNC_WARM]
+    for name, kw in ASYNC_MODES:
+        eng, obs = sc.continuous_engine(c32, p32, warm, chunk=8,
+                                        device=dev, **kw)
+        with eng:
+            with _sync_tally() as tally:
+                run = sc.measured_run(eng, obs, trace)
+        _check_serve_run(run, f"async/fp32-{name}", PREFIX_N_REQ, V)
+        toks32[name] = [o.tolist() for o in run["outs"]]
+        cyc = max(1, run["stats"]["decode_cycles"])
+        syncs[name] = {k: round(v / cyc, 3) for k, v in
+                       sorted(tally.items(), key=lambda kv: -kv[1])}
+        log(f"[async] fp32 L={L32} {name}: stream syncs per decode cycle "
+            f"by engine function {syncs[name]} (the measured run, {cyc} "
+            f"decode cycles)")
+    if toks32["graph-sync"] != toks32["eager-sync"]:
+        raise SystemExit(f"[async] fp32 L={L32}: captured-chunk tokens "
+                         "differ from the eager chunk's")
+    if toks32["graph-async"] != toks32["graph-sync"]:
+        bad = [i for i, (a, b) in enumerate(zip(toks32["graph-sync"],
+                                                toks32["graph-async"]))
+               if a != b]
+        raise SystemExit(f"[async] fp32 L={L32}: async tokens differ from "
+                         f"sync on requests {bad}")
+    log(f"[async] fp32 L={L32}: eager-sync, graph-sync and graph-async "
+        f"tokens equal on all {PREFIX_N_REQ} requests")
+    del p32
+    gc.collect()
+
+    engines = {}
+    for name, kw in ASYNC_MODES:
+        t0 = time.perf_counter()
+        engines[name] = sc.continuous_engine(cfg, params, warm, chunk=8,
+                                             device=dev, **kw)
+        log(f"[async] {name}: engine built and warmed in "
+            f"{time.perf_counter() - t0:.1f}s")
+    total = {"paged_attention": 0, "flash_attention": 0}
+    nums = {name: [] for name, _ in ASYNC_MODES}
+    toks = {}
+    order = [n for n, _ in ASYNC_MODES]
+    try:
+        for rnd, names in enumerate((order, order[::-1], order)):
+            for name in names:
+                eng, obs = engines[name]
+                ops.reset_launch_counts()
+                run = sc.measured_run(
+                    eng, obs, trace,
+                    str(PREFIX_DIR / f"TRACE_{name}.json") if rnd else None)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                _check_serve_run(run, f"async/{name}", PREFIX_N_REQ, V)
+                st = run["stats"]
+                if counts["paged_attention"] != L * st["decode_cycles"] * 8 \
+                        or counts["flash_attention"] < L * st["prefills"]:
+                    raise SystemExit(
+                        f"[async] {name} launches {counts}: K1 != {L} x "
+                        f"{st['decode_cycles']} chunks of 8 or K2 < {L} x "
+                        f"{st['prefills']} prefills")
+                for k in total:
+                    total[k] += counts[k]
+                n = _mode_numbers(run)
+                nums[name].append(n)
+                toks.setdefault(name, [o.tolist() for o in run["outs"]])
+                log(f"[async] round {rnd} {name}: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in n.items())
+                    + f" | launches {counts} | stats {st} on {card}")
+                if rnd == 0 and name == "graph-sync":
+                    for row in sc.continuous_rows(run, sizes, "choice"):
+                        log(f"[async] {','.join(row)}")
+    finally:
+        for eng, _ in engines.values():
+            eng.close()
+    summary = {}
+    for name, _ in ASYNC_MODES:
+        runs = nums[name]
+        summary[name] = {k: float(np.median([r[k] for r in runs]))
+                         for k in runs[0]}
+        log(f"[async] {name} (median of {len(runs)} runs in turns, bf16 "
+            f"L={L}): " + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in summary[name].items()))
+    same = sum(a == b for a, b in zip(toks["graph-sync"],
+                                      toks["graph-async"]))
+    same_e = sum(a == b for a, b in zip(toks["eager-sync"],
+                                        toks["graph-sync"]))
+    log(f"[async] bf16 L={L}: graph-async tokens equal graph-sync on "
+        f"{same} of {PREFIX_N_REQ} requests, graph-sync equal eager-sync on "
+        f"{same_e}; the serve phase's chunk (8 steps, B=8): one replay "
+        f"{chunk_ms['graph']['event_ms']:.3f} ms on the device (busy "
+        f"{chunk_ms['graph']['busy_ms']:.3f} ms), eager busy "
+        f"{chunk_ms['eager']['busy_ms']:.3f} ms on {card}")
+    print(json.dumps({"async_modes": summary, "syncs_per_cycle": syncs,
+                      "chunk_ms": chunk_ms, "card": card}), flush=True)
     return total
 
 
@@ -2052,10 +2397,13 @@ def main(argv=None) -> None:
     phase_build()
     report = phase_kernels(dev, args.other_csrc)
     done("card, build, K1/K2")
-    cfg, params, prompts, frozen, counts = phase_serve(dev, card=smi)
+    cfg, params, prompts, frozen, counts, chunk_ms = phase_serve(dev,
+                                                                 card=smi)
     phase_steps(cfg, params, prompts, frozen, dev)
     del frozen
     done("stablelm serve and steps")
+    acounts = phase_async(dev, cfg, params, chunk_ms, smi)
+    done("async (continuous trace in three modes)")
     pcounts = phase_prefix(dev, cfg, params, smi)
     del params
     gc.collect()              # free the serve phase's weights and pool
@@ -2076,7 +2424,7 @@ def main(argv=None) -> None:
     gc.collect()              # free zamba2's weights and slot pool
     torch.cuda.empty_cache()
     done("zamba2 serve and steps")
-    qcfg, qparams, qprompts, qfrozen, qcounts = phase_serve(
+    qcfg, qparams, qprompts, qfrozen, qcounts, _ = phase_serve(
         dev, "qwen2-moe-a2.7b", "moe", smi)
     phase_steps_moe(qcfg, qparams, qprompts, qfrozen, dev)
     del qparams, qfrozen
@@ -2093,11 +2441,11 @@ def main(argv=None) -> None:
     report["cond_graph"] = phase_condgraph(dev, smi)
     done("condgraph and the quick bench pass")
     report["paged_attention"]["launches"] = counts["paged_attention"] \
-        + pcounts["paged_attention"] + qcounts["paged_attention"] \
-        + report["cond_graph"]["k1_sweep"]
+        + acounts["paged_attention"] + pcounts["paged_attention"] \
+        + qcounts["paged_attention"] + report["cond_graph"]["k1_sweep"]
     report["flash_attention"]["launches"] = counts["flash_attention"] \
-        + pcounts["flash_attention"] + zcounts["flash_attention"] \
-        + qcounts["flash_attention"]
+        + acounts["flash_attention"] + pcounts["flash_attention"] \
+        + zcounts["flash_attention"] + qcounts["flash_attention"]
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

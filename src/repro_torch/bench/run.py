@@ -24,9 +24,12 @@ serve        — continuous batching under a Poisson trace, percentiles
                ``--prefix-share`` runs the prefix-cache workload, cold
                against warm; its trace lands in ``TRACE_serve.json``
 obs_gate     — serve throughput with observability on against off
+decode_overlap — the synchronous against the async decode engine: per-
+               cycle dispatch / sync / bookkeeping and the host gap, in
+               turns, with an fp32 parity pass
 
 Not ported yet (ROADMAP.md Queue 1): ``serve_slo`` waits for item 6,
-``decode_overlap`` for item 4, ``journal_gate`` for item 7,
+``journal_gate`` for item 7,
 ``serve_mesh`` for item 11 and ``roofline`` for item 14; the ``serve``
 suite's per-call baseline rows are not ported (the port's engine has no
 per-call grouped path).
@@ -35,7 +38,7 @@ per-call grouped path).
 fig9 graphs of 1,000 and 5,000 tasks, fig11 1,000 tasks, fig21 1,000
 gates over 5 iterations, fig13 8 layers, the pipeline and paged_decode
 suites their own quick sizes (paged_decode keeps the full-width heads),
-serve and obs_gate the reference's quick sizes.
+serve, obs_gate and decode_overlap the reference's quick sizes.
 The suites run on the card unless ``--device cpu`` is given (the tests);
 without a card the default raises. Each completed suite drops
 ``BENCH_<suite>.json`` into ``--bench-dir`` with the schema of
@@ -59,9 +62,8 @@ _METRIC_SUFFIXES = ("tok_per_s", "p50_ms", "p99_ms")
 
 #: suites of ``benchmarks/run.py`` the port does not have yet, with the
 #: ROADMAP Queue 1 item each waits for
-NOT_PORTED = {"serve_slo": "item 6", "decode_overlap": "item 4",
-              "journal_gate": "item 7", "serve_mesh": "item 11",
-              "roofline": "item 14"}
+NOT_PORTED = {"serve_slo": "item 6", "journal_gate": "item 7",
+              "serve_mesh": "item 11", "roofline": "item 14"}
 
 
 def _git_sha() -> str:
@@ -120,8 +122,9 @@ def _card(dev) -> str:
 
 def suites(dev, quick: bool, prompt_dist: str = "choice",
            prefix_share: bool = False, trace_dir: str = ".") -> dict:
-    from . import (fig9_micro_random_dag, fig11_corun_throughput,
-                   fig13_lsdnn, fig17_conditional_memory,
+    from . import (decode_overlap, fig9_micro_random_dag,
+                   fig11_corun_throughput, fig13_lsdnn,
+                   fig17_conditional_memory,
                    fig21_incremental_timing, obs_overhead_gate,
                    paged_decode_microbench, pipeline_throughput,
                    serve_continuous, table2_task_overhead)
@@ -150,6 +153,9 @@ def suites(dev, quick: bool, prompt_dist: str = "choice",
                                    trace_path=trace, device=dev)),
         "obs_gate": lambda: obs_overhead_gate.bench(quick=quick,
                                                     device=dev),
+        "decode_overlap": lambda: decode_overlap.bench(
+            quick=quick, device=dev,
+            trace_path=os.path.join(trace_dir, "TRACE_decode_overlap.json")),
     }
 
 

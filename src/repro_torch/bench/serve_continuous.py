@@ -15,8 +15,9 @@ to multiples of 4). Reported: tokens/sec, request latency p50/p99 (nominal
 arrival to result), admission latency p50/p99 (nominal arrival to first
 admission), TTFT p50/p99, the engine's admission / cycle / growth counts
 and the mean decode cycle split into host enqueue (``engine.dispatch_s``),
-the wait at the chunk's token read-back (``engine.chunk_sync_s``) and host
-bookkeeping (``engine.book_s``).
+the wait at the chunk's token read-back (``engine.chunk_sync_s``), host
+bookkeeping (``engine.book_s``) and the part of the cycle with no chunk in
+flight (``engine.gap_s``).
 
 ``bench_prefix_share`` swaps in the prefix-cache workload: 4 prefixes of
 96 tokens crossed with 4-8-token suffixes, replayed over one trace cold
@@ -108,11 +109,14 @@ def _reset(eng, obs) -> None:
     obs.reset()
 
 
-def continuous_run(cfg, params, trace, *, chunk: int = 8, impl=None,
-                   device=None, trace_path: Optional[str] = None) -> dict:
-    """The continuous mode over ``trace``: warm-up, then the measured
-    replay. Returns the closed engine, its ``Observability``, the
-    requests, their tokens, the stats and the wall seconds."""
+def continuous_engine(cfg, params, trace, *, chunk: int = 8, impl=None,
+                      device=None, **engine_kw):
+    """The engine :func:`continuous_run` serves ``trace`` with (and its
+    ``Observability``), warmed up: one request per power-of-two window
+    bucket, then one saturating mixed-length burst (the reference's
+    warm-up; here it warms the allocator and the library handles rather
+    than compiles). ``engine_kw`` goes to ``ServeEngine`` (e.g.
+    ``async_decode``, ``chunk_graph``)."""
     from ..obs import Observability
     from ..serve.engine import ServeEngine
 
@@ -124,23 +128,37 @@ def continuous_run(cfg, params, trace, *, chunk: int = 8, impl=None,
     eng = ServeEngine(cfg, params, decode_chunk=chunk, block_size=bs,
                       max_seq_len=max_seq, kv_blocks=128,
                       prefill_chunk=2 * bs, paged_impl=impl, obs=obs,
-                      device=device)
-    with eng:
-        # one request per power-of-two window bucket, then one saturating
-        # mixed-length burst (the reference's warm-up; here it warms the
-        # allocator and the library handles rather than compiles)
-        buckets = {1 << max(0, s - 1).bit_length(): s for s in sorted(lens)}
-        for s in buckets.values():
-            eng.generate([next(p for _, p, _ in trace if len(p) == s)],
-                         max_new=chunk + 1)
-        eng.generate([p for _, p, _ in trace], max_new=chunk + 1)
-        _reset(eng, obs)
-        reqs, outs, dt = _replay(eng, trace, obs)
-        stats = dict(eng.stats)
-        if trace_path:
-            obs.export(trace_path)
+                      device=device, **engine_kw)
+    buckets = {1 << max(0, s - 1).bit_length(): s for s in sorted(lens)}
+    for s in buckets.values():
+        eng.generate([next(p for _, p, _ in trace if len(p) == s)],
+                     max_new=chunk + 1)
+    eng.generate([p for _, p, _ in trace], max_new=chunk + 1)
+    return eng, obs
+
+
+def measured_run(eng, obs, trace, trace_path: Optional[str] = None) -> dict:
+    """One measured replay of ``trace`` on a warmed engine (stats and the
+    registry zeroed first). Returns what :func:`continuous_run` does."""
+    _reset(eng, obs)
+    reqs, outs, dt = _replay(eng, trace, obs)
+    stats = dict(eng.stats)
+    if trace_path:
+        obs.export(trace_path)
     return {"eng": eng, "obs": obs, "reqs": reqs, "outs": outs,
             "stats": stats, "dt": dt, "impl": eng.paged_impl}
+
+
+def continuous_run(cfg, params, trace, *, chunk: int = 8, impl=None,
+                   device=None, trace_path: Optional[str] = None,
+                   **engine_kw) -> dict:
+    """The continuous mode over ``trace``: warm-up, then the measured
+    replay. Returns the closed engine, its ``Observability``, the
+    requests, their tokens, the stats and the wall seconds."""
+    eng, obs = continuous_engine(cfg, params, trace, chunk=chunk, impl=impl,
+                                 device=device, **engine_kw)
+    with eng:
+        return measured_run(eng, obs, trace, trace_path)
 
 
 def _ms(h, q) -> str:
@@ -176,11 +194,12 @@ def continuous_rows(run: dict, sizes, prompt_dist: str
            f"{st['preempted']}_preemptions_"
            f"{st['prefill_windows']}_windows")
     cyc = {k: m.get(f"engine.{k}_s").summary()
-           for k in ("cycle", "dispatch", "chunk_sync", "book")}
+           for k in ("cycle", "dispatch", "chunk_sync", "book", "gap")}
     yield ("serve_cycle_mean_ms", f"{cyc['cycle']['mean'] * 1e3:.3f}",
            f"dispatch_{cyc['dispatch']['mean'] * 1e3:.3f}_"
            f"sync_{cyc['chunk_sync']['mean'] * 1e3:.3f}_"
-           f"book_{cyc['book']['mean'] * 1e3:.3f}_ms")
+           f"book_{cyc['book']['mean'] * 1e3:.3f}_"
+           f"gap_{cyc['gap']['mean'] * 1e3:.3f}_ms")
     yield ("serve_trace_spans", str(len(run["obs"].tracer)),
            f"{run['obs'].tracer.dropped}_dropped")
 
@@ -237,10 +256,11 @@ def prefix_share_trace(quick: bool = False, n_req: Optional[int] = None
 
 def prefix_share_run(cfg, params, trace, geom: dict, prefix_cache: bool, *,
                      impl=None, device=None,
-                     trace_path: Optional[str] = None) -> dict:
+                     trace_path: Optional[str] = None, **engine_kw) -> dict:
     """One pass of the prefix-share trace: two saturating warm-up bursts
     (the second runs against the seeded cache when it is on), then the
-    measured replay. Returns what :func:`continuous_run` returns."""
+    measured replay. Returns what :func:`continuous_run` returns;
+    ``engine_kw`` goes to ``ServeEngine``."""
     from ..obs import Observability
     from ..serve.engine import ServeEngine
 
@@ -252,7 +272,8 @@ def prefix_share_run(cfg, params, trace, geom: dict, prefix_cache: bool, *,
     eng = ServeEngine(cfg, params, decode_chunk=chunk, block_size=bs,
                       max_seq_len=max_seq, kv_blocks=geom["kv_blocks"],
                       prefill_chunk=2 * bs, paged_impl=impl,
-                      prefix_cache=prefix_cache, obs=obs, device=device)
+                      prefix_cache=prefix_cache, obs=obs, device=device,
+                      **engine_kw)
     with eng:
         for _ in range(2):
             eng.generate([p for _, p, _ in trace], max_new=chunk + 1)

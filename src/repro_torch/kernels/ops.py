@@ -31,7 +31,7 @@ from .ref import paged_attention_ref
 __all__ = ["PAGED_IMPLS", "default_paged_impl", "paged_attention",
            "flash_attention", "mamba_scan", "lsdnn_layer", "ensure_built",
            "build_info",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "add_launches"]
 
 PAGED_IMPLS = ("kernel", "loop", "gather")
 
@@ -71,12 +71,26 @@ def lsdnn_layer(y, w, b, cap: float = 32.0):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches so far in this process, by kernel (a launch recorded
-    into a CUDA graph counts once, at capture)."""
+    """Kernel launches so far in this process, by kernel. A wrapper counts
+    when it is called, so a launch recorded into a CUDA graph counts once,
+    at capture, unless the graph's owner moves the count to its replays:
+    the serve engine's captured decode chunk
+    (:class:`repro_torch.serve.chunk_graph.ChunkProgram`) takes back the
+    capture's counts and adds them again at every replay
+    (:func:`add_launches`), since each replay launches those kernels."""
     return {"paged_attention": _paged_mod.launches,
             "flash_attention": _flash_mod.launches,
             "mamba_scan": _scan_mod.launches,
             "lsdnn_layer": _lsdnn_mod.launches}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches, the keys of
+    :func:`launch_counts`; negative to take a capture's counts back)."""
+    mods = {"paged_attention": _paged_mod, "flash_attention": _flash_mod,
+            "mamba_scan": _scan_mod, "lsdnn_layer": _lsdnn_mod}
+    for name, n in counts.items():
+        mods[name].launches += n
 
 
 def reset_launch_counts() -> None:

@@ -15,6 +15,8 @@ CUDA; without a CUDA device it raises unless ``--device cpu`` is given.
         --arch zamba2-1.2b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --trace /tmp/t.json --stats-interval 1
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --async-decode
 
 Attention archs, dense and MoE, page their KV (``--kv-blocks``,
 ``--block-size``, ``--prefill-chunk``); Mamba1 archs and the zamba2 hybrid
@@ -25,7 +27,9 @@ random, drawn from ``--seed`` (``torch.Generator``).
 ``--stats-interval`` prints a one-line runtime summary every N seconds and
 ``--trace`` writes a Chrome trace-event JSON of the run (Perfetto); each
 turns observability on, as ``REPRO_OBS=1`` does. ``REPRO_PREFIX_CACHE=1``
-turns the prefix cache on (paged archs).
+turns the prefix cache on (paged archs). ``--async-decode`` runs the decode
+loop one chunk ahead (``REPRO_ASYNC_DECODE``; ``--no-async-decode`` forces
+the synchronous path with the variable set); greedy tokens are the same.
 """
 from __future__ import annotations
 
@@ -42,7 +46,9 @@ from ..params import init_params
 from ..serve.engine import ServeEngine
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Serve the prompts; returns each request's tokens (a numpy array
+    apiece, in submission order)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b",
                     help="model architecture of a family the port serves: "
@@ -65,6 +71,12 @@ def main(argv=None) -> None:
                          "+ new tokens per request (default 512)")
     ap.add_argument("--stagger", type=float, default=0.0,
                     help="seconds between submissions (0 = all at once)")
+    ap.add_argument("--async-decode", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="async decode lookahead: device-resident carry and "
+                         "one chunk dispatched ahead. Unset defers to "
+                         "REPRO_ASYNC_DECODE; --no-async-decode forces the "
+                         "synchronous path even with the variable set")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs the "
@@ -100,7 +112,8 @@ def main(argv=None) -> None:
     if args.stats_interval is not None:
         logger = StatsLogger(obs.metrics, interval=args.stats_interval)
     with ServeEngine(cfg, params, decode_chunk=args.decode_chunk,
-                     device=dev, obs=obs, **geom) as eng:
+                     device=dev, obs=obs, async_decode=args.async_decode,
+                     **geom) as eng:
         if logger is not None:
             logger.start()
         t0 = time.time()
@@ -113,7 +126,8 @@ def main(argv=None) -> None:
         dt = time.time() - t0
         print(f"{cfg.name}: generated {total_new} tokens in {dt:.2f}s "
               f"({total_new/dt:.1f} tok/s, batch={args.batch}, "
-              f"device={dev}, mode=continuous)")
+              f"device={dev}, mode=continuous, "
+              f"async_decode={eng.async_decode})")
         print("engine stats:", eng.stats)
         print("sample:", outs[0][:16].tolist())
         if logger is not None:
@@ -122,6 +136,7 @@ def main(argv=None) -> None:
         obs.export(args.trace)
         print(f"trace written to {args.trace} "
               f"({len(obs.tracer)} spans; open at https://ui.perfetto.dev)")
+    return outs
 
 
 if __name__ == "__main__":

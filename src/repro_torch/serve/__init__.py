@@ -1,13 +1,18 @@
 """Continuous-batching serve subsystem of the port (slice 1).
 
 * :mod:`.engine`    — the resident admit→prefill→decode→complete pipeline
-  (synchronous, single-device, paged-KV subset of the reference engine);
+  (single-device subset of the reference engine, with its async decode
+  lookahead);
 * :mod:`.scheduler` — copy of the reference's tiered admission queue;
 * :mod:`.errors`    — copy of the typed failure vocabulary;
 * :mod:`.kvcache`   — the host ``BlockPool`` plus in-place torch scatters
-  and gathers through per-sequence block tables, and ``copy_blocks``;
+  and gathers through per-sequence block tables, ``copy_blocks`` and
+  ``set_carry_rows``;
 * :mod:`.prefix`    — copy of the reference's ``PrefixCache``, the hash trie
   over block-aligned prompt chunks behind the engine's ``prefix_cache``.
+* :mod:`.chunk_graph` — the decode chunk as one program over static
+  buffers (one CUDA graph replay a chunk on the card) and the async
+  engine's host-device copies that never wait for the stream.
 
 ``ServeEngine``, ``ServeRequest`` and ``PrefixCache`` are exported here,
 resolved lazily, so that ``import repro_torch.serve.kvcache`` does not pull

@@ -1,7 +1,7 @@
 """Continuously-batched serving engine of the port: a RESIDENT 4-stage
 Taskflow pipeline fed by a request queue, with TWO-PHASE memory admission.
 
-This is the synchronous, single-device subset of the reference
+This is the single-device subset of the reference
 ``repro.serve.engine.ServeEngine``, with the same stage structure. Attention
 archs, MoE included, page their KV (below); Mamba1 archs (falcon-mamba) and
 the zamba2 hybrid keep a FIXED-SLOT recurrent-state pool instead (``paged ==
@@ -27,6 +27,37 @@ False``, see "Slot-state path"):
 The KV pool and the device block tables are written ONLY by the SERIAL
 decode stage, in place (the reference donates and replaces them). The
 chunk's only device sync is reading its tokens back.
+
+The decode chunk is one program (:class:`repro_torch.serve.chunk_graph.
+ChunkProgram`, the counterpart of the reference's jitted chunk): on CUDA
+the engine captures it once, in the constructor, as a CUDA graph over its
+static tensors (pool or slot state, device tables, weights, a ``(3, B)``
+carry and a ``(B, n + 3)`` output) and every chunk is one replay. On the
+CPU the same body runs eagerly; ``chunk_graph=False`` asks for the eager
+chunk on CUDA too (the oracle of the card's tests). A failed capture
+raises.
+
+Async decode lookahead (``async_decode=`` / ``REPRO_ASYNC_DECODE``, off by
+default as in the reference): the decode stage is split into dispatch ->
+sync at a depth of 2. The carry stays on the device across chunks (chunk
+N+1 reads chunk N's advanced carry in place) and the engine writes rows of
+it with :func:`repro_torch.serve.kvcache.set_carry_rows` at admission,
+window completion, retirement and preemption; the host keeps exact
+``lengths``/``rem`` mirrors by arithmetic (a chunk's advance does not
+depend on its tokens) while ``last`` lives on the device only. Each cycle
+merges, streams prefill windows and grows tables, dispatches chunk N+1,
+then waits for chunk N's tokens and does the bookkeeping while N+1 runs.
+Retirement is one chunk late (a finished row is masked by ``rem == 0`` in
+the chunk in flight); a per-slot seat generation discards tokens a chunk
+computed for a row whose seat changed since its dispatch; a preempted
+row's blocks (and a copy-on-write original's reference) pass the pool's
+deferred-free fence, released two synced chunks later; a prefill window
+completes one cycle after its launch. No copy after the dispatch waits for
+the chunk in flight: uploads go through pinned staging, token and first-
+token reads land in pinned memory behind events
+(:class:`repro_torch.serve.chunk_graph.HostLink`), and on CUDA the prefill
+stage runs on its own stream, which the decode stage waits on (an event)
+before the merge's scatters read its output.
 
 Slot-state path (Mamba1, hybrid): the pool is :func:`repro_torch.models.
 lm.init_cache`'s state for ``max_batch`` slots, allocated once: per-layer
@@ -67,15 +98,17 @@ Observability (``obs=`` / ``REPRO_OBS``, off by default): request
 lifecycle spans on ``slotN`` tracks, cycle phases on the ``engine`` track,
 the pipeline's pipe bodies on ``lineN`` tracks, and the metrics of
 :mod:`repro_torch.obs` (TTFT, queue wait, per-cycle dispatch / sync /
-bookkeeping seconds, pool and queue gauges). On CUDA ``engine.dispatch_s``
-is host enqueue time (carry upload and the chunk's launches) and
-``engine.chunk_sync_s`` the wait at the chunk's only sync, the token read-
-back; the engine adds no synchronisation for them. Disabled, each site
-costs one ``is None`` check.
+bookkeeping / gap seconds, pool and queue gauges). On CUDA
+``engine.dispatch_s`` is host enqueue time (the carry copy and one replay,
+or the eager chunk's launches) and ``engine.chunk_sync_s`` the wait at the
+chunk's only sync, the token read-back; the engine adds no synchronisation
+for them. ``engine.gap_s`` is host time with no chunk in flight. Disabled,
+each site costs one ``is None`` check.
 
-Not in this slice (queued in ROADMAP.md): async decode lookahead, SLO
+Not in this slice (queued in ROADMAP.md): SLO
 shedding/deadlines/watchdog, fault injection, journal/snapshot/drain/
-recover, meshes, the checkpoint preemption of SSM and hybrid slots and the
+recover, meshes, the checkpoint preemption of SSM and hybrid slots, the
+failure-isolation epoch guard (``_premerge_live``, ``_reset_epoch``) and the
 per-call grouped baseline. The engine raises :class:`UnsupportedArch` on
 archs it cannot serve yet (modality frontends).
 """
@@ -98,9 +131,11 @@ from ..models import lm
 from ..obs import TRACK_ENGINE
 from ..obs import from_env as _obs_from_env
 from ..pipeline import DataPipe, DataPipeline, PipeType
+from .chunk_graph import ChunkProgram, HostLink
 from .errors import EngineClosed, ServeError
 from .kvcache import (BlockPool, copy_blocks, extend_block_tables,
-                      init_kv_pool, scatter_prefill_rows, set_table_rows)
+                      init_kv_pool, scatter_prefill_rows, set_carry_rows,
+                      set_table_rows)
 from .prefix import PrefixCache
 from .scheduler import Scheduler, ServeRequest
 
@@ -157,6 +192,14 @@ class ServeEngine:
         the module docstring). None resolves via ``REPRO_PREFIX_CACHE``
         (default off: the uncached path is the reference). Paged archs
         only; ignored on the slot-state path.
+    async_decode:
+        pipeline the decode loop one chunk deep (see the module
+        docstring). None resolves via ``REPRO_ASYNC_DECODE`` (default off:
+        the synchronous path is the reference).
+    chunk_graph:
+        run the decode chunk as a captured CUDA graph (None: on CUDA, the
+        default) or eagerly (False; the CPU always runs it eagerly, and
+        True there raises).
     record_stages:
         keep an in-memory (stage, cycle-token, info, t) event log.
     obs:
@@ -178,6 +221,8 @@ class ServeEngine:
                  max_seq_len: Optional[int] = None,
                  paged_impl: Optional[str] = None,
                  prefix_cache: Optional[bool] = None,
+                 async_decode: Optional[bool] = None,
+                 chunk_graph: Optional[bool] = None,
                  record_stages: bool = False,
                  obs=None,
                  device=None):
@@ -213,6 +258,15 @@ class ServeEngine:
                 .strip().lower() in ("1", "true", "yes", "on")
         #: cross-request KV block sharing (paged archs only)
         self.prefix_cache = bool(prefix_cache) and self.paged
+        if async_decode is None:
+            async_decode = os.environ.get("REPRO_ASYNC_DECODE", "") \
+                .strip().lower() in ("1", "true", "yes", "on")
+        #: dispatch -> sync pipelined decode loop (depth 2); False = the
+        #: synchronous reference path
+        self.async_decode = bool(async_decode)
+        cuda = self.device.type == "cuda"
+        if chunk_graph is None:
+            chunk_graph = cuda
         self._closing = False
         self._broken: Optional[BaseException] = None
         self._stage_log = [] if record_stages else None
@@ -225,6 +279,20 @@ class ServeEngine:
         self._lengths = np.zeros((B,), np.int32)   # KV tokens written
         self._rem = np.zeros((B,), np.int32)       # decode steps remaining
         self._last = np.zeros((B,), np.int32)      # last emitted token
+        # seat generation per slot, bumped at every seat, retirement and
+        # preemption: a synced chunk's tokens land only on the seat they
+        # were computed for (async)
+        self._slot_gen = np.zeros((B,), np.int64)
+        self._pending: Optional[dict] = None         # chunk in flight
+        self._window_pending: Optional[dict] = None  # window in flight
+        # async: copies that do not wait for the chunk in flight, the two
+        # pinned token buffers chunks alternate between, and (CUDA) the
+        # prefill stage's own stream
+        self._link = HostLink(self.device) if self.async_decode else None
+        self._tok_host: List[Optional[torch.Tensor]] = [None, None]
+        self._tok_i = 0
+        self._pf_stream = torch.cuda.Stream(self.device) \
+            if (self.async_decode and cuda) else None
         self._slot_req: List[Optional[ServeRequest]] = [None] * B
         self._slot_out: List[Optional[List[int]]] = [None] * B
         self._slot_phase: List[Optional[str]] = [None] * B  # prefill|decode
@@ -248,6 +316,14 @@ class ServeEngine:
                              prefill_chunk)
         else:
             self._init_slots(B, max_seq_len)
+        with self._stage_ctx():
+            self._chunk = ChunkProgram(self._chunk_step, self._chunk_statics,
+                                       B, decode_chunk, self.device,
+                                       graph=bool(chunk_graph))
+        if self.async_decode:
+            self._tok_host = [torch.zeros(tuple(self._chunk.out.shape),
+                                          dtype=torch.int32, pin_memory=cuda)
+                              for _ in range(2)]
         # observability: one open phase span per seated slot (name, t0);
         # None obs = disabled (every site guards on self._tr / self._mh)
         self._slot_span: List[Optional[tuple]] = [None] * B
@@ -297,8 +373,56 @@ class ServeEngine:
             self.cfg, B, self._max_seq, self.device).items() if k != "pos"}
 
     # ------------------------------------------------------------- helpers
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _to_dev(self, *arrays: np.ndarray):
+        """Device copies of ``arrays`` (one tensor for one array). Sync: a
+        blocking copy each. Async: pinned staging copies that never wait
+        for the stream (:meth:`HostLink.upload`)."""
+        if self._link is not None:
+            out = self._link.upload(*arrays)
+        else:
+            out = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                   for a in arrays]
+        return out[0] if len(out) == 1 else out
+
+    def _clear_rows_dev(self, rows) -> None:
+        """Zero vacated seats' device rows: their block-table rows (paged)
+        and, async, their carry rows; one upload of the row ids. (``t[r] =
+        0`` would copy the 0 to the device from pageable memory, a stream
+        sync; ``index_fill_`` passes it to the kernel.)"""
+        r = self._to_dev(np.asarray(rows, np.int32)).long()
+        if self.paged:
+            self._tables_dev.index_fill_(0, r, 0)
+        if self.async_decode:
+            self._chunk.carry.index_fill_(1, r, 0)
+
+    def _chunk_step(self, carry):
+        """The decode chunk's body for :class:`ChunkProgram` (the module
+        attribute is looked up at each call, so tests can patch it)."""
+        n = self.decode_chunk
+        if self.paged:
+            return lm.decode_chunk_paged(
+                self.cfg, self.params, self._pkv, self._tables_dev, carry,
+                n, impl=self.paged_impl, layers=self._layers)
+        return lm.decode_chunk_slots(self.cfg, self.params, self._sstate,
+                                     carry, n, layers=self._layers)
+
+    def _chunk_statics(self):
+        """Every tensor the captured chunk reads or writes besides its
+        carry and output, from the engine's current attributes."""
+        if self.paged:
+            yield "pool", self._pkv
+            yield "tables", self._tables_dev
+        else:
+            for name, v in self._sstate.items():
+                for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+                    yield f"state.{name}.{i}", t
+        yield from (("params." + k, t) for k, t in _leaves(self.params))
+
+    def _wait_for(self, ev) -> None:
+        """Order the current stream after ``ev`` (the prefill stream's
+        end), a no-op without one."""
+        if ev is not None:
+            torch.cuda.current_stream(self.device).wait_event(ev)
 
     @contextlib.contextmanager
     def _stage_ctx(self):
@@ -435,6 +559,11 @@ class ServeEngine:
             self._fail_outstanding(EngineClosed(
                 "engine closed with requests outstanding "
                 "(drain timeout or prior failure)"))
+        if self.paged and self._pending is None:
+            # drained: no chunk in flight, every deferred block is past the
+            # device work that fenced it -- flush the fence
+            while self._pool.num_deferred:
+                self._pool.release_deferred()
         if self._executor is not None:
             self._executor.shutdown()
             self._executor = None
@@ -578,7 +707,21 @@ class ServeEngine:
         if kind != "admit":
             return msg
         with self._stage_ctx():
-            return self._prefill_group(pf, payload)
+            if self._pf_stream is None:
+                return self._prefill_group(pf, payload)
+            # async on CUDA: the prefill runs beside the chunk in flight,
+            # on its own stream (it reads only the prompts and the weights);
+            # the merge waits for it by event
+            with torch.cuda.stream(self._pf_stream):
+                return self._prefill_group(pf, payload)
+
+    def _read_first(self, first: torch.Tensor):
+        """The host copy of a prefill's first tokens: now (sync), or
+        enqueued behind an event on the current stream (async), which also
+        marks the end of the prefill's device work."""
+        if self._link is None:
+            return first.cpu(), None
+        return self._link.read(first)
 
     def _prefill_group(self, pf, group):
         """Paged: one launch for the group's FIRST prompt window: prompts
@@ -592,16 +735,18 @@ class ServeEngine:
         is O(1) per sequence; there is no per-token KV to window)."""
         reqs = [g[0] for g in group]
         if not self.paged:
-            out = []
+            caches, firsts = [], []
             for req in reqs:
                 logits, cache = lm.prefill(
                     self.cfg, self.params, self._to_dev(req.prompt[None]),
                     layers=self._layers)
-                out.append((req, cache, int(torch.argmax(logits[0]))))
+                caches.append(cache)
+                firsts.append(torch.argmax(logits[0]).to(torch.int32))
+            first = self._read_first(torch.stack(firsts))
             with self._state_lock:
                 self.stats["prefills"] += len(reqs)
             self._log("prefill", pf.token, [r.id for r in reqs])
-            return ("admit", out)
+            return ("admit", (reqs, caches, first))
         miss = [g for g in group if g[2] is None or g[2].tokens == 0]
         hitg = [g for g in group if not (g[2] is None or g[2].tokens == 0)]
         group = miss + hitg
@@ -621,11 +766,12 @@ class ServeEngine:
         for i in range(len(miss), A):
             toks[i] = toks[len(miss) - 1]
             lastp[i] = lastp[len(miss) - 1]
-        logits, cache = lm.prefill(self.cfg, self.params, self._to_dev(toks),
-                                   max_len=C0,
-                                   last_positions=self._to_dev(lastp),
+        toks, lastp = self._to_dev(toks, lastp)
+        logits, cache = lm.prefill(self.cfg, self.params, toks, max_len=C0,
+                                   last_positions=lastp,
                                    layers=self._layers)
-        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        first = self._read_first(torch.argmax(logits, dim=-1)
+                                 .to(torch.int32))
         with self._state_lock:
             self.stats["prefills"] += 1
         self._log("prefill", pf.token, [r.id for r in reqs])
@@ -646,9 +792,21 @@ class ServeEngine:
         copy into the row's first own block, which the table already points
         at), so the row's writes never touch the shared original. The copy
         is issued on the decode stage's stream before any window reads the
-        block."""
+        block.
+
+        Async: the seated rows' carry rows are written on the device (they
+        were inactive in the chunk in flight, so writing over its output
+        carry is exact), and the group's first tokens and KV are read after
+        the prefill stream's event."""
         group, C0, ck, cv, first, n_miss = payload
-        first = first.cpu().numpy() if first is not None else None
+        if first is not None:
+            host, ev = first
+            first = HostLink.wait(host, ev)
+            self._wait_for(ev)
+            if ev is not None:
+                cur = torch.cuda.current_stream(self.device)
+                ck.record_stream(cur)
+                cv.record_stream(cur)
         nb0 = self._pool.blocks_for(C0) if C0 else 0
         now = time.perf_counter()
         rows_idx, rows_tab = [], []
@@ -663,6 +821,7 @@ class ServeEngine:
                 self._slot_req[slot] = req
                 self._slot_blocks[slot] = tab
                 self._slot_out[slot] = []
+            self._slot_gen[slot] += 1
             self._slot_prompt[slot] = req.prompt
             self._wp_valid[slot] = False
             self._stall_rem[slot] = 0
@@ -706,15 +865,17 @@ class ServeEngine:
             rows_idx.append(slot)
             rows_tab.append(self._tables[slot].copy())
         set_table_rows(self._tables_dev,
-                       self._to_dev(np.asarray(rows_idx, np.int32)),
-                       self._to_dev(np.stack(rows_tab)))
+                       *self._to_dev(np.asarray(rows_idx, np.int32),
+                                     np.stack(rows_tab)))
+        if self.async_decode:
+            self._scatter_carry(rows_idx)
         if fork_src:
             # one copy for the group's forks, unpadded: its destinations are
             # distinct fresh blocks (duplicate destinations of an indexed
             # copy would be written in no set order on CUDA)
-            copy_blocks(self._pkv, self._to_dev(np.asarray(fork_src,
-                                                           np.int32)),
-                        self._to_dev(np.asarray(fork_dst, np.int32)))
+            copy_blocks(self._pkv,
+                        *self._to_dev(np.asarray(fork_src, np.int32),
+                                      np.asarray(fork_dst, np.int32)))
             self._prefix.unpin(fork_src)   # fork done: drop the tail pins
         if n_miss:
             # window-0 scatter: per-row block lists trimmed/padded to the
@@ -743,15 +904,26 @@ class ServeEngine:
     def _merge_group_slots(self, payload) -> None:
         """Seat an admitted slot-state group: copy each member's prefilled
         state into its slot of the state pool and start it decoding from
-        its first token."""
+        its first token. The copies are enqueued on the decode stage's
+        stream after the chunk in flight, whose in-place update of an
+        inactive slot they overwrite; async writes the carry rows too."""
+        reqs, caches, (host, ev) = payload
+        firsts = HostLink.wait(host, ev)
+        self._wait_for(ev)
         now = time.perf_counter()
-        for req, cache, first in payload:
+        rows = []
+        for req, cache, first in zip(reqs, caches, firsts.tolist()):
             with self._state_lock:
                 slot = self._free_slots.pop()
                 self._slots_reserved -= 1
                 self._slot_req[slot] = req
                 self._slot_out[slot] = [first]
                 self._slot_phase[slot] = "decode"
+            self._slot_gen[slot] += 1
+            if ev is not None:
+                cur = torch.cuda.current_stream(self.device)
+                for t in _tensors(cache):
+                    t.record_stream(cur)
             write_slot_state(self._sstate, slot, cache, req.prompt_len)
             self._lengths[slot] = req.prompt_len
             self._last[slot] = first
@@ -760,7 +932,22 @@ class ServeEngine:
             req.state = "decoding"
             if self._tr is not None:
                 self._note_seated(slot, req, now)
+            rows.append(slot)
+        if self.async_decode:
+            self._scatter_carry(rows)
         self._note_resident()
+
+    def _scatter_carry(self, rows) -> None:
+        """Write the host mirrors' ``rows`` into the device carry in place
+        (async only: the sync path copies every mirror into the carry
+        before each chunk). One upload of the row ids and values; torch
+        pins no compiled shape, so no padding."""
+        rows = np.asarray(rows, np.int32)
+        vals = np.stack([self._lengths[rows], self._last[rows],
+                         self._rem[rows]]).astype(np.int32)
+        dev = self._to_dev(np.concatenate([rows[None], vals]))
+        c = self._chunk.carry
+        set_carry_rows(c[0], c[1], c[2], dev[0], dev[1], dev[2], dev[3])
 
     def _note_first_token(self, req, now: float) -> None:
         if req.first_token_at is None:
@@ -777,9 +964,9 @@ class ServeEngine:
 
     def _window_prefill_step(self, pf) -> None:
         """Synchronous chunked prefill: build, launch and complete ONE
-        prefill window for every mid-prefill row in the same cycle (the
-        reference's async engine completes the window a cycle later; that
-        path comes with the async slice)."""
+        prefill window for every mid-prefill row in the same cycle. The
+        async path calls :meth:`_dispatch_window_prefill` itself and
+        completes the window a cycle later."""
         pend = self._dispatch_window_prefill(pf)
         if pend is not None:
             self._finish_window(pend)
@@ -810,20 +997,29 @@ class ServeEngine:
             ks[b] = k
         first, _ = lm.prefill_window_paged(
             self.cfg, self.params, self._pkv, self._tables_dev,
-            self._to_dev(toks), self._to_dev(start), self._to_dev(valid),
-            self._to_dev(last_idx), layers=self._layers)
+            *self._to_dev(toks, start, valid, last_idx), layers=self._layers)
         with self._state_lock:
             self.stats["prefill_windows"] += 1
-        return {"first": first, "rows": pref, "k": ks, "token": pf.token,
+        return {"first": self._read_first(first), "rows": pref, "k": ks,
+                "token": pf.token,
+                "gen": {b: int(self._slot_gen[b]) for b in pref},
                 "t_disp": time.perf_counter()}
 
     def _finish_window(self, pend: dict) -> None:
         """Complete a dispatched prefill window: advance per-row prompt
         positions and flip rows whose prompt just finished into decode,
-        seeded by their first token."""
-        first = pend["first"].cpu().numpy()
+        seeded by their first token. Async runs this a cycle after the
+        launch (its event has passed by then: the launch preceded the
+        chunk just synced), skips rows whose seat changed since, and writes
+        the flipped rows' carry."""
+        first = HostLink.wait(*pend["first"])
         now = time.perf_counter()
+        flipped, done = [], []
         for b in pend["rows"]:
+            if self._slot_gen[b] != pend["gen"][b] \
+                    or self._slot_phase[b] != "prefill":
+                continue                    # preempted since the launch
+            done.append(b)
             prompt = self._slot_prompt[b]
             self._pref_pos[b] += pend["k"][b]
             self._lengths[b] = self._pref_pos[b]
@@ -844,8 +1040,11 @@ class ServeEngine:
                     self._phase_begin(b, "decode", now)
                 self._wp_valid[b] = False
                 self._register_prefix(b)
+                flipped.append(b)
+        if self.async_decode and flipped:
+            self._scatter_carry(flipped)
         self._log("prefill_chunk", pend["token"],
-                  [(b, int(self._pref_pos[b])) for b in pend["rows"]])
+                  [(b, int(self._pref_pos[b])) for b in done])
 
     def _victim_score(self, v: int):
         """Cost-model preemption order (ascending = preempt FIRST):
@@ -876,6 +1075,7 @@ class ServeEngine:
         grow_rows: List[int] = []
         grow_cols: List[int] = []
         grow_ids: List[int] = []
+        stall_rows: List[int] = []
         order = sorted((b for b in range(len(self._slot_req))
                         if self._slot_phase[b] == "decode"
                         and (self._rem[b] > 0 or self._stall_rem[b] > 0)),
@@ -910,6 +1110,8 @@ class ServeEngine:
                         and self._prefix.evict(need - cur) > 0:
                     continue    # cold parked prefix blocks released: retry
                     # growth before stalling or preempting any row
+                if self.async_decode and self._pool.num_deferred > 0:
+                    break       # blocks in transit behind the fence: stall
                 while vi < len(victims) \
                         and self._slot_req[victims[vi]] is None:
                     vi += 1
@@ -929,6 +1131,7 @@ class ServeEngine:
                 if self._stall_rem[b]:      # blocks found: resume the row
                     self._rem[b] += self._stall_rem[b]
                     self._stall_rem[b] = 0
+                    stall_rows.append(b)
                     if self._tr is not None:
                         _t = time.perf_counter()
                         self._phase_end(b, _t, self._slot_req[b])  # stalled
@@ -938,6 +1141,7 @@ class ServeEngine:
                 # newly stalled: mask the row out of the next chunk
                 self._stall_rem[b] = int(self._rem[b])
                 self._rem[b] = 0
+                stall_rows.append(b)
                 with self._state_lock:
                     self.stats["stalls"] += 1
                 if self._mh is not None:
@@ -954,13 +1158,19 @@ class ServeEngine:
                 need = (int(self._lengths[b]) + k - 1) // bs + 1
                 unmet += max(0, need - len(self._slot_blocks[b]))
         self._pool.set_reserved(unmet)
+        if stall_rows and self.async_decode:
+            # rem-only carry write (``last`` is on the device only)
+            dev = self._to_dev(np.stack([
+                np.asarray(stall_rows, np.int32),
+                self._rem[stall_rows].astype(np.int32)]))
+            self._chunk.carry[2][dev[0].long()] = dev[1]
         if grow_rows:
             self._log("grow", pf.token, list(zip(grow_rows, grow_ids)))
             extend_block_tables(
                 self._tables_dev,
-                self._to_dev(np.asarray(grow_rows, np.int32)),
-                self._to_dev(np.asarray(grow_cols, np.int32)),
-                self._to_dev(np.asarray(grow_ids, np.int32)))
+                *self._to_dev(np.asarray(grow_rows, np.int32),
+                              np.asarray(grow_cols, np.int32),
+                              np.asarray(grow_ids, np.int32)))
 
     def _cow_guard(self, pf) -> None:
         """Copy-on-write safety net, run before the window-prefill and
@@ -1014,8 +1224,12 @@ class ServeEngine:
                 rows.append(b)
                 cols.append(col)
                 # drop OUR reference on the original (its co-holders keep
-                # it alive, so nothing is released here)
-                self._pool.free([old])
+                # it alive, so nothing is released here; async passes it
+                # through the fence like any block a chunk may still read)
+                if self.async_decode:
+                    self._pool.free_deferred([old])
+                else:
+                    self._pool.free([old])
                 with self._state_lock:
                     self.stats["cow_forks"] += 1
                 if self._tr is not None:
@@ -1030,13 +1244,12 @@ class ServeEngine:
         if srcs and live:
             srcs = [srcs[j] for j in live]
             dsts = [dsts[j] for j in live]
-            copy_blocks(self._pkv, self._to_dev(np.asarray(srcs, np.int32)),
-                        self._to_dev(np.asarray(dsts, np.int32)))
-            extend_block_tables(
-                self._tables_dev,
-                self._to_dev(np.asarray([rows[j] for j in live], np.int32)),
-                self._to_dev(np.asarray([cols[j] for j in live], np.int32)),
-                self._to_dev(np.asarray(dsts, np.int32)))
+            src_d, dst_d, row_d, col_d = self._to_dev(
+                np.asarray(srcs, np.int32), np.asarray(dsts, np.int32),
+                np.asarray([rows[j] for j in live], np.int32),
+                np.asarray([cols[j] for j in live], np.int32))
+            copy_blocks(self._pkv, src_d, dst_d)
+            extend_block_tables(self._tables_dev, row_d, col_d, dst_d)
 
     def _preempt(self, slot: int, pf) -> None:
         req = self._slot_req[slot]
@@ -1044,11 +1257,18 @@ class ServeEngine:
             self._slot_req[slot] = None
             self._slot_out[slot] = None
             self._slot_phase[slot] = None
-            self._pool.free(self._slot_blocks[slot])
+            if self.async_decode:
+                # deferred-free FENCE: the chunk in flight (and a window
+                # launched this cycle) may still write these blocks; they
+                # return to the pool two synced chunks later
+                self._pool.free_deferred(self._slot_blocks[slot])
+            else:
+                self._pool.free(self._slot_blocks[slot])
             self._slot_blocks[slot] = None
             self._free_slots.append(slot)
             self._inflight.discard(req)
             self.stats["preempted"] += 1
+        self._slot_gen[slot] += 1      # in-flight tokens become surplus
         req.preempted_count += 1
         self._lengths[slot] = 0
         self._last[slot] = 0
@@ -1058,10 +1278,7 @@ class ServeEngine:
         self._tables[slot] = 0
         self._stall_rem[slot] = 0
         self._pref_pos[slot] = 0
-        set_table_rows(self._tables_dev,
-                       self._to_dev(np.asarray([slot], np.int32)),
-                       self._to_dev(np.zeros((1, self._tables.shape[1]),
-                                             np.int32)))
+        self._clear_rows_dev([slot])
         if self._mh is not None:
             self._mh["preempted"].inc()
             self._note_resident()
@@ -1074,6 +1291,8 @@ class ServeEngine:
 
     def _st_decode(self, pf, msg):
         with self._stage_ctx():
+            if self.async_decode:
+                return self._st_decode_async(pf, msg)
             return self._st_decode_sync(pf, msg)
 
     def _st_decode_sync(self, pf, msg):
@@ -1098,22 +1317,13 @@ class ServeEngine:
             return ("cycle", self._collect_finished())
         n = self.decode_chunk
         t1 = time.perf_counter()
-        carry = self._to_dev(np.stack([self._lengths, self._last,
-                                       self._rem]))
-        carry = (carry[0], carry[1], carry[2])
-        if self.paged:
-            _, (ln, tok, rm), toks = lm.decode_chunk_paged(
-                self.cfg, self.params, self._pkv, self._tables_dev, carry, n,
-                impl=self.paged_impl, layers=self._layers)
-        else:
-            _, (ln, tok, rm), toks = lm.decode_chunk_slots(
-                self.cfg, self.params, self._sstate, carry, n,
-                layers=self._layers)
-        t1b = time.perf_counter()   # carry upload + launches (host enqueue)
+        self._chunk.carry.copy_(torch.from_numpy(
+            np.stack([self._lengths, self._last, self._rem])))
+        self._chunk.run()
+        t1b = time.perf_counter()   # carry copy + one replay (host enqueue)
         # the chunk's one device sync: tokens and the advanced carry in a
         # single copy back
-        host = torch.cat([toks, torch.stack([ln, tok, rm], dim=1)],
-                         dim=1).cpu().numpy()
+        host = self._chunk.out.to("cpu", copy=True).numpy()
         t2a = time.perf_counter()
         toks = host[:, :n]
         self._lengths = host[:, n].copy()
@@ -1151,11 +1361,123 @@ class ServeEngine:
         self._log("decode", pf.token, (emitted, t3 - t1))
         return ("cycle", retire)
 
+    def _st_decode_async(self, pf, msg):
+        """Async decode lookahead (depth 2): dispatch chunk N+1 FIRST (one
+        replay queued behind the chunk in flight), then wait for chunk N's
+        tokens and do the host bookkeeping (emit, retire, advance the
+        fence) while N+1 runs. Merges, window launches and growth are
+        sequenced before the dispatch; a finished row retires one chunk
+        late; tokens of a row whose seat changed since its chunk's dispatch
+        are discarded (seat generation)."""
+        t0 = time.perf_counter()
+        kind, payload = msg
+        pend = self._pending
+        # read for the gap metric only (each torch call costs host time)
+        device_idle = self._mh is not None \
+            and (pend is None or pend["ev"] is None or pend["ev"].query()) \
+            and self._window_pending is None
+        # ---- pre-dispatch: everything chunk N+1 must observe ----
+        wpend, self._window_pending = self._window_pending, None
+        if wpend is not None:
+            self._finish_window(wpend)
+        if kind == "admit":
+            if self.paged:
+                self._merge_group(pf, payload)
+            else:
+                self._merge_group_slots(payload)
+        if self.paged:
+            tg0 = time.perf_counter()
+            self._cow_guard(pf)
+            self._window_pending = self._dispatch_window_prefill(pf)
+            self._grow_or_preempt(pf)
+            if self._tr is not None:
+                self._tr.add("growth", TRACK_ENGINE, tg0,
+                             time.perf_counter())
+        # ---- dispatch chunk N+1 ----
+        n = self.decode_chunk
+        new_pend = None
+        t1 = time.perf_counter()
+        if (self._rem > 0).any():
+            rem_before = self._rem.copy()
+            self._chunk.run()
+            # chunk N+1's tokens into the pinned buffer N's did not use
+            # (the next replay overwrites the graph's output)
+            buf = self._tok_host[self._tok_i]
+            self._tok_i ^= 1
+            host, ev = self._link.read(self._chunk.out, into=buf)
+            # the host mirrors advance by arithmetic (a chunk's length and
+            # rem updates do not depend on its tokens); ``last`` is read
+            # on the device only
+            adv = np.minimum(n, rem_before)
+            self._lengths += adv
+            self._rem -= adv
+            new_pend = {"host": host, "ev": ev, "rem_before": rem_before,
+                        "gen": self._slot_gen.copy(), "token": pf.token}
+            with self._state_lock:
+                self.stats["decode_cycles"] += 1
+            self._log("dispatch", pf.token, int((rem_before > 0).sum()))
+        t2 = time.perf_counter()
+        # ---- sync chunk N + bookkeeping (overlaps N+1 on the device) ----
+        emitted = 0
+        wait_s = 0.0
+        ts = t2
+        if pend is not None:
+            ts = time.perf_counter()
+            toks = HostLink.wait(pend["host"], pend["ev"])[:, :n]
+            wait_s = time.perf_counter() - ts
+            for b in np.nonzero(pend["rem_before"] > 0)[0]:
+                if self._slot_gen[b] != pend["gen"][b]:
+                    continue    # seat changed since dispatch: surplus tokens
+                k = int(min(n, pend["rem_before"][b]))
+                self._slot_out[b].extend(toks[b, :k].tolist())
+                emitted += k
+            with self._state_lock:
+                self.stats["tokens_out"] += emitted
+            self._log("sync", pf.token, (pend["token"], emitted))
+        self._pending = new_pend
+        retire = self._collect_finished()
+        if self.paged and (pend is not None or (
+                new_pend is None and self._window_pending is None)):
+            # fence advance: a chunk was synced (or nothing is in flight)
+            # -- blocks deferred two advances ago are past every device
+            # write that could touch them
+            self._pool.release_deferred()
+        t3 = time.perf_counter()
+        if self._mh is not None:
+            mh = self._mh
+            gap = 0.0
+            if device_idle:
+                gap += t1 - t0      # nothing in flight during pre-dispatch
+            if new_pend is None:
+                gap += t3 - t2 - wait_s   # nor during the bookkeeping
+            mh["cycle"].record(t3 - t0)
+            mh["dispatch"].record(t2 - t1)
+            mh["sync"].record(wait_s)
+            mh["book"].record((t1 - t0) + (t3 - t2 - wait_s))
+            mh["gap"].record(gap)
+            mh["tokens_out"].inc(emitted)
+        if self._tr is not None:
+            tr = self._tr
+            tr.add("cycle", TRACK_ENGINE, t0, t3, {"emitted": emitted})
+            if new_pend is not None:
+                tr.add("dispatch", TRACK_ENGINE, t1, t2)
+            if pend is not None:
+                tr.add("sync", TRACK_ENGINE, ts, ts + wait_s)
+            tr.add("bookkeeping", TRACK_ENGINE, t2, t3)
+        self._log("decode", pf.token, emitted)
+        return ("cycle", retire)
+
     def _collect_finished(self) -> List[tuple]:
         """Rows that hit rem == 0: detach them from the batch (their slot
         stays reserved until complete frees it) and zero their mirrors and
         device table rows — the read paths bound their page loop by each
-        row's length, so a retired slot must not keep advertising it."""
+        row's length, so a retired slot must not keep advertising it.
+
+        Async retires one chunk late: a row still active in the chunk just
+        dispatched waits for the next cycle, and the zeroing writes (table
+        and carry rows) land after that chunk, in which the row is already
+        inactive."""
+        pend = self._pending
         retire = []
         zero_rows = []
         for b in range(len(self._rem)):
@@ -1164,12 +1486,15 @@ class ServeEngine:
                 continue
             if self.paged and self._stall_rem[b] > 0:
                 continue        # stalled for blocks, not finished
+            if pend is not None and pend["rem_before"][b] > 0:
+                continue        # active in the chunk in flight: next cycle
             req = self._slot_req[b]
             out = np.asarray(self._slot_out[b], np.int32)
             with self._state_lock:
                 self._slot_req[b] = None
                 self._slot_out[b] = None
                 self._slot_phase[b] = None
+            self._slot_gen[b] += 1
             self._lengths[b] = 0
             self._last[b] = 0
             if self.paged:
@@ -1183,12 +1508,8 @@ class ServeEngine:
                 self._phase_end(b, _t, req)
                 self._tr.instant("retired", f"slot{b}", _t,
                                  {"req": req.id, "tokens": len(out)})
-        if zero_rows and self.paged:
-            set_table_rows(self._tables_dev,
-                           self._to_dev(np.asarray(zero_rows, np.int32)),
-                           self._to_dev(np.zeros(
-                               (len(zero_rows), self._tables.shape[1]),
-                               np.int32)))
+        if zero_rows and (self.paged or self.async_decode):
+            self._clear_rows_dev(zero_rows)
         return retire
 
     def _st_complete(self, pf, msg):
@@ -1292,6 +1613,18 @@ def write_slot_state(sstate, slot: int, cache, plen: int) -> None:
     else:
         for dst, src in zip(sstate["ssm"], cache["ssm"]):
             dst[:, slot].copy_(src[:, 0])
+
+
+def _tensors(tree):
+    """Every tensor in a nest of dicts, tuples and lists."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 def _leaves(tree, prefix: str = ""):

@@ -21,7 +21,7 @@ Two halves:
   garbage by contract (tests comparing pool bytes mask block 0 out).
 
 ``copy_blocks`` is the prefix cache's copy-on-write fork; ``set_carry_rows``
-(async decode) comes with the slice that ports that engine path.
+writes rows of the async engine's device-resident decode carry.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from ..configs.base import ModelConfig
 __all__ = ["BlockPool", "init_kv_pool", "scatter_prefill_row",
            "scatter_prefill_rows", "scatter_token_window", "gather_pages",
            "gather_read_attention", "append_kv", "extend_block_tables",
-           "set_table_rows", "copy_blocks", "SINK_BLOCK"]
+           "set_table_rows", "set_carry_rows", "copy_blocks", "SINK_BLOCK"]
 
 #: Block id 0 is reserved: never allocated, target of masked-row KV writes.
 SINK_BLOCK = 0
@@ -449,6 +449,29 @@ def set_table_rows(tables: torch.Tensor, rows: torch.Tensor,
     tables: (B, mb); rows: (M,) int; new_rows: (M, mb) int."""
     tables[rows.long()] = new_rows.to(tables.dtype)
     return tables
+
+
+def set_carry_rows(lengths: torch.Tensor, last: torch.Tensor,
+                   rem: torch.Tensor, rows: torch.Tensor,
+                   new_lengths: torch.Tensor, new_last: torch.Tensor,
+                   new_rem: torch.Tensor):
+    """Write per-row values into the DEVICE-RESIDENT decode carry
+    ``(lengths, last, rem)``, in place: the async engine's counterpart of
+    :func:`set_table_rows` for the carry (admission seats rows, a finished
+    prefill window flips a row into decode, retirement and preemption zero
+    a row, a stall masks ``rem``), so chunk N+1 reads chunk N's carry plus
+    these writes without a re-upload of the host mirrors.
+
+    lengths/last/rem: (B,) int32 (views of one buffer are fine); rows:
+    (M,) int; new_*: (M,) int. Rows may repeat with equal values (padded
+    rows repeat their last entry): the writes are idempotent. Returns the
+    (same) three tensors.
+    """
+    r = rows.long()
+    lengths[r] = new_lengths.to(lengths.dtype)
+    last[r] = new_last.to(last.dtype)
+    rem[r] = new_rem.to(rem.dtype)
+    return lengths, last, rem
 
 
 def copy_blocks(pool: torch.Tensor, srcs: torch.Tensor,

@@ -202,3 +202,30 @@ def test_obs_gate_measures_both_modes_on_cpu():
     r = obs_overhead_gate.measure(quick=True, device="cpu")
     assert r["off"] > 0 and r["on"] > 0 and r["reps"] == 5
     assert r["ratio"] == r["on"] / r["off"]
+
+
+def test_run_decode_overlap_quick_on_cpu(tmp_path):
+    """The decode_overlap suite through the harness: the reference's row
+    names (read from ``benchmarks/decode_overlap_microbench.py``'s source,
+    per quick chunk size), both modes measured, the fp32 parity pass, and
+    the async engine's trace beside the BENCH file."""
+    rc = trun.main(["--device", "cpu", "--quick", "--only",
+                    "decode_overlap", "--bench-dir", str(tmp_path)])
+    assert rc == 0
+    src = (ROOT / "benchmarks" / "decode_overlap_microbench.py").read_text()
+    pats = re.findall(r'yield \(f?"([a-z0-9_{}]+)"', src)
+    per_chunk = [p for p in pats if "{chunk}" in p]
+    want = [p.format(chunk=c) for c in (2, 4, 8) for p in per_chunk] \
+        + [p for p in pats if "{" not in p]
+    got = json.loads((tmp_path / "BENCH_decode_overlap.json").read_text())
+    names = [r["name"] for r in got["rows"]]
+    assert names == want
+    val = {r["name"]: r["value"] for r in got["rows"]}
+    for c in (2, 4, 8):
+        for mode in ("sync", "async"):
+            assert float(val[f"overlap_c{c}_{mode}_tok_per_s"]) > 0
+            assert 0 <= float(val[f"overlap_c{c}_{mode}_host_gap_frac"]) < 1
+    assert val["overlap_parity_gather"] == "ok"
+    trace = json.loads((tmp_path / "TRACE_decode_overlap.json").read_text())
+    assert trace["otherData"]["spans"] == int(val["overlap_trace_spans"])
+    assert "decode_overlap" not in trun.NOT_PORTED

@@ -151,6 +151,35 @@ def test_table_updates_in_place():
     assert tt.dtype == torch.int32
 
 
+@pytest.mark.parametrize("rows,pad", [([2, 5, 0], 0), ([4], 3),
+                                      ([1, 6, 6, 3], 2)])
+def test_set_carry_rows(rows, pad):
+    """The async carry's row writes, in place into views of one (3, B)
+    buffer, against the reference's on the same rows; padded rows repeat
+    the last entry (and a row may repeat with equal values): idempotent."""
+    B = 8
+    rng = np.random.default_rng(len(rows) + pad)
+    base = rng.integers(0, 50, size=(3, B)).astype(np.int32)
+    vals = rng.integers(0, 50, size=(3, len(rows))).astype(np.int32)
+    for i, r in enumerate(rows):       # a repeated row takes equal values
+        vals[:, i] = vals[:, rows.index(r)]
+    idx = np.asarray(rows + [rows[-1]] * pad, np.int32)
+    vals = np.concatenate([vals, np.repeat(vals[:, -1:], pad, axis=1)], 1)
+    ref = jkv.set_carry_rows(*(jnp.asarray(b) for b in base),
+                             jnp.asarray(idx), *(jnp.asarray(v)
+                                                 for v in vals))
+    carry = torch.from_numpy(base.copy())
+    out = tkv.set_carry_rows(carry[0], carry[1], carry[2],
+                             torch.from_numpy(idx),
+                             *(torch.from_numpy(v) for v in vals))
+    for o, c, r in zip(out, carry, ref):
+        assert o.data_ptr() == c.data_ptr()       # written in place
+        assert np.array_equal(c.numpy(), np.asarray(r))
+    assert carry.dtype == torch.int32
+    untouched = [b for b in range(B) if b not in rows]
+    assert np.array_equal(carry.numpy()[:, untouched], base[:, untouched])
+
+
 @pytest.mark.parametrize("name,jdt", DTYPES)
 def test_copy_blocks(name, jdt):
     """The copy-on-write fork: whole blocks across every layer, in place,

@@ -53,7 +53,7 @@ def jax_reference(fp32_setup):
         lost = tally_discarded(eng)
         outs = eng.generate(prompts, max_new=14)
         stats = dict(eng.stats)
-    return prompts, outs, stats, lost[0]
+    return prompts, outs, stats, lost
 
 
 @pytest.mark.parametrize("impl", ["loop", "gather", "kernel"])
@@ -72,43 +72,127 @@ def test_tokens_identical_to_jax_gather_engine(fp32_setup, jax_reference,
     # reference's did, and returned every block
     assert stats["prefill_windows"] > 0 and stats["grown_blocks"] > 0
     assert stats["preempted"] > 0
-    check_stats(stats, ref_stats, outs, lost[0], ref_lost,
-                GEOM["max_admit"])
+    check_stats(stats, ref_stats, outs, lost, ref_lost, GEOM["max_admit"])
     assert free == GEOM["kv_blocks"] - 1
 
 
+class Tally:
+    """What the test-side wraps of one paged engine saw (see
+    :func:`tally_discarded`): ``lost`` decode tokens thrown away at
+    preemptions, ``launches`` prefill-window launches, and per seat (a
+    request's admission, keyed ``(id, preempted_count)``) its prompt and
+    ``max_new``, the windows it needed past its first at seating, the
+    windows launched with it, the blocks it grew, whether it was preempted
+    and the blocks it held then."""
+
+    def __init__(self):
+        self.lost = 0
+        self.launches = 0
+        self.seats = {}
+
+
 def tally_discarded(eng):
-    """Count on ``eng`` the decode tokens its preemptions throw away: a
-    preempted slot's output past the prefill's first token. The count
-    lands in the one-item list returned."""
-    lost = [0]
-    preempt = eng._preempt
+    """Wrap ``eng``'s preemption, seating (the merge of an admitted group),
+    prefill-window launch and table growth test-side, as the engines
+    themselves keep no per-seat record. Works on the port's engine and the
+    JAX engine alike (they share these method names). Returns the
+    :class:`Tally` the wraps fill."""
+    t = Tally()
+    preempt, merge = eng._preempt, eng._merge_group
+    window, grow = eng._dispatch_window_prefill, eng._pool.grow_table
 
-    def counted(slot, pf):
-        lost[0] += max(0, len(eng._slot_out[slot] or []) - 1)
+    def seat(req):
+        return t.seats[(req.id, req.preempted_count)]
+
+    def counted_preempt(slot, pf):
+        req = eng._slot_req[slot]
+        t.lost += max(0, len(eng._slot_out[slot] or []) - 1)
+        s = seat(req)
+        s["preempted"] = True
+        s["held"] = len(eng._slot_blocks[slot])
         return preempt(slot, pf)
-    eng._preempt = counted
-    return lost
+
+    def counted_merge(pf, payload):
+        merge(pf, payload)
+        for g in payload[0]:
+            req = g[0]
+            slot = next(b for b, r in enumerate(eng._slot_req) if r is req)
+            left = req.prompt_len - int(eng._pref_pos[slot])
+            t.seats[(req.id, req.preempted_count)] = {
+                "P": req.prompt_len, "M": req.max_new,
+                "needed": -(-left // eng.prefill_chunk), "launched": 0,
+                "grown": 0, "preempted": False, "held": None}
+
+    def counted_window(pf):
+        pend = window(pf)
+        if pend is not None:
+            t.launches += 1
+            for b in pend["rows"]:
+                seat(eng._slot_req[b])["launched"] += 1
+        return pend
+
+    def counted_grow(blocks, n, **kw):
+        ids = grow(blocks, n, **kw)
+        if ids is not None:
+            slot = next(b for b, bl in enumerate(eng._slot_blocks)
+                        if bl is blocks)
+            seat(eng._slot_req[slot])["grown"] += len(ids)
+        return ids
+
+    eng._preempt = counted_preempt
+    eng._merge_group = counted_merge
+    eng._dispatch_window_prefill = counted_window
+    eng._pool.grow_table = counted_grow
+    return t
 
 
-def check_stats(stats, ref_stats, outs, lost, ref_lost, max_admit):
+def check_schedule(stats, t, block_size):
+    """Exact invariants of one engine's prefill windows and growth, from
+    its :class:`Tally`. A seat launches every window its prompt needs past
+    where it was seated (window 0 or its cached prefix) unless it is
+    preempted first; ``prefill_windows`` counts launches. A seat's table
+    starts at the prompt's blocks and grows to cover every position it
+    writes: ``prompt + max_new - 1`` when it retires (the last token's KV
+    is never written), what it held when preempted otherwise; every grown
+    block is in ``grown_blocks``."""
+    def blocks(n):
+        return -(-n // block_size)
+    assert stats["prefill_windows"] == t.launches
+    total = 0
+    for key, s in t.seats.items():
+        if s["preempted"]:
+            assert s["launched"] <= s["needed"], (key, s)
+            assert s["grown"] == s["held"] - blocks(s["P"]), (key, s)
+        else:
+            assert s["launched"] == s["needed"], (key, s)
+            assert s["grown"] == blocks(s["P"] + s["M"] - 1) \
+                - blocks(s["P"]), (key, s)
+        total += s["grown"]
+    assert stats["grown_blocks"] == total
+
+
+def check_stats(stats, ref_stats, outs, lost, ref_lost, max_admit,
+                block_size=GEOM["block_size"]):
     """Which rows are admitted together, and so which are preempted, depends
     on thread timing in both engines: the PARALLEL complete stage frees a
     cycle's blocks while the next cycle's admission and growth run. So the
     counts that follow the schedule are held to exact invariants on each
-    engine, ``prefills`` to its bounds, and ``retired`` to equality.
-    ``prefill_windows`` and ``grown_blocks`` keep only the caller's > 0."""
+    engine (``lost`` and ``ref_lost`` are each engine's :class:`Tally`;
+    windows and growth by :func:`check_schedule`), ``prefills`` to its
+    bounds, and ``retired`` to equality."""
     n = len(outs)
     kept = sum(len(o) - 1 for o in outs)  # decode tokens of retired runs
     assert stats["retired"] == ref_stats["retired"] == n
-    for st, thrown in ((stats, lost), (ref_stats, ref_lost)):
+    for st, t in ((stats, lost), (ref_stats, ref_lost)):
         # every admission is a request's first or follows its preemption
         assert st["admitted"] == n + st["preempted"]
+        assert len(t.seats) == st["admitted"]
         # every decoded token was returned or thrown away at a preemption
-        assert st["tokens_out"] == kept + thrown
+        assert st["tokens_out"] == kept + t.lost
         # one prefill launch per admitted group of 1..max_admit requests
         assert -(-st["admitted"] // max_admit) <= st["prefills"] \
             <= st["admitted"]
+        check_schedule(st, t, block_size)
 
 
 def test_submit_mid_decode_and_staggered_arrivals(fp32_setup):
