@@ -56,7 +56,25 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               width and 4 layers (and the cold pass on the eager chunk the
               captured chunk's), and their bf16 match share and first
               flip's top-2 margin are printed; the obs gate's on/off ratio
-              is printed (not gated); then stablelm's weights are freed;
+              is printed (not gated);
+5c. slo     — SLO overload control and failure isolation (``bench/
+              serve_slo.py``): the ``serve_slo`` suite at the reference's
+              non-quick shapes on stablelm-1.6b at full width and depth
+              (bf16, the serve phase's weights), graph-sync and
+              graph-async in two rounds in turns: tier-0 TTFT p50/p99
+              alone and under the tier-1
+              flood, their p99 ratio (reported), shed / expired /
+              preempted and the outcomes by tier, with contended ``shed +
+              expired > 0`` asserted, every future ending in in-vocab
+              tokens or a typed ServeError and every slot and block free;
+              K1 and K2 counted. In fp32 compute at full width and 4
+              layers, in both graph modes: the benign fault spec keeps
+              every request's tokens; ``chunk_sync_exc`` fails seated rows
+              ``RowFailed`` while the one capture keeps replaying (later
+              tokens a fresh engine's); ``chunk_latency`` past
+              ``watchdog_s`` raises ``WatchdogTimeout`` within ~2x the
+              budget; a JSON line ``{"slo_modes": ...}``; then stablelm's
+              weights are freed;
 6. k3       — K3 (the Mamba1 selective scan) against its plain sequential
               version at the SSM prefill path's shapes (B=1, dI=8192, N=16,
               S in {16, 57, 300}, bf16 x/B/C, fp32 dt), a ragged, a B=4, an
@@ -70,7 +88,10 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               ``torch.Generator``) through ``ServeEngine``'s slot-state
               pool: the same 8 staggered requests, 32 new tokens each, with
               the launch counts read around the run, and a frozen chunk
-              through the graph and eagerly (tokens equal);
+              through the graph and eagerly (tokens equal); after
+              ``ssmstep``, checkpoint preemption (``preempt:every=3``,
+              graph-sync, fp32 at full width and 4 layers): tokens equal
+              the fault-free run's, one prefill per request;
 8. ssmstep  — one ``prefill`` of the 300-token prompt with K3 and with the
               plain scan, in bf16 and in fp32 compute: logits and the
               returned SSM states compared; then the weights are freed;
@@ -81,7 +102,9 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               slot-state pool: the same 8 staggered requests, with K2's
               launches (the shared block's prefill attention, 6 per
               prefill) read around the run, and a frozen chunk through the
-              graph and eagerly (tokens equal);
+              graph and eagerly (tokens equal); after ``hybridstep``,
+              checkpoint preemption as for falcon-mamba (fp32, 8 layers:
+              one shared-attention group and the 2-layer tail);
 8b. hybridstep — K2 against its plain version at the shared block's
               prefill shape (B=1, S=300, H=KV=32, hd=64, bf16 and fp32) and
               timed; one ``prefill`` of the 300-token prompt (one ragged
@@ -2375,6 +2398,321 @@ def phase_async(dev, cfg, params, chunk_ms: dict, card: str) -> dict:
     return total
 
 
+# ------------------------------------------------------------------ phase 5c
+#: the slo phase's fault checks: stablelm at full width and SLO_FP32_LAYERS
+#: layers in fp32 compute (the phase's fp32 idiom), its benign spec, the
+#: isolation spec and the watchdog's budget and held read-back
+SLO_FP32_LAYERS = 4
+SLO_BENIGN = ("alloc_fail:p=0.05,seed=11;grow_fail:p=0.05,seed=11;"
+              "preempt:every=5")
+SLO_WATCHDOG_S = 1.0
+SLO_LATENCY_MS = 4000
+#: the fault checks' geometry and workload: 24 prompts of 3-16 tokens (one
+#: 16-token window each), 9 new tokens (two chunks of 4). preempt:every=5
+#: replays a paged row from its prompt, so a row alone must finish within
+#: 4 cycles: the requests are sized for that
+SLO_GEOM = dict(decode_chunk=4, prefill_chunk=16, max_batch=4, kv_blocks=20,
+                block_size=4, max_admit=2)
+SLO_NEW = 9
+SLO_MODES = (("graph-sync", {}), ("graph-async", {"async_decode": True}))
+
+
+def _slo_prompts(vocab: int, n: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, size=int(s)).astype(np.int32)
+            for s in rng.integers(3, 17, size=n)]
+
+
+def _settled(eng, tag: str) -> None:
+    """Every slot free, nothing in flight, and (paged) every block free
+    and past the fence, once the engine goes idle."""
+    t0 = time.perf_counter()
+    while not (eng._pipeline is None or eng._pipeline.idle()) \
+            and time.perf_counter() - t0 < 60:
+        time.sleep(0.01)
+    B = len(eng._slot_req)
+    if len(eng._free_slots) != B or any(r is not None for r in eng._slot_req) \
+            or eng._inflight or eng._slots_reserved:
+        raise SystemExit(f"[{tag}] slots still held: {len(eng._free_slots)} "
+                         f"free of {B}")
+    if eng.paged:
+        pool = eng._pool
+        parked = eng._prefix.num_parked if eng._prefix is not None else 0
+        if pool.num_free + parked != pool.num_blocks - 1 \
+                or pool.num_deferred:
+            raise SystemExit(f"[{tag}] blocks leaked: {pool.num_free} free "
+                             f"of {pool.num_blocks - 1}, "
+                             f"{pool.num_deferred} deferred")
+
+
+def _slo_outcomes(run, vocab: int, tag: str) -> dict:
+    """Every submitted request ended with in-vocab tokens or a typed
+    ServeError; returns the tally by tier and outcome."""
+    from repro_torch.serve.errors import ServeError
+    tally = {}
+    for r, res in run["outcomes"]:
+        if isinstance(res, ServeError):
+            kind = type(res).__name__
+        elif isinstance(res, np.ndarray) and res.ndim == 1 and len(res) \
+                and ((res >= 0) & (res < vocab)).all():
+            kind = "tokens"
+        else:
+            raise SystemExit(f"[{tag}] request {r.id}: bad outcome {res!r}")
+        key = f"tier{r.priority}"
+        tally.setdefault(key, {}).setdefault(kind, 0)
+        tally[key][kind] += 1
+    return tally
+
+
+def phase_slo(dev, cfg, params, card: str) -> dict:
+    """SLO overload control and per-row fault isolation of the engine on
+    the captured chunk. The ``serve_slo`` suite (``bench/serve_slo.py``) at
+    the reference's non-quick shapes with ``params`` (stablelm-1.6b at full
+    width and depth, bf16), one warmed engine per mode and two rounds in
+    turns (graph-sync, graph-async, then backwards): per run the
+    tier-0 TTFT p50/p99 alone and under the flood and their p99 ratio
+    (reported, not asserted, as in the reference), the shed / expired /
+    preempted counts, the outcomes by tier; contended ``shed + expired >
+    0`` is asserted, every future ends with in-vocab tokens or a typed
+    ServeError and every slot and block ends free. Then, in fp32 compute at
+    full width and SLO_FP32_LAYERS layers, in both graph modes: the benign
+    spec keeps every request's tokens the fault-free engine's;
+    ``chunk_sync_exc`` fails seated rows typed ``RowFailed`` and the one
+    capture keeps replaying (later tokens a fresh engine's, the pool free);
+    ``chunk_latency`` past ``watchdog_s`` fails a request typed
+    ``WatchdogTimeout`` within about twice the budget. Returns the suite
+    runs' K1 and K2 launches."""
+    import dataclasses
+
+    from repro_torch.bench import serve_slo
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.errors import RowFailed, WatchdogTimeout
+    from repro_torch.serve.faultinject import FaultInjected
+
+    V, L = cfg.vocab_size, cfg.num_layers
+    work = serve_slo.slo_workload(False)
+    total = {"paged_attention": 0, "flash_attention": 0}
+    engines = {}
+    for name, kw in SLO_MODES:
+        t0 = time.perf_counter()
+        engines[name] = serve_slo.slo_engine(cfg, params, work, device=dev,
+                                             **kw)
+        if engines[name][0]._chunk.graph is None:
+            raise SystemExit(f"[slo] {name}: the chunk is not captured")
+        log(f"[slo] {name}: engine built and warmed in "
+            f"{time.perf_counter() - t0:.1f}s")
+    summary = {name: [] for name, _ in SLO_MODES}
+    order = [n for n, _ in SLO_MODES]
+    try:
+        for rnd, names in enumerate((order, order[::-1])):
+            for name in names:
+                eng, obs = engines[name]
+                runs = {}
+                for which, trace in (("uncontended", work["t0"]),
+                                     ("contended", work["merged"])):
+                    tag = f"slo/{name}/{which}/round {rnd}"
+                    ops.reset_launch_counts()
+                    run = serve_slo.slo_run(eng, obs, trace)
+                    torch.cuda.synchronize()
+                    counts = ops.launch_counts()
+                    _settled(eng, tag)
+                    tally = _slo_outcomes(run, V, tag)
+                    st = run["stats"]
+                    if counts["paged_attention"] != \
+                            L * st["decode_cycles"] * eng.decode_chunk \
+                            or counts["flash_attention"] < L * st["prefills"] \
+                            or not counts["paged_attention"]:
+                        raise SystemExit(
+                            f"[{tag}] launches {counts}: K1 != {L} x "
+                            f"{st['decode_cycles']} chunks of "
+                            f"{eng.decode_chunk} or K2 < {L} x "
+                            f"{st['prefills']} prefills")
+                    for k in total:
+                        total[k] += counts[k]
+                    runs[which] = (run, tally)
+                    # each tier-0 request: (prompt tokens, TTFT ms, of it
+                    # the wait before admission ms), by TTFT
+                    ttft0 = [(r.prompt_len, round(1e3 * r.ttft, 1),
+                              round(1e3 * (r.admitted_at - r.submitted_at),
+                                    1))
+                             for r, _ in run["outcomes"]
+                             if r.priority == 0 and r.ttft]
+                    log(f"[{tag}]: {run['dt']:.3f}s, outcomes {tally}, "
+                        f"submit rejections {run['shed']}, launches {counts}"
+                        f" | tier-0 (prompt, TTFT ms, admission wait ms) "
+                        f"{sorted(ttft0, key=lambda x: x[1])} | "
+                        f"{_cycle_split(obs)} | stats {st} on {card}")
+                (base, _), (cont, tally) = runs["uncontended"], \
+                    runs["contended"]
+                for row in serve_slo.slo_rows(base, cont, work):
+                    log(f"[slo] {name} round {rnd}: {','.join(row)}")
+                st = cont["stats"]
+                if st["shed"] + st["expired"] <= 0:
+                    raise SystemExit(
+                        f"[slo] {name} round {rnd}: contended shed + expired"
+                        " = 0: the overload controls never engaged")
+                b, c = base["ttft0"], cont["ttft0"]
+                ttft1 = cont["ttft1"]
+                summary[name].append({
+                    "tier0_ttft_p50_ms": [1e3 * b["p50"], 1e3 * c["p50"]],
+                    "tier0_ttft_p99_ms": [1e3 * b["p99"], 1e3 * c["p99"]],
+                    "p99_ratio": c["p99"] / max(b["p99"], 1e-9),
+                    "shed": st["shed"], "expired": st["expired"],
+                    "preempted": st["preempted"], "stalls": st["stalls"],
+                    "completed": cont["done"],
+                    "failed_typed": cont["failed"],
+                    "tier1_ttft_p50_ms": (1e3 * ttft1["p50"] if ttft1
+                                          and ttft1["count"] else None),
+                    "outcomes": tally, "contended_s": cont["dt"]})
+                log(f"[slo] {name} round {rnd} (bf16 L={L}): tier-0 TTFT "
+                    f"p50 {1e3 * b['p50']:.1f} -> {1e3 * c['p50']:.1f} ms, "
+                    f"p99 {1e3 * b['p99']:.1f} -> {1e3 * c['p99']:.1f} ms "
+                    f"(contended/uncontended p99 "
+                    f"{summary[name][-1]['p99_ratio']:.2f}x, target <= 2x, "
+                    f"reported), shed {st['shed']}, expired "
+                    f"{st['expired']}, preempted {st['preempted']} on {card}")
+    finally:
+        for eng, _ in engines.values():
+            eng.close()
+    del engines
+    gc.collect()
+
+    # fault checks in fp32 compute at full width and SLO_FP32_LAYERS layers
+    L32 = min(SLO_FP32_LAYERS, L)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", num_layers=L32)
+    p32 = _fp32_params(params, L32)
+    prompts = _slo_prompts(V, 24)
+    later = _slo_prompts(V, 4, seed=1)
+
+    def serve(ps, **kw):
+        with ServeEngine(c32, p32, device=dev, **SLO_GEOM, **kw) as eng:
+            outs = [o.tolist() for o in eng.generate(ps, SLO_NEW)]
+            _settled(eng, f"slo/fp32 {kw}")
+            return outs, eng
+
+    want, _ = serve(prompts)
+    want_later, _ = serve(later)
+    for name, kw in SLO_MODES:
+        got, eng = serve(prompts, fault_inject=SLO_BENIGN, **kw)
+        fires = eng._fi.counts()
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+            raise SystemExit(f"[slo] fp32 L={L32} {name}: benign faults "
+                             f"changed the tokens of requests {bad}")
+        if eng.stats["preempted"] == 0:
+            raise SystemExit(f"[slo] {name}: no preemption under "
+                             f"{SLO_BENIGN}: {fires}")
+        log(f"[slo] fp32 L={L32} {name}: {SLO_BENIGN} keeps all "
+            f"{len(prompts)} requests' tokens (fires {fires}; preempted "
+            f"{eng.stats['preempted']}, stalls {eng.stats['stalls']})")
+
+        eng = ServeEngine(c32, p32, device=dev, **SLO_GEOM,
+                          fault_inject="chunk_sync_exc:at=3", **kw)
+        with eng:
+            graph, ptrs = eng._chunk.graph, eng._chunk._pointers()
+            failed = 0
+            for r in [eng.submit(p, SLO_NEW) for p in prompts[:6]]:
+                try:
+                    out = r.result(timeout=120.0)
+                    if not ((out >= 0) & (out < V)).all():
+                        raise SystemExit(f"[slo] bad tokens {out}")
+                except RowFailed as e:
+                    if not isinstance(e.__cause__, FaultInjected):
+                        raise SystemExit(f"[slo] {name}: RowFailed caused "
+                                         f"by {e.__cause__!r}")
+                    failed += 1
+            replays = eng._chunk.replays
+            got = [o.tolist() for o in eng.generate(later, SLO_NEW)]
+            if not failed or eng._broken is not None \
+                    or eng._reset_epoch != 1:
+                raise SystemExit(f"[slo] {name}: isolation failed {failed} "
+                                 f"rows, broken {eng._broken!r}")
+            if eng._chunk.graph is not graph \
+                    or eng._chunk._pointers() != ptrs \
+                    or eng._chunk.replays <= replays:
+                raise SystemExit(f"[slo] {name}: the capture did not keep "
+                                 "replaying after the reset")
+            _settled(eng, f"slo/isolation/{name}")
+            if got != want_later:
+                raise SystemExit(f"[slo] {name}: tokens after the reset "
+                                 "differ from a fresh engine's")
+            log(f"[slo] fp32 L={L32} {name}: chunk_sync_exc:at=3 failed "
+                f"{failed} rows typed RowFailed (row_failures "
+                f"{eng.stats['row_failures']}), one capture kept replaying "
+                f"({replays} -> {eng._chunk.replays}), {len(later)} later "
+                f"requests equal a fresh engine's, all "
+                f"{eng._pool.num_blocks - 1} blocks free")
+
+    # the watchdog, with a replay in flight and the read-back held
+    eng = ServeEngine(c32, p32, device=dev, **SLO_GEOM,
+                      watchdog_s=SLO_WATCHDOG_S, async_decode=True,
+                      fault_inject=f"chunk_latency:at=2,ms={SLO_LATENCY_MS}")
+    with eng:
+        r = eng.submit(prompts[0], 40)
+        t0 = time.perf_counter()
+        try:
+            r.result(timeout=60.0)
+            raise SystemExit("[slo] the watchdog did not fire")
+        except WatchdogTimeout:
+            waited = time.perf_counter() - t0
+        if waited > 2.5 * SLO_WATCHDOG_S or eng.stats["watchdog_fires"] != 1:
+            raise SystemExit(f"[slo] watchdog: raised after {waited:.3f}s "
+                             f"(budget {SLO_WATCHDOG_S}s)")
+        log(f"[slo] watchdog: chunk_latency {SLO_LATENCY_MS} ms past "
+            f"watchdog_s {SLO_WATCHDOG_S}: WatchdogTimeout after "
+            f"{waited:.3f}s")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"slo_modes": summary, "card": card}), flush=True)
+    return total
+
+
+def phase_slot_preempt(dev, cfg, tag: str, layers: int) -> dict:
+    """Checkpoint preemption of a slot-state arch (falcon-mamba, zamba2):
+    in fp32 compute at full width and ``layers`` layers (seeded random
+    weights), ``preempt:every=3`` on the synchronous captured-chunk engine
+    copies each preempted slot's state to host memory and re-seats it: the
+    tokens must equal the fault-free run's, with preemptions and one
+    prefill per request. Returns the run's launch counts."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", num_layers=layers)
+    p32 = init_params(c32, torch.Generator(dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (7, 16, 24)]
+    geom = dict(decode_chunk=2, max_batch=2, max_seq_len=64)
+    outs = {}
+    for spec in (None, "preempt:every=3"):
+        ops.reset_launch_counts()
+        with ServeEngine(c32, p32, device=dev, fault_inject=spec,
+                         **geom) as eng:
+            outs[spec] = [o.tolist() for o in eng.generate(prompts, 24)]
+            _settled(eng, f"{tag}/preempt")
+            stats = dict(eng.stats)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    if outs[None] != outs["preempt:every=3"]:
+        raise SystemExit(f"[{tag}] checkpoint preemption changed tokens")
+    if stats["preempted"] == 0 or stats["prefills"] != len(prompts):
+        raise SystemExit(f"[{tag}] preempted {stats['preempted']}, prefills "
+                         f"{stats['prefills']}: no checkpoint preemption")
+    log(f"[{tag}] fp32 L={layers} checkpoint preemption (preempt:every=3, "
+        f"graph-sync): {stats['preempted']} preemptions, "
+        f"{stats['prefills']} prefills for {len(prompts)} requests, tokens "
+        f"equal the fault-free run's; launches {counts}")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other-csrc", type=Path, default=None, help=(
@@ -2405,15 +2743,18 @@ def main(argv=None) -> None:
     acounts = phase_async(dev, cfg, params, chunk_ms, smi)
     done("async (continuous trace in three modes)")
     pcounts = phase_prefix(dev, cfg, params, smi)
+    done("prefix (serve suite, prefix cache, obs)")
+    scounts = phase_slo(dev, cfg, params, smi)
     del params
     gc.collect()              # free the serve phase's weights and pool
     torch.cuda.empty_cache()
-    done("prefix (serve suite, prefix cache, obs)")
+    done("slo (serve_slo suite, faults, isolation, watchdog)")
     report["mamba_scan"] = phase_k3(dev, args.other_csrc)
     done("K3")
     mcfg, mparams, mprompts, mcounts = phase_serve_ssm(dev, card=smi)
     phase_steps_ssm(mcfg, mparams, mprompts, dev)
     del mparams
+    mpre = phase_slot_preempt(dev, mcfg, "ssm", 4)
     gc.collect()              # free falcon-mamba's weights and slot pool
     torch.cuda.empty_cache()
     done("falcon-mamba serve and steps")
@@ -2421,6 +2762,7 @@ def main(argv=None) -> None:
                                                        "hybrid", smi)
     phase_steps_hybrid(zcfg, zparams, zprompts, dev)
     del zparams
+    zpre = phase_slot_preempt(dev, zcfg, "hybrid", 8)
     gc.collect()              # free zamba2's weights and slot pool
     torch.cuda.empty_cache()
     done("zamba2 serve and steps")
@@ -2442,11 +2784,14 @@ def main(argv=None) -> None:
     done("condgraph and the quick bench pass")
     report["paged_attention"]["launches"] = counts["paged_attention"] \
         + acounts["paged_attention"] + pcounts["paged_attention"] \
-        + qcounts["paged_attention"] + report["cond_graph"]["k1_sweep"]
+        + scounts["paged_attention"] + qcounts["paged_attention"] \
+        + report["cond_graph"]["k1_sweep"]
     report["flash_attention"]["launches"] = counts["flash_attention"] \
         + acounts["flash_attention"] + pcounts["flash_attention"] \
-        + zcounts["flash_attention"] + qcounts["flash_attention"]
-    report["mamba_scan"]["launches"] = mcounts["mamba_scan"]
+        + scounts["flash_attention"] + zcounts["flash_attention"] \
+        + zpre["flash_attention"] + qcounts["flash_attention"]
+    report["mamba_scan"]["launches"] = mcounts["mamba_scan"] \
+        + mpre["mamba_scan"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

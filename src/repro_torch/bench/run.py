@@ -27,9 +27,12 @@ obs_gate     — serve throughput with observability on against off
 decode_overlap — the synchronous against the async decode engine: per-
                cycle dispatch / sync / bookkeeping and the host gap, in
                turns, with an fp32 parity pass
+serve_slo    — SLO overload control: tier-0 tail TTFT alone and under a
+               tier-1 best-effort flood (shedding, deadline expiry, cost-
+               model preemption); its contended run's trace lands in
+               ``TRACE_serve_slo.json``
 
-Not ported yet (ROADMAP.md Queue 1): ``serve_slo`` waits for item 6,
-``journal_gate`` for item 7,
+Not ported yet (ROADMAP.md Queue 1): ``journal_gate`` waits for item 7,
 ``serve_mesh`` for item 11 and ``roofline`` for item 14; the ``serve``
 suite's per-call baseline rows are not ported (the port's engine has no
 per-call grouped path).
@@ -38,7 +41,8 @@ per-call grouped path).
 fig9 graphs of 1,000 and 5,000 tasks, fig11 1,000 tasks, fig21 1,000
 gates over 5 iterations, fig13 8 layers, the pipeline and paged_decode
 suites their own quick sizes (paged_decode keeps the full-width heads),
-serve, obs_gate and decode_overlap the reference's quick sizes.
+serve, obs_gate, decode_overlap and serve_slo the reference's quick
+sizes.
 The suites run on the card unless ``--device cpu`` is given (the tests);
 without a card the default raises. Each completed suite drops
 ``BENCH_<suite>.json`` into ``--bench-dir`` with the schema of
@@ -62,7 +66,7 @@ _METRIC_SUFFIXES = ("tok_per_s", "p50_ms", "p99_ms")
 
 #: suites of ``benchmarks/run.py`` the port does not have yet, with the
 #: ROADMAP Queue 1 item each waits for
-NOT_PORTED = {"serve_slo": "item 6", "journal_gate": "item 7",
+NOT_PORTED = {"journal_gate": "item 7",
               "serve_mesh": "item 11", "roofline": "item 14"}
 
 
@@ -127,7 +131,7 @@ def suites(dev, quick: bool, prompt_dist: str = "choice",
                    fig17_conditional_memory,
                    fig21_incremental_timing, obs_overhead_gate,
                    paged_decode_microbench, pipeline_throughput,
-                   serve_continuous, table2_task_overhead)
+                   serve_continuous, serve_slo, table2_task_overhead)
     trace = os.path.join(trace_dir, "TRACE_serve.json")
     return {
         "table2": lambda: table2_task_overhead.bench(
@@ -156,6 +160,9 @@ def suites(dev, quick: bool, prompt_dist: str = "choice",
         "decode_overlap": lambda: decode_overlap.bench(
             quick=quick, device=dev,
             trace_path=os.path.join(trace_dir, "TRACE_decode_overlap.json")),
+        "serve_slo": lambda: serve_slo.bench(
+            quick=quick, device=dev,
+            trace_path=os.path.join(trace_dir, "TRACE_serve_slo.json")),
     }
 
 

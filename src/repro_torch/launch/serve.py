@@ -17,6 +17,8 @@ CUDA; without a CUDA device it raises unless ``--device cpu`` is given.
         --trace /tmp/t.json --stats-interval 1
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --async-decode
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --deadline 0.5 --fault-inject 'alloc_fail:p=0.1,seed=1'
 
 Attention archs, dense and MoE, page their KV (``--kv-blocks``,
 ``--block-size``, ``--prefill-chunk``); Mamba1 archs and the zamba2 hybrid
@@ -30,6 +32,13 @@ turns observability on, as ``REPRO_OBS=1`` does. ``REPRO_PREFIX_CACHE=1``
 turns the prefix cache on (paged archs). ``--async-decode`` runs the decode
 loop one chunk ahead (``REPRO_ASYNC_DECODE``; ``--no-async-decode`` forces
 the synchronous path with the variable set); greedy tokens are the same.
+
+SLO overload control and faults: ``--priority`` and ``--deadline`` apply to
+every submitted request, ``--tier-target TIER=SHARE`` (repeatable),
+``--shed-budget``, ``--watchdog`` and ``--fault-inject`` configure the
+engine (each unset one defers to its environment variable). A request that
+fails typed (shed at submit, past its deadline, a failed row) is counted
+and printed; the run goes on.
 """
 from __future__ import annotations
 
@@ -44,11 +53,12 @@ from ..device import resolve_device
 from ..obs import Observability, StatsLogger
 from ..params import init_params
 from ..serve.engine import ServeEngine
+from ..serve.errors import ServeError
 
 
 def main(argv=None):
     """Serve the prompts; returns each request's tokens (a numpy array
-    apiece, in submission order)."""
+    apiece, in submission order; None for a request that failed typed)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b",
                     help="model architecture of a family the port serves: "
@@ -77,6 +87,32 @@ def main(argv=None):
                          "one chunk dispatched ahead. Unset defers to "
                          "REPRO_ASYNC_DECODE; --no-async-decode forces the "
                          "synchronous path even with the variable set")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="scheduling tier of the submitted requests "
+                         "(0 = highest/SLO tier; larger = best-effort)")
+    ap.add_argument("--deadline", type=float, default=None, metavar="S",
+                    help="per-request deadline in seconds (expired "
+                         "requests fail typed DeadlineExceeded)")
+    ap.add_argument("--tier-target", action="append", default=None,
+                    metavar="TIER=SHARE",
+                    help="guaranteed minimum admission share for a tier "
+                         "under sustained higher-tier load (repeatable, "
+                         "e.g. --tier-target 1=0.25)")
+    ap.add_argument("--shed-budget", type=float, default=None, metavar="S",
+                    help="load-shedding queue-wait budget (seconds, all "
+                         "tiers): submit() raises Overloaded when the "
+                         "estimated wait exceeds it. Unset defers to "
+                         "REPRO_SHED_BUDGET_S")
+    ap.add_argument("--watchdog", type=float, default=None, metavar="S",
+                    help="engine watchdog budget: fail all futures typed "
+                         "WatchdogTimeout when a busy engine makes no "
+                         "progress for S seconds. Unset defers to "
+                         "REPRO_WATCHDOG_S")
+    ap.add_argument("--fault-inject", default=None, metavar="SPEC",
+                    help="deterministic fault-injection spec (see "
+                         "repro_torch.serve.faultinject), e.g. "
+                         "'grow_fail:p=0.05,seed=11'. Unset defers to "
+                         "REPRO_FAULT_INJECT")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs the "
@@ -111,25 +147,52 @@ def main(argv=None):
     logger = None
     if args.stats_interval is not None:
         logger = StatsLogger(obs.metrics, interval=args.stats_interval)
+    tier_targets = None
+    if args.tier_target:
+        tier_targets = {}
+        for spec in args.tier_target:
+            tier, _, share = spec.partition("=")
+            tier_targets[int(tier)] = float(share)
     with ServeEngine(cfg, params, decode_chunk=args.decode_chunk,
                      device=dev, obs=obs, async_decode=args.async_decode,
-                     **geom) as eng:
+                     tier_targets=tier_targets,
+                     shed_budget_s=args.shed_budget,
+                     watchdog_s=args.watchdog,
+                     fault_inject=args.fault_inject, **geom) as eng:
         if logger is not None:
             logger.start()
         t0 = time.time()
-        reqs = []
-        for p in prompts:
-            reqs.append(eng.submit(p, max_new=args.max_new))
+        reqs, failed = [], []
+        for i, p in enumerate(prompts):
+            try:
+                reqs.append(eng.submit(p, max_new=args.max_new,
+                                       priority=args.priority,
+                                       deadline_s=args.deadline))
+            except ServeError as e:          # shed at submit
+                reqs.append(None)
+                failed.append((i, e))
             if args.stagger:
                 time.sleep(args.stagger)
-        outs = [eng.result(r, timeout=600.0) for r in reqs]
+        outs = []
+        for i, r in enumerate(reqs):
+            try:
+                outs.append(eng.result(r, timeout=600.0)
+                            if r is not None else None)
+            except ServeError as e:          # expired, failed row, ...
+                outs.append(None)
+                failed.append((i, e))
         dt = time.time() - t0
-        print(f"{cfg.name}: generated {total_new} tokens in {dt:.2f}s "
-              f"({total_new/dt:.1f} tok/s, batch={args.batch}, "
+        done = [o for o in outs if o is not None]
+        gen = sum(len(o) for o in done)
+        print(f"{cfg.name}: generated {gen} of {total_new} tokens in "
+              f"{dt:.2f}s ({gen/dt:.1f} tok/s, batch={args.batch}, "
               f"device={dev}, mode=continuous, "
               f"async_decode={eng.async_decode})")
         print("engine stats:", eng.stats)
-        print("sample:", outs[0][:16].tolist())
+        for i, e in sorted(failed, key=lambda f: f[0]):
+            print(f"request {i} failed: {type(e).__name__}: {e}")
+        if done:
+            print("sample:", done[0][:16].tolist())
         if logger is not None:
             logger.stop()
     if args.trace:

@@ -2,7 +2,8 @@
 
 * :mod:`.engine`    — the resident admit→prefill→decode→complete pipeline
   (single-device subset of the reference engine, with its async decode
-  lookahead);
+  lookahead, SLO overload control and per-row failure isolation);
+* :mod:`.faultinject` — copy of the reference's seeded fault injector;
 * :mod:`.scheduler` — copy of the reference's tiered admission queue;
 * :mod:`.errors`    — copy of the typed failure vocabulary;
 * :mod:`.kvcache`   — the host ``BlockPool`` plus in-place torch scatters

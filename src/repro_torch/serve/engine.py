@@ -78,9 +78,49 @@ Threads: the stages run on :class:`repro_torch.core.Executor` worker
 threads, and ``torch.inference_mode`` is thread-local, so every stage
 enters it (and the engine's CUDA device) itself.
 
-Failure: an exception in any stage cancels the pipeline topology, fails
-every outstanding request future (``result()`` raises instead of hanging)
-and marks the engine broken.
+SLO overload control (as in the reference): ``submit(deadline_s=)`` bounds
+a request's latency (it fails typed :class:`DeadlineExceeded` whether it is
+queued or seated), :meth:`ServeRequest.cancel` withdraws it from any state,
+``shed_budget_s`` rejects a submit typed :class:`Overloaded` when the
+service-rate estimate of its queue wait exceeds the tier's budget,
+``tier_targets`` reserves admission shares for best-effort tiers, and the
+admission head fails a deadline it cannot meet at the observed rate before
+it takes a slot. Every cycle the decode stage sweeps the seated rows
+(:meth:`ServeEngine._sweep_seated`): cancelled and expired rows are
+evicted through the preemption path's frees (the fence, async) and a
+waiting head of a better tier than the worst seated row preempts it when
+every slot is taken.
+
+Failure isolation: a raising prefill fails only its admitted group
+(:class:`RowFailed`); a raising decode stage (merge, window, growth, the
+chunk or its read-back) fails every seated and admitted-but-unmerged row
+typed :class:`RowFailed` and resets the device state IN PLACE (``zero_()``
+on the same pool or slot state, tables and carry, after a device
+synchronize that orders it behind every queued write; a fresh host
+``BlockPool`` and ``PrefixCache``): the reference rebuilds its pool because
+the failed jitted call donated it, while the captured chunk here bakes in
+those tensors' addresses, so a fresh allocation would make every later
+replay raise. A reset epoch keeps groups admitted and rows retired before
+the reset from seating or freeing against the new state. A sticky CUDA
+error (an illegal address) cannot be isolated: the synchronize raises
+again and the engine goes broken, failing every future. ``watchdog_s``
+runs a daemon thread that fails every future typed
+:class:`WatchdogTimeout` when a busy engine makes no stage progress for
+that long (it cannot interrupt a replay or a blocked read-back; ``result()``
+raises instead of hanging). An exception in the admit or complete stage
+cancels the pipeline topology, fails every outstanding future and marks
+the engine broken. ``fault_inject`` (:mod:`repro_torch.serve.faultinject`,
+``REPRO_FAULT_INJECT``) reaches these paths on demand: ``alloc_fail`` at
+admission, ``evict``/``preempt``/``grow_fail`` at growth, and
+``chunk_latency``/``chunk_sync_exc``/``crash_at`` at the chunk's read-back.
+The reference consults ``preempt`` in its paged growth pass only; the port
+also consults it on the slot-state path, once per cycle with a seated row,
+so that a Mamba1 or zamba2 row's checkpoint preemption can be forced
+(synchronous engine: the slot's state is copied to host memory and
+re-seated exactly, with no prefill; async: the row replays from its
+prompt, as in the reference). A paged row replays from its prompt, so
+under ``preempt:every=N`` a row that needs N or more cycles alone is
+preempted forever, in the reference as here.
 
 Prefix caching (``prefix_cache=`` / ``REPRO_PREFIX_CACHE``, paged archs
 only, off by default): full prompt chunks are indexed in a
@@ -105,12 +145,11 @@ chunk's only sync, the token read-back; the engine adds no synchronisation
 for them. ``engine.gap_s`` is host time with no chunk in flight. Disabled,
 each site costs one ``is None`` check.
 
-Not in this slice (queued in ROADMAP.md): SLO
-shedding/deadlines/watchdog, fault injection, journal/snapshot/drain/
-recover, meshes, the checkpoint preemption of SSM and hybrid slots, the
-failure-isolation epoch guard (``_premerge_live``, ``_reset_epoch``) and the
-per-call grouped baseline. The engine raises :class:`UnsupportedArch` on
-archs it cannot serve yet (modality frontends).
+Not in this slice (queued in ROADMAP.md): journal/snapshot/drain/recover
+(with the sweep's drain branch and the ``snapshot_corrupt`` site), meshes
+and the per-call grouped baseline. The engine raises
+:class:`UnsupportedArch` on archs it cannot serve yet (modality
+frontends).
 """
 from __future__ import annotations
 
@@ -132,7 +171,10 @@ from ..obs import TRACK_ENGINE
 from ..obs import from_env as _obs_from_env
 from ..pipeline import DataPipe, DataPipeline, PipeType
 from .chunk_graph import ChunkProgram, HostLink
-from .errors import EngineClosed, ServeError
+from .errors import (DeadlineExceeded, EngineClosed, Overloaded,
+                     RequestCancelled, RowFailed, ServeError,
+                     WatchdogTimeout)
+from .faultinject import FaultInjected, FaultInjector
 from .kvcache import (BlockPool, copy_blocks, extend_block_tables,
                       init_kv_pool, scatter_prefill_rows, set_carry_rows,
                       set_table_rows)
@@ -200,6 +242,28 @@ class ServeEngine:
         run the decode chunk as a captured CUDA graph (None: on CUDA, the
         default) or eagerly (False; the CPU always runs it eagerly, and
         True there raises).
+    tier_targets:
+        per-tier guaranteed minimum share of each admission cycle
+        (``{tier: share}``, see :class:`repro_torch.serve.scheduler
+        .Scheduler`): the floor that keeps best-effort tiers from starving.
+    shed_budget_s:
+        load-shedding budget: a float for every tier or ``{tier:
+        budget_s}`` (absent tiers are never shed). ``submit()`` raises
+        :class:`Overloaded` when the estimated queue wait exceeds it (or the
+        request's own ``deadline_s``): the resident rows' remaining steps
+        plus the ``max_new`` waiting at tiers <= the request's, over the
+        EWMA of emitted tokens per cycle second; before the first tokens,
+        the p90 of ``serve.queue_wait_s`` scaled by the backlog (after 8
+        admissions; needs ``obs``). None resolves via
+        ``REPRO_SHED_BUDGET_S`` (default off).
+    watchdog_s:
+        fail every future typed :class:`WatchdogTimeout` when a busy engine
+        makes no stage progress for this long. 0/None is off; None resolves
+        via ``REPRO_WATCHDOG_S``.
+    fault_inject:
+        a :class:`repro_torch.serve.faultinject.FaultInjector` or its spec
+        string (seeded faults at named sites). None resolves via
+        ``REPRO_FAULT_INJECT`` (default off).
     record_stages:
         keep an in-memory (stage, cycle-token, info, t) event log.
     obs:
@@ -223,6 +287,10 @@ class ServeEngine:
                  prefix_cache: Optional[bool] = None,
                  async_decode: Optional[bool] = None,
                  chunk_graph: Optional[bool] = None,
+                 tier_targets: Optional[Dict[int, float]] = None,
+                 shed_budget_s=None,
+                 watchdog_s: Optional[float] = None,
+                 fault_inject=None,
                  record_stages: bool = False,
                  obs=None,
                  device=None):
@@ -271,9 +339,30 @@ class ServeEngine:
         self._broken: Optional[BaseException] = None
         self._stage_log = [] if record_stages else None
         self._log_lock = threading.Lock()
+        # deterministic fault injection (argument > environment)
+        if fault_inject is None:
+            fault_inject = os.environ.get("REPRO_FAULT_INJECT") or None
+        if isinstance(fault_inject, str):
+            fault_inject = FaultInjector.parse(fault_inject)
+        self._fi: Optional[FaultInjector] = fault_inject
+        # load-shedding budget: float (every tier) or {tier: budget_s}
+        if shed_budget_s is None:
+            env = os.environ.get("REPRO_SHED_BUDGET_S", "").strip()
+            shed_budget_s = float(env) if env else None
+        self._shed_budget = shed_budget_s
+        if watchdog_s is None:
+            env = os.environ.get("REPRO_WATCHDOG_S", "").strip()
+            watchdog_s = float(env) if env else 0.0
+        self._watchdog_s = float(watchdog_s or 0.0)
+        # service rate of the shed estimate: EWMA of emitted tokens per
+        # decode-cycle second, 0.0 until the first tokens
+        self._decode_rate = 0.0
+        self._rate_alpha = 0.3
 
         B = max_batch
-        self._scheduler = Scheduler(max_admit=max_admit)
+        self._scheduler = Scheduler(max_admit=max_admit,
+                                    tier_targets=tier_targets)
+        self._scheduler.on_event = self._sched_event
         # slot state: written by the SERIAL decode stage (merge/window/grow/
         # step) and the complete stage (free) under _state_lock
         self._lengths = np.zeros((B,), np.int32)   # KV tokens written
@@ -300,6 +389,13 @@ class ServeEngine:
         self._slots_reserved = 0       # admitted but not yet merged
         self._inflight: set = set()    # admitted, not yet retired
         self._cycle_tokens: set = set()  # cycles minted, not yet completed
+        # admitted groups not yet seated, by cycle token: (epoch, requests);
+        # a failure-isolation reset clears it, so a group admitted against
+        # the old pool is dropped at its merge
+        self._premerge: Dict[int, tuple] = {}
+        # bumped by every failure-isolation reset: retire payloads of an
+        # older epoch free no blocks or slots into the reset state
+        self._reset_epoch = 0
         self._state_lock = threading.Lock()
         self._pump_lock = threading.Lock()
         self._pipeline: Optional[DataPipeline] = None
@@ -308,7 +404,9 @@ class ServeEngine:
                       "prefill_windows": 0, "tokens_out": 0, "retired": 0,
                       "grown_blocks": 0, "preempted": 0, "stalls": 0,
                       "prefix_hits": 0, "prefix_tokens_saved": 0,
-                      "cow_forks": 0}
+                      "cow_forks": 0, "shed": 0, "expired": 0,
+                      "cancelled": 0, "watchdog_fires": 0,
+                      "row_failures": 0}
 
         self._prefix: Optional[PrefixCache] = None
         if self.paged:
@@ -328,6 +426,16 @@ class ServeEngine:
         # None obs = disabled (every site guards on self._tr / self._mh)
         self._slot_span: List[Optional[tuple]] = [None] * B
         self.set_obs(obs if obs is not None else _obs_from_env())
+        # watchdog heartbeat, touched by submit and the admit, decode and
+        # complete stages
+        self._wd_beat = time.perf_counter()
+        self._wd_stop = threading.Event()
+        self._wd_thread: Optional[threading.Thread] = None
+        if self._watchdog_s > 0:
+            self._wd_thread = threading.Thread(
+                target=self._watchdog_loop, name="serve-watchdog",
+                daemon=True)
+            self._wd_thread.start()
 
     def _init_paged(self, B: int, kv_blocks: int, block_size: int,
                     max_seq_len: Optional[int],
@@ -486,6 +594,11 @@ class ServeEngine:
             "book": metrics.histogram("engine.book_s"),
             "gap": metrics.histogram("engine.gap_s"),
             "chunk": metrics.histogram("engine.chunk_s"),
+            "shed": metrics.counter("serve.shed"),
+            "expired": metrics.counter("serve.expired"),
+            "cancelled": metrics.counter("serve.cancelled"),
+            "watchdog": metrics.counter("serve.watchdog_fires"),
+            "row_failed": metrics.counter("serve.row_failures"),
         }
 
     def _phase_begin(self, slot: int, name: str, t: float) -> None:
@@ -517,6 +630,17 @@ class ServeEngine:
             self._mh["resident"].set(
                 sum(r is not None for r in self._slot_req))
 
+    def _sched_event(self, kind: str, req) -> None:
+        """The scheduler's sweep dropped a waiting request (outside its
+        lock): ``kind`` is ``"expired"`` or ``"cancelled"``."""
+        with self._state_lock:
+            self.stats[kind] += 1
+        if self._mh is not None:
+            self._mh[kind].inc()
+        if self._tr is not None:
+            self._tr.instant(kind, TRACK_ENGINE, time.perf_counter(),
+                             {"req": req.id, "state": "waiting"})
+
     # ------------------------------------------------------------- lifecycle
     def _ensure_executor(self) -> Executor:
         if self._executor is None:
@@ -539,8 +663,41 @@ class ServeEngine:
         return self._pipeline
 
     def _busy(self) -> bool:
+        """Lock-free busy probe (the watchdog must never wait on a lock a
+        wedged stage may hold)."""
         return bool(self._inflight) or bool(self._cycle_tokens) \
             or self._scheduler.num_waiting > 0
+
+    def _watchdog_loop(self) -> None:
+        """Daemon thread: fail every outstanding future typed
+        :class:`WatchdogTimeout` when a busy engine has not touched its
+        heartbeat for ``watchdog_s``. The stuck call (a replay, a blocked
+        read-back) is not interrupted; ``result()`` raises instead of
+        hanging."""
+        period = max(0.01, self._watchdog_s / 4.0)
+        while not self._wd_stop.wait(period):
+            if self._broken is not None:
+                return
+            stale = time.perf_counter() - self._wd_beat
+            if stale <= self._watchdog_s or not self._busy():
+                continue
+            err = WatchdogTimeout(
+                f"engine made no cycle progress for {stale:.3f}s "
+                f"(budget {self._watchdog_s:.3f}s; "
+                f"inflight={len(self._inflight)} "
+                f"waiting={self._scheduler.num_waiting} "
+                f"cycles={sorted(self._cycle_tokens)}; a stuck device "
+                f"sync or a deadlocked stage - failing all futures)")
+            self._broken = err
+            with self._state_lock:
+                self.stats["watchdog_fires"] += 1
+            if self._mh is not None:
+                self._mh["watchdog"].inc()
+            if self._tr is not None:
+                self._tr.instant("watchdog_fire", TRACK_ENGINE,
+                                 time.perf_counter(), {"stale_s": stale})
+            self._fail_outstanding(err)
+            return
 
     def close(self, timeout: float = 300.0) -> None:
         """Drain outstanding requests, then release the executor. Anything
@@ -555,6 +712,10 @@ class ServeEngine:
                 if self._pipeline.idle() and self._scheduler.num_waiting == 0:
                     break
                 time.sleep(0.005)
+        self._wd_stop.set()
+        if self._wd_thread is not None:
+            self._wd_thread.join(timeout=1.0)
+            self._wd_thread = None
         if self._busy():
             self._fail_outstanding(EngineClosed(
                 "engine closed with requests outstanding "
@@ -577,6 +738,8 @@ class ServeEngine:
     # ------------------------------------------------------- stage callables
     def _st_admit(self, pf):
         t_adm = time.perf_counter()
+        self._wd_beat = t_adm
+        epoch = self._reset_epoch
         with self._state_lock:
             occupied = any(r is not None for r in self._slot_req)
             reserved = self._slots_reserved
@@ -594,7 +757,8 @@ class ServeEngine:
         else:
             # slot-state pool: recurrent state is pre-allocated per slot, so
             # admission is bounded by free slots alone
-            popped = self._scheduler.try_admit(free_slots, None)
+            popped = self._scheduler.try_admit(free_slots, None,
+                                               hopeless=self._hopeless_why)
             if popped is not None:
                 group = [(r, None) for r in popped]
         if group is not None:
@@ -607,10 +771,23 @@ class ServeEngine:
                     if self._mh is not None and r.submitted_at is not None:
                         self._mh["qwait"].record(now - r.submitted_at)
             with self._state_lock:
-                self._slots_reserved += len(group)
-                self._inflight.update(g[0] for g in group)
-                self._cycle_tokens.add(pf.token)
-                self.stats["admitted"] += len(group)
+                stale = epoch != self._reset_epoch
+                if not stale:
+                    self._slots_reserved += len(group)
+                    self._inflight.update(g[0] for g in group)
+                    self._cycle_tokens.add(pf.token)
+                    self._premerge[pf.token] = (epoch,
+                                                [g[0] for g in group])
+                    self.stats["admitted"] += len(group)
+            if stale:
+                # a failure-isolation reset raced this admission: its block
+                # ids came from the old pool. Fail the group typed (a
+                # re-submit replays it) instead of seating it on the new one
+                err = RowFailed(
+                    "admission raced an engine failure-isolation reset")
+                for g in group:
+                    g[0].set_error(err)
+                return ("pump", None)
             if self._mh is not None:
                 self._mh["admitted"].inc(len(group))
             if self._tr is not None:
@@ -657,7 +834,8 @@ class ServeEngine:
             def need_for(r):
                 return self._pool.blocks_for(r.prompt_len)
             budget = self._pool.num_free_unreserved
-        popped = self._scheduler.try_admit(free_slots, budget, need_for)
+        popped = self._scheduler.try_admit(free_slots, budget, need_for,
+                                           hopeless=self._hopeless_why)
         if popped is None:
             return None
         # pin the longest cached prefix per member (a reference on every
@@ -667,7 +845,10 @@ class ServeEngine:
         needs = [self._pool.blocks_for(r.prompt_len)
                  - (len(h.blocks) if h is not None else 0)
                  for r, h in zip(popped, hits)]
-        ids = self._pool.alloc(sum(needs))      # all-or-nothing
+        if self._fi is not None and self._fi.fire("alloc_fail"):
+            ids = None                          # injected failure
+        else:
+            ids = self._pool.alloc(sum(needs))  # all-or-nothing
         if ids is None and px is not None:
             # release cold PARKED prefix blocks before giving up on the
             # group, long before the grow pass would preempt a row
@@ -707,13 +888,55 @@ class ServeEngine:
         if kind != "admit":
             return msg
         with self._stage_ctx():
-            if self._pf_stream is None:
-                return self._prefill_group(pf, payload)
-            # async on CUDA: the prefill runs beside the chunk in flight,
-            # on its own stream (it reads only the prompts and the weights);
-            # the merge waits for it by event
-            with torch.cuda.stream(self._pf_stream):
-                return self._prefill_group(pf, payload)
+            try:
+                if self._pf_stream is None:
+                    return self._prefill_group(pf, payload)
+                # async on CUDA: the prefill runs beside the chunk in
+                # flight, on its own stream (it reads only the prompts and
+                # the weights); the merge waits for it by event
+                with torch.cuda.stream(self._pf_stream):
+                    return self._prefill_group(pf, payload)
+            except Exception as exc:        # per-group failure isolation
+                return self._prefill_failed(pf, payload, exc)
+
+    def _prefill_failed(self, pf, group, exc):
+        """A raising prefill fails ONLY its admitted group (typed
+        :class:`RowFailed`) and releases what the group holds; the prefill
+        writes no shared device state, so nothing is reset (contrast
+        :meth:`_isolate_failure`)."""
+        err = RowFailed(f"prefill launch failed for group "
+                        f"{[g[0].id for g in group]}: {exc!r}")
+        err.__cause__ = exc
+        with self._state_lock:
+            info = self._premerge.pop(pf.token, None)
+            live = info is not None and info[0] == self._reset_epoch
+            if live:
+                self._slots_reserved -= len(group)
+                for g in group:
+                    self._inflight.discard(g[0])
+            self.stats["row_failures"] += len(group)
+        if live and self.paged:
+            for _, blocks, hit in group:
+                if blocks:
+                    # allocated at admission, never written: no device work
+                    # reads them, a plain free is safe in async mode too
+                    self._pool.free(list(blocks))
+                if hit is not None:
+                    pins = list(hit.blocks)
+                    if hit.partial_block is not None:
+                        pins.append(hit.partial_block)
+                    if pins:
+                        self._prefix.unpin(pins)
+        for g in group:
+            g[0].set_error(err)
+        if self._mh is not None:
+            self._mh["row_failed"].inc(len(group))
+        if self._tr is not None:
+            self._tr.instant("prefill_failed", TRACK_ENGINE,
+                             time.perf_counter(),
+                             {"reqs": [g[0].id for g in group]})
+        self._log("prefill_failed", pf.token, [g[0].id for g in group])
+        return ("pump", None)
 
     def _read_first(self, first: torch.Tensor):
         """The host copy of a prefill's first tokens: now (sync), or
@@ -737,14 +960,20 @@ class ServeEngine:
         if not self.paged:
             caches, firsts = [], []
             for req in reqs:
+                if req._ssm_ckpt is not None:
+                    # checkpoint-preempted row: its exact state was saved
+                    # at the preemption and is re-seated by the merge
+                    caches.append(None)
+                    continue
                 logits, cache = lm.prefill(
                     self.cfg, self.params, self._to_dev(req.prompt[None]),
                     layers=self._layers)
                 caches.append(cache)
                 firsts.append(torch.argmax(logits[0]).to(torch.int32))
-            first = self._read_first(torch.stack(firsts))
+            first = self._read_first(torch.stack(firsts)) if firsts \
+                else (None, None)
             with self._state_lock:
-                self.stats["prefills"] += len(reqs)
+                self.stats["prefills"] += len(firsts)
             self._log("prefill", pf.token, [r.id for r in reqs])
             return ("admit", (reqs, caches, first))
         miss = [g for g in group if g[2] is None or g[2].tokens == 0]
@@ -799,6 +1028,8 @@ class ServeEngine:
         carry is exact), and the group's first tokens and KV are read after
         the prefill stream's event."""
         group, C0, ck, cv, first, n_miss = payload
+        if not self._premerge_live(pf):
+            return
         if first is not None:
             host, ev = first
             first = HostLink.wait(host, ev)
@@ -888,7 +1119,19 @@ class ServeEngine:
             scatter_prefill_rows(self._pkv, self._to_dev(blocks2d), ck, cv)
         for slot in reg_slots:
             self._register_prefix(slot)
+        with self._state_lock:
+            self._premerge.pop(pf.token, None)   # fully seated
         self._note_resident()
+
+    def _premerge_live(self, pf) -> bool:
+        """Epoch guard at a merge: a group admitted before a failure-
+        isolation reset must not seat (its block ids came from the old
+        pool, and the reset failed its requests). Peeks; the record is
+        popped at the END of the merge, so a failure mid-merge still finds
+        every member in the table and fails it."""
+        with self._state_lock:
+            info = self._premerge.get(pf.token)
+            return info is not None and info[0] == self._reset_epoch
 
     def _register_prefix(self, slot: int) -> None:
         """Index a just-prefilled row's FULL prompt chunks in the prefix
@@ -901,41 +1144,84 @@ class ServeEngine:
         if prompt is not None and blocks is not None:
             self._prefix.register(prompt, blocks)
 
-    def _merge_group_slots(self, payload) -> None:
+    def _merge_group_slots(self, pf, payload) -> None:
         """Seat an admitted slot-state group: copy each member's prefilled
         state into its slot of the state pool and start it decoding from
         its first token. The copies are enqueued on the decode stage's
         stream after the chunk in flight, whose in-place update of an
-        inactive slot they overwrite; async writes the carry rows too."""
+        inactive slot they overwrite; async writes the carry rows too. A
+        checkpoint-preempted member (synchronous engine) gets its saved
+        state back and resumes where it stopped, with no prefill."""
         reqs, caches, (host, ev) = payload
-        firsts = HostLink.wait(host, ev)
+        if not self._premerge_live(pf):
+            return
+        firsts = iter(HostLink.wait(host, ev).tolist() if host is not None
+                      else ())
         self._wait_for(ev)
         now = time.perf_counter()
         rows = []
-        for req, cache, first in zip(reqs, caches, firsts.tolist()):
+        for req, cache in zip(reqs, caches):
+            ckpt = req._ssm_ckpt
             with self._state_lock:
                 slot = self._free_slots.pop()
                 self._slots_reserved -= 1
                 self._slot_req[slot] = req
-                self._slot_out[slot] = [first]
                 self._slot_phase[slot] = "decode"
             self._slot_gen[slot] += 1
-            if ev is not None:
-                cur = torch.cuda.current_stream(self.device)
-                for t in _tensors(cache):
-                    t.record_stream(cur)
-            write_slot_state(self._sstate, slot, cache, req.prompt_len)
-            self._lengths[slot] = req.prompt_len
-            self._last[slot] = first
-            self._rem[slot] = req.max_new - 1
-            self._note_first_token(req, now)
+            if ckpt is not None:
+                state, length, last, rem, out = ckpt
+                req._ssm_ckpt = None
+                self._restore_slot_state(slot, state)
+                self._slot_out[slot] = list(out)
+                self._lengths[slot] = length
+                self._last[slot] = last
+                self._rem[slot] = rem
+            else:
+                first = next(firsts)
+                if ev is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    for t in _tensors(cache):
+                        t.record_stream(cur)
+                write_slot_state(self._sstate, slot, cache, req.prompt_len)
+                self._slot_out[slot] = [first]
+                self._lengths[slot] = req.prompt_len
+                self._last[slot] = first
+                self._rem[slot] = req.max_new - 1
+                self._note_first_token(req, now)
             req.state = "decoding"
             if self._tr is not None:
                 self._note_seated(slot, req, now)
             rows.append(slot)
         if self.async_decode:
             self._scatter_carry(rows)
+        with self._state_lock:
+            self._premerge.pop(pf.token, None)   # fully seated
         self._note_resident()
+
+    def _slot_views(self, slot: int):
+        """(name, view of ``slot``) for every leaf of the slot-state pool:
+        Mamba1's ``ssm`` (conv, h) and zamba2's ``g_ssm``, ``tail_ssm`` and
+        whole ``shared_k``/``shared_v`` spans."""
+        for name, v in self._sstate.items():
+            # the slot axis: after (G, every) for g_ssm, after the layer
+            # (or group) axis for the rest
+            ax = 2 if name == "g_ssm" else 1
+            for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+                yield f"{name}.{i}", t.select(ax, slot)
+
+    def _save_slot_state(self, slot: int) -> Dict[str, torch.Tensor]:
+        """One slot's recurrent state (and zamba2's shared KV span) copied
+        to host memory: the checkpoint of an SSM or hybrid preemption.
+        Synchronous engine only (async's chunk in flight has advanced the
+        state past the host mirrors; its rows replay from the prompt)."""
+        return {name: t.to("cpu", copy=True)
+                for name, t in self._slot_views(slot)}
+
+    def _restore_slot_state(self, slot: int, st) -> None:
+        """Copy a :meth:`_save_slot_state` checkpoint into ``slot`` (any
+        free slot), in place."""
+        for name, t in self._slot_views(slot):
+            t.copy_(st[name])
 
     def _scatter_carry(self, rows) -> None:
         """Write the host mirrors' ``rows`` into the device carry in place
@@ -1056,10 +1342,19 @@ class ServeEngine:
         req = self._slot_req[v]
         out = self._slot_out[v]
         produced = len(out) if out is not None else 0
-        blocks = self._slot_blocks[v]
+        blocks = self._slot_blocks[v] if self.paged else None
         held = len(blocks) if blocks is not None else 0
         return (-req.priority, produced - held, req.preempted_count,
                 -req.id)
+
+    def _fault_preempt(self, pf) -> None:
+        """The ``preempt`` fault site: force-preempt the cost-model
+        victim."""
+        if self._fi is not None and self._fi.fire("preempt"):
+            live = [v for v in range(len(self._slot_req))
+                    if self._slot_req[v] is not None]
+            if live:
+                self._preempt(min(live, key=self._victim_score), pf)
 
     def _grow_or_preempt(self, pf) -> None:
         """Phase 2 of two-phase admission: grant each decoding row the
@@ -1072,6 +1367,11 @@ class ServeEngine:
         demand is reserved in the pool so admissions cannot take it."""
         bs = self._pool.block_size
         n = self.decode_chunk
+        fi = self._fi
+        if fi is not None:
+            if fi.fire("evict") and self._prefix is not None:
+                self._prefix.evict(1)      # forced parked-prefix eviction
+            self._fault_preempt(pf)
         grow_rows: List[int] = []
         grow_cols: List[int] = []
         grow_ids: List[int] = []
@@ -1093,8 +1393,12 @@ class ServeEngine:
             cur = len(self._slot_blocks[b])
             covered = need <= cur
             while need > cur:
-                ids = self._pool.grow_table(self._slot_blocks[b], need - cur,
-                                            use_reserved=True)
+                if fi is not None and fi.fire("grow_fail"):
+                    ids = None              # injected growth failure
+                else:
+                    ids = self._pool.grow_table(self._slot_blocks[b],
+                                                need - cur,
+                                                use_reserved=True)
                 if ids is not None:
                     self._tables[b, cur:need] = ids
                     grow_rows.extend([b] * len(ids))
@@ -1251,34 +1555,56 @@ class ServeEngine:
             copy_blocks(self._pkv, src_d, dst_d)
             extend_block_tables(self._tables_dev, row_d, col_d, dst_d)
 
-    def _preempt(self, slot: int, pf) -> None:
+    def _vacate(self, slot: int, stat: str):
+        """Detach the request seated in ``slot`` and reclaim the seat: its
+        blocks (through the deferred-free fence in async mode: the chunk in
+        flight and a window launched this cycle may still write them), its
+        slot, its mirrors and its device rows; the seat generation bumps,
+        so tokens of the chunk in flight for it are surplus. Counts one
+        ``stat``; returns the request."""
         req = self._slot_req[slot]
         with self._state_lock:
             self._slot_req[slot] = None
             self._slot_out[slot] = None
             self._slot_phase[slot] = None
-            if self.async_decode:
-                # deferred-free FENCE: the chunk in flight (and a window
-                # launched this cycle) may still write these blocks; they
-                # return to the pool two synced chunks later
-                self._pool.free_deferred(self._slot_blocks[slot])
-            else:
-                self._pool.free(self._slot_blocks[slot])
-            self._slot_blocks[slot] = None
+            if self.paged:
+                if self.async_decode:
+                    self._pool.free_deferred(self._slot_blocks[slot])
+                else:
+                    self._pool.free(self._slot_blocks[slot])
+                self._slot_blocks[slot] = None
             self._free_slots.append(slot)
             self._inflight.discard(req)
-            self.stats["preempted"] += 1
-        self._slot_gen[slot] += 1      # in-flight tokens become surplus
-        req.preempted_count += 1
+            self.stats[stat] += 1
+        self._slot_gen[slot] += 1
         self._lengths[slot] = 0
         self._last[slot] = 0
         self._rem[slot] = 0
-        self._slot_prompt[slot] = None
-        self._wp_valid[slot] = False
-        self._tables[slot] = 0
-        self._stall_rem[slot] = 0
-        self._pref_pos[slot] = 0
-        self._clear_rows_dev([slot])
+        if self.paged:
+            self._slot_prompt[slot] = None
+            self._wp_valid[slot] = False
+            self._tables[slot] = 0
+            self._stall_rem[slot] = 0
+            self._pref_pos[slot] = 0
+        if self.paged or self.async_decode:
+            self._clear_rows_dev([slot])
+        return req
+
+    def _preempt(self, slot: int, pf) -> None:
+        """Requeue the seated request at the head of its tier; it replays
+        from its prompt (greedy decode is deterministic). A synchronous
+        slot-state row is CHECKPOINTED instead: its state is copied to host
+        memory with its progress and re-seated exactly at its next
+        admission, with no prefill."""
+        req = self._slot_req[slot]
+        if not self.paged and not self.async_decode \
+                and self._slot_phase[slot] == "decode":
+            req._ssm_ckpt = (self._save_slot_state(slot),
+                             int(self._lengths[slot]),
+                             int(self._last[slot]), int(self._rem[slot]),
+                             list(self._slot_out[slot] or []))
+        self._vacate(slot, "preempted")
+        req.preempted_count += 1
         if self._mh is not None:
             self._mh["preempted"].inc()
             self._note_resident()
@@ -1289,11 +1615,168 @@ class ServeEngine:
         self._scheduler.requeue_front([req])
         self._log("preempt", pf.token, req.id)
 
+    def _evict_row(self, slot: int, pf, err: BaseException,
+                   kind: str) -> None:
+        """Cancel or expire a SEATED row: reclaim its seat as a preemption
+        does, but fail the request typed instead of requeueing it.
+        ``kind`` is the stats and counter key (``"cancelled"`` or
+        ``"expired"``)."""
+        req = self._vacate(slot, kind)
+        req.set_error(err)
+        if self._mh is not None:
+            self._mh[kind].inc()
+            self._note_resident()
+        if self._tr is not None:
+            _t = time.perf_counter()
+            self._phase_end(slot, _t, req)
+            self._tr.instant(kind, f"slot{slot}", _t, {"req": req.id})
+        self._log(kind, pf.token, req.id)
+
+    def _sweep_seated(self, pf) -> None:
+        """The per-cycle SLO sweep, in the decode stage before any launch
+        (so its device writes precede them): seated rows with a cancel
+        request or an elapsed deadline are evicted; the waiting queue's
+        are dropped (:meth:`Scheduler.expire_waiting`); and when every slot
+        is taken, a waiting head of a strictly better tier than the
+        cost-model victim preempts it (one a cycle), so an SLO request does
+        not wait out a best-effort row's whole decode."""
+        now = time.perf_counter()
+        for b in range(len(self._slot_req)):
+            req = self._slot_req[b]
+            if req is None:
+                continue
+            if req._cancel_requested:
+                self._evict_row(b, pf, RequestCancelled(
+                    f"request {req.id} cancelled while {req.state}"),
+                    "cancelled")
+            elif req.expired(now):
+                self._evict_row(b, pf, DeadlineExceeded(
+                    f"request {req.id} deadline ({req.deadline_s:.3f}s) "
+                    f"expired while {req.state} "
+                    f"({now - (req.submitted_at or now):.3f}s after "
+                    f"submit)"), "expired")
+        self._scheduler.expire_waiting(now)
+        head = self._scheduler.peek_head()
+        if head is None:
+            return
+        with self._state_lock:
+            full = len(self._free_slots) <= self._slots_reserved
+        if not full:
+            return
+        live = [v for v in range(len(self._slot_req))
+                if self._slot_req[v] is not None]
+        if not live:
+            return
+        victim = min(live, key=self._victim_score)
+        if self._slot_req[victim].priority > head.priority:
+            self._preempt(victim, pf)
+
+    def _isolate_failure(self, pf, exc: BaseException):
+        """Per-row failure isolation: a raising decode stage fails the rows
+        it could have corrupted, every SEATED row and every admitted group
+        not yet merged, typed :class:`RowFailed` (``__cause__`` is the
+        exception), resets the device state in place and keeps serving;
+        the waiting queue is untouched and replays later.
+
+        The reset keeps every tensor the captured chunk reads at its
+        address: after a device synchronize (the chunk in flight, and
+        window and window-0 prefills on the prefill stream, have finished
+        writing) the pool or slot state, the device tables and the carry
+        are zeroed in place; the host ``BlockPool`` and ``PrefixCache`` are
+        new. The reset epoch bumps under the state lock, so retire payloads
+        and admitted groups of the old epoch free and seat nothing. A
+        sticky CUDA error makes the synchronize raise: the engine then goes
+        broken (every future fails), it never hangs."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        err = RowFailed(
+            f"model step failed ({exc!r}); this row's seat was torn down "
+            f"and the engine kept serving")
+        err.__cause__ = exc
+        B = len(self._slot_gen)
+        now = time.perf_counter()
+        with self._state_lock:
+            self._reset_epoch += 1
+            seated = [(b, r) for b, r in enumerate(self._slot_req)
+                      if r is not None]
+            pre = [r for _, reqs in self._premerge.values() for r in reqs]
+            self._premerge.clear()
+            victims = {r.id: r for _, r in seated}
+            victims.update((r.id, r) for r in pre)
+            for r in victims.values():
+                self._inflight.discard(r)
+            self._slot_req = [None] * B
+            self._slot_out = [None] * B
+            self._slot_phase = [None] * B
+            self._free_slots = list(range(B - 1, -1, -1))
+            self._slots_reserved = 0
+            if self.paged:
+                self._pool = BlockPool(self._pool.num_blocks,
+                                       self._pool.block_size)
+                self._slot_blocks = [None] * B
+            self.stats["row_failures"] += len(victims)
+        # host mirrors and device tensors: the decode stage's own
+        self._slot_gen += 1            # every in-flight token is surplus
+        self._lengths[:] = 0
+        self._last[:] = 0
+        self._rem[:] = 0
+        self._pending = None
+        self._window_pending = None
+        if self.paged:
+            self._pkv.zero_()
+            self._tables_dev.zero_()
+            self._stall_rem[:] = 0
+            self._pref_pos[:] = 0
+            self._wp_valid[:] = False
+            self._tables[:] = 0
+            self._slot_prompt = [None] * B
+            metrics = self.obs.metrics if self.obs is not None else None
+            self._pool.set_metrics(metrics)
+            if self.prefix_cache:
+                self._prefix = PrefixCache(self._pool)
+                self._prefix.set_metrics(metrics)
+        else:
+            for t in _tensors(self._sstate):
+                t.zero_()
+        self._chunk.carry.zero_()
+        for b, r in seated:
+            if self._tr is not None:
+                self._phase_end(b, now, r)
+        for r in victims.values():
+            r.set_error(err)
+        if self._mh is not None and victims:
+            self._mh["row_failed"].inc(len(victims))
+            self._note_resident()
+        if self._tr is not None:
+            self._tr.instant("row_failure_reset", TRACK_ENGINE, now,
+                             {"failed": sorted(victims),
+                              "epoch": self._reset_epoch,
+                              "cause": repr(exc)})
+        self._log("row_failure", pf.token,
+                  {"failed": sorted(victims), "cause": repr(exc)})
+        return ("cycle", (self._reset_epoch, []))
+
     def _st_decode(self, pf, msg):
+        self._wd_beat = time.perf_counter()
         with self._stage_ctx():
-            if self.async_decode:
-                return self._st_decode_async(pf, msg)
-            return self._st_decode_sync(pf, msg)
+            try:
+                if self.async_decode:
+                    out = self._st_decode_async(pf, msg)
+                else:
+                    out = self._st_decode_sync(pf, msg)
+            except Exception as exc:       # per-row failure isolation
+                out = self._isolate_failure(pf, exc)
+        self._wd_beat = time.perf_counter()
+        return out
+
+    def _chunk_sync_faults(self) -> None:
+        """The fault sites at a chunk's read-back (both decode paths)."""
+        if self._fi.fire("chunk_latency"):
+            time.sleep(self._fi.latency_s("chunk_latency"))
+        if self._fi.fire("chunk_sync_exc"):
+            raise FaultInjected("chunk_sync_exc")
+        if self._fi.fire("crash_at"):
+            os._exit(137)              # hard mid-stream death, no cleanup
 
     def _st_decode_sync(self, pf, msg):
         t0 = time.perf_counter()
@@ -1302,7 +1785,8 @@ class ServeEngine:
             if self.paged:
                 self._merge_group(pf, payload)
             else:
-                self._merge_group_slots(payload)
+                self._merge_group_slots(pf, payload)
+        self._sweep_seated(pf)
         if self.paged:
             tg0 = time.perf_counter()
             self._cow_guard(pf)
@@ -1311,16 +1795,24 @@ class ServeEngine:
             if self._tr is not None:
                 self._tr.add("growth", TRACK_ENGINE, tg0,
                              time.perf_counter())
+        elif any(r is not None for r in self._slot_req):
+            # the slot path's preempt site, consulted only in cycles with a
+            # seated row: a lone row's admission cycle and the two pump
+            # cycles minted behind it make a period of PIPELINE_LINES,
+            # which every=3 would otherwise hit on every admission
+            self._fault_preempt(pf)
         rem_before = self._rem.copy()
         if not (rem_before > 0).any():
             self._log("decode", pf.token, 0)
-            return ("cycle", self._collect_finished())
+            return ("cycle", (self._reset_epoch, self._collect_finished()))
         n = self.decode_chunk
         t1 = time.perf_counter()
         self._chunk.carry.copy_(torch.from_numpy(
             np.stack([self._lengths, self._last, self._rem])))
         self._chunk.run()
         t1b = time.perf_counter()   # carry copy + one replay (host enqueue)
+        if self._fi is not None:
+            self._chunk_sync_faults()
         # the chunk's one device sync: tokens and the advanced carry in a
         # single copy back
         host = self._chunk.out.to("cpu", copy=True).numpy()
@@ -1340,6 +1832,7 @@ class ServeEngine:
             self.stats["tokens_out"] += emitted
         retire = self._collect_finished()
         t3 = time.perf_counter()
+        self._note_rate(emitted, t3 - t0)
         if self._mh is not None:
             # dispatch = host enqueue; sync = the wait at the token read-
             # back; book = host work with nothing queued on the device
@@ -1359,7 +1852,7 @@ class ServeEngine:
             tr.add("sync", TRACK_ENGINE, t1b, t2a)
             tr.add("bookkeeping", TRACK_ENGINE, t2a, t3)
         self._log("decode", pf.token, (emitted, t3 - t1))
-        return ("cycle", retire)
+        return ("cycle", (self._reset_epoch, retire))
 
     def _st_decode_async(self, pf, msg):
         """Async decode lookahead (depth 2): dispatch chunk N+1 FIRST (one
@@ -1384,7 +1877,8 @@ class ServeEngine:
             if self.paged:
                 self._merge_group(pf, payload)
             else:
-                self._merge_group_slots(payload)
+                self._merge_group_slots(pf, payload)
+        self._sweep_seated(pf)
         if self.paged:
             tg0 = time.perf_counter()
             self._cow_guard(pf)
@@ -1393,6 +1887,12 @@ class ServeEngine:
             if self._tr is not None:
                 self._tr.add("growth", TRACK_ENGINE, tg0,
                              time.perf_counter())
+        elif any(r is not None for r in self._slot_req):
+            # the slot path's preempt site, consulted only in cycles with a
+            # seated row: a lone row's admission cycle and the two pump
+            # cycles minted behind it make a period of PIPELINE_LINES,
+            # which every=3 would otherwise hit on every admission
+            self._fault_preempt(pf)
         # ---- dispatch chunk N+1 ----
         n = self.decode_chunk
         new_pend = None
@@ -1423,6 +1923,8 @@ class ServeEngine:
         ts = t2
         if pend is not None:
             ts = time.perf_counter()
+            if self._fi is not None:
+                self._chunk_sync_faults()
             toks = HostLink.wait(pend["host"], pend["ev"])[:, :n]
             wait_s = time.perf_counter() - ts
             for b in np.nonzero(pend["rem_before"] > 0)[0]:
@@ -1443,6 +1945,7 @@ class ServeEngine:
             # write that could touch them
             self._pool.release_deferred()
         t3 = time.perf_counter()
+        self._note_rate(emitted, t3 - t0)
         if self._mh is not None:
             mh = self._mh
             gap = 0.0
@@ -1465,7 +1968,7 @@ class ServeEngine:
                 tr.add("sync", TRACK_ENGINE, ts, ts + wait_s)
             tr.add("bookkeeping", TRACK_ENGINE, t2, t3)
         self._log("decode", pf.token, emitted)
-        return ("cycle", retire)
+        return ("cycle", (self._reset_epoch, retire))
 
     def _collect_finished(self) -> List[tuple]:
         """Rows that hit rem == 0: detach them from the batch (their slot
@@ -1513,17 +2016,23 @@ class ServeEngine:
         return retire
 
     def _st_complete(self, pf, msg):
-        _, retire = msg
+        _, (epoch, retire) = msg
         now = time.perf_counter()
         for slot, req, out in retire:
+            # a retiree's tokens are valid whatever happened since; its
+            # blocks and slot go back only if no failure-isolation reset
+            # replaced the pool since its decode stage collected it (the
+            # check and the frees are atomic against the reset's swap)
             self._scheduler.finish(req, out, now)
             with self._state_lock:
                 self._inflight.discard(req)
                 self.stats["retired"] += 1
-                if self.paged:
-                    self._pool.free(self._slot_blocks[slot])
-                    self._slot_blocks[slot] = None
-                self._free_slots.append(slot)
+                if epoch == self._reset_epoch:
+                    if self.paged:
+                        self._pool.free(self._slot_blocks[slot])
+                        self._slot_blocks[slot] = None
+                    self._free_slots.append(slot)
+        self._wd_beat = now
         with self._state_lock:
             self._cycle_tokens.discard(pf.token)
         if retire and self._mh is not None:
@@ -1563,23 +2072,122 @@ class ServeEngine:
             r.set_error(err)
 
     # ----------------------------------------------------------- client API
+    def _shed_budget_for(self, tier: int) -> Optional[float]:
+        """The shed budget of ``tier``: a scalar budget holds for every
+        tier, a dict for its listed tiers only."""
+        b = self._shed_budget
+        if b is None:
+            return None
+        if isinstance(b, dict):
+            v = b.get(tier)
+            return float(v) if v is not None else None
+        return float(b)
+
+    def _note_rate(self, emitted: int, dt: float) -> None:
+        """Fold one decode cycle into the service rate: emitted tokens over
+        the cycle's wall time. Cycles that emitted nothing are skipped
+        (their cost is inside their neighbours' wall time)."""
+        if emitted <= 0 or dt <= 0.0:
+            return
+        r = emitted / dt
+        a = self._rate_alpha
+        self._decode_rate = r if self._decode_rate == 0.0 \
+            else (1.0 - a) * self._decode_rate + a * r
+
+    def _estimated_wait_s(self, priority: int) -> Optional[float]:
+        """Queue-wait estimate of a new request at ``priority``: the
+        resident rows' remaining steps (stalled balances included) plus the
+        ``max_new`` waiting at tiers <= ``priority``, over the service rate.
+        Until the first tokens: the p90 of ``serve.queue_wait_s`` (after 8
+        admissions) times the backlog in admission waves. None without
+        either signal (a cold engine never sheds)."""
+        rate = self._decode_rate
+        if rate > 0.0:
+            resident = 0
+            # lock-free mirror reads: at worst one cycle stale
+            for b in range(len(self._rem)):
+                if self._slot_req[b] is None:
+                    continue
+                resident += int(self._rem[b])
+                if self.paged:
+                    resident += int(self._stall_rem[b])
+            backlog = self._scheduler.waiting_tokens_upto(priority)
+            return (resident + backlog) / rate
+        if self._mh is None:
+            return None
+        h = self._mh["qwait"]
+        if h.count < 8:
+            return None
+        base = h.percentile(90.0)
+        backlog = self._scheduler.num_waiting_upto(priority)
+        waves = 1.0 + backlog / float(self._scheduler.max_admit)
+        return base * waves
+
+    def _hopeless_why(self, r: ServeRequest) -> Optional[str]:
+        """Deadline check at the admission head: a request whose remaining
+        budget cannot cover its prefill and decode at the service rate
+        fails typed :class:`DeadlineExceeded` before it takes a slot. With
+        no rate yet nothing is hopeless."""
+        if r.deadline_at is None:
+            return None
+        rate = self._decode_rate
+        if rate <= 0.0:
+            return None
+        remaining = r.deadline_at - time.perf_counter()
+        est = (r.prompt_len + r.max_new) / rate
+        if est <= remaining:
+            return None
+        return (f"hopeless at admission: estimated prefill+decode "
+                f"{est:.3f}s exceeds the remaining deadline budget "
+                f"{remaining:.3f}s at the observed service rate "
+                f"{rate:.1f} tok/s")
+
     def submit(self, prompt, max_new: int = 16, *,
-               priority: int = 0) -> ServeRequest:
+               priority: int = 0,
+               deadline_s: Optional[float] = None) -> ServeRequest:
         """Enqueue one greedy generation request on the resident pipeline
         and return its future. Thread-safe; callable while earlier requests
         are mid-decode. ``priority`` is the scheduling tier (0 = highest;
-        the preemption cost model victimizes the highest tier first)."""
+        the preemption cost model victimizes the highest tier first).
+        ``deadline_s`` bounds the request's latency from now: past it the
+        request fails typed :class:`DeadlineExceeded`, queued or seated,
+        and its seat is reclaimed. With a shed budget for the tier, an
+        estimated queue wait over the budget (or over ``deadline_s``)
+        raises :class:`Overloaded` here, before the request queues."""
         if self._broken is not None:
             raise RuntimeError("serve pipeline is broken") from self._broken
         if self._closing:
             raise EngineClosed("engine is closed")
-        req = ServeRequest(prompt, max_new, priority=priority)
+        req = ServeRequest(prompt, max_new, priority=priority,
+                           deadline_s=deadline_s)
         total = req.prompt_len + req.max_new
         if total > self._max_seq:
             raise ValueError(
                 f"prompt+max_new = {total} exceeds max_seq_len "
                 f"{self._max_seq}")
-        req.submitted_at = time.perf_counter()
+        budget = self._shed_budget_for(req.priority)
+        if budget is not None:
+            est = self._estimated_wait_s(req.priority)
+            limit = budget if deadline_s is None \
+                else min(budget, deadline_s)
+            if est is not None and est > limit:
+                with self._state_lock:
+                    self.stats["shed"] += 1
+                if self._mh is not None:
+                    self._mh["shed"].inc()
+                depth = self._scheduler.num_waiting_upto(req.priority)
+                raise Overloaded(
+                    f"request shed at submit: estimated queue wait "
+                    f"{est:.3f}s exceeds the tier-{req.priority} budget "
+                    f"{limit:.3f}s (backlog {depth} at tiers <= "
+                    f"{req.priority})",
+                    tier=req.priority, est_wait_s=est, budget_s=limit,
+                    queue_depth=depth)
+        now = time.perf_counter()
+        req.submitted_at = now
+        if req.deadline_s is not None:
+            req.deadline_at = now + req.deadline_s
+        self._wd_beat = now
         self._scheduler.enqueue(req)
         self._pump()
         return req

@@ -9,7 +9,8 @@ writes ``BENCH_<suite>.json`` with the keys of the reference's
 ``benchmarks/run.py:_write_trajectory``. The serve suite's rows carry the
 reference's continuous and prefix-share row names (its per-call rows are
 not ported; the port adds the cycle split), read from the port's registry,
-and its trace file loads as Chrome trace-event JSON. Timings are
+and its trace file loads as Chrome trace-event JSON; so do the SLO
+suite's (``serve_slo``), whose quick run must shed or expire. Timings are
 host-clock numbers of this machine and are not compared.
 """
 import json
@@ -101,8 +102,8 @@ def test_run_writes_the_reference_trajectory_schema(tmp_path):
 
 
 def test_run_refuses_unported_and_unknown_suites():
-    with pytest.raises(SystemExit, match="item 6"):
-        trun.main(["--device", "cpu", "--only", "serve_slo"])
+    with pytest.raises(SystemExit, match="item 7"):
+        trun.main(["--device", "cpu", "--only", "journal_gate"])
     with pytest.raises(SystemExit, match="unknown suite"):
         trun.main(["--device", "cpu", "--only", "fig99"])
 
@@ -196,6 +197,29 @@ def test_run_serves_prefix_share_and_the_obs_gate(tmp_path, monkeypatch):
     assert [r["name"] for r in gate["rows"]] == [
         "obs_gate_off_tok_per_s", "obs_gate_on_tok_per_s",
         "obs_gate_overhead_frac", "obs_gate"]
+
+
+def test_serve_slo_rows_carry_the_reference_names(tmp_path):
+    """The SLO suite through the harness at quick size: the reference's
+    row names in its order (read from ``benchmarks/serve_slo.py``'s
+    source; the tier-1 TTFT row only when a tier-1 request got a first
+    token, as there), the overload controls engaged, its trace beside the
+    BENCH file."""
+    rc = trun.main(["--device", "cpu", "--quick", "--only", "serve_slo",
+                    "--bench-dir", str(tmp_path)])
+    assert rc == 0
+    src = (ROOT / "benchmarks" / "serve_slo.py").read_text()
+    want = re.findall(r'yield \(\s*"([a-z0-9_]+)"', src)
+    got = json.loads((tmp_path / "BENCH_serve_slo.json").read_text())
+    names = [r["name"] for r in got["rows"]]
+    assert [n for n in want if n in names] == names
+    assert set(want) - set(names) <= {"serve_slo_tier1_ttft_p50_ms"}
+    val = {r["name"]: r["value"] for r in got["rows"]}
+    assert int(val["serve_slo_shed"]) + int(val["serve_slo_expired"]) > 0
+    assert float(val["serve_slo_tier0_ttft_p99_ms"]) > 0
+    trace = json.loads((tmp_path / "TRACE_serve_slo.json").read_text())
+    assert trace["otherData"]["spans"] == int(val["serve_slo_trace_spans"])
+    assert "serve_slo" not in trun.NOT_PORTED
 
 
 def test_obs_gate_measures_both_modes_on_cpu():

@@ -39,7 +39,8 @@ def test_import_without_gpu_leaves_jax_out():
         "repro_torch.bench.pipeline_throughput, "
         "repro_torch.examples.quickstart, repro_torch.obs, "
         "repro_torch.serve.prefix, repro_torch.bench.serve_continuous, "
-        "repro_torch.bench.obs_overhead_gate\n"
+        "repro_torch.bench.obs_overhead_gate, "
+        "repro_torch.serve.faultinject, repro_torch.bench.serve_slo\n"
         "from repro_torch.models.lm import forward, loss_fn\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -357,7 +357,12 @@ def _lifecycle(side, tmp_path):
         == len(reqs)
     slot_names = sorted({n for n, v in by_name.items()
                          if any(t.startswith("slot") for t, *_ in v)})
-    return [o.tolist() for o in outs], slot_names
+    return [o.tolist() for o in outs], slot_names, set(snap)
+
+
+#: metrics the reference engine binds that the port's does not yet: the
+#: recovery counters come with the journal (ROADMAP Queue 1 item 7)
+NOT_BOUND_YET = {"serve.recovered", "serve.replayed_tokens"}
 
 
 def _preemption(side):
@@ -388,10 +393,15 @@ def _preemption(side):
 
 
 def test_engine_lifecycle_spans_and_metric_consistency(tmp_path):
-    ref_outs, ref_names = _lifecycle("jax", tmp_path)
-    outs, names = _lifecycle("torch", tmp_path)
+    ref_outs, ref_names, ref_metrics = _lifecycle("jax", tmp_path)
+    outs, names, metrics = _lifecycle("torch", tmp_path)
     assert outs == ref_outs
     assert names == ref_names
+    # the port binds what the reference binds (the SLO and failure
+    # counters included), but the recovery counters
+    assert metrics == ref_metrics - NOT_BOUND_YET
+    assert {"serve.shed", "serve.expired", "serve.cancelled",
+            "serve.watchdog_fires", "serve.row_failures"} <= metrics
 
 
 def test_preemption_reentry_visible_in_trace():

@@ -23,6 +23,7 @@ from repro_torch.launch import serve as launcher
 from repro_torch.params import from_reference, init_params
 from repro_torch.serve import engine as tengine
 from repro_torch.serve.engine import ServeEngine, UnsupportedArch
+from repro_torch.serve.errors import RowFailed
 
 
 @pytest.fixture(scope="module")
@@ -254,13 +255,32 @@ def test_unported_archs_raise_typed(arch):
 
 def test_stage_failure_fails_every_outstanding_future(fp32_setup,
                                                       monkeypatch):
+    """A raising decode chunk fails its rows typed and the engine serves
+    on (failure isolation); a raising complete stage, which nothing
+    isolates, breaks the engine and fails every outstanding future."""
     cfg, _, tp = fp32_setup
 
     def boom(*a, **k):
         raise RuntimeError("injected decode failure")
 
-    monkeypatch.setattr(tengine.lm, "decode_chunk_paged", boom)
+    with monkeypatch.context() as m:
+        m.setattr(tengine.lm, "decode_chunk_paged", boom)
+        eng = ServeEngine(cfg, tp, device="cpu")
+        try:
+            reqs = [eng.submit(p, max_new=4)
+                    for p in _prompts(cfg, [5, 7, 3])]
+            for r in reqs:
+                with pytest.raises(RowFailed):
+                    r.result(timeout=60)
+            assert eng._broken is None
+        finally:
+            eng.close(timeout=5)
     eng = ServeEngine(cfg, tp, device="cpu")
+
+    def finish(*a, **k):
+        raise RuntimeError("injected complete failure")
+
+    eng._scheduler.finish = finish
     try:
         reqs = [eng.submit(p, max_new=4) for p in _prompts(cfg, [5, 7, 3])]
         for r in reqs:
