@@ -73,8 +73,34 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               ``RowFailed`` while the one capture keeps replaying (later
               tokens a fresh engine's); ``chunk_latency`` past
               ``watchdog_s`` raises ``WatchdogTimeout`` within ~2x the
-              budget; a JSON line ``{"slo_modes": ...}``; then stablelm's
-              weights are freed;
+              budget; a JSON line ``{"slo_modes": ...}``;
+5d. durable — durable serving on the same weights (bf16, prefix cache,
+              captured chunk, sync and async): the prefix-share trace,
+              ``drain()``, ``snapshot()`` (bytes, seconds, host bytes
+              moved), a fresh engine's in-place ``restore()`` (pool
+              address and graph unchanged) whose first request of a known
+              prefix hits warm, its TTFT beside a cold engine's; a flipped
+              byte raises ``SnapshotCorrupt`` and recovers cold; in fp32 at
+              full width and 4 layers a restored engine's tokens equal a
+              fresh one's; ``drain(deadline_s=0.02)`` with rows seated
+              preempts them (sync and async), the snapshot queues every
+              unfinished request, ``close()`` fails them typed and a
+              restored engine resubmitting them gives an uninterrupted
+              run's tokens; a subprocess on the card
+              (``repro_torch.launch.incarnation``) killed by
+              ``crash_at:at=3`` (sync and async side by side) is recovered
+              by a fresh process with an uncrashed run's tokens;
+              ``journal_gate`` (``--quick``) within its 5% budget, with
+              each mode's prefill groups; a JSON line
+              ``{"durable": ...}``;
+5e. percall — the per-call contiguous-decode baseline: in fp32 at full
+              width and 4 layers ``lm.decode_step`` against
+              ``decode_step_paged`` (K1) per step, and
+              ``_generate_grouped``'s tokens equal the resident engine's;
+              then the serve suite with its per-call arm on a 24-request
+              trace (bf16, full depth): per-call tok/s and latency
+              p50/p99 beside the continuous engine's, a JSON line
+              ``{"percall": ...}``; then stablelm's weights are freed;
 6. k3       — K3 (the Mamba1 selective scan) against its plain sequential
               version at the SSM prefill path's shapes (B=1, dI=8192, N=16,
               S in {16, 57, 300}, bf16 x/B/C, fp32 dt), a ragged, a B=4, an
@@ -201,6 +227,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2713,6 +2740,445 @@ def phase_slot_preempt(dev, cfg, tag: str, layers: int) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 5d
+#: the durable phase's state files and its kill-and-recover runs
+DURABLE_DIR = Path("build") / "durable"
+#: its fp32 checks (the restored replay, kill and recover) cut stablelm to
+#: its first 4 layers at full width
+DURABLE_FP32_LAYERS = 4
+#: the drain-deadline check: new tokens a request asks for (enough that
+#: rows are still seated when the deadline passes) and the deadline
+DRAIN_MAX_NEW = 160
+DRAIN_DEADLINE_S = 0.02
+
+
+def _durable_procs(argvs):
+    """Run ``repro_torch.launch.incarnation`` once per argument list, all
+    at once on the card; returns their (rc, stdout, stderr)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src")}
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "repro_torch.launch.incarnation", *a],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for a in argvs]
+    out = []
+    for pr in procs:
+        try:
+            o, e = pr.communicate(timeout=300)
+        finally:
+            pr.kill()
+        out.append((pr.returncode, o, e))
+    return out
+
+
+def _parse_durable(stdout):
+    done, replayed = {}, {}
+    for line in stdout.splitlines():
+        parts = line.split()
+        if parts and parts[0] in ("DONE", "REPLAYED"):
+            (done if parts[0] == "DONE" else replayed)[int(parts[1])] = \
+                [int(t) for t in parts[2].split(",")]
+    return done, replayed
+
+
+def _first_ttft(eng, prompt, max_new: int):
+    """(tokens, TTFT s) of one request submitted to an idle engine."""
+    r = eng.submit(prompt, max_new)
+    out = eng.result(r, timeout=300.0)
+    return out, r.first_token_at - r.submitted_at
+
+
+def phase_durable(dev, cfg, params, card: str) -> dict:
+    """Durable serving on the card (``ServeEngine.drain``, ``snapshot``,
+    ``restore``, ``recover``; the journal). With ``params`` (stablelm-1.6b
+    at full width and depth, bf16), the paged engine with the prefix cache
+    and the captured chunk, synchronous and async: serve the prefix-share
+    trace, ``drain()`` and ``snapshot()`` (bytes, seconds, the host bytes
+    the block-only copy moved against the whole pool's); a
+    fresh engine, its chunk captured in the constructor, ``restore()``s it
+    (seconds) with ``_pkv.data_ptr()`` and the graph unchanged, and its
+    first request of a known prefix hits warm (``prefix.warm_hits``), its
+    TTFT beside a fresh cold engine's; a flipped byte raises
+    ``SnapshotCorrupt`` and ``recover()`` starts cold with the cold
+    engine's tokens. In fp32 at full width and DURABLE_FP32_LAYERS layers:
+    a restored engine's replays give a fresh engine's tokens;
+    ``drain(deadline_s=DRAIN_DEADLINE_S)`` with rows seated preempts them
+    through the sweep's drain branch (sync and async), the snapshot queues
+    every unfinished request, ``close()`` fails them typed, and a restored
+    engine resubmitting the queue gives an uninterrupted run's tokens; a
+    subprocess on the card (``repro_torch.launch.incarnation``) killed by
+    ``crash_at:at=3`` (rc 137), sync and async side by side, and a fresh
+    process that recovers replays every unfinished request with an
+    uncrashed run's tokens. Then ``journal_gate`` at ``--quick``: its rows
+    and each mode's prefill groups; over its 5% budget it raises.
+    Returns the bf16 runs' K1 and K2 launches."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.bench import journal_gate
+    from repro_torch.bench import serve_continuous as sc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import incarnation
+    from repro_torch.obs import Observability
+    from repro_torch.serve.engine import SNAPSHOT_FILE, ServeEngine
+    from repro_torch.serve.errors import ServeError, SnapshotCorrupt
+    from repro_torch.serve.snapshot import corrupt_snapshot, read_snapshot
+
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    DURABLE_DIR.mkdir(parents=True)
+    V = cfg.vocab_size
+    ptrace, geom = sc.prefix_share_trace(False)
+    max_new = max(mn for _, _, mn in ptrace)
+    kw = dict(decode_chunk=geom["chunk"], block_size=8, prefill_chunk=16,
+              kv_blocks=geom["kv_blocks"], prefix_cache=True, device=dev,
+              max_seq_len=-(-(max(len(p) for _, p, _ in ptrace) + max_new)
+                            // 8) * 8)
+    first = ptrace[0][1]
+    total = {"paged_attention": 0, "flash_attention": 0}
+    numbers = {}
+
+    def check(out, tag):
+        if out.ndim != 1 or len(out) != max_new \
+                or not ((out >= 0) & (out < V)).all():
+            raise SystemExit(f"[durable] {tag}: bad output {out}")
+
+    for mode, extra in (("sync", {}), ("async", {"async_decode": True})):
+        tag = f"durable/{mode}"
+        sdir = DURABLE_DIR / mode
+        sdir.mkdir()
+        snap = str(sdir / SNAPSHOT_FILE)
+        ops.reset_launch_counts()
+        obs = Observability()
+        with ServeEngine(cfg, params, obs=obs, **kw, **extra) as eng:
+            _, outs, dt = sc._replay(eng, ptrace, obs)
+            for o in outs:
+                check(o, tag)
+            if not eng.drain(timeout=60.0):       # the trace is served
+                raise SystemExit(f"[{tag}] drain did not settle")
+            t0 = time.perf_counter()
+            nbytes = eng.snapshot(snap)
+            t_snap = time.perf_counter() - t0
+            pool_bytes = eng._pkv.numel() * eng._pkv.element_size()
+            hits = eng.stats["prefix_hits"]
+        meta, arrays = read_snapshot(snap)
+        moved = arrays["prefix_pages"].nbytes
+        with ServeEngine(cfg, params, **kw, **extra) as cold:
+            c_out, c_ttft = _first_ttft(cold, first, max_new)
+        wobs = Observability()
+        with ServeEngine(cfg, params, obs=wobs, **kw, **extra) as warm:
+            graph, ptr = warm._chunk.graph, warm._pkv.data_ptr()
+            t0 = time.perf_counter()
+            warm.restore(snap)
+            t_restore = time.perf_counter() - t0
+            if warm._pkv.data_ptr() != ptr or warm._chunk.graph is not graph:
+                raise SystemExit(f"[{tag}] restore moved the pool or "
+                                 "re-captured the chunk")
+            replays = warm._chunk.replays
+            w_out, w_ttft = _first_ttft(warm, first, max_new)
+            whits = wobs.metrics.get("prefix.warm_hits").value
+            if whits < 1 or (graph is not None
+                             and warm._chunk.replays <= replays):
+                raise SystemExit(f"[{tag}] first request after restore: "
+                                 f"warm hits {whits}, replays "
+                                 f"{warm._chunk.replays - replays}")
+            warm_started = warm.stats["warm_started"]
+        check(c_out, tag)
+        check(w_out, tag)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for k in total:
+            total[k] += counts[k]
+        if counts["paged_attention"] == 0 or counts["flash_attention"] == 0:
+            raise SystemExit(f"[{tag}] K1/K2 not launched: {counts}")
+        same = w_out.tolist() == c_out.tolist()
+        log(f"[{tag}] {len(ptrace)} prefix-share requests in {dt:.3f}s "
+            f"({hits} hits); snapshot {nbytes} bytes "
+            f"in {t_snap:.3f}s ({len(meta['prefix'])} nodes, {moved} host "
+            f"bytes moved against the whole pool's {pool_bytes}); restore "
+            f"{t_restore:.3f}s, {warm_started} warm nodes, pool address "
+            f"and graph unchanged; first request TTFT warm "
+            f"{w_ttft * 1e3:.2f} ms against cold {c_ttft * 1e3:.2f} ms "
+            f"(warm hits {whits}; bf16 tokens warm == cold: {same}); "
+            f"launches {counts} on {card}")
+        numbers[mode] = {"snapshot_bytes": nbytes, "snapshot_s": t_snap,
+                         "host_bytes": moved, "pool_bytes": pool_bytes,
+                         "restore_s": t_restore,
+                         "ttft_warm_ms": w_ttft * 1e3,
+                         "ttft_cold_ms": c_ttft * 1e3}
+        if mode == "sync":
+            # a flipped byte: typed, and recover() starts cold with the
+            # cold engine's tokens
+            bad = DURABLE_DIR / "corrupt"
+            bad.mkdir()
+            shutil.copy(snap, bad / SNAPSHOT_FILE)
+            corrupt_snapshot(str(bad / SNAPSHOT_FILE))
+            with ServeEngine(cfg, params, **kw) as eng:
+                try:
+                    eng.restore(str(bad / SNAPSHOT_FILE))
+                    raise SystemExit("[durable] a flipped byte restored")
+                except SnapshotCorrupt as e:
+                    why = str(e)
+                eng.recover(str(bad))
+                out, _ = _first_ttft(eng, first, max_new)
+                if eng.stats["warm_started"] or \
+                        out.tolist() != c_out.tolist():
+                    raise SystemExit("[durable] corrupt snapshot: not a "
+                                     "cold start with the cold tokens")
+            log(f"[durable] flipped byte: SnapshotCorrupt ({why}); "
+                "recover() started cold with the cold engine's tokens")
+
+    # fp32 at full width and DURABLE_FP32_LAYERS layers: a restored engine
+    # replays with a fresh engine's tokens
+    L32 = min(DURABLE_FP32_LAYERS, cfg.num_layers)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", num_layers=L32)
+    p32 = _fp32_params(params, L32)
+    prompts = [p for _, p, _ in ptrace[:8]]
+    snap32 = str(DURABLE_DIR / "fp32.snap")
+    with ServeEngine(c32, p32, **kw) as eng:
+        eng.generate(prompts, max_new)
+        eng.drain()
+        eng.snapshot(snap32)
+    with ServeEngine(c32, p32, **{**kw, "prefix_cache": False}) as fresh:
+        want = [o.tolist() for o in fresh.generate(prompts, max_new)]
+    for mode, extra in (("sync", {}), ("async", {"async_decode": True})):
+        with ServeEngine(c32, p32, **kw, **extra) as eng:
+            ptr = eng._pkv.data_ptr()
+            eng.restore(snap32)
+            got = [o.tolist() for o in eng.generate(prompts, max_new)]
+            hits = eng._prefix.stats["warm_hits"]
+            if eng._pkv.data_ptr() != ptr or got != want or hits < 1:
+                raise SystemExit(f"[durable] fp32 L={L32} {mode}: restored "
+                                 f"replay differs from a fresh engine "
+                                 f"(warm hits {hits})")
+        log(f"[durable] fp32 L={L32} {mode}: after restore ({hits} warm "
+            f"hits) the captured chunk's replays give a fresh engine's "
+            f"tokens on all {len(prompts)} requests")
+
+    # a drain whose deadline passes with rows seated: the sweep's drain
+    # branch preempts them under the captured chunk, the snapshot's queue
+    # holds every unfinished request, close() fails them typed, and a
+    # restored engine resubmitting the queue gives an uninterrupted run's
+    # tokens
+    dprompts = prompts[:4]
+    dkw = {**kw, "kv_blocks": 192, "max_seq_len": -(-(max(
+        len(p) for p in dprompts) + DRAIN_MAX_NEW) // 8) * 8}
+    with ServeEngine(c32, p32, **{**dkw, "prefix_cache": False}) as fresh:
+        dwant = [o.tolist() for o in fresh.generate(dprompts, DRAIN_MAX_NEW)]
+    for mode, extra in (("sync", {}), ("async", {"async_decode": True})):
+        dsnap = str(DURABLE_DIR / f"drain-{mode}.snap")
+        with ServeEngine(c32, p32, **dkw, **extra) as eng:
+            reqs = [eng.submit(p, DRAIN_MAX_NEW) for p in dprompts]
+            while all(r.first_token_at is None for r in reqs):
+                time.sleep(0.001)
+            seated = sum(r is not None for r in eng._slot_req)
+            t0 = time.perf_counter()
+            if not eng.drain(deadline_s=DRAIN_DEADLINE_S, timeout=60.0):
+                raise SystemExit(f"[durable] drain {mode}: not settled")
+            t_drain = time.perf_counter() - t0
+            preempted = eng.stats["drain_preempted"]
+            eng.snapshot(dsnap)
+        index = {r.id: i for i, r in enumerate(reqs)}
+        done, lost = {}, set()
+        for i, r in enumerate(reqs):
+            try:
+                done[i] = r.result(timeout=5.0).tolist()
+            except ServeError:
+                lost.add(i)
+        meta, _ = read_snapshot(dsnap)
+        queued = {index[d["id"]] for d in meta["queue"]}
+        if preempted < 1 or queued != lost:
+            raise SystemExit(f"[durable] drain {mode}: {preempted} rows "
+                             f"preempted, queue {sorted(queued)}, failed "
+                             f"typed at close {sorted(lost)}")
+        with ServeEngine(c32, p32, **dkw, **extra) as eng:
+            ptr = eng._pkv.data_ptr()
+            again = {index[d["id"]]: eng.submit(d["prompt"], d["max_new"])
+                     for d in eng.restore(dsnap)}
+            for i, r in again.items():
+                done[i] = eng.result(r).tolist()
+            if eng._pkv.data_ptr() != ptr:
+                raise SystemExit(f"[durable] drain {mode}: restore moved "
+                                 "the pool")
+        bad = [i for i in range(len(dprompts)) if done.get(i) != dwant[i]]
+        if bad:
+            raise SystemExit(f"[durable] drain {mode}: requests {bad} differ "
+                             "from an uninterrupted run")
+        log(f"[durable] fp32 L={L32} {mode}: drain(deadline_s="
+            f"{DRAIN_DEADLINE_S}) with {seated} rows seated settled in "
+            f"{t_drain:.3f}s, {preempted} preempted; the snapshot queued "
+            f"{sorted(queued)} (failed typed at close), and a restored "
+            f"engine resubmitting them gave an uninterrupted run's tokens "
+            f"on all {len(dprompts)} requests")
+        numbers[f"drain_{mode}"] = {"seated": seated, "preempted": preempted,
+                                    "drain_s": t_drain}
+
+    # the crash: an uncrashed oracle here, on the same weights; then a
+    # crash_at process per mode side by side, then their recoveries
+    with incarnation.engine(c32, p32, dev) as eng:
+        oracle = [eng.result(r).tolist()
+                  for r in [eng.submit(p, incarnation.MAX_NEW)
+                            for p in incarnation.prompts(V)]]
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    argvs = [["--state-dir", str(DURABLE_DIR / f"crash-{m}"),
+              "--layers", str(L32)] + a
+             for m, a in (("sync", []), ("async", ["--async"]))]
+    crashed = _durable_procs([a + ["--fault-inject", "crash_at:at=3"]
+                              for a in argvs])
+    recovered = _durable_procs([a + ["--no-submit"] for a in argvs])
+    for (m, c, r) in zip(("sync", "async"), crashed, recovered):
+        if c[0] != 137:
+            raise SystemExit(f"[durable] crash_at {m}: rc {c[0]}\n"
+                             f"{c[2][-3000:]}")
+        if r[0] != 0 or not r[1].rstrip().endswith("EXIT CLEAN"):
+            raise SystemExit(f"[durable] recover {m}: rc {r[0]}\n"
+                             f"{r[2][-3000:]}")
+        done, _ = _parse_durable(c[1])
+        rdone, replayed = _parse_durable(r[1])
+        if rdone or not replayed or set(done) & set(replayed):
+            raise SystemExit(f"[durable] {m}: done {sorted(done)}, "
+                             f"replayed {sorted(replayed)}")
+        for i, want in enumerate(oracle):
+            got = done.get(i) or replayed.get(i)
+            if got != want:
+                raise SystemExit(f"[durable] {m}: request {i} "
+                                 f"{'lost' if got is None else 'diverged'}")
+        log(f"[durable] fp32 L={L32} {m}: crash_at:at=3 exited 137 after "
+            f"{sorted(done)} finished; the recovering process replayed "
+            f"{sorted(replayed)} with the uncrashed run's tokens")
+    log(f"[durable] kill and recover, 4 processes: "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # the gate at --quick: its rows, each mode's prefill groups and tok/s
+    # quartiles, the per-pair ratios' quartiles and the threads alive in
+    # this process (each can take the GIL a journal write releases); over
+    # its budget it raises
+    threads = threading.active_count()
+    g = journal_gate.measure(quick=True, device=dev)
+    q = {m: np.percentile(g["samples"][m], [25, 50, 75]).round().tolist()
+         for m in ("off", "on")}
+    pq = np.percentile(np.asarray(g["samples"]["on"])
+                       / np.asarray(g["samples"]["off"]),
+                       [25, 50, 75]).round(4).tolist()
+    log(f"[durable] journal_gate (smoke config, --quick, {g['reps']} "
+        f"off/on pairs, {g['records']} records, {threads} threads): tok/s "
+        f"quartiles off {q['off']}, on {q['on']}; on/off quartiles {pq}; "
+        f"prefill groups off {sorted(set(g['prefills']['off']))}, on "
+        f"{sorted(set(g['prefills']['on']))} on {card}")
+    for row in journal_gate.rows(g):
+        log(f"[durable] {','.join(row)}")
+    numbers["journal_gate_ratio"] = g["ratio"]
+    log(json.dumps({"durable": numbers}))
+    return total
+
+
+# ------------------------------------------------------------------ phase 5e
+#: the percall phase's shortened serve trace (the per-call arm serves one
+#: request after another, eagerly, ~0.8-1 s each at full width)
+PERCALL_N_REQ = 24
+#: its fp32 checks cut stablelm to its first 4 layers at full width
+PERCALL_FP32_LAYERS = 4
+
+
+def phase_percall(dev, cfg, params, card: str) -> dict:
+    """The per-call contiguous-decode baseline on the card. In fp32 at full
+    width and PERCALL_FP32_LAYERS layers: ``lm.decode_step`` from a
+    contiguous ``lm.prefill`` cache against ``lm.decode_step_paged`` (K1)
+    over the same KV scattered into a paged pool, per step (logits within
+    STEP_REL_TOL, the same greedy tokens fed to both); and
+    ``_generate_grouped``'s tokens equal to the resident engine's. Then the
+    serve suite with its per-call arm (``bench/serve_continuous.py``) at
+    the reference's non-quick shapes on a trace of PERCALL_N_REQ requests
+    with ``params`` (bf16, full depth): its rows, per-call tok/s and
+    latency p50/p99 beside the continuous engine's. Returns the suite's K1
+    and K2 launches."""
+    import dataclasses
+
+    from repro_torch.bench import serve_continuous as sc
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import init_kv_pool, scatter_prefill_rows
+
+    L32 = min(PERCALL_FP32_LAYERS, cfg.num_layers)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", num_layers=L32)
+    p32 = _fp32_params(params, L32)
+    rng = np.random.default_rng(3)
+    B, S, steps, bs = 4, 48, 8, 16
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S))
+                            .astype(np.int32)).to(dev)
+    nb = -(-(S + steps) // bs)
+    with torch.inference_mode():
+        # one prefill feeds both: its contiguous cache, and a pool of
+        # 1 + B x nb blocks holding the same KV (row b in blocks
+        # 1 + b*nb ...)
+        logits, cache = lm.prefill(c32, p32, toks, max_len=nb * bs)
+        pool = init_kv_pool(c32, 1 + B * nb, bs, dev)
+        tables = torch.arange(1, 1 + B * nb, dtype=torch.int32,
+                              device=dev).reshape(B, nb)
+        scatter_prefill_rows(pool, tables, cache["k"], cache["v"])
+        cur = torch.argmax(logits, -1).to(torch.int32)
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+        layers = lm.layer_views(p32)
+        for step in range(steps):
+            lc, cache = lm.decode_step(c32, p32, cache, cur, layers=layers)
+            lp, _ = lm.decode_step_paged(c32, p32, pool, tables, lengths,
+                                         cur, active, impl="kernel",
+                                         layers=layers)
+            _compare(f"fp32 L={L32} decode_step vs decode_step_paged (K1) "
+                     f"step {step}", lc.float(), lp.float(),
+                     STEP_REL_TOL["float32"], tag="percall")
+            cur = torch.argmax(lc, -1).to(torch.int32)
+            lengths += 1
+    del pool, cache
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (16, 24, 16, 32, 57, 24, 90, 32)]
+    with ServeEngine(c32, p32, device=dev) as eng:
+        res = [o.tolist() for o in eng.generate(prompts, MAX_NEW)]
+        grp = [o.tolist() for o in eng._generate_grouped(prompts, MAX_NEW)]
+    if grp != res:
+        bad = [i for i, (a, b) in enumerate(zip(grp, res)) if a != b]
+        raise SystemExit(f"[percall] fp32 L={L32}: _generate_grouped tokens "
+                         f"differ from the resident engine's on {bad}")
+    log(f"[percall] fp32 L={L32}: _generate_grouped tokens equal the "
+        f"resident engine's on all {len(prompts)} requests")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    sizes = sc._sample_lens(rng, PERCALL_N_REQ, "choice", False)
+    trace = sc._trace(rng, sizes, 20.0, 32)
+    ops.reset_launch_counts()
+    run = sc.continuous_run(cfg, params, trace, chunk=8, device=dev)
+    base = sc.percall_run(cfg, params, trace, chunk=8, device=dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for o in list(run["outs"]) + list(base["outs"]):
+        if o.ndim != 1 or len(o) != 32 \
+                or not ((o >= 0) & (o < cfg.vocab_size)).all():
+            raise SystemExit(f"[percall] bad output {o}")
+    rows = list(sc.continuous_rows(run, sizes, "choice", base))
+    for name, val, derived in rows:
+        log(f"[percall] {name},{val},{derived}")
+    if counts["paged_attention"] == 0 \
+            or counts["flash_attention"] < cfg.num_layers * PERCALL_N_REQ:
+        raise SystemExit(f"[percall] launches {counts}: K1 or the per-call "
+                         "prefills' K2 missing")
+    val = {n: v for n, v, _ in rows}
+    log(json.dumps({"percall": {k: float(val[k]) for k in (
+        "serve_continuous_tok_per_s", "serve_continuous_p50_ms",
+        "serve_continuous_p99_ms", "serve_percall_tok_per_s",
+        "serve_percall_p50_ms", "serve_percall_p99_ms")}}))
+    log(f"[percall] {PERCALL_N_REQ} requests: continuous {run['dt']:.3f}s, "
+        f"per-call {base['dt']:.3f}s; launches {counts} on {card}")
+    return counts
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other-csrc", type=Path, default=None, help=(
@@ -2745,10 +3211,14 @@ def main(argv=None) -> None:
     pcounts = phase_prefix(dev, cfg, params, smi)
     done("prefix (serve suite, prefix cache, obs)")
     scounts = phase_slo(dev, cfg, params, smi)
+    done("slo (serve_slo suite, faults, isolation, watchdog)")
+    dcounts = phase_durable(dev, cfg, params, smi)
+    done("durable (drain, snapshot, restore, kill and recover, journal)")
+    ccounts = phase_percall(dev, cfg, params, smi)
     del params
     gc.collect()              # free the serve phase's weights and pool
     torch.cuda.empty_cache()
-    done("slo (serve_slo suite, faults, isolation, watchdog)")
+    done("percall (decode_step, the per-call serve arm)")
     report["mamba_scan"] = phase_k3(dev, args.other_csrc)
     done("K3")
     mcfg, mparams, mprompts, mcounts = phase_serve_ssm(dev, card=smi)
@@ -2784,11 +3254,13 @@ def main(argv=None) -> None:
     done("condgraph and the quick bench pass")
     report["paged_attention"]["launches"] = counts["paged_attention"] \
         + acounts["paged_attention"] + pcounts["paged_attention"] \
-        + scounts["paged_attention"] + qcounts["paged_attention"] \
+        + scounts["paged_attention"] + dcounts["paged_attention"] \
+        + ccounts["paged_attention"] + qcounts["paged_attention"] \
         + report["cond_graph"]["k1_sweep"]
     report["flash_attention"]["launches"] = counts["flash_attention"] \
         + acounts["flash_attention"] + pcounts["flash_attention"] \
-        + scounts["flash_attention"] + zcounts["flash_attention"] \
+        + scounts["flash_attention"] + dcounts["flash_attention"] \
+        + ccounts["flash_attention"] + zcounts["flash_attention"] \
         + zpre["flash_attention"] + qcounts["flash_attention"]
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"] \
         + mpre["mamba_scan"]

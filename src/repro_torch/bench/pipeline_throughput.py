@@ -12,13 +12,13 @@ Three panels:
                  same stage bodies (derived column = pipeline/loop ratio);
 * ``prefetch`` — the data layer's 2-stage prefetch pipeline in executor mode
                  vs the manual ``produce_one`` drive (batches/sec);
-* ``serve``    — LM tokens/sec of the resident ``ServeEngine`` pipeline
-                 (stablelm-1.6b's smoke config; every length group submitted
-                 at once, so prefill and decode overlap) vs a hand-rolled
-                 group-serial loop over the same engine (one group's
-                 ``generate`` after the other). The reference's loop drove
-                 its per-call grouped programs, which the port's engine does
-                 not have; both arms here run the engine's own programs.
+* ``serve``    — LM tokens/sec of the per-call grouped pipeline
+                 (``ServeEngine._generate_grouped``: length groups flow
+                 admit -> prefill -> decode -> complete, so one group's
+                 prefill overlaps another's decode; stablelm-1.6b's smoke
+                 config) vs a hand-rolled group-serial host loop over the
+                 SAME programs (the engine's contiguous prefill and decode
+                 chunk), as in the reference.
 
 On a host with few cores the ratios measure *scheduling overhead*, not
 parallel speedup (``bench.common.host_cores``); the lines×stages scaling
@@ -131,15 +131,27 @@ def _serve_rows(quick: bool, device=None):
     total = len(prompts) * max_new
 
     with ServeEngine(cfg, params, decode_chunk=chunk, device=dev) as eng:
-        eng.generate(prompts, max_new)  # warm-up: kernels and allocator
+        # both arms run the SAME programs: the per-call grouped pipeline
+        eng._generate_grouped(prompts, max_new)  # warm-up
         t0 = time.perf_counter()
-        outs = eng.generate(prompts, max_new)
+        outs = eng._generate_grouped(prompts, max_new)
         pipe_dt = time.perf_counter() - t0
 
-        # hand-rolled baseline: group-serial, over the SAME engine
+        # hand-rolled baseline: the pre-pipeline host loop, group-serial
         t0 = time.perf_counter()
-        for s in lens:
-            eng.generate([p for p in prompts if len(p) == s], max_new)
+        with torch.inference_mode():
+            for s in lens:
+                toks = torch.from_numpy(
+                    np.stack([p for p in prompts if len(p) == s])).to(dev)
+                cur, cache = eng._prefill_contig(toks, s + max_new + 1)
+                seqs = [cur[:, None].cpu()]
+                remaining = max_new - 1
+                while remaining > 0:
+                    n = min(chunk, remaining)
+                    cache, ch = eng._decode_n(cache, cur, n)
+                    seqs.append(ch.cpu())
+                    cur = ch[:, -1]
+                    remaining -= n
         loop_dt = time.perf_counter() - t0
 
     if any(o is None or len(o) != max_new for o in outs):

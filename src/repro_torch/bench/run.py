@@ -19,11 +19,14 @@ pipeline     — task-parallel pipeline throughput vs hand-rolled loops
 paged_decode — K1 vs its plain page loop and the gather oracle across
                pool occupancies at stablelm-1.6b's full-width heads, and
                the full-width decode step
-serve        — continuous batching under a Poisson trace, percentiles
-               read from the ``repro_torch.obs`` registry (``--prompt-dist``);
-               ``--prefix-share`` runs the prefix-cache workload, cold
-               against warm; its trace lands in ``TRACE_serve.json``
+serve        — continuous batching under a Poisson trace against the
+               per-call grouped baseline (one call per request, serially),
+               percentiles read from the ``repro_torch.obs`` registry
+               (``--prompt-dist``); ``--prefix-share`` runs the prefix-cache
+               workload, cold against warm; its trace lands in
+               ``TRACE_serve.json``
 obs_gate     — serve throughput with observability on against off
+journal_gate — serve throughput with the request journal on against off
 decode_overlap — the synchronous against the async decode engine: per-
                cycle dispatch / sync / bookkeeping and the host gap, in
                turns, with an fp32 parity pass
@@ -32,17 +35,15 @@ serve_slo    — SLO overload control: tier-0 tail TTFT alone and under a
                model preemption); its contended run's trace lands in
                ``TRACE_serve_slo.json``
 
-Not ported yet (ROADMAP.md Queue 1): ``journal_gate`` waits for item 7,
-``serve_mesh`` for item 11 and ``roofline`` for item 14; the ``serve``
-suite's per-call baseline rows are not ported (the port's engine has no
-per-call grouped path).
+Not ported yet (ROADMAP.md Queue 1): ``serve_mesh`` waits for item 11
+and ``roofline`` for item 14.
 
 ``--quick`` shrinks every suite to seconds: table2 20,000 operations,
 fig9 graphs of 1,000 and 5,000 tasks, fig11 1,000 tasks, fig21 1,000
 gates over 5 iterations, fig13 8 layers, the pipeline and paged_decode
 suites their own quick sizes (paged_decode keeps the full-width heads),
-serve, obs_gate, decode_overlap and serve_slo the reference's quick
-sizes.
+serve, obs_gate, journal_gate, decode_overlap and serve_slo the
+reference's quick sizes.
 The suites run on the card unless ``--device cpu`` is given (the tests);
 without a card the default raises. Each completed suite drops
 ``BENCH_<suite>.json`` into ``--bench-dir`` with the schema of
@@ -66,8 +67,7 @@ _METRIC_SUFFIXES = ("tok_per_s", "p50_ms", "p99_ms")
 
 #: suites of ``benchmarks/run.py`` the port does not have yet, with the
 #: ROADMAP Queue 1 item each waits for
-NOT_PORTED = {"journal_gate": "item 7",
-              "serve_mesh": "item 11", "roofline": "item 14"}
+NOT_PORTED = {"serve_mesh": "item 11", "roofline": "item 14"}
 
 
 def _git_sha() -> str:
@@ -129,7 +129,8 @@ def suites(dev, quick: bool, prompt_dist: str = "choice",
     from . import (decode_overlap, fig9_micro_random_dag,
                    fig11_corun_throughput, fig13_lsdnn,
                    fig17_conditional_memory,
-                   fig21_incremental_timing, obs_overhead_gate,
+                   fig21_incremental_timing, journal_gate,
+                   obs_overhead_gate,
                    paged_decode_microbench, pipeline_throughput,
                    serve_continuous, serve_slo, table2_task_overhead)
     trace = os.path.join(trace_dir, "TRACE_serve.json")
@@ -157,6 +158,7 @@ def suites(dev, quick: bool, prompt_dist: str = "choice",
                                    trace_path=trace, device=dev)),
         "obs_gate": lambda: obs_overhead_gate.bench(quick=quick,
                                                     device=dev),
+        "journal_gate": lambda: journal_gate.bench(quick=quick, device=dev),
         "decode_overlap": lambda: decode_overlap.bench(
             quick=quick, device=dev,
             trace_path=os.path.join(trace_dir, "TRACE_decode_overlap.json")),
@@ -211,7 +213,9 @@ def main(argv=None) -> int:
               "prefix_share": args.prefix_share,
               "paged_impl_env": os.environ.get("REPRO_PAGED_IMPL", ""),
               "obs_gate_budget_env":
-                  os.environ.get("REPRO_OBS_GATE_BUDGET", "")}
+                  os.environ.get("REPRO_OBS_GATE_BUDGET", ""),
+              "journal_gate_budget_env":
+                  os.environ.get("REPRO_JOURNAL_GATE_BUDGET", "")}
     failures = 0
     for name, fn in table.items():
         if only and name not in only:

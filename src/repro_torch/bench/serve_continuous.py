@@ -25,9 +25,14 @@ flight (``engine.gap_s``).
 Reported: hit rate, prefill tokens saved, copy-on-write forks and warm-
 against-cold admission and TTFT p50/p99.
 
-The reference's per-call baseline rows (``serve_percall_*`` and the
-``x_per_call`` derived columns) are not ported: the port's engine has no
-per-call grouped path. ``arch``/``preset`` choose the model (the smoke
+The per-call baseline (``serve_percall_*`` rows and the ``x_per_call``
+derived columns of the continuous rows, as in the reference): a second
+engine serves the same trace through ``ServeEngine._generate_grouped``,
+one call per request, serially, each arrival-to-completion latency counted
+from its nominal arrival. The reference jits its per-call decode chunk; the
+port's runs it eagerly, so on the card the baseline is host-bound and
+``x_per_call`` overstates the resident engine's advantage.
+``arch``/``preset`` choose the model (the smoke
 config by default, as in the reference; ``preset="full"`` runs it at full
 width with random weights drawn from ``seed``), ``n_req`` the trace length
 and ``device`` where it runs (None means CUDA).
@@ -142,6 +147,12 @@ def measured_run(eng, obs, trace, trace_path: Optional[str] = None) -> dict:
     registry zeroed first). Returns what :func:`continuous_run` does."""
     _reset(eng, obs)
     reqs, outs, dt = _replay(eng, trace, obs)
+    # the complete stage records its last spans after the futures are
+    # fulfilled: the stats and the trace are read once the pipeline rests
+    limit = time.perf_counter() + 60.0
+    while eng._pipeline is not None and not eng._pipeline.idle() \
+            and time.perf_counter() < limit:
+        time.sleep(0.001)
     stats = dict(eng.stats)
     if trace_path:
         obs.export(trace_path)
@@ -161,12 +172,43 @@ def continuous_run(cfg, params, trace, *, chunk: int = 8, impl=None,
         return measured_run(eng, obs, trace, trace_path)
 
 
+def percall_run(cfg, params, trace, *, chunk: int = 8, device=None
+                ) -> dict:
+    """The per-call baseline over ``trace``: an engine of the reference's
+    default geometry warmed once per distinct prompt length, then one
+    ``_generate_grouped`` call per arrival, serially, at its trace time.
+    Returns the tokens, the p50 and p99 of each request's latency from its
+    nominal arrival (``np.percentile``, as the reference) and the wall
+    seconds."""
+    from ..serve.engine import ServeEngine
+
+    lat, outs = [], []
+    with ServeEngine(cfg, params, decode_chunk=chunk, device=device) as base:
+        for s in sorted({len(p) for _, p, _ in trace}):
+            p, mn = next((p, mn) for _, p, mn in trace if len(p) == s)
+            base._generate_grouped([p], mn)
+        t0 = time.perf_counter()
+        for at, prompt, mn in trace:
+            now = time.perf_counter() - t0
+            if now < at:
+                time.sleep(at - now)
+            outs.append(base._generate_grouped([prompt], mn)[0])
+            lat.append(time.perf_counter() - t0 - at)
+        dt = time.perf_counter() - t0
+    return {"outs": outs, "dt": dt, "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99))}
+
+
 def _ms(h, q) -> str:
     return f"{h.percentile(q) * 1e3:.0f}"
 
 
-def continuous_rows(run: dict, sizes, prompt_dist: str
+def continuous_rows(run: dict, sizes, prompt_dist: str,
+                    base: Optional[dict] = None
                     ) -> Iterator[Tuple[str, str, str]]:
+    """The continuous rows; with ``base`` (:func:`percall_run`) the
+    ``x_per_call`` derived columns and the ``serve_percall_*`` rows, in the
+    reference's order."""
     m = run["obs"].metrics
     st = run["stats"]
     n_req = len(run["reqs"])
@@ -174,18 +216,29 @@ def continuous_rows(run: dict, sizes, prompt_dist: str
     lat = m.get("bench.request_latency_s")
     adm = m.get("bench.admission_latency_s")
     ttft = m.get("serve.ttft_s").summary()
+    x = {"tok": f"{n_req}_requests", 50: "", 99: ""}
+    if base is not None:
+        x["tok"] = f"{base['dt'] / run['dt']:.2f}x_per_call"
+        for q in (50, 99):
+            x[q] = f"{base[f'p{q}'] / max(lat.percentile(q), 1e-9):.2f}" \
+                "x_per_call"
     yield ("serve_continuous_tok_per_s", f"{tokens / run['dt']:.1f}",
-           f"{n_req}_requests")
+           x["tok"])
     yield ("serve_continuous_paged_impl", run["impl"], "")
     yield ("serve_prompt_dist", prompt_dist,
            f"lens_{int(min(sizes))}_{int(max(sizes))}")
-    yield ("serve_continuous_p50_ms", _ms(lat, 50), "")
-    yield ("serve_continuous_p99_ms", _ms(lat, 99), "")
+    yield ("serve_continuous_p50_ms", _ms(lat, 50), x[50])
+    yield ("serve_continuous_p99_ms", _ms(lat, 99), x[99])
     yield ("serve_admission_p50_ms", _ms(adm, 50), "")
     yield ("serve_admission_p99_ms", _ms(adm, 99), "")
     yield ("serve_ttft_p50_ms", f"{ttft['p50'] * 1e3:.0f}",
            f"count_{ttft['count']}")
     yield ("serve_ttft_p99_ms", f"{ttft['p99'] * 1e3:.0f}", "")
+    if base is not None:
+        btok = sum(len(o) for o in base["outs"])
+        yield ("serve_percall_tok_per_s", f"{btok / base['dt']:.1f}", "")
+        yield ("serve_percall_p50_ms", f"{base['p50'] * 1e3:.0f}", "")
+        yield ("serve_percall_p99_ms", f"{base['p99'] * 1e3:.0f}", "")
     yield ("serve_continuous_admits", str(st["admitted"]),
            f"{st['prefills']}_prefill_launches")
     yield ("serve_continuous_decode_cycles", str(st["decode_cycles"]),
@@ -208,8 +261,8 @@ def bench(quick: bool = False, impl: Optional[str] = None,
           prompt_dist: str = "choice", trace_path: Optional[str] = None,
           arch: str = "stablelm-1.6b", preset: str = "smoke", device=None,
           n_req: Optional[int] = None) -> Iterator[Tuple[str, str, str]]:
-    """The continuous rows. ``impl`` is the paged read path (None: the
-    engine's default, K1 on CUDA)."""
+    """The continuous rows against the per-call baseline. ``impl`` is the
+    paged read path (None: the engine's default, K1 on CUDA)."""
     if prompt_dist not in PROMPT_DISTS:
         raise ValueError(f"prompt_dist={prompt_dist!r}: expected one of "
                          f"{PROMPT_DISTS}")
@@ -225,7 +278,8 @@ def bench(quick: bool = False, impl: Optional[str] = None,
     trace = _trace(rng, sizes, rate, max_new)
     run = continuous_run(cfg, params, trace, chunk=chunk, impl=impl,
                          device=dev, trace_path=trace_path)
-    yield from continuous_rows(run, sizes, prompt_dist)
+    base = percall_run(cfg, params, trace, chunk=chunk, device=dev)
+    yield from continuous_rows(run, sizes, prompt_dist, base)
 
 
 def prefix_share_trace(quick: bool = False, n_req: Optional[int] = None

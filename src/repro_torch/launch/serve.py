@@ -19,6 +19,11 @@ CUDA; without a CUDA device it raises unless ``--device cpu`` is given.
         --async-decode
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --deadline 0.5 --fault-inject 'alloc_fail:p=0.1,seed=1'
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --state-dir /tmp/sd --max-new 200 --decode-chunk 2 \
+        --drain-deadline 1
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --per-call
 
 Attention archs, dense and MoE, page their KV (``--kv-blocks``,
 ``--block-size``, ``--prefill-chunk``); Mamba1 archs and the zamba2 hybrid
@@ -39,10 +44,23 @@ every submitted request, ``--tier-target TIER=SHARE`` (repeatable),
 engine (each unset one defers to its environment variable). A request that
 fails typed (shed at submit, past its deadline, a failed row) is counted
 and printed; the run goes on.
+
+Durability (as in the reference launcher): ``--state-dir DIR`` journals
+every request transition to ``DIR/journal.wal`` (``--fsync-every``) and
+recovers on start: the incomplete requests of an earlier run replay with
+the same tokens, and a prior ``engine.snap`` warm-starts the prefix cache
+(a corrupt one falls back cold, typed). SIGTERM drains (``--drain-deadline``
+bounds it: past the deadline seated rows are checkpoint-preempted), then
+snapshots, flushes the journal and exits 0; a clean exit leaves a snapshot
+too. ``--per-call`` serves the prompts through the per-call grouped
+baseline (``ServeEngine._generate_grouped``) instead of ``submit()``.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import signal
+import threading
 import time
 
 import numpy as np
@@ -52,7 +70,7 @@ from ..configs import get_config
 from ..device import resolve_device
 from ..obs import Observability, StatsLogger
 from ..params import init_params
-from ..serve.engine import ServeEngine
+from ..serve.engine import SNAPSHOT_FILE, ServeEngine
 from ..serve.errors import ServeError
 
 
@@ -113,6 +131,23 @@ def main(argv=None):
                          "repro_torch.serve.faultinject), e.g. "
                          "'grow_fail:p=0.05,seed=11'. Unset defers to "
                          "REPRO_FAULT_INJECT")
+    ap.add_argument("--per-call", action="store_true",
+                    help="serve through the per-call grouped baseline "
+                         "instead of submit/result")
+    ap.add_argument("--state-dir", default=None, metavar="DIR",
+                    help="durability state directory: journal every "
+                         "request transition to DIR/journal.wal, recover "
+                         "(replay incomplete requests, warm-start the "
+                         "prefix cache from DIR/engine.snap) on start, and "
+                         "snapshot on SIGTERM or a clean exit")
+    ap.add_argument("--drain-deadline", type=float, default=10.0,
+                    metavar="S",
+                    help="graceful-drain budget on SIGTERM: seated rows get "
+                         "S seconds to finish before they are "
+                         "checkpoint-preempted (default 10)")
+    ap.add_argument("--fsync-every", type=int, default=1, metavar="N",
+                    help="journal fsync cadence: every N records (1 = "
+                         "every record, 0 = only at flush and close)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs the "
@@ -159,40 +194,84 @@ def main(argv=None):
                      shed_budget_s=args.shed_budget,
                      watchdog_s=args.watchdog,
                      fault_inject=args.fault_inject, **geom) as eng:
+        replayed = {}
+        if args.state_dir:
+            # crash or restart recovery: warm-start from an earlier
+            # snapshot (a corrupt one falls back cold) and resubmit every
+            # incomplete journaled request, then journal this run
+            replayed = eng.recover(args.state_dir,
+                                   fsync_every=args.fsync_every)
+            if replayed or eng.stats["warm_started"]:
+                print(f"recovered: {len(replayed)} incomplete request(s) "
+                      f"replaying ({eng.stats['replayed_tokens']} prompt "
+                      f"tokens), {eng.stats['warm_started']} warm prefix "
+                      f"node(s)", flush=True)
+
+        def _graceful(signum, frame):
+            # drain off the signal frame: the main thread may be blocked in
+            # result(), and drain and snapshot must not run there
+            def run():
+                print(f"SIGTERM: draining (deadline "
+                      f"{args.drain_deadline:.1f}s)", flush=True)
+                eng.drain(deadline_s=args.drain_deadline)
+                if args.state_dir:
+                    path = os.path.join(args.state_dir, SNAPSHOT_FILE)
+                    print(f"snapshot: {eng.snapshot(path)} bytes -> {path}",
+                          flush=True)
+                eng.close()
+                os._exit(0)
+            threading.Thread(target=run, name="serve-drain",
+                             daemon=True).start()
+        signal.signal(signal.SIGTERM, _graceful)
+
         if logger is not None:
             logger.start()
         t0 = time.time()
-        reqs, failed = [], []
-        for i, p in enumerate(prompts):
-            try:
-                reqs.append(eng.submit(p, max_new=args.max_new,
-                                       priority=args.priority,
-                                       deadline_s=args.deadline))
-            except ServeError as e:          # shed at submit
-                reqs.append(None)
-                failed.append((i, e))
-            if args.stagger:
-                time.sleep(args.stagger)
-        outs = []
-        for i, r in enumerate(reqs):
-            try:
-                outs.append(eng.result(r, timeout=600.0)
-                            if r is not None else None)
-            except ServeError as e:          # expired, failed row, ...
-                outs.append(None)
-                failed.append((i, e))
+        failed = []
+        if args.per_call:
+            outs = eng._generate_grouped(prompts, args.max_new)
+        else:
+            reqs = []
+            for i, p in enumerate(prompts):
+                try:
+                    reqs.append(eng.submit(p, max_new=args.max_new,
+                                           priority=args.priority,
+                                           deadline_s=args.deadline))
+                except ServeError as e:          # shed at submit
+                    reqs.append(None)
+                    failed.append((i, e))
+                if args.stagger:
+                    time.sleep(args.stagger)
+            outs = []
+            for i, r in enumerate(reqs):
+                try:
+                    outs.append(eng.result(r, timeout=600.0)
+                                if r is not None else None)
+                except ServeError as e:          # expired, failed row, ...
+                    outs.append(None)
+                    failed.append((i, e))
+        for old_id, r in sorted(replayed.items()):
+            out = eng.result(r, timeout=600.0)
+            print(f"replayed request {old_id}: {len(out)} tokens",
+                  flush=True)
         dt = time.time() - t0
         done = [o for o in outs if o is not None]
         gen = sum(len(o) for o in done)
         print(f"{cfg.name}: generated {gen} of {total_new} tokens in "
               f"{dt:.2f}s ({gen/dt:.1f} tok/s, batch={args.batch}, "
-              f"device={dev}, mode=continuous, "
+              f"device={dev}, "
+              f"mode={'per-call' if args.per_call else 'continuous'}, "
               f"async_decode={eng.async_decode})")
         print("engine stats:", eng.stats)
         for i, e in sorted(failed, key=lambda f: f[0]):
             print(f"request {i} failed: {type(e).__name__}: {e}")
         if done:
             print("sample:", done[0][:16].tolist())
+        if args.state_dir:
+            # clean exit: settle and leave a warm snapshot for the next run
+            eng.drain(deadline_s=args.drain_deadline)
+            path = os.path.join(args.state_dir, SNAPSHOT_FILE)
+            print(f"snapshot: {eng.snapshot(path)} bytes -> {path}")
         if logger is not None:
             logger.stop()
     if args.trace:

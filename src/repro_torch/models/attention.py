@@ -15,8 +15,10 @@ Paged decode (:func:`paged_decode_attention`) reads through K1 or its plain
 page loop or the gather oracle; chunked-prefill windows
 (:func:`paged_prefill_window_attention`) keep the gather read, as in the
 reference. The zamba2 shared block's slot decode
-(:func:`decode_attention_rows`) reads a per-slot contiguous span, in plain
-torch as in the reference.
+(:func:`decode_attention_rows`) reads a per-slot contiguous span, and the
+per-call baseline's one-token decode (:func:`decode_attention`) a
+contiguous cache at one scalar position, both in plain torch as in the
+reference (neither is a Pallas kernel there).
 
 fp32-accumulated products: the reference computes scores with
 ``preferred_element_type=float32`` from compute-dtype operands, and a torch
@@ -32,7 +34,7 @@ import torch
 from ..configs.base import ModelConfig
 from .layers import dtype_of, rms_norm, rope
 
-__all__ = ["attention", "paged_decode_attention",
+__all__ = ["attention", "decode_attention", "paged_decode_attention",
            "paged_prefill_window_attention", "decode_attention_rows",
            "NEG_INF"]
 
@@ -236,3 +238,15 @@ def decode_attention_rows(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
     out = torch.einsum("bkgs,bksh->bkgh", probs, cache_v)
     y = out.reshape(B, H * hd).to(cdt) @ p["wo"].to(cdt)
     return y[:, None, :], cache_k, cache_v
+
+
+def decode_attention(p, x, cfg: ModelConfig, cache_k, cache_v, pos: int):
+    """One-token decode against a contiguous KV cache at ONE scalar
+    position (the reference's ``decode_attention``; the per-call
+    baseline's ``lm.decode_step``): :func:`decode_attention_rows` with
+    every row at ``pos`` (an int below S_max), which writes each row's K
+    and V there in place and attends to keys ``0..pos`` with the
+    reference's arithmetic. Returns (y (B, 1, D), cache_k, cache_v)."""
+    rows = torch.full((x.shape[0],), pos, dtype=torch.int32,
+                      device=x.device)
+    return decode_attention_rows(p, x, cfg, cache_k, cache_v, rows)

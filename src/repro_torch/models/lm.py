@@ -25,8 +25,9 @@ dense entry points; its load-balancing loss is never computed here (the
 reference's serving call sites discard it).
 
 Entry points: :func:`init_params`, :func:`prefill` (dense, Mamba1 and
-hybrid branches, with ``last_positions``), :func:`init_cache` (SSM and
-hybrid slot state), the paged path :func:`prefill_window_paged`,
+hybrid branches, with ``last_positions``), :func:`init_cache` (every
+branch), the contiguous :func:`decode_step` (the per-call baseline's, every
+served family), the paged path :func:`prefill_window_paged`,
 :func:`decode_step_paged`, :func:`decode_chunk_paged` (attention archs,
 MoE included, as in the reference), and the slot path
 :func:`decode_step_slots`, :func:`decode_chunk_slots` (Mamba1 and the
@@ -56,8 +57,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import (attention, decode_attention_rows,
-                        paged_decode_attention,
+from .attention import (attention, decode_attention,
+                        decode_attention_rows, paged_decode_attention,
                         paged_prefill_window_attention)
 from .layers import dtype_of, matmul_f32, rms_norm, sinusoidal_positions
 from .mamba import init_mamba_state, mamba_forward, mamba_step
@@ -65,7 +66,7 @@ from .mlp import mlp
 from .moe import moe_layer
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
-           "prefill_window_paged",
+           "decode_step", "prefill_window_paged",
            "decode_step_paged", "decode_chunk_paged", "decode_step_slots",
            "decode_chunk_slots", "layer_views"]
 
@@ -490,19 +491,24 @@ def _prefill_hybrid(cfg: ModelConfig, params, layers, x, positions,
 # ------------------------------------------------------------ slot state
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
                device=None) -> Dict[str, Any]:
-    """The decode cache of an SSM or hybrid arch (the reference's
-    ``init_cache`` branches), zeros; ``device`` None means CUDA. The serve
-    engine's fixed-slot pool is this minus ``pos``.
+    """The decode cache (the reference's ``init_cache``), zeros; ``device``
+    None means CUDA. The serve engine's fixed-slot pool is an SSM or hybrid
+    arch's cache minus ``pos``.
 
-    Mamba1: ``{"pos": 0, "ssm": (conv (L, batch, K-1, dI) in the compute
+    Attention archs (dense and MoE): ``{"pos": 0, "k", "v"}`` with k/v
+    (L, batch, KV, max_len, hd) in the compute dtype. Mamba1: ``{"pos": 0, "ssm": (conv (L, batch, K-1, dI) in the compute
     dtype, h (L, batch, dI, N) fp32)}``; ``max_len`` is unused (an SSM's
     state does not grow). The zamba2 hybrid: ``g_ssm`` (conv (G, every,
     batch, K-1, dI+2N), h (G, every, batch, nh, hp, N) fp32), ``tail_ssm``
     ((tail, batch, ...) likewise, when ``L % every``) and ``shared_k``,
     ``shared_v`` (G, batch, KV, max_len, hd) in the compute dtype."""
-    _require_slots(cfg, "init_cache")
+    _require_ported(cfg, "init_cache")
     cdt = dtype_of(cfg.compute_dtype)
     dev = resolve_device(device)
+    if not cfg.ssm:
+        kv = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.hd)
+        return {"pos": 0, "k": torch.zeros(kv, dtype=cdt, device=dev),
+                "v": torch.zeros(kv, dtype=cdt, device=dev)}
     conv, h = init_mamba_state(cfg, batch, cdt, dev)
 
     def stack(t, lead):
@@ -520,6 +526,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
     if tail:
         cache["tail_ssm"] = (stack(conv, (tail,)), stack(h, (tail,)))
     return cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, token, layers=None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One greedy-path decode step from a contiguous cache (the reference's
+    ``decode_step``): the cache of :func:`prefill` or :func:`init_cache`,
+    every row at the cache's scalar ``pos``. Attention archs (dense and
+    MoE) read and write their (L, B, KV, S_max, hd) cache through
+    :func:`repro_torch.models.attention.decode_attention`; Mamba1 and the
+    hybrid step their state through the slot path's pieces
+    (:func:`decode_step_slots` with every row at ``pos``). Tensors are
+    updated IN PLACE; the returned dict is a new one with ``pos + 1``.
+    token: (B,) int. Returns (logits (B, padded_vocab) fp32, cache)."""
+    _require_ported(cfg, "decode_step")
+    pos = int(cache["pos"])
+    pos_b = torch.full((token.shape[0],), pos, dtype=torch.int32,
+                       device=token.device)
+    layers = layers or layer_views(params)
+    if cfg.ssm:
+        logits, _ = decode_step_slots(cfg, params, cache, token, pos_b,
+                                      layers=layers)
+    else:
+        x1 = _embed_tokens(cfg, params, token, pos_b)
+
+        def attn(lp, h1, kv):
+            y, ck, cv = decode_attention(lp, h1, cfg, kv[0], kv[1], pos)
+            return y, (ck, cv)
+
+        for l, lp in enumerate(layers):
+            x1, _ = _block_decode(lp, x1, cfg,
+                                  (cache["k"][l], cache["v"][l]), attn)
+        logits = _logits(cfg, params, x1)
+    new = dict(cache)
+    new["pos"] = pos + 1
+    return logits, new
 
 
 def _shared_block_decode_rows(p, x1, x0, cfg: ModelConfig, ck, cv, pos):

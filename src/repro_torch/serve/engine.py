@@ -145,9 +145,38 @@ chunk's only sync, the token read-back; the engine adds no synchronisation
 for them. ``engine.gap_s`` is host time with no chunk in flight. Disabled,
 each site costs one ``is None`` check.
 
-Not in this slice (queued in ROADMAP.md): journal/snapshot/drain/recover
-(with the sweep's drain branch and the ``snapshot_corrupt`` site), meshes
-and the per-call grouped baseline. The engine raises
+Durability (as in the reference; ``docs/robustness.md``): ``journal=``
+(:mod:`repro_torch.serve.journal`, the reference's record format) appends a
+checksummed record at every request transition (submit, admit, first
+token, finish, cancel); :meth:`ServeEngine.drain` stops admission and,
+past its deadline, has the decode stage checkpoint-preempt every seated
+row; :meth:`ServeEngine.snapshot` writes the prefix trie, its indexed KV
+pages and the waiting queue (:mod:`repro_torch.serve.snapshot`, RSNAPv1
+bytes that cross between the two packages); :meth:`ServeEngine.restore`
+and :meth:`ServeEngine.recover` warm-start a fresh engine and replay the
+journal's incomplete requests. Two differences from the reference, both
+for the captured chunk, which bakes in the pool's address: ``restore``
+writes the saved pages into the live pool IN PLACE (``index_copy_`` on
+the block axis; it never rebinds ``_pkv`` nor re-captures), and
+``snapshot`` gathers only the indexed blocks on the device before the
+host copy (the reference copies the whole pool to the host first). Three
+more, for a journal's cost on the host: an idle engine's admit stage waits
+for submits in progress (``SUBMIT_WAIT_S`` at most), since each journal
+write releases the GIL and would let it seat a burst one request at a
+time; no stage that feeds the device writes to the journal (its admit
+and first-token records wait in memory, ``journal.DEFERRED_KINDS``, and
+the complete stage writes them with its finishes in one write,
+``Journal.batch``); and a draining engine's backlog re-arms no pipeline
+run (the reference's re-arms one that stops at once, over and over).
+
+The per-call grouped baseline (:meth:`ServeEngine._generate_grouped`, the
+serve suite's ``serve_percall_*`` rows): length groups through a throwaway
+pipeline, ``lm.prefill`` into a contiguous cache and eager chunks of
+``lm.decode_step``. The reference jits its chunk; the port's runs eagerly,
+so on the card it is host-bound and ``x_per_call`` overstates the resident
+engine's advantage.
+
+Not in this slice (queued in ROADMAP.md): meshes. The engine raises
 :class:`UnsupportedArch` on archs it cannot serve yet (modality
 frontends).
 """
@@ -157,6 +186,7 @@ import contextlib
 import os
 import threading
 import time
+from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -173,15 +203,29 @@ from ..pipeline import DataPipe, DataPipeline, PipeType
 from .chunk_graph import ChunkProgram, HostLink
 from .errors import (DeadlineExceeded, EngineClosed, Overloaded,
                      RequestCancelled, RowFailed, ServeError,
-                     WatchdogTimeout)
+                     SnapshotCorrupt, WatchdogTimeout)
 from .faultinject import FaultInjected, FaultInjector
+from .journal import Journal
+from .journal import replay as replay_journal
 from .kvcache import (BlockPool, copy_blocks, extend_block_tables,
                       init_kv_pool, scatter_prefill_rows, set_carry_rows,
                       set_table_rows)
 from .prefix import PrefixCache
 from .scheduler import Scheduler, ServeRequest
+from .snapshot import corrupt_snapshot, read_snapshot, write_snapshot
 
-__all__ = ["ServeEngine", "ServeRequest", "UnsupportedArch"]
+__all__ = ["ServeEngine", "ServeRequest", "UnsupportedArch",
+           "JOURNAL_FILE", "SNAPSHOT_FILE"]
+
+#: file names :meth:`ServeEngine.recover` and ``launch.serve --state-dir``
+#: use inside a state directory (the reference's)
+JOURNAL_FILE = "journal.wal"
+SNAPSHOT_FILE = "engine.snap"
+
+#: the longest an idle engine's admit stage waits for submits in progress
+#: (between their journal write and their enqueue) before it reads the
+#: queue
+SUBMIT_WAIT_S = 0.02
 
 #: pipeline lines (cycles in flight) of the resident admit/prefill/decode/
 #: complete pipeline, as in the reference engine's default
@@ -264,6 +308,11 @@ class ServeEngine:
         a :class:`repro_torch.serve.faultinject.FaultInjector` or its spec
         string (seeded faults at named sites). None resolves via
         ``REPRO_FAULT_INJECT`` (default off).
+    journal:
+        a :class:`repro_torch.serve.journal.Journal` or its path: every
+        request transition appends one record (default None: off, one ``is
+        None`` check a transition). Rebindable at idle via
+        :meth:`set_journal`.
     record_stages:
         keep an in-memory (stage, cycle-token, info, t) event log.
     obs:
@@ -291,6 +340,7 @@ class ServeEngine:
                  shed_budget_s=None,
                  watchdog_s: Optional[float] = None,
                  fault_inject=None,
+                 journal=None,
                  record_stages: bool = False,
                  obs=None,
                  device=None):
@@ -336,6 +386,22 @@ class ServeEngine:
         if chunk_graph is None:
             chunk_graph = cuda
         self._closing = False
+        # graceful drain (drain()): admission stops; past the deadline the
+        # decode stage checkpoint-preempts every seated row
+        self._draining = False
+        self._drain_deadline_at: Optional[float] = None
+        # the request journal (off by default); a path opens one, and a
+        # journal that cannot be opened raises here
+        if isinstance(journal, str):
+            journal = Journal(journal)
+        self._journal: Optional[Journal] = journal
+        # submits in progress: a journal write releases the GIL, and the
+        # admit stage, woken by the first submit of a burst, would seat the
+        # burst one request at a time (a prefill group and a cycle each);
+        # an idle engine waits for them instead (SUBMIT_WAIT_S at most), so
+        # a journaled burst is admitted as an unjournaled one is
+        self._submit_cv = threading.Condition()
+        self._submitting = 0
         self._broken: Optional[BaseException] = None
         self._stage_log = [] if record_stages else None
         self._log_lock = threading.Lock()
@@ -406,7 +472,9 @@ class ServeEngine:
                       "prefix_hits": 0, "prefix_tokens_saved": 0,
                       "cow_forks": 0, "shed": 0, "expired": 0,
                       "cancelled": 0, "watchdog_fires": 0,
-                      "row_failures": 0}
+                      "row_failures": 0, "recovered": 0,
+                      "replayed_tokens": 0, "drain_preempted": 0,
+                      "warm_started": 0}
 
         self._prefix: Optional[PrefixCache] = None
         if self.paged:
@@ -570,6 +638,8 @@ class ServeEngine:
             self._pool.set_metrics(metrics)
         if self._prefix is not None:
             self._prefix.set_metrics(metrics)
+        if self._journal is not None:
+            self._journal.set_metrics(metrics)
         if self._pipeline is not None:
             self._pipeline.tracer = self._tr
         #: per-tier TTFT histograms (serve.ttft_s.tier<N>), made lazily
@@ -599,7 +669,28 @@ class ServeEngine:
             "cancelled": metrics.counter("serve.cancelled"),
             "watchdog": metrics.counter("serve.watchdog_fires"),
             "row_failed": metrics.counter("serve.row_failures"),
+            "recovered": metrics.counter("serve.recovered"),
+            "replayed": metrics.counter("serve.replayed_tokens"),
         }
+
+    def _journal_batch(self):
+        """One write for the journal records of one complete stage
+        (:meth:`Journal.batch`); a no-op without a journal."""
+        j = self._journal
+        return j.batch() if j is not None else contextlib.nullcontext()
+
+    def set_journal(self, journal) -> None:
+        """Attach (or detach, with None) a request :class:`~repro_torch.serve
+        .journal.Journal` or its path; a replaced journal is closed.
+        Rebindable at idle (the journal gate toggles it on one engine)."""
+        if isinstance(journal, str):
+            journal = Journal(journal)
+        old = self._journal
+        self._journal = journal
+        if journal is not None and self.obs is not None:
+            journal.set_metrics(self.obs.metrics)
+        if old is not None and old is not journal:
+            old.close()
 
     def _phase_begin(self, slot: int, name: str, t: float) -> None:
         self._slot_span[slot] = (name, t)
@@ -635,6 +726,8 @@ class ServeEngine:
         lock): ``kind`` is ``"expired"`` or ``"cancelled"``."""
         with self._state_lock:
             self.stats[kind] += 1
+        if self._journal is not None:
+            self._journal.cancel(req, kind)
         if self._mh is not None:
             self._mh[kind].inc()
         if self._tr is not None:
@@ -709,7 +802,10 @@ class ServeEngine:
             while time.perf_counter() < deadline:
                 if self._broken is not None:
                     break
-                if self._pipeline.idle() and self._scheduler.num_waiting == 0:
+                if self._pipeline.idle() and \
+                        (self._scheduler.num_waiting == 0 or self._draining):
+                    # a draining engine never admits its backlog: stop
+                    # waiting on it; the typed fail below settles it
                     break
                 time.sleep(0.005)
         self._wd_stop.set()
@@ -725,6 +821,8 @@ class ServeEngine:
             # device work that fenced it -- flush the fence
             while self._pool.num_deferred:
                 self._pool.release_deferred()
+        if self._journal is not None:
+            self._journal.close()
         if self._executor is not None:
             self._executor.shutdown()
             self._executor = None
@@ -735,8 +833,218 @@ class ServeEngine:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    # ------------------------------------------ durability (drain, snapshot,
+    # restore, recover; the reference's, see docs/robustness.md)
+    def drain(self, deadline_s: Optional[float] = None,
+              timeout: float = 300.0) -> bool:
+        """Gracefully drain: stop admitting (``submit()`` raises typed
+        :class:`EngineClosed`, the admit stage seats nothing), let seated
+        rows finish, and once ``deadline_s`` has elapsed have the decode
+        stage checkpoint-preempt every row still seated. This thread only
+        sets flags and polls. Flushes the journal. Returns True when the
+        engine settled (no cycle, seated row, reserved slot or chunk in
+        flight) within ``timeout``; waiting and preempted requests stay
+        queued for :meth:`snapshot`, and ``close()`` fails them typed.
+        Idempotent."""
+        self._draining = True
+        if deadline_s is not None and self._drain_deadline_at is None:
+            self._drain_deadline_at = time.perf_counter() + deadline_s
+        settled = True
+        if self._pipeline is not None:
+            limit = time.perf_counter() + timeout
+            settled = False
+            while time.perf_counter() < limit:
+                if self._broken is not None:
+                    settled = True
+                    break
+                with self._state_lock:
+                    occupied = any(r is not None for r in self._slot_req)
+                    reserved = self._slots_reserved
+                # async: no chunk or prefill window in flight either
+                if self._pipeline.idle() and not occupied and reserved == 0 \
+                        and self._pending is None \
+                        and self._window_pending is None:
+                    settled = True
+                    break
+                time.sleep(0.005)
+        if self._journal is not None:
+            self._journal.flush()
+        return settled
+
+    def snapshot(self, path: str) -> int:
+        """Write the warm state to ``path`` (atomic and checksummed, the
+        reference's RSNAPv1 format): the prefix trie with its chunk keys,
+        the KV page of every indexed block and the waiting queue's request
+        descriptors. Call it settled (after :meth:`drain`): seated rows are
+        not captured, the journal replays them. Only the indexed blocks are
+        gathered on the device, after a device synchronize, and copied to
+        the host; pages are stored as raw bytes under the numpy dtype name,
+        so either package restores them. Returns the bytes written. The
+        ``snapshot_corrupt`` fault site flips a payload byte after the
+        write."""
+        if self._journal is not None:
+            self._journal.flush()
+        meta: Dict[str, Any] = {"paged": self.paged}
+        arrays: Dict[str, np.ndarray] = {}
+        qdesc, qtoks = [], []
+        for r in self._scheduler.export_waiting():
+            qdesc.append({"id": int(r.id), "max_new": int(r.max_new),
+                          "priority": int(r.priority),
+                          "deadline_s": r.deadline_s})
+            qtoks.append(np.asarray(r.prompt, np.int32))
+        meta["queue"] = qdesc
+        arrays["queue_tokens"] = (np.concatenate(qtoks) if qtoks
+                                  else np.zeros((0,), np.int32))
+        arrays["queue_lens"] = np.asarray([len(t) for t in qtoks], np.int32)
+        if self.paged:
+            meta["block_size"] = int(self._pool.block_size)
+        if self._prefix is not None:
+            nodes = self._prefix.export_nodes()
+            meta["prefix"] = [{"parent": n["parent"], "key": n["key"],
+                               "depth": n["depth"], "hits": n["hits"]}
+                              for n in nodes]
+            ptoks = [n["tokens"].astype(np.int32) for n in nodes]
+            arrays["prefix_tokens"] = (np.concatenate(ptoks) if ptoks
+                                       else np.zeros((0,), np.int32))
+            arrays["prefix_lens"] = np.asarray([len(t) for t in ptoks],
+                                               np.int32)
+            if self.device.type == "cuda":
+                # no scatter still queued may race the copy
+                torch.cuda.synchronize(self.device)
+            ids = torch.as_tensor([n["block"] for n in nodes],
+                                  dtype=torch.long, device=self.device)
+            # (L, 2, N, KV, bs, hd): page i on axis 2 is node i's block;
+            # raw bytes, as the reference stores them (npz keeps bfloat16
+            # only as opaque void)
+            pages = self._pkv.index_select(2, ids).contiguous()
+            arrays["prefix_pages"] = pages.view(torch.uint8).cpu().numpy()
+            meta["pool_dtype"] = _dtype_name(self._pkv.dtype)
+        n = write_snapshot(path, meta, arrays)
+        if self._fi is not None and self._fi.fire("snapshot_corrupt"):
+            corrupt_snapshot(path)
+        return n
+
+    def restore(self, path: str) -> List[Dict[str, Any]]:
+        """Warm-start THIS (fresh, idle) engine from a :meth:`snapshot` file
+        of either package: fresh blocks are allocated, the saved pages are
+        written into the live pool IN PLACE (``index_copy_`` on the block
+        axis: the captured chunk keeps its addresses, nothing is re-captured)
+        and the trie nodes are adopted parked and flagged warm, so a known
+        prompt prefix hits on the first request (``prefix.warm_hits``).
+        Returns the waiting-queue descriptors (:meth:`recover` resubmits
+        them when no journal supersedes the snapshot). Raises typed
+        :class:`SnapshotCorrupt` on an integrity, dtype or geometry
+        mismatch BEFORE touching engine state: a snapshot can lose warmth,
+        never serve wrong tokens."""
+        meta, arrays = read_snapshot(path)
+        if bool(meta.get("paged")) != self.paged:
+            raise SnapshotCorrupt(
+                f"snapshot arch mismatch: paged={meta.get('paged')} vs "
+                f"engine paged={self.paged}")
+        queue: List[Dict[str, Any]] = []
+        qlens = arrays.get("queue_lens")
+        qtoks = arrays.get("queue_tokens")
+        if qlens is not None and qtoks is not None:
+            off = 0
+            for d, ln in zip(meta.get("queue", []), [int(x) for x in qlens]):
+                d = dict(d)
+                d["prompt"] = np.asarray(qtoks[off:off + ln], np.int32)
+                off += ln
+                queue.append(d)
+        entries = meta.get("prefix") or []
+        if entries and self._prefix is not None:
+            pool = self._pkv
+            if meta.get("pool_dtype") != _dtype_name(pool.dtype):
+                raise SnapshotCorrupt(
+                    f"snapshot pool dtype mismatch: "
+                    f"{meta.get('pool_dtype')!r} vs engine "
+                    f"{_dtype_name(pool.dtype)}")
+            raw = np.ascontiguousarray(arrays["prefix_pages"])
+            if raw.ndim != pool.dim() or raw.shape[-1] % pool.element_size():
+                raise SnapshotCorrupt(
+                    f"snapshot pages of shape {raw.shape} (bytes) do not "
+                    f"fit a pool of {tuple(pool.shape)}")
+            pages = torch.from_numpy(raw).view(pool.dtype)  # re-viewed bytes
+            want = tuple(pool.shape[:2]) + (pages.shape[2],) \
+                + tuple(pool.shape[3:])
+            if int(meta.get("block_size", -1)) != self._pool.block_size \
+                    or tuple(pages.shape) != want:
+                raise SnapshotCorrupt(
+                    f"snapshot pool geometry mismatch: pages "
+                    f"{tuple(pages.shape)} / block_size "
+                    f"{meta.get('block_size')} vs engine {want} / "
+                    f"{self._pool.block_size}")
+            off, toks = 0, []
+            for ln in [int(x) for x in arrays["prefix_lens"]]:
+                toks.append(np.asarray(
+                    arrays["prefix_tokens"][off:off + ln], np.int32))
+                off += ln
+            for e, t in zip(entries, toks):
+                e["tokens"] = t
+            # leave headroom: warmth must never take the whole pool
+            n = min(len(entries), max(0, self._pool.num_free_unreserved - 1))
+            ids = self._pool.alloc(n) if n > 0 else []
+            if ids:
+                pool.index_copy_(
+                    2, torch.as_tensor(ids, dtype=torch.long,
+                                       device=pool.device),
+                    pages[:, :, :len(ids)].to(pool.device))
+                created = self._prefix.import_nodes(entries[:len(ids)], ids)
+                with self._state_lock:
+                    self.stats["warm_started"] += created
+        return queue
+
+    def recover(self, state_dir: str, *, fsync_every: int = 1
+                ) -> Dict[int, ServeRequest]:
+        """Crash or restart recovery against a state directory: restore its
+        snapshot if there is one (typed :class:`SnapshotCorrupt` falls back
+        to a cold start), replay its journal and RESUBMIT every incomplete
+        request (greedy decode replays it exactly; deadlines re-arm in
+        full), rotate the consumed journal to ``journal.wal.replayed`` and
+        attach a fresh one at the same path. The snapshot's queue is used
+        only without a journal (the journal's submits are a superset).
+        Returns ``{old request id: new future}``."""
+        os.makedirs(state_dir, exist_ok=True)
+        spath = os.path.join(state_dir, SNAPSHOT_FILE)
+        jpath = os.path.join(state_dir, JOURNAL_FILE)
+        queue: List[Dict[str, Any]] = []
+        if os.path.exists(spath):
+            try:
+                queue = self.restore(spath)
+            except SnapshotCorrupt:
+                queue = []    # cold start; the journal still replays
+        rep = replay_journal(jpath)
+        pending = rep.incomplete if rep.submits else queue
+        if os.path.exists(jpath):
+            os.replace(jpath, jpath + ".replayed")
+        self.set_journal(Journal(jpath, fsync_every=fsync_every))
+        out: Dict[int, ServeRequest] = {}
+        ntok = 0
+        for rec in pending:
+            prompt = np.asarray(rec["prompt"], np.int32)
+            req = self.submit(prompt, int(rec["max_new"]),
+                              priority=int(rec.get("priority", 0)),
+                              deadline_s=rec.get("deadline_s"))
+            out[int(rec["id"])] = req
+            ntok += len(prompt)
+        with self._state_lock:
+            self.stats["recovered"] += len(out)
+            self.stats["replayed_tokens"] += ntok
+        if self._mh is not None and out:
+            self._mh["recovered"].inc(len(out))
+            self._mh["replayed"].inc(ntok)
+        return out
+
     # ------------------------------------------------------- stage callables
     def _st_admit(self, pf):
+        if self._submitting:
+            with self._state_lock:
+                idle = self._slots_reserved == 0 \
+                    and all(r is None for r in self._slot_req)
+            if idle:
+                with self._submit_cv:
+                    self._submit_cv.wait_for(lambda: self._submitting == 0,
+                                             SUBMIT_WAIT_S)
         t_adm = time.perf_counter()
         self._wd_beat = t_adm
         epoch = self._reset_epoch
@@ -746,13 +1054,22 @@ class ServeEngine:
             deps = set(self._cycle_tokens)
             free_slots = len(self._free_slots) - reserved
         waiting = self._scheduler.num_waiting
+        draining = self._draining
+        if draining:
+            # graceful drain: admission is closed; residents keep decoding
+            # through pump cycles, and close() fails the backlog typed.
+            # With waiting forced to 0 the engine stops the moment its last
+            # resident retires, backlog or not
+            waiting = 0
         if not waiting and not occupied and reserved == 0:
             # fully idle: drain so the engine parks at zero cost; the next
             # submit() re-arms the SAME resident grid
             pf.stop()
             return None
         group = None
-        if self.paged:
+        if draining:
+            pass
+        elif self.paged:
             group = self._admit_paged(free_slots)
         else:
             # slot-state pool: recurrent state is pre-allocated per slot, so
@@ -788,6 +1105,9 @@ class ServeEngine:
                 for g in group:
                     g[0].set_error(err)
                 return ("pump", None)
+            if self._journal is not None:
+                for g in group:
+                    self._journal.admit(g[0])
             if self._mh is not None:
                 self._mh["admitted"].inc(len(group))
             if self._tr is not None:
@@ -1238,6 +1558,8 @@ class ServeEngine:
     def _note_first_token(self, req, now: float) -> None:
         if req.first_token_at is None:
             req.first_token_at = now
+            if self._journal is not None:
+                self._journal.first_token(req)
             if self._mh is not None and req.submitted_at is not None:
                 ttft = now - req.submitted_at
                 self._mh["ttft"].record(ttft)
@@ -1623,6 +1945,8 @@ class ServeEngine:
         ``"expired"``)."""
         req = self._vacate(slot, kind)
         req.set_error(err)
+        if self._journal is not None:
+            self._journal.cancel(req, kind)
         if self._mh is not None:
             self._mh[kind].inc()
             self._note_resident()
@@ -1656,6 +1980,23 @@ class ServeEngine:
                     f"({now - (req.submitted_at or now):.3f}s after "
                     f"submit)"), "expired")
         self._scheduler.expire_waiting(now)
+        if self._draining and self._drain_deadline_at is not None \
+                and now >= self._drain_deadline_at:
+            # drain deadline: checkpoint-preempt every seated row (a
+            # synchronous slot row keeps its exact state, the others replay
+            # from their prompts) so drain() settles and the snapshot holds
+            # them as queue descriptors. Here, on the decode stage, the one
+            # writer of slot state, never on the drain() caller's thread
+            n = 0
+            for b in range(len(self._slot_req)):
+                if self._slot_req[b] is None:
+                    continue
+                self._preempt(b, pf)
+                n += 1
+            if n:
+                with self._state_lock:
+                    self.stats["drain_preempted"] += n
+            return
         head = self._scheduler.peek_head()
         if head is None:
             return
@@ -2018,20 +2359,28 @@ class ServeEngine:
     def _st_complete(self, pf, msg):
         _, (epoch, retire) = msg
         now = time.perf_counter()
-        for slot, req, out in retire:
-            # a retiree's tokens are valid whatever happened since; its
-            # blocks and slot go back only if no failure-isolation reset
-            # replaced the pool since its decode stage collected it (the
-            # check and the frees are atomic against the reset's swap)
-            self._scheduler.finish(req, out, now)
-            with self._state_lock:
-                self._inflight.discard(req)
-                self.stats["retired"] += 1
-                if epoch == self._reset_epoch:
-                    if self.paged:
-                        self._pool.free(self._slot_blocks[slot])
-                        self._slot_blocks[slot] = None
-                    self._free_slots.append(slot)
+        with self._journal_batch():
+            for slot, req, out in retire:
+                # a retiree's tokens are valid whatever happened since; its
+                # blocks and slot go back only if no failure-isolation
+                # reset replaced the pool since its decode stage collected
+                # it (the check and the frees are atomic against the
+                # reset's swap)
+                self._scheduler.finish(req, out, now)
+                if self._journal is not None:
+                    self._journal.finish(req, out)
+                with self._state_lock:
+                    self._inflight.discard(req)
+                    self.stats["retired"] += 1
+                    if epoch == self._reset_epoch:
+                        if self.paged:
+                            self._pool.free(self._slot_blocks[slot])
+                            self._slot_blocks[slot] = None
+                        self._free_slots.append(slot)
+        if self._journal is not None:
+            # the admit and first-token records of the stages that feed the
+            # device, deferred to here (with the finishes when there are)
+            self._journal.write_pending()
         self._wd_beat = now
         with self._state_lock:
             self._cycle_tokens.discard(pf.token)
@@ -2050,7 +2399,11 @@ class ServeEngine:
                 return
             with self._state_lock:
                 occupied = any(r is not None for r in self._slot_req)
-            if self._scheduler.num_waiting == 0 and not occupied:
+            # a drain admits nothing: its backlog alone re-arms no run (the
+            # run would stop at once and re-arm again, and drain() would
+            # wait for an idle moment of that loop)
+            if (self._scheduler.num_waiting == 0 or self._draining) \
+                    and not occupied:
                 return
             pl.run(ex, self._on_topo_done)
 
@@ -2158,6 +2511,10 @@ class ServeEngine:
             raise RuntimeError("serve pipeline is broken") from self._broken
         if self._closing:
             raise EngineClosed("engine is closed")
+        if self._draining:
+            raise EngineClosed(
+                "engine is draining: admission stopped; submit to another "
+                "replica (residents run to the drain deadline)")
         req = ServeRequest(prompt, max_new, priority=priority,
                            deadline_s=deadline_s)
         total = req.prompt_len + req.max_new
@@ -2187,8 +2544,17 @@ class ServeEngine:
         req.submitted_at = now
         if req.deadline_s is not None:
             req.deadline_at = now + req.deadline_s
-        self._wd_beat = now
-        self._scheduler.enqueue(req)
+        with self._submit_cv:
+            self._submitting += 1
+        try:
+            if self._journal is not None:
+                self._journal.submit(req)
+            self._wd_beat = now
+            self._scheduler.enqueue(req)
+        finally:
+            with self._submit_cv:
+                self._submitting -= 1
+                self._submit_cv.notify_all()
         self._pump()
         return req
 
@@ -2202,6 +2568,84 @@ class ServeEngine:
             return []
         reqs = [self.submit(p, max_new) for p in prompts]
         return [self.result(r, timeout=600.0) for r in reqs]
+
+    # ------------------------------------------ per-call baseline (bench)
+    def _prefill_contig(self, tokens: torch.Tensor, max_len: int):
+        """The per-call path's prefill: greedy first tokens (B,) int32 and
+        the contiguous cache of :func:`repro_torch.models.lm.prefill`."""
+        logits, cache = lm.prefill(self.cfg, self.params, tokens,
+                                   max_len=max_len, layers=self._layers)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    def _decode_n(self, cache, cur: torch.Tensor, n: int):
+        """``n`` greedy contiguous decode steps from ``cur`` (B,), eagerly
+        (the reference jits this as one scan). Returns (cache, (B, n)
+        int32 tokens)."""
+        toks = []
+        for _ in range(n):
+            logits, cache = lm.decode_step(self.cfg, self.params, cache, cur,
+                                           layers=self._layers)
+            cur = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(cur)
+        return cache, torch.stack(toks, dim=1)
+
+    def _generate_grouped(self, prompts: List[Any], max_new: int
+                          ) -> List[Any]:
+        """The reference's per-call pipeline, kept as the serve suite's
+        baseline: equal-length groups flow admit -> prefill (a contiguous
+        cache of ``S + max_new + 1`` positions) -> chunked contiguous
+        decode -> complete through a throwaway pipeline on the engine's
+        executor. It shares no state with the resident pipeline."""
+        groups: "OrderedDict[int, List[int]]" = OrderedDict()
+        arrs = [np.asarray(p, np.int32) for p in prompts]
+        for i, a in enumerate(arrs):
+            groups.setdefault(len(a), []).append(i)
+        work = deque(groups.values())
+        results: List[Any] = [None] * len(prompts)
+
+        def admit(pf):
+            if not work:
+                pf.stop()
+                return None
+            return work.popleft()
+
+        def prefill(pf, idxs):
+            with self._stage_ctx():
+                toks = torch.from_numpy(np.stack([arrs[i] for i in idxs])
+                                        ).to(self.device)
+                cur, cache = self._prefill_contig(
+                    toks, toks.shape[1] + max_new + 1)
+            return idxs, cache, cur
+
+        def decode(pf, state):
+            idxs, cache, cur = state
+            with self._stage_ctx():
+                chunks = [cur[:, None]]
+                remaining = max_new - 1
+                while remaining > 0:
+                    n = min(self.decode_chunk, remaining)
+                    cache, chunk = self._decode_n(cache, cur, n)
+                    chunks.append(chunk)
+                    cur = chunk[:, -1]
+                    remaining -= n
+                seqs = torch.cat(chunks, dim=1).cpu().numpy()
+            return idxs, seqs
+
+        def complete(pf, state):
+            idxs, seqs = state
+            for row, i in enumerate(idxs):   # rows go to disjoint slots
+                results[i] = seqs[row]
+            return None
+
+        pl = DataPipeline(
+            max(1, min(len(work), PIPELINE_LINES)),
+            DataPipe(PipeType.SERIAL, admit, name="admit"),
+            DataPipe(PipeType.SERIAL, prefill, name="prefill"),
+            DataPipe(PipeType.SERIAL, decode, name="decode", domain=ACCEL),
+            DataPipe(PipeType.PARALLEL, complete, name="complete"),
+            name="serve-generate")
+        pl.run(self._ensure_executor()).wait()
+        return results
 
 
 def write_slot_state(sstate, slot: int, cache, plen: int) -> None:
@@ -2221,6 +2665,12 @@ def write_slot_state(sstate, slot: int, cache, plen: int) -> None:
     else:
         for dst, src in zip(sstate["ssm"], cache["ssm"]):
             dst[:, slot].copy_(src[:, 0])
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``"bfloat16"``, ``"float32"``): the
+    snapshot's ``pool_dtype``, as the reference writes it."""
+    return str(dtype).rpartition(".")[2]
 
 
 def _tensors(tree):

@@ -69,10 +69,11 @@ class _Node:
     chain's token prefix."""
 
     __slots__ = ("key", "parent", "children", "block", "tokens", "hits",
-                 "last_used", "depth")
+                 "last_used", "depth", "warm")
 
     def __init__(self, key: int, parent: Optional["_Node"], block: int,
-                 tokens: np.ndarray, depth: int, now: float) -> None:
+                 tokens: np.ndarray, depth: int, now: float,
+                 warm: bool = False) -> None:
         self.key = key
         self.parent = parent
         # hash -> list of nodes (collision chain, disambiguated by tokens)
@@ -82,6 +83,7 @@ class _Node:
         self.hits = 0
         self.last_used = now
         self.depth = depth
+        self.warm = warm        # restored from a snapshot, not prefilled here
 
 
 class PrefixHit:
@@ -116,8 +118,9 @@ class PrefixCache:
         self._lock = threading.Lock()
         self._root: Dict[int, List[_Node]] = {}   # depth-0 collision chains
         self._nodes = 0
-        self.stats = {"hits": 0, "misses": 0, "evicted": 0}
+        self.stats = {"hits": 0, "misses": 0, "evicted": 0, "warm_hits": 0}
         self._c_hits = self._c_misses = self._c_evicted = None
+        self._c_warm = None
         self._g_parked = None
 
     # ---------------------------------------------------------- observability
@@ -128,11 +131,13 @@ class PrefixCache:
         index — cached capacity reclaimable without touching any row)."""
         if metrics is None:
             self._c_hits = self._c_misses = self._c_evicted = None
+            self._c_warm = None
             self._g_parked = None
             return
         self._c_hits = metrics.counter("prefix.hits")
         self._c_misses = metrics.counter("prefix.misses")
         self._c_evicted = metrics.counter("prefix.evicted")
+        self._c_warm = metrics.counter("prefix.warm_hits")
         self._g_parked = metrics.gauge("pool.blocks_parked")
         with self._lock:
             self._note_parked_locked()
@@ -241,6 +246,13 @@ class PrefixCache:
             c = self._c_hits if hit else self._c_misses
             if c is not None:
                 c.inc()
+            if hit and (any(n.warm for n in chain)
+                        or (partial is not None and partial.warm)):
+                # the match was served (at least partly) by chunks restored
+                # from a snapshot — warm start paid off on a live request
+                self.stats["warm_hits"] += 1
+                if self._c_warm is not None:
+                    self._c_warm.inc()
             self._note_parked_locked()
             return PrefixHit(blocks, len(blocks) * self._bs + partial_len,
                              partial.block if partial else None, partial_len)
@@ -346,6 +358,68 @@ class PrefixCache:
             self._nodes = 0
             self._note_parked_locked()
         return len(nodes)
+
+    # ------------------------------------------------------- persistence
+    def export_nodes(self) -> List[Dict]:
+        """Serialize the trie for a snapshot: a list of per-node dicts in
+        parent-before-child (BFS) order, each carrying its parent's LIST
+        INDEX (``-1`` for depth-0 nodes), the chained chunk key, the chunk
+        tokens, the reuse hit count, and the pool block id whose KV page
+        the snapshot writer must capture. Chained keys are stable blake2b
+        content hashes, so the same entries re-key identically in a fresh
+        process."""
+        with self._lock:
+            order: List[_Node] = []
+            index: Dict[int, int] = {}
+            queue = [n for chain in self._root.values() for n in chain]
+            while queue:
+                nxt: List[_Node] = []
+                for n in queue:
+                    index[id(n)] = len(order)
+                    order.append(n)
+                    for chain in n.children.values():
+                        nxt.extend(chain)
+                queue = nxt
+            return [{"parent": -1 if n.parent is None
+                     else index[id(n.parent)],
+                     "key": int(n.key), "depth": int(n.depth),
+                     "hits": int(n.hits), "tokens": np.array(n.tokens),
+                     "block": int(n.block)} for n in order]
+
+    def import_nodes(self, entries: Sequence[Dict],
+                     blocks: Sequence[int]) -> int:
+        """Rebuild trie nodes from :meth:`export_nodes` entries into an
+        EMPTY index, adopting ``blocks[i]`` (freshly allocated by the
+        restore path, refcount 1) as node *i*'s index reference — the
+        block is born PARKED. Entries must be parent-before-child;
+        entries whose parent was dropped (restore truncated to fit the
+        pool) are skipped, keeping the parent-chain invariant. Restored
+        nodes are flagged ``warm`` so their first live match counts into
+        ``prefix.warm_hits``. Returns the number of nodes created."""
+        now = time.perf_counter()
+        created = 0
+        with self._lock:
+            nodes: Dict[int, _Node] = {}
+            for i, e in enumerate(entries):
+                if i >= len(blocks):
+                    break
+                parent = None
+                if e["parent"] >= 0:
+                    parent = nodes.get(e["parent"])
+                    if parent is None:
+                        continue            # parent dropped: skip subtree
+                node = _Node(int(e["key"]), parent, int(blocks[i]),
+                             np.array(e["tokens"]), int(e["depth"]), now,
+                             warm=True)
+                node.hits = int(e.get("hits", 0))
+                siblings = (self._root if parent is None
+                            else parent.children)
+                siblings.setdefault(node.key, []).append(node)
+                nodes[i] = node
+                self._nodes += 1
+                created += 1
+            self._note_parked_locked()
+        return created
 
     def _remove_locked(self, node: _Node) -> None:
         siblings = (self._root if node.parent is None

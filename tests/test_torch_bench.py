@@ -26,6 +26,7 @@ from repro_torch.bench import (fig9_micro_random_dag, fig11_corun_throughput,
                                fig21_incremental_timing, obs_overhead_gate,
                                paged_decode_microbench, pipeline_throughput,
                                serve_continuous)
+from repro_torch.bench import journal_gate, journal_probe
 from repro_torch.bench import run as trun
 from repro_torch.bench import table2_task_overhead
 
@@ -102,8 +103,9 @@ def test_run_writes_the_reference_trajectory_schema(tmp_path):
 
 
 def test_run_refuses_unported_and_unknown_suites():
-    with pytest.raises(SystemExit, match="item 7"):
-        trun.main(["--device", "cpu", "--only", "journal_gate"])
+    assert "journal_gate" not in trun.NOT_PORTED
+    with pytest.raises(SystemExit, match="item 11"):
+        trun.main(["--device", "cpu", "--only", "serve_mesh"])
     with pytest.raises(SystemExit, match="unknown suite"):
         trun.main(["--device", "cpu", "--only", "fig99"])
 
@@ -155,13 +157,16 @@ def test_serve_rows_carry_the_reference_names(tmp_path):
     rows = list(serve_continuous.bench(quick=True, device="cpu",
                                        trace_path=str(trace)))
     got = _names(rows)
-    want = [n for n in _reference_serve_rows("bench")
-            if not n.startswith("serve_percall")]
+    want = _reference_serve_rows("bench")
     assert [n for n in got if n in want] == want
     assert set(got) - set(want) == {"serve_cycle_mean_ms"}
     val = {n: v for n, v, _ in rows}
     der = {n: d for n, _, d in rows}
     assert float(val["serve_continuous_tok_per_s"]) > 0
+    assert float(val["serve_percall_tok_per_s"]) > 0
+    for n in ("serve_continuous_tok_per_s", "serve_continuous_p50_ms",
+              "serve_continuous_p99_ms"):
+        assert re.fullmatch(r"[0-9.]+x_per_call", der[n]), (n, der[n])
     assert der["serve_ttft_p50_ms"] == "count_8"
     assert val["serve_continuous_paged_impl"] == "loop"
     payload = json.loads(trace.read_text())
@@ -253,3 +258,58 @@ def test_run_decode_overlap_quick_on_cpu(tmp_path):
     trace = json.loads((tmp_path / "TRACE_decode_overlap.json").read_text())
     assert trace["otherData"]["spans"] == int(val["overlap_trace_spans"])
     assert "decode_overlap" not in trun.NOT_PORTED
+
+
+def test_journal_gate_rows_carry_the_reference_names(tmp_path, monkeypatch):
+    monkeypatch.setattr(journal_gate, "measure", lambda quick, dev: {
+        "off": 100.0, "on": 98.0, "ratio": 0.98, "reps": 5, "records": 120})
+    rc = trun.main(["--device", "cpu", "--quick", "--only", "journal_gate",
+                    "--bench-dir", str(tmp_path)])
+    assert rc == 0
+    gate = json.loads((tmp_path / "BENCH_journal_gate.json").read_text())
+    src = (ROOT / "benchmarks" / "journal_overhead_gate.py").read_text()
+    want = re.findall(r'yield \(\s*"([a-z_]+)"', src)
+    assert [r["name"] for r in gate["rows"]] == want
+    assert gate["rows"][-1]["derived"] == "within_5pct"
+    monkeypatch.setattr(journal_gate, "measure", lambda quick, dev: {
+        "off": 100.0, "on": 90.0, "ratio": 0.9, "reps": 5, "records": 120})
+    with pytest.raises(AssertionError, match="journal overhead gate"):
+        list(journal_gate.bench(quick=True, device="cpu"))
+
+
+def test_journal_probe_runs_each_variant_on_cpu(monkeypatch):
+    from repro_torch.serve import engine as emod
+    from repro_torch.serve import journal as jmod
+    from repro_torch.serve.journal import Journal
+    monkeypatch.setitem(journal_gate.REPS, True, 2)
+
+    def state():
+        return (emod.SUBMIT_WAIT_S, jmod.DEFERRED_KINDS, jmod.GIL_HELD_WRITE,
+                dict(vars(Journal)),
+                dict(vars(emod.ServeEngine)))
+    before = state()
+    got = list(journal_probe.probe(quick=True, device="cpu"))
+    assert [n for n, _, _ in got] == list(journal_probe.VARIANTS)
+    for name, r, ms in got:
+        assert r["ratio"] > 0, name
+        if name == "A/A":                # no journal is ever attached
+            assert "_write" not in ms and r["records"] == 0
+            continue
+        assert ms["_write"] > 0, name
+        assert set(ms) >= {"submit", "admit", "first_token"}
+    assert state() == before                  # every variant undone
+
+
+def test_journal_gate_measures_one_engine_on_cpu(monkeypatch):
+    monkeypatch.setitem(journal_gate.REPS, True, 5)
+    r = journal_gate.measure(quick=True, device="cpu")
+    assert r["off"] > 0 and r["on"] > 0 and r["reps"] == 5
+    assert [len(r["samples"][m]) for m in ("off", "on")] == [5, 5]
+    pairs = [b / a for a, b in zip(r["samples"]["off"], r["samples"]["on"])]
+    assert r["ratio"] == pytest.approx(sorted(pairs)[2])
+    # each repetition's burst of 6 is admitted alike in both modes
+    assert r["prefills"]["on"] == r["prefills"]["off"]
+    # every repetition starts from a resting engine, so each journal holds
+    # the four records of each of its 6 requests (the finish is appended
+    # after the future is fulfilled, as in the reference)
+    assert r["records"] == 5 * 6 * 4

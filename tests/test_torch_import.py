@@ -40,7 +40,10 @@ def test_import_without_gpu_leaves_jax_out():
         "repro_torch.examples.quickstart, repro_torch.obs, "
         "repro_torch.serve.prefix, repro_torch.bench.serve_continuous, "
         "repro_torch.bench.obs_overhead_gate, "
-        "repro_torch.serve.faultinject, repro_torch.bench.serve_slo\n"
+        "repro_torch.serve.faultinject, repro_torch.bench.serve_slo, "
+        "repro_torch.serve.journal, repro_torch.serve.snapshot, "
+        "repro_torch.bench.journal_gate, repro_torch.bench.journal_probe, "
+        "repro_torch.launch.incarnation\n"
         "from repro_torch.models.lm import forward, loss_fn\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

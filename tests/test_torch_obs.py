@@ -360,11 +360,6 @@ def _lifecycle(side, tmp_path):
     return [o.tolist() for o in outs], slot_names, set(snap)
 
 
-#: metrics the reference engine binds that the port's does not yet: the
-#: recovery counters come with the journal (ROADMAP Queue 1 item 7)
-NOT_BOUND_YET = {"serve.recovered", "serve.replayed_tokens"}
-
-
 def _preemption(side):
     cfg = _setup()[0]
     rng = np.random.default_rng(1)
@@ -397,11 +392,12 @@ def test_engine_lifecycle_spans_and_metric_consistency(tmp_path):
     outs, names, metrics = _lifecycle("torch", tmp_path)
     assert outs == ref_outs
     assert names == ref_names
-    # the port binds what the reference binds (the SLO and failure
-    # counters included), but the recovery counters
-    assert metrics == ref_metrics - NOT_BOUND_YET
+    # the port binds what the reference binds: the SLO, failure and
+    # recovery counters included
+    assert metrics == ref_metrics
     assert {"serve.shed", "serve.expired", "serve.cancelled",
-            "serve.watchdog_fires", "serve.row_failures"} <= metrics
+            "serve.watchdog_fires", "serve.row_failures",
+            "serve.recovered", "serve.replayed_tokens"} <= metrics
 
 
 def test_preemption_reentry_visible_in_trace():

@@ -5,7 +5,10 @@ Two layers, as in ``tests/test_prefix_cache.py``:
 * the trie: each scenario runs one call sequence through
   ``repro.serve.prefix``/``repro.serve.kvcache.BlockPool`` and through the
   port's copies, and the two logs (match results, refcounts, parked and
-  node counts, eviction order, metrics) must be equal;
+  node counts, eviction order, metrics, ``warm_hits`` included) must be
+  equal; two of them diff the snapshot path's ``export_nodes`` and
+  ``import_nodes`` (BFS order, parent indices, a truncated restore) and the
+  restored nodes' ``warm`` flag;
 * the engine at float32 compute on the stablelm smoke config: with
   ``prefix_cache=True`` the port's sync engine on the CPU and the JAX
   engine on its ``gather`` oracle serve the same call sequences and must
@@ -53,12 +56,6 @@ def _hit(h):
     return (list(h.blocks), h.tokens, h.partial_block, h.partial_len)
 
 
-def _live(counts):
-    """``counts`` without the snapshot-restore accounting (``warm_hits``),
-    which the port's copy leaves to the snapshot path."""
-    return {k: v for k, v in counts.items() if "warm_hits" not in k}
-
-
 # ============================================================ trie layer
 def _register_then_match(Pool, Cache, Reg):
     pool = Pool(16, 4)
@@ -74,7 +71,7 @@ def _register_then_match(Pool, Cache, Reg):
     log += [_hit(hit), [pool.refcount(b) for b in blocks]]
     px.unpin(hit.blocks)
     div = np.concatenate([prompt[:8], _tok(77, 77, 77, 77, 77)])
-    log += [px.peek(div), _live(px.stats)]
+    log += [px.peek(div), px.stats]
     return log
 
 
@@ -142,7 +139,7 @@ def _evict_leaf_first(Pool, Cache, Reg):
     pool.free(blocks)
     log = [px.evict(1), px.num_nodes, px.check_parent_invariant(),
            px.peek(prompt), sorted(pool._free)]
-    log += [px.evict(10), px.num_nodes, pool.num_free, _live(px.stats)]
+    log += [px.evict(10), px.num_nodes, pool.num_free, px.stats]
     return log
 
 
@@ -211,9 +208,72 @@ def _metrics_and_clear(Pool, Cache, Reg):
     px.match_and_pin(np.arange(90, 99, dtype=np.int32))      # a miss
     h = px.match_and_pin(np.concatenate([a, _tok(5)]))
     px.unpin(h.blocks)
-    log = [_hit(h), _live(reg.snapshot()), _live(px.stats), px.num_parked]
+    log = [_hit(h), reg.snapshot(), px.stats, px.num_parked]
     log += [px.clear(), px.num_nodes, pool.num_free, px.num_parked,
-            _live(reg.snapshot())]
+            reg.snapshot()]
+    return log
+
+
+def _export(px):
+    """``export_nodes`` with the token arrays as lists (comparable)."""
+    return [{**n, "tokens": n["tokens"].tolist()} for n in px.export_nodes()]
+
+
+def _export_import_warm(Pool, Cache, Reg):
+    """A trie exported from one pool and imported into a fresh pool's empty
+    cache (the snapshot path): BFS order with parent indices, parked warm
+    nodes, and the first live match counted in ``warm_hits``."""
+    pool = Pool(16, 4)
+    px = Cache(pool)
+    a = np.arange(1, 13, dtype=np.int32)                     # 3 chunks
+    b = np.concatenate([a[:4], np.arange(40, 48, dtype=np.int32)])
+    ba, bb = pool.alloc(3), pool.alloc(3)
+    px.register(a, ba)
+    px.register(b, bb)
+    pool.free(ba)
+    pool.free(bb)
+    h = px.match_and_pin(np.concatenate([a, _tok(5)]))       # hits += 1
+    px.unpin(h.blocks)
+    exported = _export(px)
+    log = [exported]
+    pool2 = Pool(16, 4)
+    px2 = Cache(pool2)
+    reg = Reg()
+    px2.set_metrics(reg)
+    ids = pool2.alloc(len(exported))
+    log += [px2.import_nodes(px.export_nodes(), ids), px2.num_nodes,
+            px2.num_parked, pool2.num_free, _export(px2)]
+    h2 = px2.match_and_pin(np.concatenate([b, _tok(9)]))
+    log += [_hit(h2), px2.stats, reg.snapshot()]
+    px2.unpin(h2.blocks)
+    px2.register(np.concatenate([np.arange(60, 68, dtype=np.int32)]),
+                 pool2.alloc(2))                             # a cold chain
+    h3 = px2.match_and_pin(np.arange(60, 69, dtype=np.int32))
+    log += [_hit(h3), px2.stats, reg.snapshot()]
+    return log
+
+
+def _import_truncated(Pool, Cache, Reg):
+    """Restore with fewer blocks than entries (a smaller pool): the tail
+    of the BFS order is dropped, and a child whose parent was dropped is
+    skipped with its subtree."""
+    pool = Pool(32, 4)
+    px = Cache(pool)
+    a = np.arange(1, 17, dtype=np.int32)                     # 4 chunks
+    c = np.concatenate([a[:4], np.arange(70, 78, dtype=np.int32)])
+    for prompt, n in ((a, 4), (c, 3)):
+        blocks = pool.alloc(n)
+        px.register(prompt, blocks)
+        pool.free(blocks)
+    entries = px.export_nodes()
+    log = [[e["parent"] for e in entries]]
+    for keep in (2, 3, 5):
+        pool2 = Pool(32, 4)
+        px2 = Cache(pool2)
+        created = px2.import_nodes(entries, pool2.alloc(keep))
+        log += [keep, created, px2.num_nodes, px2.num_parked,
+                px2.peek(np.concatenate([a, _tok(1)])),
+                px2.peek(np.concatenate([c, _tok(1)]))]
     return log
 
 
@@ -221,7 +281,8 @@ TRIE_SCENARIOS = [_register_then_match, _cap_at_prompt_len_minus_one,
                   _partial_tail_best_divergence, _hash_collisions,
                   _register_skips_existing, _evict_leaf_first,
                   _evict_reuse_score, _pinned_untouchable,
-                  _preempt_while_shared_pool, _metrics_and_clear]
+                  _preempt_while_shared_pool, _metrics_and_clear,
+                  _export_import_warm, _import_truncated]
 
 
 @pytest.mark.parametrize("scenario", TRIE_SCENARIOS,
