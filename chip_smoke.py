@@ -168,6 +168,31 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               checkpoint branch with an injected failure at smoke size.
               No kernel of the port runs here: training takes the plain
               chunked attention, as the reference does;
+8f. k3bwd   — the backward kernel of K3 (``csrc/mamba_scan_bwd.cu``,
+              behind ``MambaScan``) against autograd through the plain
+              sequential scan: B=2, S=250 (off the 32-step chunks), dI=512,
+              N=16 in fp32 and with bf16 x/B/C, a ragged dI with an initial
+              state and a final-state gradient, N=12; then at the training
+              shape (B=1, S=2048, dI=8192, N=16) compared again and timed
+              beside its bound and the plain backward, with K3's serving
+              and training entry points timed there too;
+8g. train_ssm — in fp32 at full width, one batch's loss and every
+              gradient on the card against the CPU's (falcon-mamba-7b at 4
+              layers, zamba2-1.2b at 14: two groups and a 2-layer tail);
+              then 3 steps of 8 x 2048 through the ``Trainer`` (fp32
+              masters, bf16 compute with remat) for zamba2-1.2b at full
+              width and depth and falcon-mamba-7b at full width cut to 16
+              of 64 layers: step walls, tok/s, MFU, peak memory and a
+              traced step (idle share, time by kernel class: K3, its
+              backward, GEMMs), K3 and backward launches counted;
+8h. frontend — the modality-frontend archs with seeded stub frames: in
+              fp32 at full width and 4 layers, the prefill through K2
+              against the chunked plain path and decode-after-prefill
+              against ``forward`` (internvl2-1b, musicgen-large);
+              internvl2-1b at full width and depth trained 3 steps of 8 x
+              2048 tokens behind its 256 frames; musicgen-large at full
+              width and depth (bf16): 8 prompts of 64 tokens behind its 64
+              frames prefilled through K2, then 16 greedy ``decode_step``s;
 9. k4       — K4 (the LSDNN layer) against its plain version at the HPEC
               shape T=60000, F=G=1024 (fp32 and bf16, random and HPEC
               data), at ragged shapes and at a cap-saturating case, then
@@ -203,8 +228,8 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               table2,fig9,fig17,paged_decode --quick`` whose
               ``BENCH_*.json`` must hold each suite's row names
               (paged_decode runs K1 at stablelm-1.6b's full-width heads);
-12. report  — one JSON line of per-kernel numbers (K1-K4 and
-              ``cond_graph``), the card line, and the final
+12. report  — one JSON line of per-kernel numbers (K1-K4, K3's backward
+              and ``cond_graph``), the card line, and the final
               ``{"ok": true, ...}`` line.
 
     python3 chip_smoke.py
@@ -281,6 +306,33 @@ TRAIN_BF16_TOL = {"loss": 5e-3, "grad_norm": 5e-3}
 # first run's, relative (the same weights and batch; the embedding
 # backward's atomics may change the last bits)
 TRAIN_RERUN_REL = 1e-5
+
+# the k3bwd phase: the backward kernel against autograd through the plain
+# scan, max |kernel - plain| <= tol x max |plain| for each gradient. fp32:
+# the sums over d (dB, dC: 512 channels), t (dA, d dt's share) and n run in
+# other orders, and expf against torch.exp; bf16 x/B/C: dx, dB and dC are
+# rounded to bf16 by both, where one ulp is 2**-8 of the magnitude
+K3BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the training shape: one falcon-mamba-7b sequence a microbatch
+K3BWD_SHAPE = (1, 2048, 8192, 16)
+# the train_ssm and frontend phases: 3 steps of TRAIN_BATCH x TRAIN_SEQ
+# each; falcon-mamba-7b at full width cut to 16 of its 64 layers (its
+# 7.27 B parameters' fp32 masters, gradients and moments, ~116 GB, do not
+# fit the 80 GB card; 16 layers are ~2.2 B, ~36 GB)
+TRAIN_SSM_STEPS = 3
+FALCON_TRAIN_LAYERS = 16
+# before them, in fp32 at full width, one batch's loss and gradients on
+# the card against the CPU's: falcon-mamba at 4 layers, zamba2 at 14 (two
+# groups of 6 and a 2-layer tail, so the shared block's gradient sums over
+# groups; at 4 layers zamba2 holds no group); |d loss| relative, and per
+# leaf max |d grad| over max |grad| (other summation orders: cuBLAS against
+# the CPU's GEMMs, K3 and its backward against the plain scan)
+SSM_CHECK = {"falcon-mamba-7b": 4, "zamba2-1.2b": 14}
+SSM_CHECK_SHAPE = (2, 80)
+SSM_CHECK_TOL = {"loss": 1e-5, "grad": 1e-3}
+# the frontend phase: musicgen-large's 8 prompts of 64 tokens behind its
+# 64 frames, 16 decode steps; the fp32 checks at full width and 4 layers
+FRONTEND_PROMPT, FRONTEND_NEW, FRONTEND_CHECK_LAYERS = 64, 16, 4
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
 MAX_NEW = 32
@@ -1125,8 +1177,9 @@ def phase_k3(dev, other=None):
         f"{SFU_EXP_PER_S:.3e}/s, fp32 {t_fma:.5f} ms for {flops:.3e} flop) "
         f"| device time in a CUDA graph {dev_ms:.5f} ms")
     host = host_us(lambda: scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A))
-    kernel_report("[k3]", "mamba_scan", flops, ms, b_ms, None,
-                  sass_counts("mamba_scan", K3_SASS), dev_ms, host=host)
+    kernel_report("[k3]", "mamba_scan_kernel", flops, ms, b_ms, None,
+                  sass_counts("mamba_scan_kernel", K3_SASS), dev_ms,
+                  host=host)
     y = torch.empty((B, S, dI), device=dev)
     hT = torch.empty((B, dI, N), device=dev)
     cut = _time_ablations(
@@ -1460,16 +1513,30 @@ def phase_steps_moe(cfg, params, prompts, frozen, dev) -> None:
 
 # ------------------------------------------------------------------ phase 8e
 def train_model_flops(cfg, batch: int, seq: int):
-    """One step's model FLOPs by the PaLM count, ``6 N tokens + 12 L D S
-    tokens`` with N the matmul weights (attention, MLP and LM head; the
-    embedding gather is no matmul); remat's second forward is not counted.
-    Returns (flops, N)."""
+    """One step's model FLOPs by the PaLM count, ``6 N tokens + 12 L_attn D
+    S tokens``: N the matmul weights a token passes through (attention and
+    MLP layers; a Mamba1 layer's in, x, dt and out projections; a Mamba2
+    layer's in and out projections and, G times, the hybrid's shared
+    block; the LM head; the embedding gather is no matmul) and L_attn the
+    attention layers it passes. The scans' own work and remat's second
+    forward are not counted. Returns (flops, N)."""
     D, L = cfg.d_model, cfg.num_layers
     attn = 2 * D * cfg.num_heads * cfg.hd + 2 * D * cfg.num_kv_heads * cfg.hd
     mlp = (3 if cfg.mlp_gated else 2) * D * cfg.d_ff
-    n = L * (attn + mlp) + D * cfg.padded_vocab
+    dI, Ns = cfg.d_inner, cfg.ssm_state
+    if not cfg.ssm:
+        n, l_attn = L * (attn + mlp), L
+    elif cfg.ssm_version == 1:
+        n = L * (D * 2 * dI + dI * (cfg.dt_rank_ + 2 * Ns)
+                 + cfg.dt_rank_ * dI + dI * D)
+        l_attn = 0
+    else:
+        l_attn = L // cfg.hybrid_attn_every
+        n = L * (D * (2 * dI + 2 * Ns + cfg.ssm_heads) + dI * D) \
+            + l_attn * (2 * D * D + attn + mlp)
+    n += D * cfg.padded_vocab
     tokens = batch * seq
-    return 6.0 * n * tokens + 12.0 * L * D * seq * tokens, n
+    return 6.0 * n * tokens + 12.0 * l_attn * D * seq * tokens, n
 
 
 def _profile_rows(fn):
@@ -1493,10 +1560,15 @@ def _profile_rows(fn):
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 
 
-def _gemm_class(name: str) -> str:
-    """A kernel's class in the train profile: cuBLAS's fp32 FFMA GEMMs
-    (the chunked attention's fp32 QK products and the fp32 logits
-    products), the other GEMMs (bf16 on the tensor cores), or the rest."""
+def _kernel_class(name: str) -> str:
+    """A kernel's class in a train profile: K3 and its backward, cuBLAS's
+    fp32 FFMA GEMMs (the chunked attention's fp32 QK products and the fp32
+    logits products), the other GEMMs (bf16 on the tensor cores), or the
+    rest."""
+    if "mamba_scan_bwd" in name:
+        return "K3 backward"
+    if "mamba_scan_kernel" in name:
+        return "K3"
     if "f32f32_f32f32" in name or "sgemm" in name:
         return "fp32 gemm"
     if any(k in name for k in ("gemm", "nvjet", "cutlass")):
@@ -1505,150 +1577,64 @@ def _gemm_class(name: str) -> str:
 
 
 def _weights_probe(params) -> dict:
-    return {"wq": params["blocks"]["wq"][:, :8, :8].clone(),
-            "wd": params["blocks"]["wd"][:, :8, :8].clone(),
-            "embed": params["embed"][:8, :8].clone()}
+    """A corner of every leaf of two or more dimensions (the leaves AdamW
+    decays, so each moves in a step whatever its gradient)."""
+    return {n: t[..., :8, :8].clone() for n, t in _named_leaves(params)
+            if t.dim() >= 2}
 
 
 def phase_train(dev, card: str = "") -> dict:
     """stablelm-1.6b at full width and depth (24 layers, d_model 2048, 32
-    heads of 64, d_ff 5632, vocab 100352) trained through the port's
-    ``Trainer`` (the cyclic conditional taskflow: prefetch, train-step,
-    ckpt?, loop?) for TRAIN_STEPS steps: fp32 masters from a seeded
-    ``torch.Generator``, AdamW with fp32 moments, bf16 compute with remat,
-    the launcher's ``full`` preset with its batch cut from 256 x 4096 to
-    TRAIN_BATCH x TRAIN_SEQ (one sequence per microbatch) so the phase
-    stays near 90 s; no checkpoint directory. Then, from the trained
-    state: one step under ``torch.cuda.set_sync_debug_mode("error")`` with
-    its batch on the card (a step that is not a log step makes no host
-    sync), one step traced with ``torch.profiler``, and one timed
+    heads of 64, d_ff 5632, vocab 100352) trained through
+    :func:`_train_run` for TRAIN_STEPS steps, the launcher's ``full``
+    preset with its batch cut from 256 x 4096 to TRAIN_BATCH x TRAIN_SEQ
+    (one sequence per microbatch) so the phase stays near 90 s; no
+    checkpoint directory. The first loss must lie within 1 nat of ln(V).
+    Then, from the trained state: one step under
+    ``torch.cuda.set_sync_debug_mode("error")`` with its batch on the card
+    (a step that is not a log step makes no host sync) and one timed
     snapshot of params and optimizer state into host memory (what
     ``ckpt-save`` does on the critical path; nothing is written to disk).
     Then ``phase_train_checks``."""
     from repro_torch.launch.train import build_cfg
     from repro_torch.optim import OptConfig
     from repro_torch.tree import leaves
-    from repro_torch.train import Trainer, TrainerConfig
-    from repro_torch.train.train_step import make_train_step
     from repro_torch.train.trainer import host_snapshot
 
     cfg, full_batch, full_seq = build_cfg("stablelm-1.6b", "full")
-    B, S = TRAIN_BATCH, TRAIN_SEQ
-    flops, n_matmul = train_model_flops(cfg, B, S)
-    # the launcher's schedule for a TRAIN_STEPS-step run
+    log(f"[train] {cfg.name}: H={cfg.num_heads} hd={cfg.hd} F={cfg.d_ff} "
+        f"V={cfg.vocab_size}; batch {TRAIN_BATCH} x seq {TRAIN_SEQ} is the "
+        f"full preset's {full_batch} x {full_seq}, cut")
+
+    def then(step, params, opt_state, batch) -> dict:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, opt_state, m = step(params, opt_state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[train] one step under set_sync_debug_mode('error'), batch "
+            f"on the card: no host sync; loss {float(m['loss']):.6f}")
+        if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+            raise SystemExit("train: the sync-debug step is not finite")
+        snap_tree = {"params": params, "opt": opt_state}
+        nbytes = sum(t.numel() * t.element_size() for t in leaves(snap_tree))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = host_snapshot(snap_tree)
+        snap_s = time.perf_counter() - t0
+        del snap
+        log(f"[train] ckpt-save snapshot (synchronous copy to host memory, "
+            f"on the critical path): {nbytes / 1e9:.3f} GB in {snap_s:.3f} "
+            f"s ({nbytes / snap_s / 1e9:.2f} GB/s); not written to disk")
+        return {"snapshot_bytes": nbytes, "snapshot_s": snap_s}
+
+    summary = _train_run(dev, cfg, "train", card, TRAIN_STEPS, then=then)
+    if abs(summary["loss"][0] - np.log(cfg.vocab_size)) > 1.0:
+        raise SystemExit(f"train: first loss {summary['loss'][0]} is not "
+                         f"within 1 nat of ln(V) = {np.log(cfg.vocab_size)}")
     opt = OptConfig(lr=3e-4, warmup_steps=max(10, TRAIN_STEPS // 20),
                     total_steps=TRAIN_STEPS)
-    tc = TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
-                       microbatches=TRAIN_MB)
-    tr = Trainer(cfg, tc, batch=B, seq_len=S, opt=opt, device=dev)
-    probe = {}
-    draw = tr.init_state
-
-    def init_state():
-        st = draw()
-        probe.update(_weights_probe(st["params"]))
-        return st
-
-    tr.init_state = init_state
-    log(f"[train] {cfg.name}: L={cfg.num_layers} D={cfg.d_model} "
-        f"H={cfg.num_heads} hd={cfg.hd} F={cfg.d_ff} V={cfg.vocab_size} "
-        f"remat={cfg.remat} compute {cfg.compute_dtype}, fp32 masters and "
-        f"moments; batch {B} x seq {S} (the full preset's {full_batch} x "
-        f"{full_seq}, cut), {TRAIN_MB} microbatches; model FLOPs/step "
-        f"{flops:.4e} (N_matmul {n_matmul})")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    out = tr.run()
-    run_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
-    hist = out["history"]
-    walls = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
-    wall = float(np.median(walls))
-    for h in hist:
-        log(f"[train] step {h['step']} loss {h['loss']:.6f} ce "
-            f"{h['ce']:.6f} grad_norm {h['grad_norm']:.6f} lr "
-            f"{h['lr']:.3e}")
-    tok_s = B * S / wall
-    mfu = flops / wall / BF16_FLOPS_PER_S
-    log(f"[train] {card}: {len(hist)} steps in {run_s:.2f}s (init "
-        f"included); step wall, steps 2-{len(hist)}: "
-        f"{', '.join(f'{w:.4f}' for w in walls)} s, median {wall:.4f} s | "
-        f"{tok_s:.1f} tok/s | MFU {mfu:.4f} of {BF16_FLOPS_PER_S / 1e12:.0f}"
-        f" TFLOP/s bf16 ({flops / wall / 1e12:.1f} TFLOP/s) | peak device "
-        f"memory {peak / 1e9:.3f} GB")
-    losses = [h["loss"] for h in hist] + [h["grad_norm"] for h in hist]
-    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise SystemExit(f"train: want {TRAIN_STEPS} finite steps: {hist}")
-    if abs(hist[0]["loss"] - np.log(cfg.vocab_size)) > 1.0:
-        raise SystemExit(f"train: first loss {hist[0]['loss']} is not "
-                         f"within 1 nat of ln(V) = {np.log(cfg.vocab_size)}")
-    state = out["state"]
-    moved = {k: float((probe[k] - v).abs().max())
-             for k, v in _weights_probe(state["params"]).items()}
-    log(f"[train] weights moved (max |after - before| on probes): {moved}")
-    if not all(v > 0 for v in moved.values()):
-        raise SystemExit("train: the weights did not change")
-
-    params, opt_state = state["params"], state["opt"]
-    del out, state
-    step = make_train_step(cfg, opt, microbatches=TRAIN_MB)
-    batch = {"tokens": torch.from_numpy(
-        tr.data.batch_at(TRAIN_STEPS)["tokens"]).to(dev)}
-    torch.cuda.synchronize()
-    log(f"[time] train: {TRAIN_STEPS} trainer steps "
-        f"{time.perf_counter() - t0:.1f}s")
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        params, opt_state, m = step(params, opt_state, batch)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    log(f"[train] one step under set_sync_debug_mode('error'), batch on "
-        f"the card: no host sync; loss {float(m['loss']):.6f}")
-    if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
-        raise SystemExit("train: the sync-debug step is not finite")
-
-    t0 = time.perf_counter()
-    busy, launches, rows = _profile_rows(
-        lambda: step(params, opt_state, batch))
-    classes = {}
-    for name, ms, count in rows:
-        c = classes.setdefault(_gemm_class(name), [0.0, 0])
-        c[0] += ms
-        c[1] += count
-    log(f"[train] profile of one step ({time.perf_counter() - t0:.1f} s "
-        f"with the trace): device busy {busy:.1f} ms | idle "
-        f"{1 - busy / (wall * 1e3):.1%} of the {wall * 1e3:.1f} ms step "
-        f"wall | {launches} kernel launches | by class: "
-        + "; ".join(f"{k} {v[0]:.1f} ms x{v[1]}"
-                    for k, v in sorted(classes.items())))
-    for name, ms, count in rows[:14]:
-        log(f"    {ms:10.2f} ms  {ms / busy:6.1%}  x{count:<6d} {name[:100]}")
-    for name, ms, count in rows:
-        if _gemm_class(name) == "fp32 gemm":
-            log(f"    fp32 gemm {ms:10.2f} ms  x{count:<6d} {name[:100]}")
-
-    snap_tree = {"params": params, "opt": opt_state}
-    nbytes = sum(t.numel() * t.element_size() for t in leaves(snap_tree))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    snap = host_snapshot(snap_tree)
-    snap_s = time.perf_counter() - t0
-    del snap, snap_tree
-    log(f"[train] ckpt-save snapshot (synchronous copy to host memory, on "
-        f"the critical path): {nbytes / 1e9:.3f} GB in {snap_s:.3f} s "
-        f"({nbytes / snap_s / 1e9:.2f} GB/s); not written to disk")
-    del params, opt_state, m, batch, tr
-    gc.collect()
-    torch.cuda.empty_cache()
-    summary = {"wall_s": walls, "median_wall_s": wall, "tokens_per_s": tok_s,
-               "model_flops": flops, "mfu": mfu, "peak_bytes": peak,
-               "busy_ms": busy, "launches": launches,
-               "loss": [h["loss"] for h in hist],
-               "grad_norm": [h["grad_norm"] for h in hist],
-               "snapshot_bytes": nbytes, "snapshot_s": snap_s,
-               "top": [(n, ms, c) for n, ms, c in rows[:14]]}
     t0 = time.perf_counter()
     summary.update(phase_train_checks(dev, cfg, opt))
     log(f"[time] train: bf16/fp32 and checkpoint checks "
@@ -1726,6 +1712,464 @@ def phase_train_checks(dev, cfg, opt) -> dict:
         raise SystemExit("train: the checkpoint branch failed")
     return {"bf16_vs_fp32": got, "rerun_rel": rel}
 
+
+# ------------------------------------------------------------------ phase 8f
+def _scan_grads(fn, ins, dy, dhT=None):
+    """Gradients of ``fn(*ins) -> (y, hT)`` against (dy, dhT) for every
+    input, through fresh leaves."""
+    ins = [t.detach().clone().requires_grad_(True) for t in ins]
+    y, hT = fn(*ins)
+    outs, gouts = [y], [dy]
+    if dhT is not None:
+        outs.append(hT)
+        gouts.append(dhT)
+    return torch.autograd.grad(outs, ins, gouts)
+
+
+def phase_k3bwd(dev):
+    """The backward kernel (``csrc/mamba_scan_bwd.cu``, behind
+    ``MambaScan``) against ``torch.autograd`` through the plain
+    sequential scan: the training layout at a reduced size (B=2, S=250, off
+    the 32-step chunks, dI=512, N=16) in fp32 and with bf16 x/B/C, a ragged
+    dI with an initial state and a final-state gradient, N=12; then at the
+    training shape (one falcon-mamba sequence: B=1, S=2048, dI=8192, N=16,
+    bf16 x/B/C) compared again and timed beside its bound and the plain
+    backward (no PyTorch call computes a selective scan's gradient), with
+    K3's serving and training entry points timed at that shape too."""
+    from repro_torch.kernels import mamba_scan as scan_mod
+    from repro_torch.kernels import mamba_scan_bwd as bwd_mod
+    from repro_torch.kernels.ref import mamba_scan_ref
+    g = torch.Generator(dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def inputs(B, S, dI, N, dtype):
+        return [F.softplus(randn(B, S, dI)) * 0.1, randn(B, S, dI).to(dtype),
+                randn(B, S, N).to(dtype), randn(B, S, N).to(dtype),
+                -torch.exp(randn(dI, N) * 0.5)]
+
+    def compare(what, ins, dtype, init, dy, dhT):
+        got = _scan_grads(lambda dt, x, b, c, a: scan_mod.MambaScan.apply(
+            dt, x, b, c, a, init), ins, dy, dhT)
+        want = _scan_grads(lambda dt, x, b, c, a: mamba_scan_ref(
+            dt, a, b, c, x, h0=init), ins, dy, dhT)
+        torch.cuda.synchronize()
+        rel = {n: _rel(a, b) for n, a, b in zip(("dt", "x", "B", "C", "A"),
+                                                 got, want)}
+        ok = all(torch.isfinite(a.float()).all().item() for a in got)
+        log(f"[k3bwd] {what} B={ins[1].shape[0]} S={ins[1].shape[1]} "
+            f"dI={ins[1].shape[2]} N={ins[4].shape[1]} {str(dtype)[6:]}"
+            f"{', h0' if init is not None else ''}"
+            f"{', dhT' if dhT is not None else ''}: max|kernel - plain| / "
+            f"max|plain| " + ", ".join(f"d{k} {v:.3e}" for k, v in
+                                       rel.items())
+            + f" (tol {K3BWD_REL_TOL[dtype]})")
+        if not ok or max(rel.values()) > K3BWD_REL_TOL[dtype]:
+            raise SystemExit(f"the K3 backward disagrees with autograd "
+                             f"through the plain scan ({what}): {rel}")
+        return max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(got, want))
+
+    errs = []
+    for what, B, S, dI, N, dtype, h0, fin in (
+            ("training layout, reduced", 2, 250, 512, 16, F32, False, False),
+            ("training layout, reduced", 2, 250, 512, 16, BF16, False,
+             False),
+            ("ragged dI", 2, 45, 500, 16, F32, True, True),
+            ("N < 16", 1, 70, 256, 12, F32, False, True)):
+        ins = inputs(B, S, dI, N, dtype)
+        errs.append(compare(what, ins, dtype,
+                            randn(B, dI, N) if h0 else None,
+                            randn(B, S, dI), randn(B, dI, N) if fin else None))
+
+    B, S, dI, N = K3BWD_SHAPE
+    ins = inputs(B, S, dI, N, BF16)
+    dt, x, Bc, Cc, A = ins
+    dy = randn(B, S, dI)
+    errs.append(compare("training shape", ins, BF16, None, dy, None))
+    _, _, hs = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A, save_states=True)
+
+    def run():
+        return bwd_mod.mamba_scan_bwd_cuda(dt, x, Bc, Cc, A, hs, dy)
+
+    ms = time_ms(run, iters=20)
+    dev_ms = graph_ms(run, n=5, replays=4)
+    host = host_us(run, iters=20)
+    fwd = time_ms(lambda: scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A),
+                  iters=20)
+    fwd_states = time_ms(lambda: scan_mod.mamba_scan_cuda(
+        dt, x, Bc, Cc, A, save_states=True), iters=20)
+    leaves_ = [t.detach().requires_grad_(True) for t in ins]
+    yr, _ = mamba_scan_ref(leaves_[0], leaves_[4], leaves_[2], leaves_[3],
+                           leaves_[1])
+    plain_ms = time_ms(lambda: torch.autograd.grad(yr, leaves_, dy,
+                                                   retain_graph=True),
+                       iters=2, warmup=1)
+    del yr, leaves_
+    nch = -(-S // scan_mod.STATE_CHUNK)
+    elems = B * S * dI * N
+    # read once: dt, dy (fp32), x, B, C (bf16), A, hs; written once: d dt
+    # (fp32), dx, dB, dC (bf16, x's type), dA
+    nbytes = (4 + 4 + 2 + 4 + 2) * B * S * dI + 4 * 2 * B * S * N \
+        + 2 * 4 * dI * N + 4 * B * nch * dI * N
+    # per (b, t, d, n): the state again (mul + FMA) and the reverse step's
+    # g (FMA), w (2 mul), two n-sum FMAs, the dA FMA, dB and dC products
+    # and g * a; one exp
+    flops = 16.0 * elems
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exp = elems / SFU_EXP_PER_S * 1e3
+    t_fma = flops / FP32_FLOPS_PER_S * 1e3
+    b_ms = max(t_b, t_exp, t_fma)
+    b_by = "bytes" if t_b >= max(t_exp, t_fma) else "operations"
+    log(f"[k3bwd] timing B={B} S={S} dI={dI} N={N} bf16 x/B/C: kernel "
+        f"{ms:.4f} ms | plain (autograd backward through the sequential "
+        f"scan) {plain_ms:.2f} ms | no library call computes it | bound "
+        f"{b_ms:.5f} ms ({b_by}: bytes {t_b:.5f} ms for {nbytes} B, exps "
+        f"{t_exp:.5f} ms for {elems}, fp32 {t_fma:.5f} ms for {flops:.3e} "
+        f"flop) | device time in a CUDA graph {dev_ms:.5f} ms | K3 at this "
+        f"shape: serving entry {fwd:.4f} ms, training entry (states kept, "
+        f"{4 * B * nch * dI * N / 1e6:.1f} MB) {fwd_states:.4f} ms")
+    kernel_report("[k3bwd]", "mamba_scan_bwd", flops, ms, b_ms, None,
+                  sass_counts("mamba_scan_bwd", K3_SASS), dev_ms, host=host)
+    return dict(name="mamba_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+                replaces="src/repro/models/mamba.py:70",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ------------------------------------------------------------------ phase 8g
+def _train_run(dev, cfg, tag: str, card: str, steps: int,
+               then=None) -> dict:
+    """``steps`` steps of TRAIN_BATCH x TRAIN_SEQ through the port's
+    ``Trainer`` (the cyclic conditional taskflow: prefetch, train-step,
+    ckpt?, loop?; fp32 masters from a seeded ``torch.Generator``, AdamW
+    with fp32 moments, the launcher's schedule, bf16 compute with remat,
+    one sequence a microbatch), then one step traced with
+    ``torch.profiler`` on the trained state. Fails unless every loss is
+    finite, the losses move and every probed weight moved. ``then(step,
+    params, opt_state, batch)``, if given, runs on the trained state last
+    and its dict joins the summary. Returns the summary with the kernels'
+    launches over the trainer's steps and the traced one."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.train_step import make_train_step
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    nf = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    flops, n_matmul = train_model_flops(cfg, B, S + nf)
+    opt = OptConfig(lr=3e-4, warmup_steps=max(10, steps // 20),
+                    total_steps=steps)
+    tc = TrainerConfig(total_steps=steps, log_every=1,
+                       microbatches=TRAIN_MB)
+    log(f"[{tag}] {cfg.name}: L={cfg.num_layers} D={cfg.d_model} "
+        f"{cfg.param_count() / 1e9:.3f} B params, compute "
+        f"{cfg.compute_dtype}, remat={cfg.remat}, fp32 masters and moments; "
+        f"batch {B} x seq {S}" + (f" after {nf} stub frames" if nf else "")
+        + f", {TRAIN_MB} microbatches; model FLOPs/step {flops:.4e} "
+        f"(N_matmul {n_matmul})")
+    tr = Trainer(cfg, tc, batch=B, seq_len=S, opt=opt, device=dev)
+    probe = {}
+    draw = tr.init_state
+
+    def init_state():
+        st = draw()
+        probe.update(_weights_probe(st["params"]))
+        return st
+
+    tr.init_state = init_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tr.run()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = out["history"]
+    walls = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
+    wall = float(np.median(walls))
+    for h in hist:
+        log(f"[{tag}] step {h['step']} loss {h['loss']:.6f} ce "
+            f"{h['ce']:.6f} grad_norm {h['grad_norm']:.6f} lr "
+            f"{h['lr']:.3e}")
+    tok_s = B * S / wall
+    mfu = flops / wall / BF16_FLOPS_PER_S
+    log(f"[{tag}] {card}: {len(hist)} steps in {run_s:.2f}s (init "
+        f"included); step wall, steps 2-{len(hist)}: "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s, median {wall:.4f} s | "
+        f"{tok_s:.1f} tok/s | MFU {mfu:.4f} of {BF16_FLOPS_PER_S / 1e12:.0f}"
+        f" TFLOP/s bf16 ({flops / wall / 1e12:.1f} TFLOP/s) | peak device "
+        f"memory {peak / 1e9:.3f} GB")
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(np.isfinite(
+            losses + [h["grad_norm"] for h in hist])) \
+            or len(set(losses)) < 2:
+        raise SystemExit(f"{tag}: want {steps} finite steps whose losses "
+                         f"move: {hist}")
+    params, opt_state = out["state"]["params"], out["state"]["opt"]
+    moved = {k: float((probe[k] - v).abs().max())
+             for k, v in _weights_probe(params).items()}
+    least = min(moved, key=moved.get)
+    log(f"[{tag}] weights moved on {sum(v > 0 for v in moved.values())} of "
+        f"{len(moved)} probed leaves (max |after - before| on a corner of "
+        f"each; least {least} {moved[least]:.3e})")
+    if not all(v > 0 for v in moved.values()):
+        raise SystemExit(f"{tag}: weights did not change: {moved}")
+    del out
+    log(f"[time] {tag}: {steps} trainer steps {time.perf_counter() - t0:.1f}s")
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MB)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in tr.data.batch_at(steps).items()}
+    t0 = time.perf_counter()
+    busy, launches, rows = _profile_rows(
+        lambda: step(params, opt_state, batch))
+    counts = ops.launch_counts()
+    classes = {}
+    for name, ms, count in rows:
+        c = classes.setdefault(_kernel_class(name), [0.0, 0])
+        c[0] += ms
+        c[1] += count
+    log(f"[{tag}] profile of one step ({time.perf_counter() - t0:.1f} s "
+        f"with the trace): device busy {busy:.1f} ms | idle "
+        f"{1 - busy / (wall * 1e3):.1%} of the {wall * 1e3:.1f} ms step "
+        f"wall | {launches} kernel launches | by class: "
+        + "; ".join(f"{k} {v[0]:.1f} ms x{v[1]}"
+                    for k, v in sorted(classes.items())))
+    for name, ms, count in rows[:14]:
+        log(f"    {ms:10.2f} ms  {ms / busy:6.1%}  x{count:<6d} {name[:100]}")
+    for name, ms, count in rows[14:]:
+        if _kernel_class(name) == "fp32 gemm":
+            log(f"    fp32 gemm {ms:10.2f} ms  x{count:<6d} {name[:100]}")
+    log(f"[{tag}] launches over the {steps} trainer steps and the traced "
+        f"one: {counts}")
+    summary = {"wall_s": walls, "median_wall_s": wall, "tokens_per_s": tok_s,
+               "model_flops": flops, "mfu": mfu, "peak_bytes": peak,
+               "busy_ms": busy, "idle": 1 - busy / (wall * 1e3),
+               "launches": launches, "loss": losses,
+               "grad_norm": [h["grad_norm"] for h in hist],
+               "counts": counts, "classes": classes,
+               "top": [(n, ms, c) for n, ms, c in rows[:14]]}
+    if then is not None:
+        summary.update(then(step, params, opt_state, batch))
+    del params, opt_state, batch, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _named_leaves(tree, prefix=""):
+    """(name, leaf) in :func:`repro_torch.tree.leaves`'s order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _step_on_both(dev, cfg, batch) -> dict:
+    """``loss_fn`` and every leaf's gradient of one fp32 batch on the card
+    and on the CPU from the same weights (drawn on the card, copied):
+    |d loss| relative and, per leaf, max |d grad| / max |grad on the
+    CPU|."""
+    from repro_torch.models import lm
+    from repro_torch.params import init_params
+    from repro_torch.tree import leaves, tree_map, unflatten
+    base = init_params(cfg, torch.Generator(dev).manual_seed(2), device=dev,
+                       cast=False)
+    got = {}
+    for where in ("cuda", "cpu"):
+        p = base if where == "cuda" else tree_map(lambda t: t.cpu(), base)
+        flat = [t.detach().requires_grad_(True) for t in leaves(p)]
+        b = {k: v.to(dev if where == "cuda" else "cpu")
+             for k, v in batch.items()}
+        total, _ = lm.loss_fn(cfg, unflatten(p, flat), b)
+        grads = torch.autograd.grad(total, flat)
+        got[where] = (float(total.detach()), [gr.cpu() for gr in grads])
+        del p, flat, grads, total
+    names = [n for n, _ in _named_leaves(base)]
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_loss = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    rel = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for n, a, b in zip(names, got["cuda"][1], got["cpu"][1])}
+    worst = max(rel, key=rel.get)
+    return {"loss_cuda": got["cuda"][0], "loss_cpu": got["cpu"][0],
+            "d_loss_rel": d_loss, "worst_leaf": worst,
+            "worst_grad_rel": rel[worst], "leaves": len(rel)}
+
+
+def phase_train_ssm(dev, card: str = "") -> dict:
+    """Training of the Mamba families. First, in fp32 at full width and
+    SSM_CHECK layers, one batch's loss and every gradient on the card (K3
+    and its backward kernel; the SSD in plain torch) against the CPU's
+    (the plain scan under autograd). Then TRAIN_SSM_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ through the ``Trainer`` for zamba2-1.2b at full
+    width and depth and falcon-mamba-7b at full width cut to
+    FALCON_TRAIN_LAYERS of 64 layers, each with a traced step. Returns
+    each run's summary."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, layers in SSM_CHECK.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  compute_dtype="float32")
+        toks = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, SSM_CHECK_SHAPE).astype(np.int32)
+        t0 = time.perf_counter()
+        chk = _step_on_both(dev, cfg, {"tokens": torch.from_numpy(toks)})
+        log(f"[train_ssm] {arch} at full width, {layers} layers, fp32, "
+            f"{SSM_CHECK_SHAPE[0]} x {SSM_CHECK_SHAPE[1]} tokens: loss "
+            f"CUDA {chk['loss_cuda']!r} CPU {chk['loss_cpu']!r} (relative "
+            f"{chk['d_loss_rel']:.3e}, tol {SSM_CHECK_TOL['loss']}); "
+            f"worst of {chk['leaves']} gradient leaves {chk['worst_leaf']} "
+            f"{chk['worst_grad_rel']:.3e} of its max (tol "
+            f"{SSM_CHECK_TOL['grad']}) ({time.perf_counter() - t0:.1f} s)")
+        if chk["d_loss_rel"] > SSM_CHECK_TOL["loss"] \
+                or chk["worst_grad_rel"] > SSM_CHECK_TOL["grad"]:
+            raise SystemExit(f"train_ssm: {arch}'s CUDA step differs from "
+                             f"the CPU's: {chk}")
+        out[f"{arch}_check"] = chk
+    for arch, layers in (("zamba2-1.2b", None),
+                         ("falcon-mamba-7b", FALCON_TRAIN_LAYERS)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        out[arch] = _train_run(dev, cfg, "train_ssm", card, TRAIN_SSM_STEPS)
+        log(f"[time] train_ssm: {arch} {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+# ------------------------------------------------------------------ phase 8h
+def _frontend_checks(dev, arch: str) -> dict:
+    """At full width and FRONTEND_CHECK_LAYERS layers in fp32 compute: the
+    prefill's logits through K2 against the chunked plain path's over the
+    F frames and a FRONTEND_PROMPT-token prompt, and three decode steps
+    after the K2 prefill against ``forward`` at the same positions; each
+    max |d logits| over the reference logits' spread."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.params import init_params
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=FRONTEND_CHECK_LAYERS,
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(4),
+                         device=dev)
+    rng = np.random.default_rng(4)
+    S, nf, n = FRONTEND_PROMPT, cfg.frontend_tokens, 3
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S + n))
+                            .astype(np.int32)).to(dev)
+    fe = torch.from_numpy(rng.standard_normal((2, nf, cfg.d_model))
+                          .astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        full, _ = lm.forward(cfg, params, toks, fe)
+        got, cache = lm.prefill(cfg, params, toks[:, :S], max_len=nf + S + n,
+                                frontend_embeds=fe)
+        want, _ = lm.prefill(cfg, params, toks[:, :S], impl="chunked",
+                             frontend_embeds=fe)
+        spread = float(want.max() - want.min())
+        d_pre = float((got - want).abs().max()) / spread
+        d_dec = []
+        for i in range(n):
+            step, cache = lm.decode_step(cfg, params, cache, toks[:, S + i])
+            ref = full[:, nf + S + i]
+            d_dec.append(float((step - ref).abs().max())
+                         / float(ref.max() - ref.min()))
+    del params, full, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = STEP_REL_TOL["float32"]
+    log(f"[frontend] {arch} fp32, full width, {FRONTEND_CHECK_LAYERS} "
+        f"layers, {nf} frames + {S} tokens: prefill K2 vs chunked "
+        f"{d_pre:.3e} of the spread; decode after prefill vs forward "
+        f"{', '.join(f'{d:.3e}' for d in d_dec)} (tol {tol})")
+    if d_pre > tol or max(d_dec) > tol:
+        raise SystemExit(f"frontend: {arch}'s prefill or decode disagrees "
+                         "with the plain path")
+    return {"prefill_rel": d_pre, "decode_rel": d_dec}
+
+
+def phase_frontend(dev, card: str = "") -> dict:
+    """The modality-frontend archs (seeded stub frames): the fp32 checks
+    of :func:`_frontend_checks` for both; internvl2-1b at full width and
+    depth trained TRAIN_SSM_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
+    behind its 256 frames; musicgen-large at full width and depth (bf16
+    weights from a seeded ``torch.Generator``): 8 prompts of
+    FRONTEND_PROMPT tokens behind its 64 frames prefilled through K2, then
+    FRONTEND_NEW greedy ``decode_step``s (FRONTEND_NEW + 1 tokens a
+    prompt). Returns the summaries and K2's
+    launches in the musicgen run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.params import init_params
+    out = {arch: _frontend_checks(dev, arch)
+           for arch in ("internvl2-1b", "musicgen-large")}
+    t0 = time.perf_counter()
+    out["internvl2-1b"].update(_train_run(
+        dev, get_config("internvl2-1b"), "frontend", card, TRAIN_SSM_STEPS))
+    log(f"[time] frontend: internvl2-1b training "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    cfg = get_config("musicgen-large")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(6),
+                         device=dev)
+    rng = np.random.default_rng(6)
+    B, S, nf = 8, FRONTEND_PROMPT, cfg.frontend_tokens
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                            .astype(np.int32)).to(dev)
+    fe = torch.from_numpy(rng.standard_normal((B, nf, cfg.d_model))
+                          .astype(np.float32)).to(dev)
+    layers = lm.layer_views(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cfg, params, toks,
+                                   max_len=nf + S + FRONTEND_NEW,
+                                   frontend_embeds=fe, layers=layers)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        tok = torch.argmax(logits, dim=-1)
+        outs = [tok]
+        t0 = time.perf_counter()
+        for _ in range(FRONTEND_NEW):
+            logits, cache = lm.decode_step(cfg, params, cache, tok,
+                                           layers=layers)
+            tok = torch.argmax(logits, dim=-1)
+            outs.append(tok)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    gen = torch.stack(outs, dim=1).cpu()
+    ok = bool(torch.isfinite(logits).all()) and int(cache["pos"]) \
+        == nf + S + FRONTEND_NEW and bool(
+            (gen < cfg.vocab_size).all() and (gen >= 0).all())
+    log(f"[frontend] {card} | musicgen-large full width and depth "
+        f"({cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B params, "
+        f"bf16, init {init_s:.1f}s): prefill of {B} x ({nf} frames + {S} "
+        f"tokens) {1e3 * pre_s:.2f} ms; {FRONTEND_NEW} decode steps "
+        f"{1e3 * dec_s / FRONTEND_NEW:.2f} ms a step "
+        f"({B * FRONTEND_NEW / dec_s:.1f} tok/s); launches {counts}; "
+        f"first row's tokens {gen[0].tolist()}")
+    if not ok or counts["flash_attention"] != cfg.num_layers:
+        raise SystemExit("frontend: musicgen-large's prefill and decode "
+                         f"failed (finite, in-vocab, pos; K2 {counts})")
+    del params, cache, layers, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["musicgen-large"].update(prefill_ms=1e3 * pre_s,
+                                 decode_ms=1e3 * dec_s / FRONTEND_NEW,
+                                 counts=counts)
+    return out
 
 # ------------------------------------------------------------------ phase 9
 def _build_ablations(source: str, table: dict, other=None) -> dict:
@@ -3245,6 +3689,16 @@ def main(argv=None) -> None:
     done("qwen2-moe serve and steps")
     phase_train(dev, smi)
     done("train")
+    report["mamba_scan_bwd"] = phase_k3bwd(dev)
+    done("K3 backward")
+    ssm_train = phase_train_ssm(dev, smi)
+    done("train_ssm (zamba2-1.2b, falcon-mamba-7b at 16 layers)")
+    front = phase_frontend(dev, smi)
+    done("frontend (internvl2-1b training, musicgen-large serving)")
+    train_counts = [ssm_train["zamba2-1.2b"]["counts"],
+                    ssm_train["falcon-mamba-7b"]["counts"],
+                    front["internvl2-1b"]["counts"],
+                    front["musicgen-large"]["counts"]]
     torch.backends.cuda.matmul.allow_tf32 = False   # K4's plain version
     report["lsdnn_layer"] = phase_k4(dev)
     report["lsdnn_layer"]["launches"] = phase_lsdnn(dev)
@@ -3261,15 +3715,20 @@ def main(argv=None) -> None:
         + acounts["flash_attention"] + pcounts["flash_attention"] \
         + scounts["flash_attention"] + dcounts["flash_attention"] \
         + ccounts["flash_attention"] + zcounts["flash_attention"] \
-        + zpre["flash_attention"] + qcounts["flash_attention"]
+        + zpre["flash_attention"] + qcounts["flash_attention"] \
+        + sum(c["flash_attention"] for c in train_counts)
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"] \
-        + mpre["mamba_scan"]
+        + mpre["mamba_scan"] + sum(c["mamba_scan"] for c in train_counts)
+    report["mamba_scan_bwd"]["launches"] = sum(c["mamba_scan_bwd"]
+                                               for c in train_counts)
+    if not report["mamba_scan_bwd"]["launches"]:
+        raise SystemExit("the training phases launched no K3 backward")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{k: report[n][k] for k in keys}
                for n in ("paged_attention", "flash_attention", "mamba_scan",
-                         "lsdnn_layer", "cond_graph")]
+                         "mamba_scan_bwd", "lsdnn_layer", "cond_graph")]
     if "jax" in sys.modules:
         raise SystemExit("jax was imported")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

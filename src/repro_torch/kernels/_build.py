@@ -38,7 +38,7 @@ BFLOAT16 = 1
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "flash_attention.cu", "lsdnn_layer.cu",
-           "mamba_scan.cu", "cond_graph.cu")
+           "mamba_scan.cu", "mamba_scan_bwd.cu", "cond_graph.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -68,6 +68,12 @@ _SIGNATURES = {
     # dtype, dt, x, Bc, Cc, A, h0, y, hT, B, S, dI, N, stream
     "repro_mamba_scan": (_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                          _i, _i, _vp),
+    # the same, and hs (the state before each 32-step chunk)
+    "repro_mamba_scan_states": (_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                _vp, _i, _i, _i, _i, _vp),
+    # dtype, dt, x, Bc, Cc, A, hs, dy, dhT, ddt, dx, dB, dC, dA, part,
+    # dA_part, B, S, dI, N, stream
+    "repro_mamba_scan_bwd": (_i, *(_vp,) * 15, _i, _i, _i, _i, _vp),
     # the conditional-graph program (csrc/cond_graph.cu): versions(out[3]);
     # check(graph, bad); count(graph, total); create(blocks, nblocks,
     # start, max_iters, ctrl, succ, meta, width, ifs, device, out);
@@ -84,9 +90,10 @@ _SIGNATURES = {
     "repro_paged_attention_init": (),
     "repro_flash_attention_init": (),
     "repro_lsdnn_layer_init": (),
+    "repro_mamba_scan_bwd_init": (),
 }
 _INITS = ("repro_paged_attention_init", "repro_flash_attention_init",
-          "repro_lsdnn_layer_init")
+          "repro_lsdnn_layer_init", "repro_mamba_scan_bwd_init")
 
 
 def _nvcc() -> str:

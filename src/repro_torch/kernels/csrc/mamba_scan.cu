@@ -50,6 +50,11 @@
 // kernel asserted dI % block_d == 0 and S % chunk == 0. exp is expf, not
 // __expf, to stay close to the plain version. Shared memory is at most
 // 40 KB, static.
+//
+// For training (kernels/mamba_scan_bwd.py) a second instantiation also
+// writes the state at the start of every chunk, hs (B, ceil(S / 32), dI, N)
+// fp32, from which the backward (csrc/mamba_scan_bwd.cu) recomputes each
+// chunk's states; the serving entry point's kernel has no such store.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -166,14 +171,15 @@ __device__ __forceinline__ void sum_lanes(float (&v)[kGroup], int r) {
 }
 
 // NL: lanes per channel (N <= NL * kStates); CH = kThreads / NL channels.
-template <typename T, int NL>
+// kSave: write the state before each chunk to hs (training).
+template <typename T, int NL, bool kSave>
 __global__ void __launch_bounds__(kThreads, 1)
     mamba_scan_kernel(const float* __restrict__ dt, const T* __restrict__ x,
                       const T* __restrict__ Bc, const T* __restrict__ Cc,
                       const float* __restrict__ A,
                       const float* __restrict__ h0, float* __restrict__ y,
-                      float* __restrict__ hT, int S, int dI, int N,
-                      bool vec) {
+                      float* __restrict__ hT, float* __restrict__ hs, int S,
+                      int dI, int N, bool vec) {
   constexpr int CH = kThreads / NL;          // channels per block
   constexpr int NP = NL * kStates;           // states, padded
   constexpr int XW = sizeof(T) == 4 ? 2 : 1; // 16-byte words of 8 x values
@@ -251,6 +257,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   stage(0);
   __syncthreads();
   for (int t0 = 0, st = 0; t0 < S; t0 += kChunk, st ^= 1) {
+    if (kSave) {
+      float* hp = hs + (((size_t)b * ((S + kChunk - 1) / kChunk) + t0 / kChunk)
+                        * dI + d) * N + n0;
+#pragma unroll
+      for (int k = 0; k < kStates; ++k)
+        if (d < dI && n0 + k < N) hp[k] = h[k];
+    }
     const bool more = t0 + kChunk < S;
     if (more) load(t0 + kChunk);   // in flight during this chunk's steps
     const int tn = min(kChunk, S - t0);
@@ -303,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <typename T>
 cudaError_t launch(const void* dt, const void* x, const void* Bc,
                    const void* Cc, const void* A, const void* h0, void* y,
-                   void* hT, int B, int S, int dI, int N,
+                   void* hT, void* hs, int B, int S, int dI, int N,
                    cudaStream_t stream) {
   const float* dtp = static_cast<const float*>(dt);
   const T* xp = static_cast<const T*>(x);
@@ -313,6 +326,7 @@ cudaError_t launch(const void* dt, const void* x, const void* Bc,
   const float* hp = static_cast<const float*>(h0);
   float* yp = static_cast<float*>(y);
   float* tp = static_cast<float*>(hT);
+  float* sp = static_cast<float*>(hs);
   // 16-byte loads of dt and x rows: both aligned, and every 8-channel row
   // starts on a 16-byte boundary
   const bool vec = dI % 8 == 0 && ((reinterpret_cast<uintptr_t>(dt) |
@@ -320,35 +334,64 @@ cudaError_t launch(const void* dt, const void* x, const void* Bc,
   if (N <= 16) {
     constexpr int NL = 16 / kStates;
     const dim3 grid((dI + kThreads / NL - 1) / (kThreads / NL), B);
-    mamba_scan_kernel<T, NL><<<grid, kThreads, 0, stream>>>(
-        dtp, xp, bp, cp, ap, hp, yp, tp, S, dI, N, vec);
+    if (sp != nullptr)
+      mamba_scan_kernel<T, NL, true><<<grid, kThreads, 0, stream>>>(
+          dtp, xp, bp, cp, ap, hp, yp, tp, sp, S, dI, N, vec);
+    else
+      mamba_scan_kernel<T, NL, false><<<grid, kThreads, 0, stream>>>(
+          dtp, xp, bp, cp, ap, hp, yp, tp, sp, S, dI, N, vec);
   } else {
     constexpr int NL = 32 / kStates;
     const dim3 grid((dI + kThreads / NL - 1) / (kThreads / NL), B);
-    mamba_scan_kernel<T, NL><<<grid, kThreads, 0, stream>>>(
-        dtp, xp, bp, cp, ap, hp, yp, tp, S, dI, N, vec);
+    if (sp != nullptr)
+      mamba_scan_kernel<T, NL, true><<<grid, kThreads, 0, stream>>>(
+          dtp, xp, bp, cp, ap, hp, yp, tp, sp, S, dI, N, vec);
+    else
+      mamba_scan_kernel<T, NL, false><<<grid, kThreads, 0, stream>>>(
+          dtp, xp, bp, cp, ap, hp, yp, tp, sp, S, dI, N, vec);
   }
   return cudaGetLastError();
 }
 
+int dispatch(int dtype, const void* dt, const void* x, const void* Bc,
+             const void* Cc, const void* A, const void* h0, void* y, void* hT,
+             void* hs, int B, int S, int dI, int N, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || dI <= 0 || N <= 0 || N > 32)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro_torch::kBFloat16)
+    return (int)launch<__nv_bfloat16>(dt, x, Bc, Cc, A, h0, y, hT, hs, B, S,
+                                      dI, N, s);
+  if (dtype == repro_torch::kFloat32)
+    return (int)launch<float>(dt, x, Bc, Cc, A, h0, y, hT, hs, B, S, dI, N,
+                              s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// C entry point bound with ctypes (kernels/mamba_scan.py). dtype is the
-// type of x, B and C (dt, A, h0, y and hT are fp32); h0 may be null (zero
-// initial state). Returns the launch's cudaError_t (0 on success); the
+// C entry points bound with ctypes (kernels/mamba_scan.py). dtype is the
+// type of x, B and C (dt, A, h0, y, hT and hs are fp32); h0 may be null
+// (zero initial state). repro_mamba_scan_states also writes hs (B,
+// ceil(S / 32), dI, N), the state before each 32-step chunk (hs[:, 0] is
+// h0 or zeros). Each returns the launch's cudaError_t (0 on success); the
 // wrapper raises on anything else.
 extern "C" int repro_mamba_scan(int dtype, const void* dt, const void* x,
                                 const void* Bc, const void* Cc,
                                 const void* A, const void* h0, void* y,
                                 void* hT, int B, int S, int dI, int N,
                                 void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || dI <= 0 || N <= 0 || N > 32)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro_torch::kBFloat16)
-    return (int)launch<__nv_bfloat16>(dt, x, Bc, Cc, A, h0, y, hT, B, S, dI,
-                                      N, s);
-  if (dtype == repro_torch::kFloat32)
-    return (int)launch<float>(dt, x, Bc, Cc, A, h0, y, hT, B, S, dI, N, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, dt, x, Bc, Cc, A, h0, y, hT, nullptr, B, S, dI, N,
+                  stream);
+}
+
+extern "C" int repro_mamba_scan_states(int dtype, const void* dt,
+                                       const void* x, const void* Bc,
+                                       const void* Cc, const void* A,
+                                       const void* h0, void* y, void* hT,
+                                       void* hs, int B, int S, int dI, int N,
+                                       void* stream) {
+  if (hs == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, dt, x, Bc, Cc, A, h0, y, hT, hs, B, S, dI, N,
+                  stream);
 }

@@ -24,12 +24,14 @@ import torch
 from . import flash_attention as _flash_mod
 from . import lsdnn_layer as _lsdnn_mod
 from . import mamba_scan as _scan_mod
+from . import mamba_scan_bwd as _scan_bwd_mod
 from . import paged_attention as _paged_mod
 from ._build import build_info, ensure_built
 from .ref import paged_attention_ref
 
 __all__ = ["PAGED_IMPLS", "default_paged_impl", "paged_attention",
-           "flash_attention", "mamba_scan", "lsdnn_layer", "ensure_built",
+           "flash_attention", "mamba_scan",
+           "lsdnn_layer", "ensure_built",
            "build_info",
            "launch_counts", "reset_launch_counts", "add_launches"]
 
@@ -63,6 +65,8 @@ def flash_attention(q, k, v, causal: bool = True):
 
 
 def mamba_scan(dt, x, Bc, Cc, A, h0=None):
+    """K3 (with the backward kernel behind it when autograd records) on
+    CUDA, the plain scan on the CPU; see the kernel module."""
     return _scan_mod.mamba_scan(dt, x, Bc, Cc, A, h0=h0)
 
 
@@ -72,7 +76,8 @@ def lsdnn_layer(y, w, b, cap: float = 32.0):
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far in this process, by kernel. A wrapper counts
-    when it is called, so a launch recorded into a CUDA graph counts once,
+    when it is called, one for each kernel it launches (two for K3's
+    backward: the reverse scan and its sums), so a launch recorded into a CUDA graph counts once,
     at capture, unless the graph's owner moves the count to its replays:
     the serve engine's captured decode chunk
     (:class:`repro_torch.serve.chunk_graph.ChunkProgram`) takes back the
@@ -81,6 +86,7 @@ def launch_counts() -> Dict[str, int]:
     return {"paged_attention": _paged_mod.launches,
             "flash_attention": _flash_mod.launches,
             "mamba_scan": _scan_mod.launches,
+            "mamba_scan_bwd": _scan_bwd_mod.launches,
             "lsdnn_layer": _lsdnn_mod.launches}
 
 
@@ -88,7 +94,8 @@ def add_launches(counts: Dict[str, int]) -> None:
     """Add ``counts`` (kernel name -> launches, the keys of
     :func:`launch_counts`; negative to take a capture's counts back)."""
     mods = {"paged_attention": _paged_mod, "flash_attention": _flash_mod,
-            "mamba_scan": _scan_mod, "lsdnn_layer": _lsdnn_mod}
+            "mamba_scan": _scan_mod, "mamba_scan_bwd": _scan_bwd_mod,
+            "lsdnn_layer": _lsdnn_mod}
     for name, n in counts.items():
         mods[name].launches += n
 
@@ -97,4 +104,5 @@ def reset_launch_counts() -> None:
     _paged_mod.launches = 0
     _flash_mod.launches = 0
     _scan_mod.launches = 0
+    _scan_bwd_mod.launches = 0
     _lsdnn_mod.launches = 0

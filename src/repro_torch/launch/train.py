@@ -1,6 +1,8 @@
 """Training launcher of the port (counterpart of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch falcon-mamba-7b --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --preset full \
         --batch 8 --seq 2048 --microbatches 8 --steps 6
 
@@ -48,8 +50,12 @@ def build_cfg(arch: str, preset: str):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b",
-                    help="an attention arch, dense or MoE (e.g. "
-                         "stablelm-1.6b, qwen3-14b, qwen2-moe-a2.7b)")
+                    help="any registered arch: dense (stablelm-1.6b, "
+                         "qwen3-14b, qwen2.5-32b, mistral-nemo-12b), MoE "
+                         "(qwen2-moe-a2.7b, arctic-480b), Mamba1 "
+                         "(falcon-mamba-7b), the Mamba2 hybrid "
+                         "(zamba2-1.2b) or a frontend arch with seeded "
+                         "stub frames (musicgen-large, internvl2-1b)")
     ap.add_argument("--preset", default="smoke",
                     choices=["smoke", "100m", "full"])
     ap.add_argument("--steps", type=int, default=100)

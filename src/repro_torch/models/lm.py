@@ -1,5 +1,6 @@
-"""Decoder LM serving entry points, dense attention, MoE, Mamba1 and the
-zamba2 hybrid (torch port of ``repro.models.lm``).
+"""Decoder LM entry points for every registered family: dense attention,
+MoE, Mamba1, the zamba2 hybrid and the modality-frontend archs (torch port
+of ``repro.models.lm``).
 
 Params are the plain dict of :mod:`repro_torch.params`: stacked per-layer
 leaves under ``blocks`` (the hybrid: ``gblocks`` (G, every, ...),
@@ -24,23 +25,32 @@ MoE archs (qwen2-moe, arctic) are attention archs whose FFN is
 dense entry points; its load-balancing loss is never computed here (the
 reference's serving call sites discard it).
 
+Modality frontends (musicgen-large's audio frames, internvl2-1b's image
+patches) are stubs, as in the reference: ``frontend_embeds`` (B, F, D)
+arrive precomputed and are put before the token embeddings, and every
+position counts the F frames (:func:`_embed`).
+
 Entry points: :func:`init_params`, :func:`prefill` (dense, Mamba1 and
-hybrid branches, with ``last_positions``), :func:`init_cache` (every
-branch), the contiguous :func:`decode_step` (the per-call baseline's, every
-served family), the paged path :func:`prefill_window_paged`,
-:func:`decode_step_paged`, :func:`decode_chunk_paged` (attention archs,
-MoE included, as in the reference), and the slot path
+hybrid branches, with ``frontend_embeds`` or ``last_positions``, never
+both), :func:`init_cache` (every branch), the contiguous
+:func:`decode_step` (every family), the paged path
+:func:`prefill_window_paged`, :func:`decode_step_paged`,
+:func:`decode_chunk_paged` (attention archs without a frontend, MoE
+included, as in the reference), and the slot path
 :func:`decode_step_slots`, :func:`decode_chunk_slots` (Mamba1 and the
-hybrid). Modality-frontend configs raise ``ValueError`` (a later slice).
+hybrid).
 
 Training (:func:`forward`, :func:`loss_fn`): teacher-forced fp32 logits
 over the padded vocabulary and the reference's cross-entropy + z-loss +
-router aux, for attention archs (dense and MoE), differentiated by
-``torch.autograd``. Each layer is recomputed in the backward when
-``cfg.remat`` (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint(..., nothing_saveable)`` over its layer scan). The master
-weights may be fp32 (``param_dtype``): every layer casts at use, so the
-gradients land in the fp32 leaves.
+router aux (offset by the F frames with a frontend), for every family,
+differentiated by ``torch.autograd`` (Mamba1's scan through
+:func:`repro_torch.kernels.ops.mamba_scan`: K3 and its backward
+kernel on CUDA). With ``cfg.remat`` each layer is recomputed in the
+backward (``torch.utils.checkpoint``, where the reference puts
+``jax.checkpoint(..., nothing_saveable)``): per layer of a layer stack,
+and per whole group (its Mamba2 layers and the shared block) in the
+hybrid. The master weights may be fp32 (``param_dtype``): every layer
+casts at use, so the gradients land in the fp32 leaves.
 
 One device sync per decode chunk: :func:`decode_chunk_paged` and
 :func:`decode_chunk_slots` keep the ``(lengths, last, rem)`` carry on the
@@ -78,32 +88,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return _init(cfg, generator, device=device)
 
 
-def _unported(cfg: ModelConfig) -> bool:
-    """Modality-frontend archs: a later slice."""
-    return cfg.frontend != "none"
+def _frontend_len(cfg: ModelConfig) -> int:
+    """F, the frontend frames before the tokens (0 without a frontend)."""
+    return cfg.frontend_tokens if cfg.frontend != "none" else 0
 
 
 def _require_dense(cfg: ModelConfig, what: str) -> None:
-    """The paged entry points: attention archs only, as in the reference
-    (SSM state is O(1) per sequence and lives in the slot pool)."""
-    if cfg.ssm or _unported(cfg):
+    """The paged entry points: attention archs without a frontend, as in
+    the reference (SSM state is O(1) per sequence and lives in the slot
+    pool; the reference engine never feeds frontend frames)."""
+    if cfg.ssm or _frontend_len(cfg):
         raise ValueError(f"{cfg.name}: {what} in repro_torch covers "
-                         "attention archs (dense and MoE) only (family "
-                         f"{cfg.family!r}, frontend {cfg.frontend!r})")
-
-
-def _require_ported(cfg: ModelConfig, what: str) -> None:
-    if _unported(cfg):
-        raise ValueError(f"{cfg.name}: {what} in repro_torch covers dense "
-                         "attention, MoE, Mamba1 and Mamba2-hybrid archs "
-                         f"only (family {cfg.family!r}, frontend "
-                         f"{cfg.frontend!r} are not ported yet)")
+                         "attention archs (dense and MoE) without a "
+                         f"frontend (family {cfg.family!r}, frontend "
+                         f"{cfg.frontend!r})")
 
 
 def _require_slots(cfg: ModelConfig, what: str) -> None:
     """The slot-state entry points: SSM and hybrid archs (attention archs
     page their KV instead)."""
-    _require_ported(cfg, what)
     if not cfg.ssm:
         raise ValueError(f"{cfg.name}: {what} is the SSM path; attention "
                          "archs page their KV instead")
@@ -120,10 +123,8 @@ def layer_views(params) -> List[Dict[str, torch.Tensor]]:
     own."""
     if "gblocks" not in params:
         return _stack_views(params["blocks"])
-    leaves = tuple(params["gblocks"].items())
-    G, every = leaves[0][1].shape[:2]
-    views = [{k: v[g, l] for k, v in leaves}
-             for g in range(G) for l in range(every)]
+    views = [lp for group in _stack_views(params["gblocks"])
+             for lp in _stack_views(group)]
     if "tail_blocks" in params:
         views += _stack_views(params["tail_blocks"])
     return views
@@ -136,6 +137,29 @@ def _stack_views(stack) -> List[Dict[str, torch.Tensor]]:
     names = tuple(stack)
     return [dict(zip(names, views))
             for views in zip(*(stack[k].unbind(0) for k in names))]
+
+
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
+           frontend_embeds: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole sequence's input (the reference's ``_embed``): with a
+    frontend, ``frontend_embeds`` (B, F, D) cast to the compute dtype and
+    put before the token embeddings; positions ``arange(F + S)`` per row
+    (sinusoidal ones added over all of them). Returns (x (B, F + S, D),
+    positions). A frontend arch without ``frontend_embeds`` raises, as in
+    the reference; other archs ignore them."""
+    if cfg.frontend != "none" and frontend_embeds is None:
+        raise ValueError(f"{cfg.name} requires frontend_embeds "
+                         f"({cfg.frontend} stub)")
+    cdt = dtype_of(cfg.compute_dtype)
+    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
+    if cfg.frontend != "none":
+        x = torch.cat([frontend_embeds.to(cdt), x], dim=1)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(cdt)
+    return x, positions
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
@@ -191,23 +215,14 @@ def _block_window(p, x, cfg: ModelConfig, attn_fn, pkv_l):
 
 
 # ------------------------------------------------------------------ training
-def _require_trainable(cfg: ModelConfig) -> None:
-    if cfg.ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: training in repro_torch covers attention archs "
-            "(dense and MoE); Mamba1 and zamba2-hybrid training wait for "
-            "ROADMAP Queue 1 item 13(b)")
-    if _unported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training of the frontend archs ({cfg.frontend!r}) "
-            "waits for ROADMAP Queue 1 item 10 (the frontend prefix), then "
-            "item 13(b)")
-
-
 def _block_train(p, x, cfg: ModelConfig, positions):
-    """One layer over the whole sequence (the reference's ``_block_apply``
-    for attention archs, chunked attention). Returns (x, MoE aux)."""
-    x = x + attention(p, rms_norm(x, p["ln1"], cfg.rms_eps), cfg, positions)
+    """One layer over the whole sequence (the reference's ``_block_apply``:
+    chunked attention and the MLP or MoE, or a Mamba block). Returns (x,
+    MoE aux)."""
+    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    if cfg.ssm:
+        return x + mamba_forward(p, h, cfg), torch.zeros((), device=x.device)
+    x = x + attention(p, h, cfg, positions)
     h2 = rms_norm(x, p["ln2"], cfg.rms_eps)
     if cfg.moe:
         y, aux = moe_layer(p, h2, cfg, return_aux=True)
@@ -215,20 +230,38 @@ def _block_train(p, x, cfg: ModelConfig, positions):
     return x + mlp(p, h2, cfg), torch.zeros((), device=x.device)
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor
+def _group_train(layers, sb, x, x0, cfg: ModelConfig, positions):
+    """One zamba2 group over the whole sequence: its Mamba2 layers, then
+    the shared block fed (x, x0) (the reference's ``group``)."""
+    for lp in layers:
+        x, _ = _block_train(lp, x, cfg, positions)
+    return _shared_block(sb, x, x0, cfg, positions)
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced logits: ``(logits (B, S, padded_vocab) fp32, MoE aux
-    loss)``. Attention archs only: the others, the frontend archs among
-    them (the reference's ``frontend_embeds`` argument), raise
-    ``NotImplementedError``. The recomputation keeps no RNG state: no
-    layer draws random numbers."""
-    _require_trainable(cfg)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = _embed_tokens(cfg, params, tokens, positions)
+    """Teacher-forced logits over the whole (frontend + token) sequence:
+    ``(logits (B, F + S, padded_vocab) fp32, MoE aux loss)``. The hybrid
+    runs its G groups (``every`` Mamba2 layers, then the shared block on
+    (x, the embeddings)), then its tail layers. The recomputation keeps no
+    RNG state: no layer draws random numbers."""
+    x, positions = _embed(cfg, params, tokens, frontend_embeds)
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp in layer_views(params):
+    layers = layer_views(params)
+    if cfg.hybrid_attn_every:
+        every = cfg.hybrid_attn_every
+        G = params["gblocks"]["ln1"].shape[0]
+        x0 = x
+        for g in range(G):
+            args = (layers[g * every:(g + 1) * every],
+                    params["shared_block"], x, x0, cfg, positions)
+            x = checkpoint(_group_train, *args, use_reentrant=False,
+                           preserve_rng_state=False) if remat \
+                else _group_train(*args)
+        layers = layers[G * every:]
+    for lp in layers:
         if remat:
             x, a = checkpoint(_block_train, lp, x, cfg, positions,
                               use_reentrant=False, preserve_rng_state=False)
@@ -241,15 +274,22 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor
 def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross-entropy in fp32 over the real vocabulary (the
     padded columns masked to -1e30), + ``1e-4 * mean(logz^2)`` +
-    ``router_aux_weight * aux``. The gold logit is a gather: the
-    reference's one-hot sum has one nonzero term, so it is the same
+    ``router_aux_weight * aux``. With a frontend of F frames
+    (``batch["frontend_embeds"]``) the logits at F - 1 .. F + S - 2
+    predict the S tokens, as in the reference. The gold logit is a gather:
+    the reference's one-hot sum has one nonzero term, so it is the same
     number, without a (B, S, V) one-hot. Returns (total, {"ce", "aux",
     "zloss", "ppl_proxy"})."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens)
+    logits, aux = forward(cfg, params, tokens, batch.get("frontend_embeds"))
     S = tokens.shape[1]
-    pred = logits[:, :S - 1]
-    labels = tokens[:, 1:].long()
+    nf = _frontend_len(cfg)
+    if nf:
+        pred = logits[:, nf - 1:nf + S - 1]
+        labels = tokens.long()
+    else:
+        pred = logits[:, :S - 1]
+        labels = tokens[:, 1:].long()
     padded = torch.arange(cfg.padded_vocab, device=pred.device) \
         >= cfg.vocab_size
     pred = pred.masked_fill(padded, -1e30)
@@ -357,9 +397,12 @@ def prefill_window_paged(cfg: ModelConfig, params, pool_kv, tables, tokens,
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int = 0,
-            last_positions=None, impl: Optional[str] = None, layers=None):
+            last_positions=None, impl: Optional[str] = None, layers=None,
+            frontend_embeds=None):
     """Process a prompt: last-position logits (B, padded_vocab) fp32 and a
-    primed cache.
+    primed cache over the F frontend frames (``frontend_embeds`` (B, F, D),
+    frontend archs only) and the S tokens: its ``pos`` is F + S and
+    ``max_len`` is raised to at least F + S.
 
     Dense archs: ``{"pos", "k", "v"}`` with k/v (L, B, KV, max_len, hd) in
     the compute dtype; ``impl`` is the attention path, ``"flash"`` (K2) by
@@ -376,13 +419,16 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int = 0,
     and ``shared_k/v`` (G, B, KV, max(max_len, S), hd); ``impl`` is the
     shared block's attention, as for dense archs (K2 on CUDA by default).
 
-    ``last_positions`` ((B,) int, optional) picks a per-row logit position.
-    ``layers`` as in :func:`decode_step_paged`.
+    ``last_positions`` ((B,) int, optional) picks a per-row logit position;
+    with a frontend it raises, as in the reference (it would index the
+    concatenated sequence). ``layers`` as in :func:`decode_step_paged`.
     """
-    _require_ported(cfg, "prefill")
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = _embed_tokens(cfg, params, tokens, positions)
+    if _frontend_len(cfg) and last_positions is not None:
+        raise ValueError(f"{cfg.name}: last_positions does not account for "
+                         "the frontend prefix; offset by frontend_tokens "
+                         "first")
+    x, positions = _embed(cfg, params, tokens, frontend_embeds)
+    B, S = x.shape[:2]
     layers = layers or layer_views(params)
     attn_impl = impl or ("flash" if tokens.is_cuda else "chunked")
     if cfg.hybrid_attn_every:
@@ -441,19 +487,21 @@ def _prefill_ssm(cfg: ModelConfig, layers, x, impl: str):
     return x, {"ssm": (torch.stack(convs), torch.stack(hs))}
 
 
-def _shared_block_prefill(sb, x, x0, cfg: ModelConfig, positions,
-                          max_len: int, impl: str):
-    """zamba2's shared block over the whole prompt (the reference's
-    ``_shared_block_apply`` with its K/V kept): concat([x, x0]) @ fused_proj
-    -> attention -> MLP, added to x. Returns (x, k, v) with k/v (B, KV,
-    max_len, hd) in the compute dtype."""
+def _shared_block(sb, x, x0, cfg: ModelConfig, positions,
+                  impl: str = "chunked", return_kv: bool = False):
+    """zamba2's shared block over the whole sequence (the reference's
+    ``_shared_block_apply``): concat([x, x0]) @ fused_proj -> attention ->
+    MLP, added to x. With ``return_kv`` returns (x, (k, v)), k/v (B, S, KV,
+    hd) as :func:`repro_torch.models.attention.attention` gives them."""
     cdt = dtype_of(cfg.compute_dtype)
     h = torch.cat([x, x0], dim=-1) @ sb["fused_proj"].to(cdt)
-    a, (k, v) = attention(sb, rms_norm(h, sb["ln1"], cfg.rms_eps), cfg,
-                          positions, impl=impl, return_kv=True)
+    a = attention(sb, rms_norm(h, sb["ln1"], cfg.rms_eps), cfg, positions,
+                  impl=impl, return_kv=return_kv)
+    if return_kv:
+        a, kv = a
     h = h + a
     h = h + mlp(sb, rms_norm(h, sb["ln2"], cfg.rms_eps), cfg)
-    return (x + h, *_kv_span(k, v, max_len, cdt))
+    return (x + h, kv) if return_kv else x + h
 
 
 def _prefill_hybrid(cfg: ModelConfig, params, layers, x, positions,
@@ -472,8 +520,9 @@ def _prefill_hybrid(cfg: ModelConfig, params, layers, x, positions,
         convs.append(conv.to(cdt))
         hs.append(hh)
         if i < G * every and i % every == every - 1:
-            x, k, v = _shared_block_prefill(params["shared_block"], x, x0,
-                                            cfg, positions, max_len, impl)
+            x, (k, v) = _shared_block(params["shared_block"], x, x0, cfg,
+                                      positions, impl, return_kv=True)
+            k, v = _kv_span(k, v, max_len, cdt)
             ks.append(k)
             vs.append(v)
     n = G * every
@@ -501,8 +550,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
     state does not grow). The zamba2 hybrid: ``g_ssm`` (conv (G, every,
     batch, K-1, dI+2N), h (G, every, batch, nh, hp, N) fp32), ``tail_ssm``
     ((tail, batch, ...) likewise, when ``L % every``) and ``shared_k``,
-    ``shared_v`` (G, batch, KV, max_len, hd) in the compute dtype."""
-    _require_ported(cfg, "init_cache")
+    ``shared_v`` (G, batch, KV, max_len, hd) in the compute dtype. A
+    frontend arch's cache is its attention branch's (a prefill's covers
+    the frames too)."""
     cdt = dtype_of(cfg.compute_dtype)
     dev = resolve_device(device)
     if not cfg.ssm:
@@ -532,14 +582,14 @@ def decode_step(cfg: ModelConfig, params, cache, token, layers=None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One greedy-path decode step from a contiguous cache (the reference's
     ``decode_step``): the cache of :func:`prefill` or :func:`init_cache`,
-    every row at the cache's scalar ``pos``. Attention archs (dense and
-    MoE) read and write their (L, B, KV, S_max, hd) cache through
+    every row at the cache's scalar ``pos`` (F + S after a prefill of F
+    frontend frames and S tokens). Attention archs (dense, MoE and the
+    frontend archs) read and write their (L, B, KV, S_max, hd) cache through
     :func:`repro_torch.models.attention.decode_attention`; Mamba1 and the
     hybrid step their state through the slot path's pieces
     (:func:`decode_step_slots` with every row at ``pos``). Tensors are
     updated IN PLACE; the returned dict is a new one with ``pos + 1``.
     token: (B,) int. Returns (logits (B, padded_vocab) fp32, cache)."""
-    _require_ported(cfg, "decode_step")
     pos = int(cache["pos"])
     pos_b = torch.full((token.shape[0],), pos, dtype=torch.int32,
                        device=token.device)

@@ -4,9 +4,11 @@ tensors.
 
 Mamba1 (falcon-mamba):
 
-* :func:`mamba_forward` (prefill) runs the whole sequence through ONE
-  selective scan, :func:`repro_torch.kernels.ops.mamba_scan`: K3 on CUDA,
-  its plain sequential version on the CPU. The reference runs ``_m1_scan``
+* :func:`mamba_forward` (prefill and training) runs the whole sequence
+  through ONE selective scan, :func:`repro_torch.kernels.ops.mamba_scan`:
+  K3 on CUDA (with the backward kernel behind it when autograd records),
+  its plain sequential version on the CPU (differentiated by autograd).
+  The reference runs ``_m1_scan``
   instead, an associative scan inside chunks of ``ssm_chunk`` steps linked
   by a ``lax.scan`` carry; the chunks bound XLA's O(chunk * dI * N)
   activation memory. The kernel keeps each state in a register for the
@@ -17,7 +19,8 @@ Mamba1 (falcon-mamba):
   ``(conv_buf, h)``.
 
 Mamba2 (zamba2): :func:`_ssd_scan` is the reference's SSD dual form in
-plain torch (no TPU kernel computes it): inside a chunk the scalar-per-head
+plain torch (no TPU kernel computes it; training differentiates it with
+autograd): inside a chunk the scalar-per-head
 decay turns the recurrence into a masked, decayed "attention" of C against
 B, and a carried state links the chunks. The chunk rule is the
 reference's: ``chunk = min(ssm_chunk, S)``, and a ragged S runs as ONE
@@ -104,8 +107,8 @@ def _m1_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                     + p["dt_bias"].float())                  # (B,S,dI) f32
     A = -torch.exp(p["A_log"].float())                       # (dI,N) f32
     if impl == "kernel":
-        y, hT = ops.mamba_scan(dt, xh, Bc.contiguous(), Cc.contiguous(), A,
-                               h0=h0)
+        y, hT = ops.mamba_scan(dt, xh, Bc.contiguous(),
+                               Cc.contiguous(), A, h0=h0)
     elif impl == "plain":
         y, hT = mamba_scan_ref(dt, A, Bc, Cc, xh, h0=h0)
     else:
@@ -143,41 +146,72 @@ def _m1_step(p, x1: torch.Tensor, cfg: ModelConfig, state):
 
 
 # ===================================================================== Mamba2
+#: most elements of each of the SSD's (B, g, c, c, nh) fp32 intra-chunk
+#: temporaries (64 MB): :func:`_ssd_scan` runs its chunks in groups of g
+SSD_GROUP_ELEMS = 1 << 24
+
+
 def _ssd_scan(xh, dt, A, Bc, Cc, h0, chunk: int):
     """SSD dual form. xh: (B, S, nh, hp); dt: (B, S, nh) fp32; A: (nh,)
     fp32; Bc, Cc: (B, S, N); h0: (B, nh, hp, N) fp32. Returns y (B, S, nh,
     hp) and the final h, both fp32. A ragged S runs as one chunk (the
-    reference's rule)."""
-    S = xh.shape[1]
+    reference's rule).
+
+    Each chunk's arithmetic is the reference's ``chunk_step``, but the
+    chunks' own work runs batched over a chunk axis: each chunk's state
+    from a zero start over all chunks at once, then only the carry, h = h
+    * exp(L_last) + h_chunk, steps through the chunks; the decayed
+    intra-chunk products in groups of as many chunks as keep each (B, g,
+    c, c, nh) temporary within :data:`SSD_GROUP_ELEMS` (at least one
+    chunk), so a long prompt's peak memory does not grow with its chunk
+    count. A
+    zamba2-1.2b training microbatch (one 2048-token sequence) is one
+    group; a serving prefill of 8 such prompts runs 8 groups of 2 chunks.
+    A Python loop of the whole step per chunk (as the reference's
+    ``lax.scan``) launched ~700 small kernels per layer and pass: a
+    zamba2-1.2b training step at 8 x 2048 took 20.5 s on an H100, 74% of
+    it with the device idle."""
+    Bb, S, nh, hp = xh.shape
+    N = Bc.shape[-1]
     chunk = min(chunk, S)
     if S % chunk:
         chunk = S
-    xf, Bf, Cf = xh.float(), Bc.float(), Cc.float()
-    loga = dt * A                                             # (B,S,nh) <= 0
+    nc = S // chunk
+    xf = xh.float().reshape(Bb, nc, chunk, nh, hp)
+    Bf = Bc.float().reshape(Bb, nc, chunk, N)
+    Cf = Cc.float().reshape(Bb, nc, chunk, N)
+    dtc = dt.reshape(Bb, nc, chunk, nh)
+    L = torch.cumsum(dtc * A, dim=2)                          # (B,nc,c,nh)
+    # each chunk's state from a zero start: sum_s exp(L_last - L_s) dt_s x_s
+    # B_s^T, then the carry through the chunks
+    rdecay = torch.exp(L[:, :, -1:, :] - L)                   # (B,nc,c,nh)
+    hc = torch.einsum("bcshp,bcsn->bchpn",
+                      xf * (dtc * rdecay)[..., None], Bf)
+    last = torch.exp(L[:, :, -1])[..., None, None]            # (B,nc,nh,1,1)
+    h, h_in = h0, []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * last[:, c] + hc[:, c]
+    h_in = torch.stack(h_in, dim=1)                           # (B,nc,nh,hp,N)
+    # intra-chunk: causal "attention" with decay. Above the diagonal seg >=
+    # 0 may overflow exp; it is masked to -inf BEFORE the exp (the same 0
+    # there), where the reference's where(mask, exp(seg), 0) gives a NaN
+    # gradient (0 * inf) once a chunk's |sum dt A| passes ~88
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=xh.device).tril()[None, :, :, None]
-    h, ys = h0, []
-    for c0 in range(0, S, chunk):
-        c = slice(c0, c0 + chunk)
-        x_c, dt_c, b_c, c_c = xf[:, c], dt[:, c], Bf[:, c], Cf[:, c]
-        L = torch.cumsum(loga[:, c], dim=1)                   # (B,c,nh)
-        # intra-chunk: causal "attention" with decay (above the diagonal
-        # seg >= 0 may overflow exp; the mask selects 0 there)
-        seg = L[:, :, None, :] - L[:, None, :, :]             # (B,t,s,nh)
-        decay = torch.where(causal, torch.exp(seg), 0.0)
-        cb = torch.einsum("btn,bsn->bts", c_c, b_c)
-        w = cb[..., None] * decay * dt_c[:, None, :, :]
-        y = torch.einsum("btsh,bshp->bthp", w, x_c)
-        # inter-chunk: the carried state's contribution
-        y = y + torch.einsum("btn,bhpn->bthp", c_c, h) \
-            * torch.exp(L)[..., None]
-        # chunk state: sum_s exp(L_last - L_s) dt_s x_s B_s^T
-        rdecay = torch.exp(L[:, -1:, :] - L)                  # (B,c,nh)
-        hc = torch.einsum("bshp,bsn->bhpn",
-                          x_c * (dt_c * rdecay)[..., None], b_c)
-        h = h * torch.exp(L[:, -1])[..., None, None] + hc
-        ys.append(y)
-    return torch.cat(ys, dim=1), h
+                        device=xh.device).tril()[:, :, None]
+    g = max(1, SSD_GROUP_ELEMS // (Bb * chunk * chunk * nh))
+    ys = []
+    for c0 in range(0, nc, g):
+        k = slice(c0, c0 + g)
+        seg = L[:, k, :, None, :] - L[:, k, None, :, :]       # (B,g,t,s,nh)
+        decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
+        cb = torch.einsum("bctn,bcsn->bcts", Cf[:, k], Bf[:, k])
+        w = cb[..., None] * decay * dtc[:, k, None, :, :]
+        # plus the carried state's contribution
+        ys.append(torch.einsum("bctsh,bcshp->bcthp", w, xf[:, k])
+                  + torch.einsum("bctn,bchpn->bcthp", Cf[:, k], h_in[:, k])
+                  * torch.exp(L[:, k])[..., None])
+    return torch.cat(ys, dim=1).reshape(Bb, S, nh, hp), h
 
 
 def _m2_split(zxbcdt: torch.Tensor, cfg: ModelConfig):

@@ -177,8 +177,9 @@ so on the card it is host-bound and ``x_per_call`` overstates the resident
 engine's advantage.
 
 Not in this slice (queued in ROADMAP.md): meshes. The engine raises
-:class:`UnsupportedArch` on archs it cannot serve yet (modality
-frontends).
+:class:`UnsupportedArch` on the modality-frontend archs, whose frames the
+reference engine never feeds either (``lm.prefill`` and ``lm.decode_step``
+take them).
 """
 from __future__ import annotations
 
@@ -233,8 +234,8 @@ PIPELINE_LINES = 3
 
 
 class UnsupportedArch(ServeError, ValueError):
-    """The port's engine cannot serve this architecture yet
-    (modality-frontend configs come with a later slice)."""
+    """The port's engine does not serve this architecture: the
+    modality-frontend configs, as the reference engine does not."""
 
 
 class ServeEngine:
@@ -348,8 +349,9 @@ class ServeEngine:
             raise UnsupportedArch(
                 f"{cfg.name} (family {cfg.family!r}, frontend "
                 f"{cfg.frontend!r}): the repro_torch engine serves dense "
-                "attention, MoE, Mamba1 and Mamba2-hybrid archs only in "
-                "this slice")
+                "attention, MoE, Mamba1 and Mamba2-hybrid archs, as the "
+                "reference engine does (lm.prefill and lm.decode_step take "
+                "frontend frames)")
         self.cfg = cfg
         self.paged = not (cfg.ssm or cfg.hybrid_attn_every)
         self.device = resolve_device(device)

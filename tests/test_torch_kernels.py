@@ -176,4 +176,5 @@ def test_launch_counts_reset():
     assert ops.launch_counts() == {"paged_attention": 0,
                                    "flash_attention": 0,
                                    "mamba_scan": 0,
+                                   "mamba_scan_bwd": 0,
                                    "lsdnn_layer": 0}

@@ -152,8 +152,9 @@ def test_entry_points_refuse_unported_archs(arch):
     """The paged entry points take attention archs, MoE included, as the
     reference's do (an SSM or the zamba2 hybrid keeps its state per
     sequence in the slot pool); prefill takes qwen2-moe, falcon-mamba
-    (Mamba1) and zamba2 (the Mamba2 hybrid) and refuses the unported rest
-    (modality frontends)."""
+    (Mamba1) and zamba2 (the Mamba2 hybrid), and a frontend arch only with
+    its frames (refused without them, as in the reference;
+    ``tests/test_torch_frontend.py`` runs it with them)."""
     cfg = smoke_cfg(arch)
     toks = torch.zeros((1, 4), dtype=torch.int32)
     if arch != "musicgen-large":

@@ -355,6 +355,10 @@ def test_estimates_match_the_reference_engine():
 # ------------------------------------------------ deadlines + cancel (engine)
 @pytest.mark.parametrize("async_decode", [False, True])
 def test_mid_decode_deadline_expiry_reclaims_row(setup, async_decode):
+    """The expired row's blocks all come back. An evicted async row's
+    blocks wait behind the fence (``free_deferred``) until two fence
+    advances or ``close()``, as in the reference: at rest every block is
+    free or fenced, and after ``close()`` every block is free."""
     cfg, tp = setup
     with ServeEngine(cfg, tp, device="cpu", decode_chunk=2,
                      async_decode=async_decode) as eng:
@@ -364,8 +368,11 @@ def test_mid_decode_deadline_expiry_reclaims_row(setup, async_decode):
             eng.result(r, timeout=120.0)
         assert eng.stats["expired"] >= 1
         _wait_idle(eng)
-        assert _pool_restored(eng)
+        parked = eng._prefix.num_parked if eng._prefix is not None else 0
+        assert eng._pool.num_free + eng._pool.num_deferred + parked \
+            == eng._pool.num_blocks - 1
         assert eng.generate([P], max_new=4)[0].tolist() == _solo(4)
+    assert eng._pool.num_deferred == 0 and _pool_restored(eng)
 
 
 @pytest.mark.parametrize("async_decode", [False, True])

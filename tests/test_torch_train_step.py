@@ -34,7 +34,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config
 from repro.distributed.sharding import ShardCtx
 from repro.models import lm as jlm
 from repro.optim.adamw import OptConfig as JOptConfig
@@ -201,14 +200,3 @@ def test_microbatch_rule_matches_reference():
     assert split_microbatches(8, 1) == 1
     assert split_microbatches(6, 4) == 3         # steps down to a divisor
     assert split_microbatches(7, 2) == 1
-
-
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b",
-                                  "musicgen-large", "internvl2-1b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).smoke()
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.forward(cfg, {}, toks)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.loss_fn(cfg, {}, {"tokens": toks})
