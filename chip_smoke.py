@@ -228,6 +228,37 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               table2,fig9,fig17,paged_decode --quick`` whose
               ``BENCH_*.json`` must hold each suite's row names
               (paged_decode runs K1 at stablelm-1.6b's full-width heads);
+11b. examples — the port's examples on the card at their default sizes
+              (``src/repro_torch/examples``): ``quickstart``,
+              ``placement_loop`` (4,096 cells, 8,192 nets: its wirelength
+              must fall), ``serve_lm`` (qwen3-14b's smoke config: its three
+              demos), ``train_lm`` (20 steps: the loss finite and falling,
+              then a greedy decode through the engine) and
+              ``lsdnn_inference`` (48 layers of 512: the rows carry the
+              reference's names, the paths agree); K1, K2 and K4 launches
+              counted;
+11c. nested — a DeviceFlow that nests a compiled ``CondGraph`` (the
+              data-dependent loop x <- m @ x until |x| < 1e-3, d = 256,
+              three scales of x: three trip counts) between two ops of its
+              own: one replay per offload, equal to the same ops around
+              ``lower()`` run eagerly on the card (trips exact, fp32 rel
+              1e-5), and the program's launch counts unchanged by every
+              replay (``bench/condgraph_check.py``);
+11d. mesh   — tensor-parallel serving: stablelm-1.6b at full width on two
+              ``gloo`` ranks sharing the one card (this process and one
+              spawned follower, 16 of its 32 KV heads a rank): the 8
+              staggered requests through the 2-rank engine and the
+              single-device engine, in fp32 compute at 4 layers (tokens
+              must be equal; TF32 off) and in bf16 at full depth (the share
+              of equal tokens and the first flip's top-2 margin printed);
+              each rank's pool half the single-device pool, no all-reduce
+              and every decode-chunk all-gather below half a pool shard;
+              tok/s and the decode cycle of both engines, printed as
+              host-staged ``gloo`` numbers, not a tensor-parallel speed;
+              the ranks' K1 and K2 launches counted over each 2-rank
+              engine's life, warm-up included, on both ranks (the
+              follower's reported back per engine); a failed rank fails
+              the phase with its traceback;
 12. report  — one JSON line of per-kernel numbers (K1-K4, K3's backward
               and ``cond_graph``), the card line, and the final
               ``{"ok": true, ...}`` line.
@@ -336,6 +367,15 @@ FRONTEND_PROMPT, FRONTEND_NEW, FRONTEND_CHECK_LAYERS = 64, 16, 4
 
 PROMPT_LENS = (16, 24, 32, 57, 90, 128, 200, 300)
 MAX_NEW = 32
+
+# the nested phase's loop: x <- m @ x over d = 256
+NESTED_D = 256
+# the mesh phase: 2 gloo ranks on the one card; its fp32 check cuts
+# stablelm-1.6b to 4 layers at full width (fp32 at full depth would be 6.6
+# GB a rank, and the equality is exercised by every layer alike)
+MESH_RANKS = 2
+MESH_FP32_LAYERS = 4
+MESH_PRESET = "full"
 
 # the prefix phase: the serve suite's continuous trace at the reference's
 # non-quick shapes with 128 requests (so that p99 is not the maximum), and
@@ -832,6 +872,15 @@ def _restore_chunk(eng, frozen) -> None:
     eng._chunk.carry.copy_(frozen["carry"])
 
 
+def _rest(eng) -> None:
+    """Wait until the engine's pipeline has no run in flight."""
+    t0 = time.perf_counter()
+    while not (eng._pipeline is None or eng._pipeline.idle()):
+        if time.perf_counter() - t0 > 60:
+            raise SystemExit("the engine did not come to rest in 60 s")
+        time.sleep(0.005)
+
+
 def _graph_vs_eager(eng, frozen, tag: str) -> None:
     """The frozen chunk through the engine's captured graph (one replay)
     and through the same body run eagerly, on the engine's own tensors:
@@ -982,8 +1031,15 @@ def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-    finally:
         del eng._chunk.run          # the spy: back to the class's run
+        if "pool" not in frozen:
+            raise SystemExit("no decode chunk with a full batch was seen")
+        # on the resting engine: close() frees the captured graph
+        _rest(eng)
+        _graph_vs_eager(eng, frozen, tag)
+        chunk_ms = _chunk_device_ms(eng, frozen, tag, card)
+    finally:
+        eng._chunk.__dict__.pop("run", None)
         eng.close()
     stats = {k: v - stats0.get(k, 0) for k, v in eng.stats.items()}
     for p, o in zip(prompts, outs):
@@ -1016,13 +1072,9 @@ def phase_serve(dev, arch: str = "stablelm-1.6b", tag: str = "serve",
         f"{eng._pool.num_blocks - 1} non-sink blocks free")
     log(f"[{tag}] sample: {outs[0][:16].tolist()}")
     log(f"[{tag}] {_cycle_split(obs)}")
-    if "pool" not in frozen:
-        raise SystemExit("no decode chunk with a full batch was seen")
     if counts["paged_attention"] != L * steps:
         raise SystemExit(f"K1 launches {counts['paged_attention']} != {L} x "
                          f"{steps}: every decode step is one replay's")
-    _graph_vs_eager(eng, frozen, tag)
-    chunk_ms = _chunk_device_ms(eng, frozen, tag, card)
     del eng
     gc.collect()
     return cfg, params, prompts, frozen, counts, chunk_ms
@@ -1270,17 +1322,20 @@ def phase_serve_ssm(dev, arch: str = "falcon-mamba-7b", tag: str = "ssm",
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-    finally:
         del eng._chunk.run          # the spy: back to the class's run
+        if "state" not in frozen:
+            raise SystemExit(f"[{tag}] no decode chunk with a full batch")
+        # on the resting engine: close() frees the captured graph
+        _rest(eng)
+        _graph_vs_eager(eng, frozen, tag)
+    finally:
+        eng._chunk.__dict__.pop("run", None)
         eng.close()
     stats = {k: v - stats0.get(k, 0) for k, v in eng.stats.items()}
     for p, o in zip(prompts, outs):
         if o.shape != (MAX_NEW,) or not ((o >= 0) & (o < cfg.vocab_size)
                                          ).all():
             raise SystemExit(f"bad output for prompt len {len(p)}: {o}")
-    if "state" not in frozen:
-        raise SystemExit(f"[{tag}] no decode chunk with a full batch")
-    _graph_vs_eager(eng, frozen, tag)
     B = len(eng._slot_req)
     if len(eng._free_slots) != B or eng._slots_reserved or eng._inflight:
         raise SystemExit(f"slots leaked: {len(eng._free_slots)} free of {B}")
@@ -2517,6 +2572,216 @@ def phase_condgraph(dev, card: str) -> dict:
             "library_ms": p["unrolled_replay_ms"], "k1_sweep": k1_sweep}
 
 
+# ------------------------------------------------------------------ 11b-d
+def phase_examples(dev, card: str, extra=()) -> dict:
+    """The five examples on the card at their default sizes (train_lm cut
+    to 20 steps; ``extra`` arguments go to each, e.g. ``--device cpu`` for
+    a rehearsal); returns the kernels' launches in them."""
+    from repro_torch.examples import (lsdnn_inference, placement_loop,
+                                      quickstart, serve_lm, train_lm)
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t = {}
+    t0 = time.perf_counter()
+    quickstart.main([*extra])
+    t["quickstart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pl = placement_loop.main([*extra])
+    t["placement_loop"] = time.perf_counter() - t0
+    h = pl["history"]
+    if not (pl["iterations"] >= 1 and np.isfinite(h).all() and h[-1] < h[0]):
+        raise SystemExit(f"[examples] placement_loop: history {h[:3]}..."
+                         f"{h[-3:]} over {pl['iterations']} iterations")
+    t0 = time.perf_counter()
+    sv = serve_lm.main([*extra])
+    t["serve_lm"] = time.perf_counter() - t0
+    if [len(o) for o in sv["burst"]] != [48] * 8 or \
+            "pump" not in sv["mixed_kinds"]:
+        raise SystemExit("[examples] serve_lm: bad burst or stage log")
+    t0 = time.perf_counter()
+    tr = train_lm.main(["--steps", "20", *extra])
+    t["train_lm"] = time.perf_counter() - t0
+    losses = [x["loss"] for x in tr["history"]]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and len(tr["sample"]) == 16):
+        raise SystemExit(f"[examples] train_lm: losses {losses}")
+    t0 = time.perf_counter()
+    rows = {r[0]: r[1] for r in lsdnn_inference.main([*extra])}
+    t["lsdnn_inference"] = time.perf_counter() - t0
+    ref = [f"fig13/{k}" for k in (
+        "sequential_ms", "sequential_launches", "unrolled_ms",
+        "unrolled_launches", "unrolled_tasks", "taskflow_ms",
+        "taskflow_launches", "taskflow_tasks", "result_max_err",
+        "peak_rss_mb")]
+    missing = [k for k in ref if k not in rows]
+    if missing or rows["fig13/result_max_err"] > 1e-3 \
+            or rows["fig13/taskflow_kernel_launches"] <= 0:
+        raise SystemExit(f"[examples] lsdnn_inference: missing {missing}, "
+                         f"rows {rows}")
+    counts = ops.launch_counts()
+    for k in ("paged_attention", "flash_attention", "lsdnn_layer"):
+        if counts[k] <= 0:
+            raise SystemExit(f"[examples] no {k} launch")
+    log(f"[examples] on {card}: seconds "
+        f"{ {k: round(v, 2) for k, v in t.items()} }; placement "
+        f"{pl['iterations']} iterations, wirelength {h[0]:.1f} -> "
+        f"{h[-1]:.1f}; train_lm loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"lsdnn taskflow {rows['fig13/taskflow_ms']:.3f} ms, sequential "
+        f"{rows['fig13/sequential_ms']:.3f} ms; launches {counts}")
+    return counts
+
+
+def phase_nested(dev) -> int:
+    """A DeviceFlow nesting a compiled CondGraph; returns the conditional
+    program's launches (its warm-up and its capture)."""
+    from repro_torch.bench.condgraph_check import check_nested
+    from repro_torch.kernels import cond_graph
+
+    before = cond_graph.launches
+    rep = check_nested(dev, d=NESTED_D, log=log)
+    if rep["offloads"] != 3 or rep["program_launches"] != 2:
+        raise SystemExit(f"[nested] {rep}")
+    log(f"[nested] the program's nodes: {rep['nodes']}")
+    return cond_graph.launches - before
+
+
+def _mesh_serve(cfg, params, dev, prompts, tp=None) -> dict:
+    """The 8 staggered requests through one engine (the 2-rank one with
+    ``tp``): outputs, wall, rank 0's pool bytes, the mean decode cycle and
+    rank 0's kernel launches over the engine's life, warm-up included (the
+    window a follower counts, from OP_INIT to OP_STOP)."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Observability
+    from repro_torch.serve.engine import ServeEngine
+
+    obs = Observability()
+    before = ops.launch_counts()
+    with ServeEngine(cfg, params, decode_chunk=8, max_batch=8,
+                     kv_blocks=128, block_size=16, device=dev, obs=obs,
+                     tp=tp) as eng:
+        eng.result(eng.submit(prompts[0][:8], max_new=2))   # warm-up
+        torch.cuda.synchronize()
+        obs.reset()
+        if tp is not None:
+            tp.reset_counters()
+        t0 = time.perf_counter()
+        reqs = []
+        for p in prompts:
+            reqs.append(eng.submit(p, max_new=MAX_NEW))
+            time.sleep(0.02)
+        outs = [eng.result(r, timeout=600.0) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pool = eng._pkv.numel() * eng._pkv.element_size()
+        cyc = obs.metrics.get("engine.cycle_s").summary()
+    after = ops.launch_counts()
+    for o in outs:
+        if o.shape != (MAX_NEW,) or not ((o >= 0) & (o < cfg.vocab_size)
+                                         ).all():
+            raise SystemExit(f"[mesh] bad output {o}")
+    return {"outs": outs, "wall": wall, "pool": pool,
+            "cycle_ms": 1e3 * cyc["mean"], "cycles": cyc["count"],
+            "counts": {k: after[k] - before[k] for k in after},
+            "counters": tp.counters() if tp is not None else None}
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """stablelm-1.6b on 2 gloo ranks sharing the card against the
+    single-device engine; returns the ranks' K1/K2 launches."""
+    from repro_torch.bench.serve_mesh import FollowEach
+    from repro_torch.launch.mesh import ModelSpec, TPSession
+    from repro_torch.serve.tp import release_followers
+
+    fp32 = ModelSpec("stablelm-1.6b", MESH_PRESET, 0, (
+        ("compute_dtype", "float32"), ("num_layers", MESH_FP32_LAYERS)))
+    bf16 = ModelSpec("stablelm-1.6b", MESH_PRESET, 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {"paged_attention": 0, "flash_attention": 0}
+    res = {}
+    t0 = time.perf_counter()
+    with TPSession(MESH_RANKS, "gloo", fp32, dev, body=FollowEach((bf16,)),
+                   timeout=600.0) as s:
+        log(f"[mesh] {MESH_RANKS} gloo ranks on {dev} up in "
+            f"{time.perf_counter() - t0:.1f}s")
+        for tag, spec in (("fp32", fp32), ("bf16", bf16)):
+            cfg, params = spec(dev)
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, cfg.vocab_size, size=n)
+                       .astype(np.int32) for n in PROMPT_LENS]
+            single = _mesh_serve(cfg, params, dev, prompts)
+            mesh = _mesh_serve(cfg, params, dev, prompts, s.tp)
+            if tag == "fp32":
+                release_followers(s.tp)       # the follower builds bf16
+            for k in counts:
+                counts[k] += mesh["counts"][k]
+            c = mesh["counters"]
+            if c["calls"].get("all_reduce", 0) or \
+                    c["calls"].get("all_gather:chunk", 0) == 0 or \
+                    2 * c["max_bytes"]["all_gather:chunk"] >= mesh["pool"]:
+                raise SystemExit(f"[mesh] {tag}: collectives {c} against a "
+                                 f"pool shard of {mesh['pool']} B")
+            if 2 * mesh["pool"] != single["pool"]:
+                raise SystemExit(f"[mesh] {tag}: rank 0's pool "
+                                 f"{mesh['pool']} B, single {single['pool']}")
+            same = [np.array_equal(a, b)
+                    for a, b in zip(single["outs"], mesh["outs"])]
+            tok_eq = sum(int((a == b).sum()) for a, b in
+                         zip(single["outs"], mesh["outs"]))
+            share = tok_eq / (len(prompts) * MAX_NEW)
+            flip = ""
+            if not all(same):
+                i = same.index(False)
+                flip = "; first flip: request " + str(i) + ", " + \
+                    _first_flip_margin(cfg, params, prompts[i],
+                                       single["outs"][i], mesh["outs"][i],
+                                       dev)
+            if tag == "fp32" and not all(same):
+                raise SystemExit(f"[mesh] fp32 at {MESH_FP32_LAYERS} layers: "
+                                 f"tokens differ from the single-device "
+                                 f"engine{flip}")
+            ntok = len(prompts) * MAX_NEW
+            res[tag] = {"equal_share": share,
+                        "mesh_tok_s": ntok / mesh["wall"],
+                        "single_tok_s": ntok / single["wall"],
+                        "mesh_cycle_ms": mesh["cycle_ms"],
+                        "single_cycle_ms": single["cycle_ms"],
+                        "pool_rank_bytes": mesh["pool"],
+                        "pool_single_bytes": single["pool"],
+                        "all_gathers": c["calls"].get("all_gather", 0),
+                        "chunk_max_gather_bytes":
+                            c["max_bytes"]["all_gather:chunk"]}
+            log(f"[mesh] {tag} ({cfg.num_layers} layers, {cfg.compute_dtype}"
+                f") on {card}, host-staged gloo, one card shared by "
+                f"{MESH_RANKS} ranks (not a tensor-parallel speed): "
+                f"{sum(same)}/{len(same)} requests and {100 * share:.2f}% of "
+                f"tokens equal to the single-device engine{flip}; mesh "
+                f"{res[tag]['mesh_tok_s']:.1f} tok/s, cycle "
+                f"{mesh['cycle_ms']:.2f} ms over {mesh['cycles']} cycles | "
+                f"single {res[tag]['single_tok_s']:.1f} tok/s, cycle "
+                f"{single['cycle_ms']:.2f} ms; pool {mesh['pool']} B a rank "
+                f"vs {single['pool']} B; collectives {c['calls']}, largest "
+                f"chunk all-gather {c['max_bytes']['all_gather:chunk']} B; "
+                f"rank 0 launches {mesh['counts']}")
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    (fol,) = s.followers
+    engines = [e for model in fol["result"] for e in model]
+    fcounts = {k: sum(e["launches"].get(k, 0) for e in engines)
+               for k in counts}
+    for k in counts:
+        counts[k] += fcounts[k]
+    pools = [e["pool_bytes"] for e in engines]
+    if fcounts["paged_attention"] <= 0 or fcounts["flash_attention"] <= 0:
+        raise SystemExit(f"[mesh] the follower launched {fcounts}")
+    log(f"[mesh] follower: {len(engines)} engines, ops "
+        f"{[e['ops'] for e in engines]}, pool bytes {pools}, "
+        f"launches {fcounts}, collectives {fol['counters']['calls']}")
+    print(json.dumps({"mesh": res}), flush=True)
+    return counts
+
+
 # ------------------------------------------------------------------ main
 def _check_serve_run(run, tag: str, n_req: int, vocab: int) -> dict:
     """The gates every serve-suite run holds: in-vocab tokens for every
@@ -3706,17 +3971,26 @@ def main(argv=None) -> None:
     done("K4, LSDNN, DEVICE task")
     report["cond_graph"] = phase_condgraph(dev, smi)
     done("condgraph and the quick bench pass")
+    ecounts = phase_examples(dev, smi)
+    report["lsdnn_layer"]["launches"] += ecounts["lsdnn_layer"]
+    done("examples")
+    report["cond_graph"]["launches"] += phase_nested(dev)
+    done("nested (a DeviceFlow holding a compiled CondGraph)")
+    tcounts = phase_mesh(dev, smi)
+    done("mesh (2 gloo ranks on the card)")
     report["paged_attention"]["launches"] = counts["paged_attention"] \
         + acounts["paged_attention"] + pcounts["paged_attention"] \
         + scounts["paged_attention"] + dcounts["paged_attention"] \
         + ccounts["paged_attention"] + qcounts["paged_attention"] \
-        + report["cond_graph"]["k1_sweep"]
+        + report["cond_graph"]["k1_sweep"] + ecounts["paged_attention"] \
+        + tcounts["paged_attention"]
     report["flash_attention"]["launches"] = counts["flash_attention"] \
         + acounts["flash_attention"] + pcounts["flash_attention"] \
         + scounts["flash_attention"] + dcounts["flash_attention"] \
         + ccounts["flash_attention"] + zcounts["flash_attention"] \
         + zpre["flash_attention"] + qcounts["flash_attention"] \
-        + sum(c["flash_attention"] for c in train_counts)
+        + sum(c["flash_attention"] for c in train_counts) \
+        + ecounts["flash_attention"] + tcounts["flash_attention"]
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"] \
         + mpre["mamba_scan"] + sum(c["mamba_scan"] for c in train_counts)
     report["mamba_scan_bwd"]["launches"] = sum(c["mamba_scan_bwd"]

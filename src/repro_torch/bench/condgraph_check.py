@@ -20,9 +20,16 @@ unless every compiled program:
 
 ``chip_smoke.py`` (phase ``condgraph``) and
 ``tests/test_torch_condgraph_gpu.py`` run it on the card.
+
+:func:`nested_flow` records a DeviceFlow that nests a conditional program
+(the data-dependent loop) between two ops of its own, in either
+framework; :func:`check_nested` holds the card's flow, which nests the
+compiled program, to the same ops around ``lower()`` run eagerly
+(``chip_smoke.py`` phase ``nested``, ``tests/test_torch_deviceflow_gpu.py``).
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -30,7 +37,7 @@ import torch
 
 __all__ = ["TorchOps", "programs", "check_device", "FP_REL_TOL",
            "fig17_state", "fig17_graph", "until_small_graph",
-           "until_small_state"]
+           "until_small_state", "nested_flow", "check_nested"]
 
 #: fp32 leaves: compiled program against ``lower()`` (card and CPU)
 FP_REL_TOL = 1e-5
@@ -158,14 +165,17 @@ def fig17_state(n: int = 256, device: Any = "cpu", bounded: bool = False,
             "x": torch.from_numpy(x).to(device)}
 
 
-def until_small_graph(G, STOP, tol: float = 1e-3):
+def until_small_graph(G, STOP, tol: float = 1e-3, where=None, norm=None):
     """A data-dependent loop: ``x <- m @ x`` until ``|x| < tol``, counting
-    the steps in ``n``; the test runs on the device."""
+    the steps in ``n``; the test runs on the device. ``where``/``norm``
+    are the framework's (default torch's)."""
+    where = where or torch.where
+    norm = norm or torch.linalg.vector_norm
     g = G()
     step = g.task(lambda s: {**s, "x": s["m"] @ s["x"], "n": s["n"] + 1},
                   name="step")
-    small = g.cond(lambda s: ((torch.linalg.vector_norm(s["x"]) < tol)
-                              .to(torch.int32), s), name="small?")
+    small = g.cond(lambda s: (where(norm(s["x"]) < tol, 1, 0), s),
+                   name="small?")
     step.precede(small)
     small.precede(step, STOP)
     return g
@@ -294,4 +304,110 @@ def check_device(dev: torch.device, k: int = 256, n: int = 256,
     else:
         raise AssertionError("condgraph: static fan-out in a cyclic graph "
                              "was not refused on the card")
+    return report
+
+
+def nested_flow(flow, program: Callable[[Any], Any], m: np.ndarray,
+                x: np.ndarray, scale: float):
+    """Record on ``flow`` (either framework's DeviceFlow): ``x1 = x *
+    scale``, the conditional ``program`` on ``{"m": m, "x": x1, "n": 0}``
+    (:func:`until_small_graph`'s state: its trip count depends on the
+    data), then the final ``n``, ``x`` and ``m @ x``, fetched."""
+    flow.copy("m", m).copy("x", x).copy("scale", np.float32(scale))
+    flow.copy("n", np.zeros((), np.int32))
+    flow.kernel(lambda x, s: x * s, ["x", "scale"], ["x1"], name="scale")
+    flow.kernel(lambda m, x1, n: program({"m": m, "x": x1, "n": n}),
+                ["m", "x1", "n"], ["st"], name="loop")
+    flow.kernel(lambda st: (st["n"], st["x"], st["m"] @ st["x"]), ["st"],
+                ["n_out", "x_out", "mx"], name="reduce")
+    flow.fetch("n_out", "x_out", "mx")
+    return flow
+
+
+#: the scales of x at successive offloads: each gives another trip count
+NESTED_SCALES = (1.0, 8.0, 0.125)
+
+
+def check_nested(dev: torch.device, d: int = 256,
+                 log: Optional[Callable[[str], None]] = None) -> dict:
+    """A DeviceFlow on ``dev`` nesting the compiled data-dependent loop
+    (:func:`until_small_graph`, ``m`` of spectral norm 0.9, d x d), one
+    offload per scale of :data:`NESTED_SCALES`, each held to the same op
+    list around ``lower()`` run eagerly on the card (``lower()`` reads
+    each condition back, which no capture allows): the trip count ``n``
+    exact, fp32
+    leaves within :data:`FP_REL_TOL`. One replay per offload
+    (``num_launches`` +1); the program's own launch count and the
+    module's WHILE-program count unchanged by every offload after the
+    first (the capture builds the loop into the flow's graph once, and
+    each replay runs it to its data's end). Raises ``AssertionError``;
+    returns the errors, trip counts, counts and host times."""
+    from repro_torch.core import STOP, CondGraph, DeviceFlow
+    from repro_torch.kernels import cond_graph
+
+    log = log or (lambda s: None)
+    g = until_small_graph(CondGraph, STOP)
+    st = until_small_state(d)
+    m, x = st["m"].numpy(), st["x"].numpy()
+    prog = g.compile(_to(st, dev))
+    flow = nested_flow(DeviceFlow(dev), prog, m, x, NESTED_SCALES[0])
+    plain = nested_flow(DeviceFlow(dev), g.lower(), m, x, NESTED_SCALES[0])
+
+    def eager_plain():
+        env = {k: torch.as_tensor(np.asarray(v)).to(dev)
+               for k, v in plain._inputs.items()}
+        return {k: v.cpu().numpy() for k, v in plain._run(env).items()}
+
+    report = {"d": d, "max_abs_err": 0.0, "trips": [], "flow_ms": [],
+              "lower_ms": []}
+    counts = None
+    for j, s in enumerate(NESTED_SCALES):
+        flow.copy("scale", np.float32(s))
+        plain.copy("scale", np.float32(s))
+        launches = flow.num_launches
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        got = flow.offload()
+        t1 = time.perf_counter()
+        want = eager_plain()
+        t2 = time.perf_counter()
+        report["flow_ms"].append((t1 - t0) * 1e3)
+        report["lower_ms"].append((t2 - t1) * 1e3)
+        if flow.num_launches != launches + 1:
+            raise AssertionError(
+                f"nested flow: {flow.num_launches - launches} replays in "
+                "one offload")
+        now = (prog.num_launches, cond_graph.launches)
+        if counts is not None and now != counts:
+            raise AssertionError(
+                f"nested flow: offload {j} changed the program's launch "
+                f"counts {counts} -> {now}; a replay must not launch it")
+        counts = now
+        trips = int(got["n_out"])
+        if trips != int(want["n_out"]) or trips < 1:
+            raise AssertionError(f"nested flow: {trips} trips, lower(): "
+                                 f"{int(want['n_out'])}")
+        report["trips"].append(trips)
+        err = _err({k: torch.from_numpy(np.asarray(v))
+                    for k, v in got.items()},
+                   {k: torch.from_numpy(np.asarray(v))
+                    for k, v in want.items()})
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        if not err <= FP_REL_TOL:
+            raise AssertionError(f"nested flow: offload {j} error {err:.3g} "
+                                 f"against lower() (tolerance "
+                                 f"{FP_REL_TOL:g})")
+    if len(set(report["trips"])) < 2:
+        raise AssertionError(f"nested flow: trip counts {report['trips']} "
+                             "do not follow the data")
+    report["program_launches"] = prog.num_launches
+    report["nodes"] = prog.nodes()
+    report["offloads"] = flow.num_launches
+    log(f"[nested] until_small d={d}: {len(NESTED_SCALES)} offloads, one "
+        f"replay each, trips {report['trips']}; error against lower() "
+        f"{report['max_abs_err']:.3g}; program launches "
+        f"{prog.num_launches} (the warm-up and the capture); host ms a "
+        f"flow offload {[round(t, 3) for t in report['flow_ms']]} vs the "
+        f"ops around lower(), eager "
+        f"{[round(t, 3) for t in report['lower_ms']]}")
     return report

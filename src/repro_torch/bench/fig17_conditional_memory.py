@@ -37,7 +37,7 @@ import time
 
 import torch
 
-from ..device import resolve_device
+from ..device import collection_paused, resolve_device
 from ..core import STOP, CondGraph, Taskflow
 from .condgraph_check import fig17_graph, fig17_state
 
@@ -105,7 +105,8 @@ def _unrolled(x: torch.Tensor, k: int, dev):
         _ = static @ static * 0.5
     side.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g, stream=side, capture_error_mode="thread_local"):
+    with collection_paused(), torch.cuda.graph(
+            g, stream=side, capture_error_mode="thread_local"):
         xx = static
         for _ in range(k):
             xx = xx @ xx * 0.5

@@ -35,8 +35,12 @@ serve_slo    — SLO overload control: tier-0 tail TTFT alone and under a
                model preemption); its contended run's trace lands in
                ``TRACE_serve_slo.json``
 
-Not ported yet (ROADMAP.md Queue 1): ``serve_mesh`` waits for item 11
-and ``roofline`` for item 14.
+serve_mesh   — tensor-parallel serving (``--mesh-model N`` ranks, spawned
+               here, ``--tp-backend``) against the single-device engine
+               over one trace, parity asserted; under ``gloo`` on one card
+               or the CPU its speed is not a tensor-parallel speed
+
+Not ported yet (ROADMAP.md Queue 1): ``roofline`` waits for item 14.
 
 ``--quick`` shrinks every suite to seconds: table2 20,000 operations,
 fig9 graphs of 1,000 and 5,000 tasks, fig11 1,000 tasks, fig21 1,000
@@ -67,7 +71,7 @@ _METRIC_SUFFIXES = ("tok_per_s", "p50_ms", "p99_ms")
 
 #: suites of ``benchmarks/run.py`` the port does not have yet, with the
 #: ROADMAP Queue 1 item each waits for
-NOT_PORTED = {"serve_mesh": "item 11", "roofline": "item 14"}
+NOT_PORTED = {"roofline": "item 14"}
 
 
 def _git_sha() -> str:
@@ -125,14 +129,16 @@ def _card(dev) -> str:
 
 
 def suites(dev, quick: bool, prompt_dist: str = "choice",
-           prefix_share: bool = False, trace_dir: str = ".") -> dict:
+           prefix_share: bool = False, trace_dir: str = ".",
+           mesh_model: int = 2, tp_backend: str = "gloo") -> dict:
     from . import (decode_overlap, fig9_micro_random_dag,
                    fig11_corun_throughput, fig13_lsdnn,
                    fig17_conditional_memory,
                    fig21_incremental_timing, journal_gate,
                    obs_overhead_gate,
                    paged_decode_microbench, pipeline_throughput,
-                   serve_continuous, serve_slo, table2_task_overhead)
+                   serve_continuous, serve_mesh, serve_slo,
+                   table2_task_overhead)
     trace = os.path.join(trace_dir, "TRACE_serve.json")
     return {
         "table2": lambda: table2_task_overhead.bench(
@@ -165,6 +171,9 @@ def suites(dev, quick: bool, prompt_dist: str = "choice",
         "serve_slo": lambda: serve_slo.bench(
             quick=quick, device=dev,
             trace_path=os.path.join(trace_dir, "TRACE_serve_slo.json")),
+        "serve_mesh": lambda: serve_mesh.bench_mesh(
+            quick=quick, mesh_model=mesh_model, device=dev,
+            backend=tp_backend),
     }
 
 
@@ -189,13 +198,19 @@ def main(argv=None) -> int:
     ap.add_argument("--prefix-share", action="store_true",
                     help="serve suite: shared-prefix workload, cold vs "
                          "warm prefix cache over one trace")
+    ap.add_argument("--mesh-model", type=int, default=2, metavar="N",
+                    help="serve_mesh suite: tensor-parallel ranks")
+    ap.add_argument("--tp-backend", default="gloo", choices=("gloo", "nccl"),
+                    help="serve_mesh suite: torch.distributed backend "
+                         "(nccl needs N GPUs; gloo may put every rank on "
+                         "one device)")
     args = ap.parse_args(argv)
 
     from ..device import resolve_device
     dev = resolve_device(args.device)
     os.makedirs(args.bench_dir, exist_ok=True)
     table = suites(dev, args.quick, args.prompt_dist, args.prefix_share,
-                   args.bench_dir)
+                   args.bench_dir, args.mesh_model, args.tp_backend)
     only = [s for s in args.only.split(",") if s]
     for name in only:
         if name not in table:
@@ -211,6 +226,8 @@ def main(argv=None) -> int:
               "host_cores": os.cpu_count(),
               "prompt_dist": args.prompt_dist,
               "prefix_share": args.prefix_share,
+              "mesh_model": args.mesh_model,
+              "tp_backend": args.tp_backend,
               "paged_impl_env": os.environ.get("REPRO_PAGED_IMPL", ""),
               "obs_gate_budget_env":
                   os.environ.get("REPRO_OBS_GATE_BUDGET", ""),

@@ -50,6 +50,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from ..device import collection_paused
+
 __all__ = ["CondGraph", "STOP"]
 
 
@@ -412,10 +414,14 @@ class _StaticState:
 
 
 class _DagProgram:
-    """A DAG as one captured CUDA graph of its composition."""
+    """A DAG as one captured CUDA graph of its composition. Called while
+    the current stream is capturing (a DeviceFlow op), it runs the
+    composition into that capture, as a jitted function inlines into the
+    program that calls it."""
 
     def __init__(self, fn: Callable[[Any], Any], example: Any,
                  device: torch.device) -> None:
+        self._fn = fn
         self.static = _StaticState(example, device)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -424,16 +430,18 @@ class _DagProgram:
         side.synchronize()
         self.static.fill(example)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode="thread_local"):
+        with collection_paused(), torch.cuda.graph(
+                self.graph, stream=side, capture_error_mode="thread_local"):
             out = fn(self.static.tree())
         self.out, self.out_spec = pytree.tree_flatten(out)
         self.num_launches = 0
 
     def __call__(self, state: Any) -> Any:
         self.static.fill(state)
-        self.graph.replay()
         self.num_launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            return self._fn(self.static.tree())
+        self.graph.replay()
         return pytree.tree_unflatten(
             [t.clone() if isinstance(t, torch.Tensor) else t
              for t in self.out], self.out_spec)
@@ -442,7 +450,11 @@ class _DagProgram:
 class _PcProgram:
     """A conditional graph as one CUDA graph: each block captured into its
     own graph (one shared memory pool), all of them under the WHILE/IF
-    program that ``kernels/cond_graph.py`` builds."""
+    program that ``kernels/cond_graph.py`` builds. Called while the current
+    stream is capturing (a DeviceFlow op), it builds that program into the
+    capture (:meth:`CondProgram.nest`) instead of launching it: the
+    capture's replays run the loop, and only the capture counts in
+    :attr:`num_launches`."""
 
     def __init__(self, m: _Machine, example: Any, device: torch.device,
                  max_iters: Optional[int]) -> None:
@@ -468,8 +480,9 @@ class _PcProgram:
         for pc, chain in enumerate(m.blocks):
             g = torch.cuda.CUDAGraph(keep_graph=True)
             try:
-                with torch.cuda.graph(g, pool=pool, stream=side,
-                                      capture_error_mode="thread_local"):
+                with collection_paused(), torch.cuda.graph(
+                        g, pool=pool, stream=side,
+                        capture_error_mode="thread_local"):
                     self._run_block(pc)
             except Exception as e:  # noqa: BLE001 — re-raised with the task
                 raise RuntimeError(
@@ -521,6 +534,9 @@ class _PcProgram:
 
     def __call__(self, state: Any) -> Any:
         self.static.fill(state)
-        self.program.launch()
+        if torch.cuda.is_current_stream_capturing():
+            self.program.nest()
+        else:
+            self.program.launch()
         self.num_launches += 1
         return self.static.tree([t.clone() for t in self.static.bufs])

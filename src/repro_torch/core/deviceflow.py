@@ -26,6 +26,16 @@ any other one-time CUDA set-up outside the capture. The capture uses
 HOST workers run. Ops must be capturable: no host syncs (``.item()``,
 printing a tensor) and no data-dependent shapes.
 
+Nested programs (the third advantage, ``repro.core.deviceflow``'s nested
+``JaxGraph``): an op may be a compiled
+:class:`repro_torch.core.CondGraph` program. Captured, a conditional
+program builds its WHILE/IF nodes into the flow's graph
+(:meth:`repro_torch.kernels.cond_graph.CondProgram.nest`), so one replay
+runs the flow's ops and the whole loop with no host round trip a trip; a
+compiled DAG runs its composition into the capture. The program counts
+one launch, at the capture, and none per replay. On the CPU the compiled
+program is ``CondGraph.lower()``'s function and runs eagerly in the flow.
+
 Kernel launch counters tick when a wrapper launches, which for a captured
 graph is once, at capture. :attr:`DeviceFlow.captured_launches` holds the
 counts recorded into the graph, so a run's device launches are its eager
@@ -48,7 +58,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import collection_paused, resolve_device
 
 __all__ = ["DeviceFlow"]
 
@@ -96,8 +106,8 @@ class _Captured:
         del out
         self.graph = torch.cuda.CUDAGraph()
         before = ops.launch_counts()
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode="thread_local"):
+        with collection_paused(), torch.cuda.graph(
+                self.graph, stream=side, capture_error_mode="thread_local"):
             out = self._program(flow)
             for k, v in out.items():
                 self.fetched[k].copy_(v, non_blocking=True)
@@ -236,6 +246,14 @@ class DeviceFlow:
 
     def offload(self, n: int = 1) -> Dict[str, Any]:
         return self._offload(n)
+
+    def close(self) -> None:
+        """Free the captured CUDA graph now (the next offload captures
+        anew), so it never waits in a reference cycle for the garbage
+        collector, which could destroy it inside another capture."""
+        if self._captured is not None:
+            self._captured.graph.reset()
+            self._captured = None
 
     def result(self, name: str) -> Any:
         return self._results[name]

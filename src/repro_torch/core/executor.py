@@ -337,8 +337,11 @@ class Executor:
             elif kind is TaskType.DEVICE:
                 df = DeviceFlow(device=w.device)
                 with df.bound():  # the worker's device for fn and offload
-                    node.fn(df)
-                    df._offload()
+                    try:
+                        node.fn(df)
+                        df._offload()
+                    finally:
+                        df.close()
             else:  # pragma: no cover
                 raise RuntimeError(f"unknown task type {kind}")
         except BaseException as e:  # noqa: BLE001 - task isolation

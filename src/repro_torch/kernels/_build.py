@@ -76,14 +76,16 @@ _SIGNATURES = {
     "repro_mamba_scan_bwd": (_i, *(_vp,) * 15, _i, _i, _i, _i, _vp),
     # the conditional-graph program (csrc/cond_graph.cu): versions(out[3]);
     # check(graph, bad); count(graph, total); create(blocks, nblocks,
-    # start, max_iters, ctrl, succ, meta, width, ifs, device, out);
-    # launch(program, stream); nodes(program, total); destroy(program)
+    # start, max_iters, ctrl, succ, meta, width, device, out);
+    # launch(program, stream); nest(program, stream); nodes(program,
+    # total); destroy(program)
     "repro_cond_graph_versions": (_pi,),
     "repro_cond_graph_check": (_vp, _pi),
     "repro_cond_graph_count": (_vp, _pll),
-    "repro_cond_graph_create": (_pvp, _i, _i, _i, _vp, _vp, _vp, _i, _vp,
-                                _i, _pvp),
+    "repro_cond_graph_create": (_pvp, _i, _i, _i, _vp, _vp, _vp, _i, _i,
+                                _pvp),
     "repro_cond_graph_launch": (_vp, _vp),
+    "repro_cond_graph_nest": (_vp, _vp),
     "repro_cond_graph_nodes": (_vp, _pll),
     "repro_cond_graph_destroy": (_vp,),
     # run on the current device, once per device, before any launch

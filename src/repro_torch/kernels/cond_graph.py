@@ -5,8 +5,10 @@ for a graph with condition tasks: the blocks' captured CUDA graphs under one
 WHILE node and one IF node per block, launched with one
 ``cudaGraphLaunch``. It is the counterpart of the ``lax.while_loop`` /
 ``lax.switch`` program of ``repro.core.jaxgraph`` and replaces no TPU
-kernel; its plain version is ``CondGraph.lower()``, the same machine driven
-from the host. There is no CPU form: :class:`CondProgram` takes CUDA
+kernel. :meth:`CondProgram.nest` builds the same program into a graph that
+a stream is capturing (a DeviceFlow that holds a compiled ``CondGraph``),
+so the capturing graph's replay runs the whole loop. Its plain version is
+``CondGraph.lower()``, the same machine driven from the host. There is no CPU form: :class:`CondProgram` takes CUDA
 buffers and raises without them, and ``CondGraph.compile`` gives a CPU
 state ``lower()``'s function instead.
 """
@@ -28,6 +30,9 @@ launches = 0
 
 #: the first CUDA version with conditional WHILE and IF nodes
 MIN_CUDA = 12040
+#: the most blocks a program holds (``kMaxBlocks`` in the source: the IF
+#: nodes' handles reach the dispatch kernel by value)
+MAX_BLOCKS = 256
 #: trip bound when the caller gives none (the C entry point takes an int)
 _NO_BOUND = 2**31 - 1
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
@@ -83,7 +88,8 @@ class CondProgram:
 
     ``blocks``: the blocks' ``cudaGraph_t`` (``CUDAGraph.raw_cuda_graph()``
     of graphs captured with ``keep_graph=True``; each is cloned into the
-    program); ``succ[b]``: block b's successor pcs (``len(blocks)`` is
+    program, and the caller keeps them alive for :meth:`nest`);
+    ``succ[b]``: block b's successor pcs (``len(blocks)`` is
     STOP); ``is_cond[b]``: whether block b ends in a condition task, whose
     index the block writes into ``ctrl[2]``; ``start``: the first block;
     ``max_iters``: the bound on blocks run (None: none); ``ctrl``: the
@@ -101,6 +107,9 @@ class CondProgram:
         if not (len(names) == len(succ) == len(is_cond) == n and n > 0):
             raise ValueError("CondProgram: one name list, successor row and "
                              "is_cond flag per block")
+        if n > MAX_BLOCKS:
+            raise ValueError(f"CondProgram: {n} blocks, at most "
+                             f"{MAX_BLOCKS}")
         if max_iters is not None and not 0 <= max_iters <= _NO_BOUND:
             raise ValueError(f"CondProgram: max_iters={max_iters}")
         dev = ctrl.device
@@ -118,7 +127,6 @@ class CondProgram:
         self._meta = torch.tensor(
             [v for row, c in zip(succ, is_cond) for v in (len(row), int(c))],
             dtype=torch.int32, device=dev)
-        self._ifs = torch.zeros(n, dtype=torch.int64, device=dev)
         self._ctrl = ctrl
         torch.cuda.synchronize(dev)
         arr = (ctypes.c_void_p * n)(*blocks)
@@ -126,7 +134,7 @@ class CondProgram:
         _build.check(self._lib.repro_cond_graph_create(
             arr, n, start, _NO_BOUND if max_iters is None else max_iters,
             ctrl.data_ptr(), self._succ.data_ptr(), self._meta.data_ptr(),
-            width, self._ifs.data_ptr(), dev.index, ctypes.byref(handle)),
+            width, dev.index, ctypes.byref(handle)),
             "cond_graph create")
         self._handle = handle
 
@@ -137,6 +145,21 @@ class CondProgram:
         err = self._lib.repro_cond_graph_launch(
             self._handle, _build.current_stream(self.device.index))
         _build.check(err, "cond_graph launch")
+        launches += 1
+
+    def nest(self) -> None:
+        """Build the program into the CUDA graph that PyTorch's current
+        stream is capturing, after the capture's dependencies; the
+        capture continues after it. Raises when the stream is not
+        capturing. Counted in :data:`launches` once: every replay of the
+        capturing graph runs the loop, with no launch of its own."""
+        global launches
+        if not torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("CondProgram.nest: the current stream is not "
+                               "capturing a CUDA graph")
+        err = self._lib.repro_cond_graph_nest(
+            self._handle, _build.current_stream(self.device.index))
+        _build.check(err, "cond_graph nest")
         launches += 1
 
     def nodes(self) -> int:

@@ -30,7 +30,17 @@
 // while pc < stop_pc and blocks run < max_iters. The IF nodes hang side by
 // side between dispatch and advance; one of them runs. Each control kernel
 // is one thread: it only reads and writes a few integers and calls
-// cudaGraphSetConditional.
+// cudaGraphSetConditional. The IF nodes' handles reach dispatch by value
+// (at most kMaxBlocks of them), so building the program copies nothing to
+// the device.
+//
+// Nesting (a DeviceFlow that holds a compiled CondGraph): the same init ->
+// WHILE pair is built into the graph that a stream is capturing, after the
+// capture's current dependencies (cudaStreamGetCaptureInfo), with its
+// handles created on that graph, and the capture continues after the WHILE
+// node (cudaStreamUpdateCaptureDependencies). The outer graph's replay
+// then runs the whole loop on the device. Nothing is launched: no
+// cudaGraphLaunch is issued inside a capture.
 //
 // Conditional nodes need CUDA 12.4 (runtime and driver); with an older
 // toolkit the entry points compile to stubs that return
@@ -55,10 +65,15 @@ __global__ void cg_init(long long* ctrl, int start, int stop_pc,
   cudaGraphSetConditional(loop, (start < stop_pc && max_iters > 0) ? 1 : 0);
 }
 
-__global__ void cg_dispatch(const long long* ctrl,
-                            const cudaGraphConditionalHandle* ifs, int n) {
+constexpr int kMaxBlocks = 256;
+
+struct IfHandles {
+  cudaGraphConditionalHandle h[kMaxBlocks];
+};
+
+__global__ void cg_dispatch(const long long* ctrl, IfHandles ifs, int n) {
   const long long pc = ctrl[0];
-  for (int b = 0; b < n; ++b) cudaGraphSetConditional(ifs[b], pc == b);
+  for (int b = 0; b < n; ++b) cudaGraphSetConditional(ifs.h[b], pc == b);
 }
 
 // succ: (nblocks, width) successor pcs; meta: (nblocks, 2) = (k, is_cond)
@@ -80,6 +95,12 @@ struct Program {
   cudaGraphExec_t exec = nullptr;
   int device = 0;
   long long nodes = 0;   // counted while building, through every body
+  // what build() needs again to nest the program into a capture
+  std::vector<cudaGraph_t> blocks;
+  int start = 0, max_iters = 0, width = 0;
+  long long* ctrl = nullptr;
+  const int* succ = nullptr;
+  const int* meta = nullptr;
 };
 
 cudaError_t add_node(cudaGraphNode_t* node, cudaGraph_t g,
@@ -187,6 +208,56 @@ void destroy(Program* p) {
   delete p;
 }
 
+// Adds the program's init kernel and WHILE node to graph g after `deps`
+// (its handles created on g) and returns the WHILE node in *last. Counts
+// the nodes into p->nodes when `count_nodes` is set.
+cudaError_t build(Program* p, cudaGraph_t g, const cudaGraphNode_t* deps,
+                  size_t ndeps, cudaGraphNode_t* last, bool count_nodes) {
+  const int nblocks = (int)p->blocks.size();
+  int stop_pc = nblocks;
+  long long* ctrl = p->ctrl;
+  const int* succ = p->succ;
+  const int* meta = p->meta;
+  int start = p->start, max_iters = p->max_iters, width = p->width;
+  IfHandles ifs = {};
+  cudaGraphConditionalHandle loop;
+  cudaGraphNode_t init, wnode, dispatch, advance;
+  std::vector<cudaGraphNode_t> ifnodes(nblocks);
+  void* init_args[] = {&ctrl, &start, &stop_pc, &max_iters, &loop};
+  void* dispatch_args[] = {&ctrl, &ifs, &stop_pc};
+  void* advance_args[] = {&ctrl, &succ, &meta, &width, &stop_pc,
+                          &max_iters, &loop};
+  cudaError_t err;
+#define CG_TRY(call) \
+  if ((err = (call)) != cudaSuccess) return err
+  cudaGraph_t body;
+  CG_TRY(cudaGraphConditionalHandleCreate(&loop, g, 0, 0));
+  CG_TRY(add_kernel(&init, g, deps, ndeps, (void*)cg_init, init_args));
+  CG_TRY(add_conditional(&wnode, g, &init, 1, loop, cudaGraphCondTypeWhile,
+                         &body));
+  for (int b = 0; b < nblocks; ++b)
+    CG_TRY(cudaGraphConditionalHandleCreate(&ifs.h[b], body, 0, 0));
+  // the kernel node copies its arguments, the handles among them
+  CG_TRY(add_kernel(&dispatch, body, nullptr, 0, (void*)cg_dispatch,
+                    dispatch_args));
+  // init, WHILE, dispatch, advance; per block its IF node and child node
+  if (count_nodes) p->nodes = 4 + 2LL * nblocks;
+  for (int b = 0; b < nblocks; ++b) {
+    cudaGraphNode_t child;
+    cudaGraph_t if_body;
+    CG_TRY(add_conditional(&ifnodes[b], body, &dispatch, 1, ifs.h[b],
+                           cudaGraphCondTypeIf, &if_body));
+    CG_TRY(cudaGraphAddChildGraphNode(&child, if_body, nullptr, 0,
+                                      p->blocks[b]));
+    if (count_nodes) CG_TRY(count(p->blocks[b], &p->nodes));
+  }
+  CG_TRY(add_kernel(&advance, body, ifnodes.data(), nblocks,
+                    (void*)cg_advance, advance_args));
+#undef CG_TRY
+  *last = wnode;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Versions: out[0] the toolkit the library was built with (CUDART_VERSION),
@@ -209,67 +280,38 @@ extern "C" int repro_cond_graph_count(void* graph, long long* total) {
 }
 
 // Builds and instantiates the program over `nblocks` block graphs (each is
-// cloned into its IF body; the caller keeps ownership). ctrl, succ, meta
-// and ifs are device buffers the caller allocated and keeps alive: ctrl
-// int64[4], succ int32[nblocks * width], meta int32[nblocks * 2], ifs
-// uint64[nblocks] (filled here with the IF nodes' handles).
+// cloned into its IF body; the caller keeps them alive while the program
+// lives, for repro_cond_graph_nest). ctrl, succ and meta are device buffers
+// the caller allocated and keeps alive: ctrl int64[4], succ
+// int32[nblocks * width], meta int32[nblocks * 2].
 extern "C" int repro_cond_graph_create(void* const* blocks, int nblocks,
                                        int start, int max_iters,
                                        long long* ctrl,
                                        const int* succ, const int* meta,
-                                       int width, void* ifs, int device,
-                                       void** out) {
+                                       int width, int device, void** out) {
   *out = nullptr;
-  if (nblocks <= 0 || start < 0 || start >= nblocks || width <= 0 ||
-      max_iters < 0)
+  if (nblocks <= 0 || nblocks > kMaxBlocks || start < 0 ||
+      start >= nblocks || width <= 0 || max_iters < 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Program* p = new Program;
   p->device = device;
-  std::vector<cudaGraphConditionalHandle> handles(nblocks);
-  cudaGraphConditionalHandle loop;
-  cudaGraphNode_t init, wnode, dispatch, advance;
-  std::vector<cudaGraphNode_t> ifnodes(nblocks);
-  int stop_pc = nblocks;
-  void* init_args[] = {&ctrl, &start, &stop_pc, &max_iters, &loop};
-  void* dispatch_args[] = {&ctrl, &ifs, &nblocks};
-  void* advance_args[] = {&ctrl, &succ, &meta, &width, &stop_pc,
-                          &max_iters, &loop};
-#define CG_TRY(call)                   \
-  do {                                 \
-    if ((err = (call)) != cudaSuccess) { \
-      destroy(p);                      \
-      return (int)err;                 \
-    }                                  \
-  } while (0)
-  cudaGraph_t body;
-  CG_TRY(cudaGraphCreate(&p->outer, 0));
-  CG_TRY(cudaGraphConditionalHandleCreate(&loop, p->outer, 0, 0));
-  CG_TRY(add_kernel(&init, p->outer, nullptr, 0, (void*)cg_init, init_args));
-  CG_TRY(add_conditional(&wnode, p->outer, &init, 1, loop,
-                         cudaGraphCondTypeWhile, &body));
-  CG_TRY(add_kernel(&dispatch, body, nullptr, 0, (void*)cg_dispatch,
-                    dispatch_args));
-  // init, WHILE, dispatch, advance; per block its IF node and child node
-  p->nodes = 4 + 2LL * nblocks;
-  for (int b = 0; b < nblocks; ++b) {
-    cudaGraphNode_t child;
-    cudaGraph_t if_body;
-    CG_TRY(cudaGraphConditionalHandleCreate(&handles[b], body, 0, 0));
-    CG_TRY(add_conditional(&ifnodes[b], body, &dispatch, 1, handles[b],
-                           cudaGraphCondTypeIf, &if_body));
-    CG_TRY(cudaGraphAddChildGraphNode(&child, if_body, nullptr, 0,
-                                      static_cast<cudaGraph_t>(blocks[b])));
-    CG_TRY(count(static_cast<cudaGraph_t>(blocks[b]), &p->nodes));
+  for (int b = 0; b < nblocks; ++b)
+    p->blocks.push_back(static_cast<cudaGraph_t>(blocks[b]));
+  p->start = start;
+  p->max_iters = max_iters;
+  p->width = width;
+  p->ctrl = ctrl;
+  p->succ = succ;
+  p->meta = meta;
+  cudaGraphNode_t last;
+  if ((err = cudaGraphCreate(&p->outer, 0)) != cudaSuccess ||
+      (err = build(p, p->outer, nullptr, 0, &last, true)) != cudaSuccess ||
+      (err = cudaGraphInstantiate(&p->exec, p->outer, 0)) != cudaSuccess) {
+    destroy(p);
+    return (int)err;
   }
-  CG_TRY(cudaMemcpy(ifs, handles.data(),
-                    nblocks * sizeof(cudaGraphConditionalHandle),
-                    cudaMemcpyHostToDevice));
-  CG_TRY(add_kernel(&advance, body, ifnodes.data(), nblocks,
-                    (void*)cg_advance, advance_args));
-  CG_TRY(cudaGraphInstantiate(&p->exec, p->outer, 0));
-#undef CG_TRY
   *out = p;
   return (int)cudaSuccess;
 }
@@ -279,6 +321,42 @@ extern "C" int repro_cond_graph_launch(void* prog, void* stream) {
   cudaError_t err = cudaSetDevice(p->device);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGraphLaunch(p->exec, static_cast<cudaStream_t>(stream));
+}
+
+// Builds the program's nodes into the graph `stream` is capturing, after
+// the capture's current dependencies, and continues the capture after the
+// WHILE node. cudaErrorStreamCaptureImplicit when the stream is not
+// capturing.
+extern "C" int repro_cond_graph_nest(void* prog, void* stream) {
+  Program* p = static_cast<Program*>(prog);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStreamCaptureStatus status;
+  unsigned long long id;
+  cudaGraph_t g;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t ndeps = 0;
+#if CUDART_VERSION >= 13000
+  cudaError_t err = cudaStreamGetCaptureInfo(s, &status, &id, &g, &deps,
+                                             nullptr, &ndeps);
+#else
+  cudaError_t err = cudaStreamGetCaptureInfo(s, &status, &id, &g, &deps,
+                                             &ndeps);
+#endif
+  if (err != cudaSuccess) return (int)err;
+  if (status != cudaStreamCaptureStatusActive)
+    return (int)cudaErrorStreamCaptureImplicit;
+  // the dependency array is valid until the next call on the stream
+  std::vector<cudaGraphNode_t> after(deps, deps + ndeps);
+  cudaGraphNode_t last;
+  err = build(p, g, after.data(), after.size(), &last, false);
+  if (err != cudaSuccess) return (int)err;
+#if CUDART_VERSION >= 13000
+  return (int)cudaStreamUpdateCaptureDependencies(
+      s, &last, nullptr, 1, cudaStreamSetCaptureDependencies);
+#else
+  return (int)cudaStreamUpdateCaptureDependencies(
+      s, &last, 1, cudaStreamSetCaptureDependencies);
+#endif
 }
 
 // Nodes of the whole program: the outer graph, the WHILE body and every IF
@@ -310,8 +388,11 @@ extern "C" int repro_cond_graph_count(void*, long long*) {
 }
 extern "C" int repro_cond_graph_create(void* const*, int, int, int,
                                        long long*,
-                                       const int*, const int*, int, void*,
-                                       int, void**) {
+                                       const int*, const int*, int, int,
+                                       void**) {
+  return (int)cudaErrorNotSupported;
+}
+extern "C" int repro_cond_graph_nest(void*, void*) {
   return (int)cudaErrorNotSupported;
 }
 extern "C" int repro_cond_graph_launch(void*, void*) {

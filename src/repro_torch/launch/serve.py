@@ -24,6 +24,8 @@ CUDA; without a CUDA device it raises unless ``--device cpu`` is given.
         --drain-deadline 1
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --per-call
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mesh-model 2 --tp-backend gloo
 
 Attention archs, dense and MoE, page their KV (``--kv-blocks``,
 ``--block-size``, ``--prefill-chunk``); Mamba1 archs and the zamba2 hybrid
@@ -54,10 +56,27 @@ bounds it: past the deadline seated rows are checkpoint-preempted), then
 snapshots, flushes the journal and exits 0; a clean exit leaves a snapshot
 too. ``--per-call`` serves the prompts through the per-call grouped
 baseline (``ServeEngine._generate_grouped``) instead of ``submit()``.
+
+Tensor-parallel serving (``docs/sharded_serving.md`` in the reference):
+``--mesh-model N`` runs this process as rank 0 of an N-rank group and
+spawns ranks 1..N-1 (``torch.multiprocessing``, ``spawn``), each holding a
+column slice of the attention and MLP weights and ``num_kv_heads / N``
+heads of the paged pool; greedy tokens equal the single-device engine's.
+``--tp-backend nccl`` puts rank r on ``cuda:r`` and raises with fewer than
+N GPUs; ``gloo`` puts every rank on the launcher's device (one card, or
+the CPU), its all-gathers staged through host memory. Unset,
+``REPRO_MESH_MODEL=N`` asks for N ranks, clamped to the largest divisor
+of the KV-head count (and to the GPUs, under ``nccl``); an explicit
+indivisible ``--mesh-model`` raises ``MeshDivisibilityError``. SSM and
+hybrid archs serve on rank 0 with the followers idle. The journal, state
+directory, fault injection, the per-call baseline and the captured decode
+chunk are refused under a group (``TPUnsupported``; the chunk runs
+eagerly).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 import threading
@@ -68,6 +87,8 @@ import torch
 
 from ..configs import get_config
 from ..device import resolve_device
+from ..distributed.sharding import validate_serve_mesh
+from .mesh import ModelSpec, TPSession, env_mesh_model
 from ..obs import Observability, StatsLogger
 from ..params import init_params
 from ..serve.engine import SNAPSHOT_FILE, ServeEngine
@@ -148,6 +169,14 @@ def main(argv=None):
     ap.add_argument("--fsync-every", type=int, default=1, metavar="N",
                     help="journal fsync cadence: every N records (1 = "
                          "every record, 0 = only at flush and close)")
+    ap.add_argument("--mesh-model", type=int, default=None, metavar="N",
+                    help="tensor-parallel ranks (this process is rank 0; "
+                         "ranks 1..N-1 are spawned). Unset defers to "
+                         "REPRO_MESH_MODEL (clamped)")
+    ap.add_argument("--tp-backend", default="nccl", choices=("nccl", "gloo"),
+                    help="torch.distributed backend of --mesh-model: nccl "
+                         "(rank r on cuda:r) or gloo (every rank on this "
+                         "process's device)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs the "
@@ -167,6 +196,19 @@ def main(argv=None):
     dev = resolve_device(args.device)
     gen = torch.Generator(dev).manual_seed(args.seed)
     params = init_params(cfg, gen, device=dev)
+    mesh = args.mesh_model
+    if mesh is None:
+        mesh = env_mesh_model(cfg, torch.cuda.device_count()
+                              if args.tp_backend == "nccl" else None)
+    session = contextlib.nullcontext()
+    if mesh > 1:
+        validate_serve_mesh(cfg, mesh)
+        devices = None
+        if args.tp_backend == "nccl":
+            devices = [torch.device("cuda", r) for r in range(mesh)]
+        session = TPSession(mesh, args.tp_backend,
+                            ModelSpec(args.arch, args.preset, args.seed),
+                            dev, devices=devices)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
                .astype(np.int32) for _ in range(args.batch)]
@@ -188,12 +230,15 @@ def main(argv=None):
         for spec in args.tier_target:
             tier, _, share = spec.partition("=")
             tier_targets[int(tier)] = float(share)
-    with ServeEngine(cfg, params, decode_chunk=args.decode_chunk,
-                     device=dev, obs=obs, async_decode=args.async_decode,
-                     tier_targets=tier_targets,
-                     shed_budget_s=args.shed_budget,
-                     watchdog_s=args.watchdog,
-                     fault_inject=args.fault_inject, **geom) as eng:
+    with session as tps, ServeEngine(
+            cfg, params, decode_chunk=args.decode_chunk, device=dev,
+            obs=obs, async_decode=args.async_decode,
+            tier_targets=tier_targets, shed_budget_s=args.shed_budget,
+            watchdog_s=args.watchdog, fault_inject=args.fault_inject,
+            tp=tps.tp if tps is not None else None, **geom) as eng:
+        if tps is not None:
+            print(f"mesh: model axis = {mesh} ({args.tp_backend})",
+                  flush=True)
         replayed = {}
         if args.state_dir:
             # crash or restart recovery: warm-start from an earlier

@@ -20,6 +20,13 @@ per-call baseline's one-token decode (:func:`decode_attention`) a
 contiguous cache at one scalar position, both in plain torch as in the
 reference (neither is a Pallas kernel there).
 
+Tensor-parallel serving (:mod:`repro_torch.distributed.sharding`): a rank
+holds a column slice of ``wq/wk/wv`` (its heads) and of ``wo``. Head
+counts are read from the weights, so every path runs on the rank's heads;
+:func:`_project_out` reassembles the heads and the output columns with
+tiled all-gathers, keyed by shape as in the reference
+(``src/repro/models/attention.py:170-174``).
+
 fp32-accumulated products: the reference computes scores with
 ``preferred_element_type=float32`` from compute-dtype operands, and a torch
 bf16 matmul would return bf16. The plain paths here upcast the operands to
@@ -32,6 +39,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import gather_tp
 from .layers import dtype_of, rms_norm, rope
 
 __all__ = ["attention", "decode_attention", "paged_decode_attention",
@@ -63,6 +71,18 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _project_out(out2, p, cfg: ModelConfig, cdt):
+    """``out2 @ wo`` for (..., heads * hd) attention outputs; under serve
+    TP the local heads are gathered first and the local ``wo`` columns
+    after (identities off a group)."""
+    if out2.shape[-1] != p["wo"].shape[0]:     # serve TP: concat heads
+        out2 = gather_tp(out2, -1)
+    y = out2 @ p["wo"].to(cdt)
+    if y.shape[-1] != cfg.d_model:             # serve TP: concat columns
+        y = gather_tp(y, -1)
+    return y
 
 
 def _softmax_attend(s, v, mask):
@@ -131,7 +151,7 @@ def attention(p, x, cfg: ModelConfig, positions, impl: str = "chunked",
     else:
         raise ValueError(f"unknown attention impl {impl!r} "
                          "(expected 'chunked', 'full' or 'flash')")
-    y = out.reshape(B, S, -1) @ p["wo"].to(cdt)
+    y = _project_out(out.reshape(B, S, -1), p, cfg, cdt)
     if return_kv:
         return y, (k, v)
     return y
@@ -168,7 +188,7 @@ def paged_decode_attention(p, x, cfg: ModelConfig, pool_kv, tables, pos,
         out = gather_read_attention(qh, pool_kv, tables, pos)
     else:
         out = paged_attention(qh, pool_kv, tables, pos, impl=impl)
-    y = out.reshape(B, H * hd).to(cdt) @ p["wo"].to(cdt)
+    y = _project_out(out.reshape(B, H * hd).to(cdt), p, cfg, cdt)
     return y[:, None, :], pool_kv
 
 
@@ -203,7 +223,7 @@ def paged_prefill_window_attention(p, x, cfg: ModelConfig, pool_kv, tables,
         <= positions.long()[:, None, None, :, None]
     probs = _softmax_attend(s, vs, mask)
     out = torch.einsum("bkgcs,bksh->bckgh", probs, vs)
-    y = out.reshape(B, C, H * hd).to(cdt) @ p["wo"].to(cdt)
+    y = _project_out(out.reshape(B, C, H * hd).to(cdt), p, cfg, cdt)
     return y, pool_kv
 
 
@@ -236,7 +256,7 @@ def decode_attention_rows(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
     mask = (kpos[None, :] <= pl[:, None])[:, None, None, :]
     probs = _softmax_attend(s, cache_v, mask)
     out = torch.einsum("bkgs,bksh->bkgh", probs, cache_v)
-    y = out.reshape(B, H * hd).to(cdt) @ p["wo"].to(cdt)
+    y = _project_out(out.reshape(B, H * hd).to(cdt), p, cfg, cdt)
     return y[:, None, :], cache_k, cache_v
 
 

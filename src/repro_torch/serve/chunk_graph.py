@@ -55,6 +55,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import collection_paused
+
 __all__ = ["ChunkProgram", "HostLink"]
 
 
@@ -121,8 +123,8 @@ class ChunkProgram:
         side.synchronize()
         before = ops.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode="thread_local"):
+        with collection_paused(), torch.cuda.graph(
+                self.graph, stream=side, capture_error_mode="thread_local"):
             self._body()
         after = ops.launch_counts()
         self.captured_launches = {k: after[k] - before[k] for k in after
@@ -130,6 +132,17 @@ class ChunkProgram:
         ops.add_launches({k: -v for k, v in self.captured_launches.items()})
         cur.wait_stream(side)
         self._ptrs = self._pointers()
+
+    def release(self) -> None:
+        """Free the captured graph now and drop the references back to the
+        engine (its step and statics), so the graph never waits in a
+        reference cycle for the garbage collector, which could destroy it
+        inside another capture. The program cannot run afterwards; the
+        reset graph object stays, so :attr:`graph` still tells whether the
+        chunk was captured."""
+        if self.graph is not None:
+            self.graph.reset()
+        self._step = self._statics = None
 
     def run(self) -> None:
         """One chunk on the current stream: a replay in graph mode (after

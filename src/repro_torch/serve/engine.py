@@ -176,10 +176,34 @@ pipeline, ``lm.prefill`` into a contiguous cache and eager chunks of
 so on the card it is host-bound and ``x_per_call`` overstates the resident
 engine's advantage.
 
-Not in this slice (queued in ROADMAP.md): meshes. The engine raises
-:class:`UnsupportedArch` on the modality-frontend archs, whose frames the
-reference engine never feeds either (``lm.prefill`` and ``lm.decode_step``
-take them).
+Tensor-parallel serving (``tp=``, a :class:`repro_torch.distributed.
+TPGroup` of which this engine is rank 0; the reference's ``ctx=`` and
+``REPRO_MESH_MODEL``, here resolved by the launcher, which spawns the other
+ranks): the attention and MLP weights are cut into column slices and the
+paged pool holds ``num_kv_heads / world`` heads a rank
+(:mod:`repro_torch.distributed.sharding`); the model's shards meet in
+tiled all-gathers, and the tokens equal the single-device engine's. Rank 0
+runs the scheduler, the pipeline, the block tables and the prefix cache as
+above; every device op on sharded state (window-0 prefill, windows, the
+chunk, pool scatters, forks, table and carry writes) is one function of
+:data:`repro_torch.serve.tp.OPS` run through :meth:`ServeEngine._tp_op`,
+which broadcasts its descriptor to the followers
+(:func:`repro_torch.serve.tp.serve_follower`, which run the same
+function) and runs rank 0's shard under one lock, so the stage threads never issue collectives in
+different orders on different ranks. Differences from the reference under
+a group: the chunk runs eagerly (``gloo`` collectives cannot be captured;
+``chunk_graph=True`` raises); the prefill runs on the decode stage's
+stream; ``journal=``, ``fault_inject=``, :meth:`snapshot`,
+:meth:`restore`, :meth:`recover`, :meth:`set_journal` and the per-call
+baseline raise :class:`repro_torch.serve.errors.TPUnsupported` (ROADMAP
+item 11(c)); a raising prefill or decode stage breaks the engine (every
+future fails typed) instead of resetting in place, as the followers' state
+cannot be reset with it; SSM and hybrid archs serve here with the
+followers idle (the reference replicates them; the tokens are the same).
+
+The engine raises :class:`UnsupportedArch` on the modality-frontend archs,
+whose frames the reference engine never feeds either (``lm.prefill`` and
+``lm.decode_step`` take them).
 """
 from __future__ import annotations
 
@@ -196,6 +220,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core import ACCEL, HOST, Executor
 from ..device import resolve_device
+from ..distributed.sharding import shard_serve_params, validate_serve_mesh
 from ..kernels.ops import PAGED_IMPLS, default_paged_impl, ensure_built
 from ..models import lm
 from ..obs import TRACK_ENGINE
@@ -204,15 +229,17 @@ from ..pipeline import DataPipe, DataPipeline, PipeType
 from .chunk_graph import ChunkProgram, HostLink
 from .errors import (DeadlineExceeded, EngineClosed, Overloaded,
                      RequestCancelled, RowFailed, ServeError,
-                     SnapshotCorrupt, WatchdogTimeout)
+                     SnapshotCorrupt, TPUnsupported, WatchdogTimeout)
 from .faultinject import FaultInjected, FaultInjector
 from .journal import Journal
 from .journal import replay as replay_journal
-from .kvcache import (BlockPool, copy_blocks, extend_block_tables,
-                      init_kv_pool, scatter_prefill_rows, set_carry_rows,
-                      set_table_rows)
+from .kvcache import BlockPool, init_kv_pool
 from .prefix import PrefixCache
 from .scheduler import Scheduler, ServeRequest
+from .tp import (OP_CARRY_REM, OP_CARRY_ROWS, OP_CHUNK, OP_CLEAR, OP_COPY,
+                 OP_EXTEND, OP_INIT, OP_NAMES, OP_PREFILL, OP_SCATTER,
+                 OP_STOP, OP_TABLE_ROWS, OP_WINDOW, OPS, PAGED_IMPL_CODES,
+                 chunk_step, tp_active)
 from .snapshot import corrupt_snapshot, read_snapshot, write_snapshot
 
 __all__ = ["ServeEngine", "ServeRequest", "UnsupportedArch",
@@ -323,6 +350,13 @@ class ServeEngine:
     device:
         None means CUDA and raises when no CUDA device is present; pass
         ``"cpu"`` for the plain PyTorch path.
+    tp:
+        a :class:`repro_torch.distributed.TPGroup` this engine is rank 0 of
+        (the other ranks run :func:`repro_torch.serve.tp.serve_follower`
+        on the same weights), or None for one device. An attention arch
+        whose heads the group cannot divide raises
+        :class:`repro_torch.distributed.MeshDivisibilityError`; see the
+        module docstring for what a group refuses.
     """
 
     def __init__(self, cfg: ModelConfig, params,
@@ -344,7 +378,8 @@ class ServeEngine:
                  journal=None,
                  record_stages: bool = False,
                  obs=None,
-                 device=None):
+                 device=None,
+                 tp=None):
         if cfg.frontend != "none":
             raise UnsupportedArch(
                 f"{cfg.name} (family {cfg.family!r}, frontend "
@@ -363,6 +398,19 @@ class ServeEngine:
             # build the kernels here, on the caller's thread, never inside
             # a pipeline worker
             ensure_built(self.device.index)
+        #: the tensor-parallel group this engine is rank 0 of (None: one
+        #: device)
+        self.tp = tp
+        #: the group while it shards this arch (None for SSM and hybrid
+        #: archs, which serve here with the followers idle)
+        self._tp = None
+        if tp is not None:
+            self._check_tp(tp, journal, fault_inject, chunk_graph)
+            chunk_graph = False          # gloo collectives cannot be captured
+            if tp_active(cfg, tp):
+                validate_serve_mesh(cfg, tp.world)
+                params = shard_serve_params(cfg, params, 0, tp.world)
+                self._tp = tp
         self.params = params
         # per-layer weight views, built once for every step of this engine
         self._layers = lm.layer_views(params)
@@ -449,7 +497,7 @@ class ServeEngine:
         self._tok_host: List[Optional[torch.Tensor]] = [None, None]
         self._tok_i = 0
         self._pf_stream = torch.cuda.Stream(self.device) \
-            if (self.async_decode and cuda) else None
+            if (self.async_decode and cuda and self._tp is None) else None
         self._slot_req: List[Optional[ServeRequest]] = [None] * B
         self._slot_out: List[Optional[List[int]]] = [None] * B
         self._slot_phase: List[Optional[str]] = [None] * B  # prefill|decode
@@ -496,6 +544,14 @@ class ServeEngine:
         # None obs = disabled (every site guards on self._tr / self._mh)
         self._slot_span: List[Optional[tuple]] = [None] * B
         self.set_obs(obs if obs is not None else _obs_from_env())
+        self._tp_stopped = False
+        if self._tp is not None:
+            # the followers allocate their shards from this geometry
+            with self._tp.lock:
+                self._tp.send(OP_INIT, 0, (np.asarray(
+                    [B, kv_blocks, block_size, self._tables.shape[1],
+                     decode_chunk, int(self.async_decode),
+                     PAGED_IMPL_CODES[self.paged_impl]]),))
         # watchdog heartbeat, touched by submit and the admit, decode and
         # complete stages
         self._wd_beat = time.perf_counter()
@@ -511,8 +567,13 @@ class ServeEngine:
                     max_seq_len: Optional[int],
                     prefill_chunk: Optional[int]) -> None:
         self._pool = BlockPool(kv_blocks, block_size)
-        self._pkv = init_kv_pool(self.cfg, kv_blocks, block_size,
-                                 self.device)
+        self._pkv = init_kv_pool(
+            self.cfg, kv_blocks, block_size, self.device,
+            kv_heads=self.cfg.num_kv_heads // self._tp.world
+            if self._tp is not None else None)
+        # window-0 prefill caches waiting for their group's scatter, by
+        # cycle token (OP_PREFILL, OP_SCATTER)
+        self._group_kv: Dict[int, tuple] = {}
         if self.prefix_cache:
             self._prefix = PrefixCache(self._pool)
         self._max_seq = min(max_seq_len or 32 * block_size,
@@ -551,38 +612,65 @@ class ServeEngine:
             self.cfg, B, self._max_seq, self.device).items() if k != "pos"}
 
     # ------------------------------------------------------------- helpers
-    def _to_dev(self, *arrays: np.ndarray):
-        """Device copies of ``arrays`` (one tensor for one array). Sync: a
-        blocking copy each. Async: pinned staging copies that never wait
-        for the stream (:meth:`HostLink.upload`)."""
+    @staticmethod
+    def _check_tp(tp, journal, fault_inject, chunk_graph) -> None:
+        """Refuse, typed, what this engine does not do under a group."""
+        if tp.rank != 0:
+            raise ValueError(f"ServeEngine(tp=...) runs on rank 0; rank "
+                             f"{tp.rank} runs repro_torch.serve.tp."
+                             "serve_follower")
+        fi = fault_inject or os.environ.get("REPRO_FAULT_INJECT") or None
+        refused = [what for what, v in (
+            ("journal=", journal), ("fault_inject=", fi),
+            ("chunk_graph=True (a captured chunk)", chunk_graph)) if v]
+        if refused:
+            raise TPUnsupported(
+                f"tensor-parallel serving does not support {refused} "
+                "(ROADMAP item 11(c)): gloo collectives cannot be captured, "
+                "and durability and fault injection are not carried across "
+                "to the followers")
+
+    def _refuse_tp(self, what: str) -> None:
+        if self.tp is not None:
+            raise TPUnsupported(f"{what} is not supported under "
+                                "tensor-parallel serving (ROADMAP item "
+                                "11(c))")
+
+    def _tp_op(self, op: int, *arrays: np.ndarray, key: int = 0):
+        """Run the device op ``op`` of :data:`repro_torch.serve.tp.OPS` on
+        this engine's state, with its int32 host ``arrays`` uploaded, and
+        return its result. Under a group it is the one ordered entry
+        point of the op on sharded state: under the group's lock, the
+        op's descriptor (``op``, ``key``, ``arrays``) goes to the
+        followers, which run the same function on their shard, and rank
+        0's shard runs with the group active."""
+        tp = self._tp
+        if tp is None:
+            return OPS[op](self, key, *self._to_dev(*arrays))
+        with tp.lock:
+            tp.send(op, key, arrays)
+            with tp.active(OP_NAMES[op]):
+                return OPS[op](self, key, *self._to_dev(*arrays))
+
+    def _to_dev(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Device copies of ``arrays``. Sync: a blocking copy each. Async:
+        pinned staging copies that never wait for the stream
+        (:meth:`HostLink.upload`)."""
         if self._link is not None:
-            out = self._link.upload(*arrays)
-        else:
-            out = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                   for a in arrays]
-        return out[0] if len(out) == 1 else out
+            return self._link.upload(*arrays)
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in arrays]
 
     def _clear_rows_dev(self, rows) -> None:
-        """Zero vacated seats' device rows: their block-table rows (paged)
-        and, async, their carry rows; one upload of the row ids. (``t[r] =
-        0`` would copy the 0 to the device from pageable memory, a stream
-        sync; ``index_fill_`` passes it to the kernel.)"""
-        r = self._to_dev(np.asarray(rows, np.int32)).long()
-        if self.paged:
-            self._tables_dev.index_fill_(0, r, 0)
-        if self.async_decode:
-            self._chunk.carry.index_fill_(1, r, 0)
+        """Zero vacated seats' device rows (:data:`OP_CLEAR`); one upload
+        of the row ids."""
+        self._tp_op(OP_CLEAR, np.asarray(rows, np.int32))
 
     def _chunk_step(self, carry):
-        """The decode chunk's body for :class:`ChunkProgram` (the module
-        attribute is looked up at each call, so tests can patch it)."""
-        n = self.decode_chunk
-        if self.paged:
-            return lm.decode_chunk_paged(
-                self.cfg, self.params, self._pkv, self._tables_dev, carry,
-                n, impl=self.paged_impl, layers=self._layers)
-        return lm.decode_chunk_slots(self.cfg, self.params, self._sstate,
-                                     carry, n, layers=self._layers)
+        """The decode chunk's body for :class:`ChunkProgram`
+        (:func:`repro_torch.serve.tp.chunk_step`, which looks the model's
+        functions up at each call, so tests can patch them)."""
+        return chunk_step(self, carry)
 
     def _chunk_statics(self):
         """Every tensor the captured chunk reads or writes besides its
@@ -685,6 +773,7 @@ class ServeEngine:
         """Attach (or detach, with None) a request :class:`~repro_torch.serve
         .journal.Journal` or its path; a replaced journal is closed.
         Rebindable at idle (the journal gate toggles it on one engine)."""
+        self._refuse_tp("set_journal")
         if isinstance(journal, str):
             journal = Journal(journal)
         old = self._journal
@@ -828,6 +917,11 @@ class ServeEngine:
         if self._executor is not None:
             self._executor.shutdown()
             self._executor = None
+        self._chunk.release()
+        if self._tp is not None and not self._tp_stopped:
+            self._tp_stopped = True
+            with self._tp.lock:
+                self._tp.send(OP_STOP, 0, ())
 
     def __enter__(self) -> "ServeEngine":
         return self
@@ -884,6 +978,7 @@ class ServeEngine:
         so either package restores them. Returns the bytes written. The
         ``snapshot_corrupt`` fault site flips a payload byte after the
         write."""
+        self._refuse_tp("snapshot()")
         if self._journal is not None:
             self._journal.flush()
         meta: Dict[str, Any] = {"paged": self.paged}
@@ -938,6 +1033,7 @@ class ServeEngine:
         :class:`SnapshotCorrupt` on an integrity, dtype or geometry
         mismatch BEFORE touching engine state: a snapshot can lose warmth,
         never serve wrong tokens."""
+        self._refuse_tp("restore()")
         meta, arrays = read_snapshot(path)
         if bool(meta.get("paged")) != self.paged:
             raise SnapshotCorrupt(
@@ -1006,6 +1102,7 @@ class ServeEngine:
         attach a fresh one at the same path. The snapshot's queue is used
         only without a journal (the journal's submits are a superset).
         Returns ``{old request id: new future}``."""
+        self._refuse_tp("recover()")
         os.makedirs(state_dir, exist_ok=True)
         spath = os.path.join(state_dir, SNAPSHOT_FILE)
         jpath = os.path.join(state_dir, JOURNAL_FILE)
@@ -1219,6 +1316,8 @@ class ServeEngine:
                 with torch.cuda.stream(self._pf_stream):
                     return self._prefill_group(pf, payload)
             except Exception as exc:        # per-group failure isolation
+                if self._tp is not None:
+                    raise       # the followers' state: the engine breaks
                 return self._prefill_failed(pf, payload, exc)
 
     def _prefill_failed(self, pf, group, exc):
@@ -1288,7 +1387,7 @@ class ServeEngine:
                     caches.append(None)
                     continue
                 logits, cache = lm.prefill(
-                    self.cfg, self.params, self._to_dev(req.prompt[None]),
+                    self.cfg, self.params, self._to_dev(req.prompt[None])[0],
                     layers=self._layers)
                 caches.append(cache)
                 firsts.append(torch.argmax(logits[0]).to(torch.int32))
@@ -1303,7 +1402,7 @@ class ServeEngine:
         group = miss + hitg
         if not miss:
             self._log("prefill", pf.token, [r.id for r in reqs])
-            return ("admit", (group, 0, None, None, None, 0))
+            return ("admit", (group, 0, 0, None, 0))
         longest = max(g[0].prompt_len for g in miss)
         C0 = min(self.prefill_chunk, 1 << max(0, longest - 1).bit_length())
         A = self._scheduler.max_admit
@@ -1317,17 +1416,13 @@ class ServeEngine:
         for i in range(len(miss), A):
             toks[i] = toks[len(miss) - 1]
             lastp[i] = lastp[len(miss) - 1]
-        toks, lastp = self._to_dev(toks, lastp)
-        logits, cache = lm.prefill(self.cfg, self.params, toks, max_len=C0,
-                                   last_positions=lastp,
-                                   layers=self._layers)
+        logits = self._tp_op(OP_PREFILL, toks, lastp, key=pf.token)
         first = self._read_first(torch.argmax(logits, dim=-1)
                                  .to(torch.int32))
         with self._state_lock:
             self.stats["prefills"] += 1
         self._log("prefill", pf.token, [r.id for r in reqs])
-        return ("admit", (group, C0, cache["k"], cache["v"], first,
-                          len(miss)))
+        return ("admit", (group, C0, A, first, len(miss)))
 
     # ------------------------------------------------- decode-stage helpers
     def _merge_group(self, pf, payload) -> None:
@@ -1349,8 +1444,9 @@ class ServeEngine:
         were inactive in the chunk in flight, so writing over its output
         carry is exact), and the group's first tokens and KV are read after
         the prefill stream's event."""
-        group, C0, ck, cv, first, n_miss = payload
+        group, C0, n_rows, first, n_miss = payload
         if not self._premerge_live(pf):
+            self._group_kv.pop(pf.token, None)
             return
         if first is not None:
             host, ev = first
@@ -1358,8 +1454,8 @@ class ServeEngine:
             self._wait_for(ev)
             if ev is not None:
                 cur = torch.cuda.current_stream(self.device)
-                ck.record_stream(cur)
-                cv.record_stream(cur)
+                for t in self._group_kv.get(pf.token, ()):
+                    t.record_stream(cur)
         nb0 = self._pool.blocks_for(C0) if C0 else 0
         now = time.perf_counter()
         rows_idx, rows_tab = [], []
@@ -1417,28 +1513,27 @@ class ServeEngine:
                 self._note_seated(slot, req, now)
             rows_idx.append(slot)
             rows_tab.append(self._tables[slot].copy())
-        set_table_rows(self._tables_dev,
-                       *self._to_dev(np.asarray(rows_idx, np.int32),
-                                     np.stack(rows_tab)))
+        rows_np, tabs = np.asarray(rows_idx, np.int32), np.stack(rows_tab)
+        self._tp_op(OP_TABLE_ROWS, rows_np, tabs)
         if self.async_decode:
             self._scatter_carry(rows_idx)
         if fork_src:
             # one copy for the group's forks, unpadded: its destinations are
             # distinct fresh blocks (duplicate destinations of an indexed
             # copy would be written in no set order on CUDA)
-            copy_blocks(self._pkv,
-                        *self._to_dev(np.asarray(fork_src, np.int32),
-                                      np.asarray(fork_dst, np.int32)))
+            src = np.asarray(fork_src, np.int32)
+            dst = np.asarray(fork_dst, np.int32)
+            self._tp_op(OP_COPY, src, dst)
             self._prefix.unpin(fork_src)   # fork done: drop the tail pins
         if n_miss:
             # window-0 scatter: per-row block lists trimmed/padded to the
             # window footprint (sink beyond a short prompt's own blocks and
             # for the group's pad rows)
-            blocks2d = np.zeros((ck.shape[1], nb0), np.int32)
+            blocks2d = np.zeros((n_rows, nb0), np.int32)
             for i, (_, blocks, _) in enumerate(group[:n_miss]):
                 row = blocks[:nb0]
                 blocks2d[i, :len(row)] = row
-            scatter_prefill_rows(self._pkv, self._to_dev(blocks2d), ck, cv)
+            self._tp_op(OP_SCATTER, blocks2d, key=pf.token)
         for slot in reg_slots:
             self._register_prefix(slot)
         with self._state_lock:
@@ -1553,9 +1648,8 @@ class ServeEngine:
         rows = np.asarray(rows, np.int32)
         vals = np.stack([self._lengths[rows], self._last[rows],
                          self._rem[rows]]).astype(np.int32)
-        dev = self._to_dev(np.concatenate([rows[None], vals]))
-        c = self._chunk.carry
-        set_carry_rows(c[0], c[1], c[2], dev[0], dev[1], dev[2], dev[3])
+        packed = np.concatenate([rows[None], vals])
+        self._tp_op(OP_CARRY_ROWS, packed)
 
     def _note_first_token(self, req, now: float) -> None:
         if req.first_token_at is None:
@@ -1605,12 +1699,11 @@ class ServeEngine:
             start[b] = s
             last_idx[b] = min(len(prompt) - 1 - s, C - 1)
             ks[b] = k
-        first, _ = lm.prefill_window_paged(
-            self.cfg, self.params, self._pkv, self._tables_dev,
-            *self._to_dev(toks, start, valid, last_idx), layers=self._layers)
+        first = self._read_first(
+            self._tp_op(OP_WINDOW, toks, start, valid, last_idx))
         with self._state_lock:
             self.stats["prefill_windows"] += 1
-        return {"first": self._read_first(first), "rows": pref, "k": ks,
+        return {"first": first, "rows": pref, "k": ks,
                 "token": pf.token,
                 "gen": {b: int(self._slot_gen[b]) for b in pref},
                 "t_disp": time.perf_counter()}
@@ -1788,17 +1881,15 @@ class ServeEngine:
         self._pool.set_reserved(unmet)
         if stall_rows and self.async_decode:
             # rem-only carry write (``last`` is on the device only)
-            dev = self._to_dev(np.stack([
-                np.asarray(stall_rows, np.int32),
-                self._rem[stall_rows].astype(np.int32)]))
-            self._chunk.carry[2][dev[0].long()] = dev[1]
+            packed = np.stack([np.asarray(stall_rows, np.int32),
+                               self._rem[stall_rows].astype(np.int32)])
+            self._tp_op(OP_CARRY_REM, packed)
         if grow_rows:
             self._log("grow", pf.token, list(zip(grow_rows, grow_ids)))
-            extend_block_tables(
-                self._tables_dev,
-                *self._to_dev(np.asarray(grow_rows, np.int32),
-                              np.asarray(grow_cols, np.int32),
-                              np.asarray(grow_ids, np.int32)))
+            grow = (np.asarray(grow_rows, np.int32),
+                    np.asarray(grow_cols, np.int32),
+                    np.asarray(grow_ids, np.int32))
+            self._tp_op(OP_EXTEND, *grow)
 
     def _cow_guard(self, pf) -> None:
         """Copy-on-write safety net, run before the window-prefill and
@@ -1872,12 +1963,11 @@ class ServeEngine:
         if srcs and live:
             srcs = [srcs[j] for j in live]
             dsts = [dsts[j] for j in live]
-            src_d, dst_d, row_d, col_d = self._to_dev(
-                np.asarray(srcs, np.int32), np.asarray(dsts, np.int32),
-                np.asarray([rows[j] for j in live], np.int32),
-                np.asarray([cols[j] for j in live], np.int32))
-            copy_blocks(self._pkv, src_d, dst_d)
-            extend_block_tables(self._tables_dev, row_d, col_d, dst_d)
+            src, dst = np.asarray(srcs, np.int32), np.asarray(dsts, np.int32)
+            row = np.asarray([rows[j] for j in live], np.int32)
+            col = np.asarray([cols[j] for j in live], np.int32)
+            self._tp_op(OP_COPY, src, dst)
+            self._tp_op(OP_EXTEND, row, col, dst)
 
     def _vacate(self, slot: int, stat: str):
         """Detach the request seated in ``slot`` and reclaim the seat: its
@@ -2108,6 +2198,8 @@ class ServeEngine:
                 else:
                     out = self._st_decode_sync(pf, msg)
             except Exception as exc:       # per-row failure isolation
+                if self._tp is not None:
+                    raise       # the followers' state: the engine breaks
                 out = self._isolate_failure(pf, exc)
         self._wd_beat = time.perf_counter()
         return out
@@ -2150,9 +2242,8 @@ class ServeEngine:
             return ("cycle", (self._reset_epoch, self._collect_finished()))
         n = self.decode_chunk
         t1 = time.perf_counter()
-        self._chunk.carry.copy_(torch.from_numpy(
-            np.stack([self._lengths, self._last, self._rem])))
-        self._chunk.run()
+        carry = np.stack([self._lengths, self._last, self._rem])
+        self._tp_op(OP_CHUNK, carry)
         t1b = time.perf_counter()   # carry copy + one replay (host enqueue)
         if self._fi is not None:
             self._chunk_sync_faults()
@@ -2242,7 +2333,7 @@ class ServeEngine:
         t1 = time.perf_counter()
         if (self._rem > 0).any():
             rem_before = self._rem.copy()
-            self._chunk.run()
+            self._tp_op(OP_CHUNK)
             # chunk N+1's tokens into the pinned buffer N's did not use
             # (the next replay overwrites the graph's output)
             buf = self._tok_host[self._tok_i]
@@ -2598,6 +2689,7 @@ class ServeEngine:
         cache of ``S + max_new + 1`` positions) -> chunked contiguous
         decode -> complete through a throwaway pipeline on the engine's
         executor. It shares no state with the resident pipeline."""
+        self._refuse_tp("the per-call baseline")
         groups: "OrderedDict[int, List[int]]" = OrderedDict()
         arrs = [np.asarray(p, np.int32) for p in prompts]
         for i, a in enumerate(arrs):

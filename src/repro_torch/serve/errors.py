@@ -31,7 +31,7 @@ generic timeout handling catches them.
 """
 from __future__ import annotations
 
-__all__ = ["ServeError", "Overloaded", "DeadlineExceeded",
+__all__ = ["ServeError", "Overloaded", "DeadlineExceeded", "TPUnsupported",
            "RequestCancelled", "RowFailed", "WatchdogTimeout",
            "EngineClosed", "SnapshotCorrupt"]
 
@@ -73,6 +73,12 @@ class WatchdogTimeout(ServeError, TimeoutError):
 
 class EngineClosed(ServeError):
     """The engine was closed/torn down with this request outstanding."""
+
+
+class TPUnsupported(ServeError, ValueError):
+    """A mode the tensor-parallel engine does not carry across to its
+    followers (the captured chunk, journal, snapshot and restore, fault
+    injection, the per-call baseline): refused at construction or call."""
 
 
 class SnapshotCorrupt(ServeError):

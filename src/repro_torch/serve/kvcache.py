@@ -351,18 +351,21 @@ class BlockPool:
 
 # ---------------------------------------------------------------- device side
 def init_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
-                 device=None) -> torch.Tensor:
+                 device=None, kv_heads: Optional[int] = None
+                 ) -> torch.Tensor:
     """Allocate the pooled KV storage: one ``(L, 2, num_blocks, KV, block,
     hd)`` tensor in the compute dtype — axis 1 stacks K (0) and V (1).
-    ``device`` None means CUDA."""
+    ``device`` None means CUDA. ``kv_heads``: the heads this pool holds
+    (default ``cfg.num_kv_heads``; a tensor-parallel rank holds
+    ``num_kv_heads / world``, the reference's ``serve_pool_spec``)."""
     if cfg.ssm or cfg.hybrid_attn_every:
         raise ValueError(
             f"{cfg.name}: paged KV applies to attention caches only "
             "(SSM state is O(1) per sequence)")
     from ..device import resolve_device
     from ..models.layers import dtype_of
-    shape = (cfg.num_layers, 2, num_blocks, cfg.num_kv_heads, block_size,
-             cfg.hd)
+    shape = (cfg.num_layers, 2, num_blocks, kv_heads or cfg.num_kv_heads,
+             block_size, cfg.hd)
     return torch.zeros(shape, dtype=dtype_of(cfg.compute_dtype),
                        device=resolve_device(device))
 

@@ -209,3 +209,105 @@ def test_device_task_without_a_device_fails_the_run(monkeypatch):
         assert not isinstance(info.value.__cause__, NotImplementedError)
     finally:
         ex.shutdown()
+
+
+def test_nested_condgraph_matches_jax_deviceflow():
+    """The third advantage: a DeviceFlow op that is a compiled conditional
+    program (the data-dependent loop x <- m @ x until |x| < 1e-3, d = 16)
+    between two ops of the flow, against the JAX DeviceFlow nesting
+    ``JaxGraph.lower()`` on the same inputs, at three scales of x (three
+    trip counts; fp32, rel 1e-5 of each leaf's largest magnitude, the trip
+    count exact). On the CPU the compiled program is ``lower()``'s
+    function, run eagerly in the flow."""
+    from repro.core import STOP as JSTOP
+    from repro.core import JaxGraph
+    from repro_torch.bench.condgraph_check import (NESTED_SCALES,
+                                                   nested_flow,
+                                                   until_small_graph,
+                                                   until_small_state)
+    from repro_torch.core import STOP, CondGraph
+
+    st = until_small_state(16)
+    m, x = st["m"].numpy(), st["x"].numpy()
+    prog = until_small_graph(CondGraph, STOP).compile(st)
+    jprog = until_small_graph(JaxGraph, JSTOP, where=jnp.where,
+                              norm=jnp.linalg.norm).lower()
+    t = nested_flow(DeviceFlow(CPU), prog, m, x, NESTED_SCALES[0])
+    j = nested_flow(JDeviceFlow(), jprog, m, x, NESTED_SCALES[0])
+    trips = []
+    for launch, s in enumerate(NESTED_SCALES):
+        t.copy("scale", np.float32(s))
+        j.copy("scale", np.float32(s))
+        got, want = t.offload(), j.offload()
+        assert t.num_launches == launch + 1
+        assert int(got["n_out"]) == int(want["n_out"])
+        trips.append(int(got["n_out"]))
+        for name in ("x_out", "mx"):
+            w = np.asarray(want[name])
+            assert np.abs(w).max() > 0
+            np.testing.assert_allclose(got[name], w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max())
+    assert len(set(trips)) == 3, trips
+
+
+def test_collection_paused_holds_across_overlapping_captures():
+    """Two captures on two threads overlap (A enters, B enters, A leaves,
+    B leaves): the collector stays off until the last one leaves and is
+    then on again; one inside another on a thread, likewise."""
+    import gc
+
+    from repro_torch.device import collection_paused
+
+    assert gc.isenabled()
+    a_in, b_in, a_out = (threading.Event() for _ in range(3))
+    seen = {}
+
+    def capture_a():
+        with collection_paused():
+            a_in.set()
+            b_in.wait(10)
+        seen["after_a"] = gc.isenabled()
+        a_out.set()
+
+    def capture_b():
+        a_in.wait(10)
+        with collection_paused():
+            b_in.set()
+            a_out.wait(10)
+            seen["b_after_a"] = gc.isenabled()
+            with collection_paused():
+                pass
+            seen["b_after_nested"] = gc.isenabled()
+
+    threads = [threading.Thread(target=f) for f in (capture_a, capture_b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(20)
+    assert seen == {"after_a": False, "b_after_a": False,
+                    "b_after_nested": False}
+    assert gc.isenabled()
+
+
+def test_collection_paused_leaves_a_disabled_collector_off():
+    import gc
+
+    from repro_torch.device import collection_paused
+    gc.disable()
+    try:
+        with collection_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def test_close_frees_the_flow_and_the_next_offload_runs_again():
+    df = DeviceFlow(CPU)
+    df.copy("a", np.arange(4, dtype=np.float32))
+    df.kernel(lambda a: a * 2.0, ["a"], ["b"]).fetch("b")
+    np.testing.assert_array_equal(df.offload()["b"], [0, 2, 4, 6])
+    df.close()
+    assert df._captured is None
+    np.testing.assert_array_equal(df.offload()["b"], [0, 2, 4, 6])
+    assert df.num_launches == 2

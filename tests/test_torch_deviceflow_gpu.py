@@ -149,3 +149,66 @@ def test_device_task_in_executor_on_the_card(cuda):
     np.testing.assert_array_equal(results["z"], 2.0 * x + yv)
     assert results["df"].device == cuda
     assert results["df"].num_launches == 1
+
+
+@pytest.mark.parametrize("d", [16, 256])
+def test_flow_nesting_a_compiled_condgraph_equals_lower(cuda, d):
+    """A DeviceFlow holding a compiled conditional program: one replay an
+    offload runs the loop to its data's end (three scales, three trip
+    counts), equal to the same ops around ``lower()`` run eagerly on the
+    card (trips exact, fp32 rel 1e-5), and no replay launches the program
+    again."""
+    from repro_torch.bench.condgraph_check import check_nested
+    rep = check_nested(cuda, d=d)
+    assert rep["offloads"] == 3 and len(set(rep["trips"])) == 3
+    assert rep["program_launches"] == 2     # the warm-up and the capture
+
+
+def test_flow_nesting_a_compiled_dag_runs_its_composition(cuda):
+    """A compiled DAG program called inside the flow's capture runs its
+    composition into the flow's graph: one replay an offload gives
+    (x + 1) * 3 on every re-bound input."""
+    from repro_torch.bench.condgraph_check import TorchOps, programs
+    p = programs(TorchOps(cuda))["dag"]
+    prog = p.graph.compile(p.state)
+    df = DeviceFlow(cuda)
+    df.copy("x", np.float32(1.0)).copy("i", np.zeros((), np.int32))
+    df.kernel(lambda i, x: prog({"i": i, "x": x})["x"], ["i", "x"], ["y"])
+    df.fetch("y")
+    for launch, x in enumerate((1.0, 2.5, -4.0)):
+        df.copy("x", np.float32(x))
+        assert float(df.offload()["y"]) == (x + 1) * 3
+        assert df.num_launches == launch + 1
+
+
+def test_capture_survives_a_dead_graph_in_a_reference_cycle(cuda):
+    """A CUDA graph in a dead reference cycle (a closed serve engine's
+    captured chunk, say) destroyed by the collector inside another
+    capture invalidates that capture; every capture of the port pauses
+    the collector (``device.collection_paused``). The collector runs at
+    nearly every allocation here."""
+    import gc
+
+    class Holder:
+        pass
+
+    h = Holder()
+    h.cycle = h
+    h.graph = torch.cuda.CUDAGraph()
+    x = torch.ones(4, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        x * 2                                   # warm-up
+    with torch.cuda.graph(h.graph, stream=side):
+        x * 2
+    del h
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        df = DeviceFlow(cuda)
+        df.copy("a", np.ones(8, np.float32))
+        df.kernel(lambda a: a * 3.0, ["a"], ["b"]).fetch("b")
+        np.testing.assert_array_equal(df.offload()["b"], np.full(8, 3.0))
+    finally:
+        gc.set_threshold(*old)

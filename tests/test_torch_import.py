@@ -43,7 +43,11 @@ def test_import_without_gpu_leaves_jax_out():
         "repro_torch.serve.faultinject, repro_torch.bench.serve_slo, "
         "repro_torch.serve.journal, repro_torch.serve.snapshot, "
         "repro_torch.bench.journal_gate, repro_torch.bench.journal_probe, "
-        "repro_torch.launch.incarnation\n"
+        "repro_torch.launch.incarnation, repro_torch.distributed, "
+        "repro_torch.launch.mesh, repro_torch.serve.tp, "
+        "repro_torch.bench.serve_mesh, repro_torch.examples.placement_loop, "
+        "repro_torch.examples.serve_lm, repro_torch.examples.train_lm, "
+        "repro_torch.examples.lsdnn_inference\n"
         "from repro_torch.models.lm import forward, loss_fn\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

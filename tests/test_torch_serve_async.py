@@ -355,6 +355,20 @@ def test_chunk_graph_needs_cuda():
         assert eng._chunk.graph is None and not eng.async_decode
 
 
+@pytest.mark.parametrize("async_decode", [False, True])
+def test_close_drops_the_chunks_references_to_the_engine(async_decode):
+    """A closed engine's chunk program holds nothing of the engine (its
+    step and statics are dropped; on CUDA its graph is freed), so no
+    captured graph waits in a reference cycle for the collector."""
+    cfg, _, tp = _setup()
+    eng = ServeEngine(cfg, tp, device="cpu", decode_chunk=2,
+                      async_decode=async_decode)
+    with eng:
+        eng.generate(_prompts(cfg, (4, 6)), 3)
+    assert eng._chunk._step is None and eng._chunk._statics is None
+    eng.close()                           # idempotent
+
+
 def test_async_env_switch(monkeypatch):
     cfg = get_config("stablelm-1.6b").smoke()
     params = init_params(cfg, torch.Generator().manual_seed(0),
