@@ -258,7 +258,27 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               the ranks' K1 and K2 launches counted over each 2-rank
               engine's life, warm-up included, on both ranks (the
               follower's reported back per engine); a failed rank fails
-              the phase with its traceback;
+              the phase with its traceback; then a single-device engine
+              whose every product a rank holds a column slice of is
+              computed slice by slice (``bench/serve_mesh.py::
+              column_slice_params``): its bf16 tokens and a 64-token
+              prefill's logits against the 2-rank run's and the single
+              engine's, with ``allow_bf16_reduced_precision_reduction`` on
+              both ranks;
+11e. train_mesh — sharded training on two ``gloo`` ranks sharing the card
+              (one ``MeshSession``, a (2, 1) mesh; ``bench/train_mesh.py``):
+              stablelm-1.6b at full width in fp32 at 4 layers, one step of
+              2 x 2048 against the single-device step (metrics, moments,
+              params within TRAIN_MESH_TOL); in bf16 with remat at 8 layers
+              (cut from 24 for time), 3 steps of 4 x 2048 (two microbatches
+              of one sequence a rank) with the weight gather hoisted and not
+              (half the all-gathers hoisted); falcon-mamba-7b at full width
+              and 4 of 64 layers, one bf16 step of 2 x 2048, K3 and its
+              backward launched on both ranks and counted. Each rank's
+              parameter and moment bytes must be half of every leaf sharded
+              over ``data`` and the rest whole; peak memory a rank,
+              collectives by kind and step walls (host-staged, not a speed)
+              are printed, with a JSON line ``{"train_mesh": ...}``;
 12. report  — one JSON line of per-kernel numbers (K1-K4, K3's backward
               and ``cond_graph``), the card line, and the final
               ``{"ok": true, ...}`` line.
@@ -376,6 +396,32 @@ NESTED_D = 256
 MESH_RANKS = 2
 MESH_FP32_LAYERS = 4
 MESH_PRESET = "full"
+# the train_mesh phase: 2 gloo ranks on the one card, a (2, 1) mesh;
+# stablelm-1.6b at full width in fp32 at 4 layers (one step of 2 x 2048,
+# against the single-device step), in bf16 with remat (3 steps of 4 x
+# 2048, two microbatches of one sequence a rank, the weight gather hoisted
+# and not) and falcon-mamba-7b at full width cut to 4 of 64 layers (one
+# bf16 step of 2 x 2048: K3 and its backward under the group)
+TRAIN_MESH_RANKS = 2
+TRAIN_MESH_PRESET = "full"
+TRAIN_MESH_SEQ = 2048
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_FP32_LAYERS = 4
+# bf16 cut from 24 to 8 layers: at 24 the phase took 175 s (PR 26 call
+# 3: 14-28 s a step, each rank gathering and reducing 6.6 GB a step
+# through the host), over its ~120 s budget
+TRAIN_MESH_BF16_LAYERS = 8
+TRAIN_MESH_JOIN_S, TRAIN_MESH_OP_S = 900.0, 600.0
+TRAIN_MESH_FALCON_LAYERS = 4
+# fp32, 2 ranks against one device: the metrics relative, the moments per
+# leaf relative to its largest magnitude, the params in units of lr where
+# AdamW's first step is well-conditioned and where a gradient lies within
+# 100 eps of zero (there g / (|g| + eps) may differ by up to 2). Measured
+# (PR 26 call 3): metrics 9.2e-7, m 9.6e-6, v 1.2e-5 (each rank's weight
+# gradients sum 2048 tokens, then gloo sums the two, where cuBLAS sums
+# 4096 in one GEMM), params 1.2e-4 lr and 0.32 lr
+TRAIN_MESH_TOL = {"metric": 1e-5, "moment": 5e-5, "param_lr": 5e-2,
+                  "ill_param_lr": 2.05}
 
 # the prefix phase: the serve suite's continuous trace at the reference's
 # non-quick shapes with 128 requests (so that p99 is not the maximum), and
@@ -2686,10 +2732,46 @@ def _mesh_serve(cfg, params, dev, prompts, tp=None) -> dict:
             "counters": tp.counters() if tp is not None else None}
 
 
+def _column_slice_check(cfg, params, dev, prompts, probe, single, mesh,
+                        mesh_logits) -> dict:
+    """The bf16 single-device engine on ``column_slice_params``: each
+    product a rank holds a column slice of computed slice by slice, as the
+    ranks do. Its tokens and prefill logits against the 2-rank run's and
+    the single engine's. Equal to the 2-rank run's: the ranks' tokens
+    differ from the single engine's by the shapes of their products, and
+    the group adds nothing."""
+    from repro_torch.bench.serve_mesh import column_slice_params
+    from repro_torch.models import lm
+
+    sliced = column_slice_params(cfg, params, MESH_RANKS)
+    run = _mesh_serve(cfg, sliced, dev, prompts)
+    with torch.inference_mode():
+        sl_logits, _ = lm.prefill(cfg, sliced, probe.to(dev))
+        one_logits, _ = lm.prefill(cfg, params, probe.to(dev))
+    n = len(prompts) * MAX_NEW
+    eq = {k: sum(int((a == b).sum()) for a, b in zip(run["outs"], o["outs"]))
+          / n for k, o in (("mesh", mesh), ("single", single))}
+    out = {"tokens_equal_mesh": eq["mesh"], "tokens_equal_single":
+           eq["single"],
+           "logits_equal_mesh": bool(torch.equal(sl_logits, mesh_logits)),
+           "logits_max_diff_mesh": float((sl_logits - mesh_logits).abs()
+                                         .max()),
+           "single_logits_max_diff_mesh": float(
+               (one_logits - mesh_logits).abs().max())}
+    log(f"[mesh] bf16 column-slice single-device engine: "
+        f"{100 * eq['mesh']:.2f}% of tokens equal to the 2-rank run's, "
+        f"{100 * eq['single']:.2f}% to the single engine's; prefill logits "
+        f"of a 64-token probe equal to the 2-rank run's: "
+        f"{out['logits_equal_mesh']} (max |d| "
+        f"{out['logits_max_diff_mesh']}), single engine's max |d| against "
+        f"the 2-rank run's {out['single_logits_max_diff_mesh']}")
+    return out
+
+
 def phase_mesh(dev, card: str) -> dict:
     """stablelm-1.6b on 2 gloo ranks sharing the card against the
     single-device engine; returns the ranks' K1/K2 launches."""
-    from repro_torch.bench.serve_mesh import FollowEach
+    from repro_torch.bench.serve_mesh import FollowEach, probe_logits
     from repro_torch.launch.mesh import ModelSpec, TPSession
     from repro_torch.serve.tp import release_followers
 
@@ -2700,7 +2782,12 @@ def phase_mesh(dev, card: str) -> dict:
     counts = {"paged_attention": 0, "flash_attention": 0}
     res = {}
     t0 = time.perf_counter()
-    with TPSession(MESH_RANKS, "gloo", fp32, dev, body=FollowEach((bf16,)),
+    probe_rows = tuple(tuple(int(t) for t in np.random.default_rng(5)
+                             .integers(0, bf16.config().vocab_size, 64))
+                       for _ in range(1))
+    probe = torch.tensor(probe_rows, dtype=torch.int32)
+    with TPSession(MESH_RANKS, "gloo", fp32, dev,
+                   body=FollowEach((bf16,), probe=probe_rows),
                    timeout=600.0) as s:
         log(f"[mesh] {MESH_RANKS} gloo ranks on {dev} up in "
             f"{time.perf_counter() - t0:.1f}s")
@@ -2709,8 +2796,14 @@ def phase_mesh(dev, card: str) -> dict:
             rng = np.random.default_rng(0)
             prompts = [rng.integers(0, cfg.vocab_size, size=n)
                        .astype(np.int32) for n in PROMPT_LENS]
+            if tag == "bf16":   # the 2-rank prefill logits, both ranks
+                mesh_logits = probe_logits(cfg, params, s.tp, probe)
             single = _mesh_serve(cfg, params, dev, prompts)
             mesh = _mesh_serve(cfg, params, dev, prompts, s.tp)
+            if tag == "bf16":
+                res["column_slices"] = _column_slice_check(
+                    cfg, params, dev, prompts, probe, single, mesh,
+                    mesh_logits)
             if tag == "fp32":
                 release_followers(s.tp)       # the follower builds bf16
             for k in counts:
@@ -2767,7 +2860,14 @@ def phase_mesh(dev, card: str) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
     (fol,) = s.followers
-    engines = [e for model in fol["result"] for e in model]
+    res["column_slices"]["allow_bf16_reduced_precision_reduction"] = {
+        "rank0": torch.backends.cuda.matmul
+        .allow_bf16_reduced_precision_reduction,
+        "rank1": fol["result"]["allow_bf16_reduced_precision_reduction"]}
+    log(f"[mesh] allow_bf16_reduced_precision_reduction: "
+        f"{res['column_slices']['allow_bf16_reduced_precision_reduction']} "
+        "(the single-device and column-slice engines run on rank 0)")
+    engines = [e for model in fol["result"]["engines"] for e in model]
     fcounts = {k: sum(e["launches"].get(k, 0) for e in engines)
                for k in counts}
     for k in counts:
@@ -2779,6 +2879,136 @@ def phase_mesh(dev, card: str) -> dict:
         f"{[e['ops'] for e in engines]}, pool bytes {pools}, "
         f"launches {fcounts}, collectives {fol['counters']['calls']}")
     print(json.dumps({"mesh": res}), flush=True)
+    return counts
+
+
+# ------------------------------------------------------------------ phase 11e
+def _sharded_leaf_bytes(shapes_specs) -> int:
+    """What a rank of the (2, 1) mesh must hold: half of every leaf its
+    spec shards over ``data``, every other leaf whole (fp32 masters)."""
+    total = 0
+    for shape, spec in shapes_specs:
+        n = 4
+        for k in shape:
+            n *= k
+        used = {a for e in spec if e
+                for a in (e if isinstance(e, (tuple, list)) else (e,))}
+        total += n // 2 if "data" in used else n
+    return total
+
+
+def phase_train_mesh(dev, card: str) -> dict:
+    """Sharded training on TRAIN_MESH_RANKS gloo ranks sharing the card
+    (this process and one spawned rank, one ``MeshSession``); returns the
+    ranks' K3 and K3-backward launches."""
+    from repro_torch.bench.train_mesh import (Runs, TrainRun,
+                                              compare_states, single_run)
+    from repro_torch.launch.mesh import MeshSession
+
+    pre, seq = TRAIN_MESH_PRESET, TRAIN_MESH_SEQ
+    fp32 = TrainRun("fp32", preset=pre, overrides=(
+        ("compute_dtype", "float32"), ("num_layers", TRAIN_MESH_FP32_LAYERS)),
+        batch=2, seq=seq, steps=1, keep=True)
+    bf16 = [TrainRun(f"bf16-hoist{int(h)}", preset=pre, overrides=(
+        ("hoist_weight_gather", h),) + ((("num_layers", TRAIN_MESH_BF16_LAYERS),)
+                                         if TRAIN_MESH_BF16_LAYERS else ()),
+        batch=4, seq=seq, steps=TRAIN_MESH_STEPS, lr=3e-4)
+        for h in (False, True)]
+    falcon = TrainRun("falcon-mamba", "falcon-mamba-7b", pre, (
+        ("num_layers", TRAIN_MESH_FALCON_LAYERS),), batch=2, seq=seq,
+        steps=1, lr=3e-4)
+    runs = (fp32, *bf16, falcon)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with MeshSession(TRAIN_MESH_RANKS, "gloo", Runs(runs), dev,
+                     timeout=TRAIN_MESH_JOIN_S, op_timeout_s=TRAIN_MESH_OP_S) as s:
+        log(f"[train_mesh] {TRAIN_MESH_RANKS} gloo ranks on {dev} up in "
+            f"{time.perf_counter() - t0:.1f}s; "
+            "allow_bf16_reduced_precision_reduction="
+            f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+        s.run()
+    ranks = s.results
+    log(f"[time] train_mesh: the session {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    one = single_run(fp32, dev)
+    log(f"[time] train_mesh: the single-device fp32 step "
+        f"{time.perf_counter() - t1:.1f}s")
+    res = {}
+    for i, run in enumerate(runs):
+        per = [r[i] for r in ranks]
+        for r in per:
+            want = _sharded_leaf_bytes(r["leaf_shapes_specs"])
+            if not (r["param_bytes"] == r["spec_bytes"] == want
+                    and r["moment_bytes"] == 2 * want):
+                raise SystemExit(f"[train_mesh] {run.name} rank {r['rank']}: "
+                                 f"params {r['param_bytes']} B, moments "
+                                 f"{r['moment_bytes']} B, specs "
+                                 f"{r['spec_bytes']} B, want {want} B")
+        hist = per[0]["history"]
+        losses = [h["loss"] for h in hist]
+        if not all(np.isfinite([h["loss"] for h in hist]
+                               + [h["grad_norm"] for h in hist])):
+            raise SystemExit(f"[train_mesh] {run.name}: not finite {hist}")
+        if run.steps > 1 and len(set(losses)) < 2:
+            raise SystemExit(f"[train_mesh] {run.name}: losses do not move "
+                             f"{losses}")
+        c = per[0]["counters"]
+        res[run.name] = {
+            "layers": run.config().num_layers, "batch": [run.batch, run.seq],
+            "steps": run.steps, "loss": losses,
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "param_bytes": [r["param_bytes"] for r in per],
+            "moment_bytes": [r["moment_bytes"] for r in per],
+            "full_param_bytes": per[0]["full_bytes"],
+            "peak_bytes": [r["peak_bytes"] for r in per],
+            "walls_s": [r["walls"] for r in per],
+            "collective_calls": c["calls"], "collective_max_bytes":
+                c["max_bytes"],
+            "launches": {k: sum(r["launches"].get(k, 0) for r in per)
+                         for k in ("mamba_scan", "mamba_scan_bwd",
+                                   "flash_attention", "paged_attention")}}
+        log(f"[train_mesh] {run.name} ({run.arch}, {res[run.name]['layers']} "
+            f"layers, full width, batch {run.batch} x {run.seq}, "
+            f"{run.steps} step(s)) on {card}: losses {losses}; per rank "
+            f"params {res[run.name]['param_bytes']} B and moments "
+            f"{res[run.name]['moment_bytes']} B of {per[0]['full_bytes']} B "
+            f"whole (half of every data-sharded leaf, the rest whole); peak "
+            f"device memory {[r['peak_bytes'] for r in per]} B; collectives "
+            f"{c['calls']}, largest {c['max_bytes']} B; step walls "
+            f"{[[round(w, 3) for w in r['walls']] for r in per]} s "
+            f"(host-staged gloo, two ranks on one card: not a speed); "
+            f"launches {res[run.name]['launches']}")
+    b0, b1 = res["bf16-hoist0"], res["bf16-hoist1"]
+    g0 = b0["collective_calls"]["all_gather"]
+    g1 = b1["collective_calls"]["all_gather"]
+    if g0 != 2 * g1:
+        raise SystemExit(f"[train_mesh] all-gathers: {g0} unhoisted (2 "
+                         f"microbatches) against {g1} hoisted")
+    cmp = compare_states(ranks[0][0]["whole"], one["whole"],
+                         ranks[0][0]["history"], one["history"], fp32.lr)
+    res["fp32"]["vs_single"] = cmp
+    res["fp32"]["single_peak_bytes"] = one["peak_bytes"]
+    res["fp32"]["single_history"] = one["history"]
+    log(f"[train_mesh] fp32 ({TRAIN_MESH_FP32_LAYERS} layers, full width, 2 x "
+        f"{seq}): 2 ranks {ranks[0][0]['history']} | one device "
+        f"{one['history']} | {cmp} (tolerances {TRAIN_MESH_TOL}); single-"
+        f"device peak {one['peak_bytes']} B")
+    if cmp["metric_rel"] > TRAIN_MESH_TOL["metric"] \
+            or max(cmp["m_rel"], cmp["v_rel"]) > TRAIN_MESH_TOL["moment"] \
+            or cmp["param_lr"] > TRAIN_MESH_TOL["param_lr"] \
+            or cmp["ill_param_lr"] > TRAIN_MESH_TOL["ill_param_lr"]:
+        raise SystemExit("[train_mesh] the 2-rank fp32 step differs from the "
+                         "single-device step")
+    del one
+    counts = res["falcon-mamba"]["launches"]
+    if not counts["mamba_scan"] or not counts["mamba_scan_bwd"]:
+        raise SystemExit(f"[train_mesh] falcon-mamba launched {counts}")
+    log(f"[train_mesh] falcon-mamba-7b under the group: K3 "
+        f"{counts['mamba_scan']} and its backward {counts['mamba_scan_bwd']} "
+        "launches over both ranks")
+    print(json.dumps({"train_mesh": res}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3978,6 +4208,8 @@ def main(argv=None) -> None:
     done("nested (a DeviceFlow holding a compiled CondGraph)")
     tcounts = phase_mesh(dev, smi)
     done("mesh (2 gloo ranks on the card)")
+    mcounts_tm = phase_train_mesh(dev, smi)
+    done("train_mesh (sharded training, 2 gloo ranks on the card)")
     report["paged_attention"]["launches"] = counts["paged_attention"] \
         + acounts["paged_attention"] + pcounts["paged_attention"] \
         + scounts["paged_attention"] + dcounts["paged_attention"] \
@@ -3992,9 +4224,11 @@ def main(argv=None) -> None:
         + sum(c["flash_attention"] for c in train_counts) \
         + ecounts["flash_attention"] + tcounts["flash_attention"]
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"] \
-        + mpre["mamba_scan"] + sum(c["mamba_scan"] for c in train_counts)
+        + mpre["mamba_scan"] + sum(c["mamba_scan"] for c in train_counts) \
+        + mcounts_tm["mamba_scan"]
     report["mamba_scan_bwd"]["launches"] = sum(c["mamba_scan_bwd"]
-                                               for c in train_counts)
+                                               for c in train_counts) \
+        + mcounts_tm["mamba_scan_bwd"]
     if not report["mamba_scan_bwd"]["launches"]:
         raise SystemExit("the training phases launched no K3 backward")
     keys = ("name", "route", "source", "replaces", "launches",

@@ -17,6 +17,12 @@ engines (:mod:`repro_torch.serve.tp`).
 * :func:`probe_logits` / :class:`ProbeThenFollow`: the prefill logits of
   one batch on every rank's shard, for the largest logit difference
   against the single-device model.
+* :func:`column_slice_params`: the single-device weights, wrapped so that
+  every product with a weight a rank would hold a column slice of is
+  computed as the ranks compute it (one product per slice, contiguous, the
+  results concatenated): a single-device engine on them does the ranks'
+  arithmetic, to tell the products' shapes from the group's plumbing when
+  a multi-rank engine's tokens differ from the single engine's.
 * :func:`bench_mesh`: the reference's rows, mesh against single tok/s and
   latency over one seeded Poisson trace, per-rank pool bytes and the
   admission capacity at a fixed per-rank byte budget, parity asserted.
@@ -35,7 +41,7 @@ import torch
 
 __all__ = ["parity_prompts", "run_case", "parity_matrix", "probe_logits",
            "ProbeThenFollow", "FollowEach", "bench_mesh", "MATRIX",
-           "PARITY_KW"]
+           "PARITY_KW", "ColumnSlices", "column_slice_params"]
 
 #: (async_decode, prefix_cache) of the parity matrix
 MATRIX = ((False, False), (False, True), (True, False), (True, True))
@@ -126,17 +132,84 @@ class FollowEach:
     session's model, then, each time rank 0 releases the followers, build
     the next of ``specs`` (:class:`repro_torch.launch.mesh.ModelSpec`) and
     follow the engines on it. Rank 0 calls ``release_followers`` once
-    per model, the session's exit the last time."""
+    per model, the session's exit the last time. ``probe``: if given, the
+    follower first joins :func:`probe_logits` on these tokens for each
+    model of ``specs`` (rank 0 calls it there too), and its result is
+    ``{"engines": [...], "allow_bf16_reduced_precision_reduction": its
+    cuBLAS setting}``."""
     specs: Tuple[Any, ...]
+    probe: Tuple[Tuple[int, ...], ...] = ()
 
-    def __call__(self, cfg, params, tp) -> list:
+    def __call__(self, cfg, params, tp):
         from ..serve.tp import follow_engines
         out = [follow_engines(cfg, params, tp)]
         for spec in self.specs:
             del params
             cfg, params = spec(tp.device)
+            if self.probe:
+                probe_logits(cfg, params, tp,
+                             torch.tensor(self.probe, dtype=torch.int32))
             out.append(follow_engines(cfg, params, tp))
-        return out
+        if not self.probe:
+            return out
+        return {"engines": out, "allow_bf16_reduced_precision_reduction":
+                torch.backends.cuda.matmul
+                .allow_bf16_reduced_precision_reduction}
+
+
+_MATMULS = (torch.Tensor.__matmul__, torch.Tensor.matmul,
+            torch._C.TensorBase.matmul, torch.matmul)
+
+
+class ColumnSlices(torch.Tensor):
+    """A weight whose products ``x @ w`` are computed in ``parts``
+    contiguous column slices, concatenated (``parts`` is the subclass's,
+    :func:`column_slice_params` makes one per rank count). Every other
+    operation (indexing, ``unbind``, ``.to``) keeps the wrapper.
+    ``sliced`` counts the products computed so, on each subclass."""
+    parts = 1
+    sliced = 0
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func in _MATMULS and \
+                len(args) == 2 and not kwargs and \
+                isinstance(args[1], ColumnSlices) and \
+                not isinstance(args[0], ColumnSlices):
+            with torch._C.DisableTorchFunctionSubclass():
+                x = args[0]
+                w = args[1].as_subclass(torch.Tensor)
+                n = w.shape[-1] // cls.parts
+                cls.sliced += 1
+                return torch.cat([x @ w[..., i * n:(i + 1) * n].contiguous()
+                                  for i in range(cls.parts)], dim=-1)
+        return super().__torch_function__(func, types, args, kwargs or {})
+
+
+def column_slice_params(cfg, params: Dict[str, Any], world: int
+                        ) -> Dict[str, Any]:
+    """``params`` (shared, not copied) with the ``blocks`` weight matrices
+    that :func:`repro_torch.distributed.shard_serve_params` cuts for
+    ``world`` ranks wrapped in :class:`ColumnSlices` of ``world`` parts:
+    a single-device engine on them computes each such product as the
+    ranks do, slice by slice, and concatenates the slices as their
+    all-gathers do."""
+    from ..distributed.sharding import (SERVE_ATTN_LEAVES, SERVE_MLP_LEAVES,
+                                        serve_attn_sharded,
+                                        serve_mlp_sharded)
+    cls = type(f"ColumnSlices{world}", (ColumnSlices,), {"parts": world})
+    attn_ok = serve_attn_sharded(cfg, world)
+    mlp_ok = serve_mlp_sharded(cfg, world)
+
+    def wrap(name: str, t: torch.Tensor) -> torch.Tensor:
+        if t.dim() >= 3 and ((attn_ok and name in SERVE_ATTN_LEAVES)
+                             or (mlp_ok and name in SERVE_MLP_LEAVES)):
+            return t.as_subclass(cls)
+        return t
+
+    out = dict(params)
+    out["blocks"] = {k: wrap(k, v) for k, v in params["blocks"].items()}
+    return out
 
 
 def bench_mesh(quick: bool = False, mesh_model: int = 2, device=None,

@@ -1,9 +1,10 @@
-"""Tensor-parallel serving rules over ``torch.distributed``.
+"""Sharding over ``torch.distributed``: the serving rules (tensor-parallel
+serving) and the training rules (the FSDP/dp/tp table), kept free of JAX.
 
-The port of the serving half of ``repro.distributed.sharding``
+**Serving** — the port of the serving half of ``repro.distributed.sharding``
 (``MeshDivisibilityError``, ``serve_attn_sharded``, ``serve_mlp_sharded``,
 ``validate_serve_mesh``, ``serve_param_specs``, ``serve_pool_spec``,
-``gather_tp``), kept free of JAX. The reference shards with a device mesh
+``gather_tp``). The reference shards with a device mesh
 and ``shard_map``; here each rank is a process holding its shard, and the
 serve engine (:mod:`repro_torch.serve.engine`, ``tp=``) drives them.
 
@@ -27,19 +28,35 @@ all-gather far below a pool shard).
 :func:`gather_tp` is live only inside :meth:`TPGroup.active` on the
 calling thread (the counterpart of the reference's manual ``ShardCtx``
 inside ``shard_map``); elsewhere it is the identity.
+
+**Training** — the port of the rest: :class:`ShardCtx` (``dp``, ``fsdp``,
+``tp``, ``sp``), :func:`logical_to_spec`, the per-leaf rule table
+(:func:`_rule`, with its divisibility guard) and :func:`param_specs`. A
+:class:`Mesh` is a grid of ranks in rank order (row-major over its axes,
+as ``jax.make_mesh`` lays out devices in order); a spec is a plain tuple
+with one entry per dimension: ``None``, a mesh axis name or a tuple of
+names. :class:`NamedSharding` (a mesh and a spec) cuts a full tensor into
+a rank's block and reassembles the blocks. XLA partitions the reference's
+step; here each rank is a process holding its blocks, and
+:class:`MeshGroup` runs the step's explicit, counted collectives over the
+subgroups of each mesh axis.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 __all__ = ["MeshDivisibilityError", "serve_attn_sharded",
            "serve_mlp_sharded", "validate_serve_mesh", "shard_serve_params",
-           "TPGroup", "gather_tp", "SERVE_ATTN_LEAVES", "SERVE_MLP_LEAVES"]
+           "TPGroup", "gather_tp", "SERVE_ATTN_LEAVES", "SERVE_MLP_LEAVES",
+           "Mesh", "ShardCtx", "logical_to_spec", "constrain",
+           "param_specs", "NamedSharding", "axes_of", "MeshGroup"]
 
 
 class MeshDivisibilityError(ValueError):
@@ -216,3 +233,453 @@ def gather_tp(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if tp is None or tp.world == 1:
         return x
     return tp.all_gather(x, dim)
+
+
+# --------------------------------------------------------------------------- #
+# training: the mesh, the context and the rule table
+# --------------------------------------------------------------------------- #
+
+#: one dimension's entry of a spec: unsharded, one mesh axis, or several
+Axis = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Axis, ...]
+
+
+def axes_of(axis: Axis) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, as a tuple (major to minor)."""
+    if axis is None:
+        return ()
+    return tuple(axis) if isinstance(axis, tuple) else (axis,)
+
+
+class Mesh:
+    """A grid of ranks (the counterpart of ``jax.sharding.Mesh`` over
+    devices): ``shape`` maps each axis name to its size, in order, and rank
+    ``r`` sits at the row-major coordinates of ``r`` (the last axis
+    fastest), as ``jax.make_mesh`` lays out devices in order. It holds no
+    process group (:class:`MeshGroup` does)."""
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str]):
+        if len(sizes) != len(axis_names) or len(set(axis_names)) != len(
+                axis_names) or any(int(n) < 1 for n in sizes):
+            raise ValueError(f"Mesh: sizes {tuple(sizes)} over axes "
+                             f"{tuple(axis_names)}")
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = {a: int(n) for a, n in
+                                      zip(axis_names, sizes)}
+        self.size = 1
+        for n in self.shape.values():
+            self.size *= n
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on {self}")
+        out = {}
+        for a in reversed(self.axis_names):
+            rank, out[a] = divmod(rank, self.shape[a])
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def axis_size(self, axes: Sequence[str]) -> int:
+        n = 1
+        for a in axes:
+            n *= self.shape[a]
+        return n
+
+    def axis_index(self, axes: Sequence[str], rank: int) -> int:
+        """``rank``'s position along ``axes`` taken together (the first
+        axis major): the block of a dimension sharded over ``axes`` that
+        it holds."""
+        c = self.coords(rank)
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + c[a]
+        return i
+
+    def axis_ranks(self, axes: Sequence[str], rank: int) -> List[int]:
+        """The ranks that share ``rank``'s coordinates off ``axes``, in the
+        order of :meth:`axis_index` along ``axes``."""
+        base = self.coords(rank)
+        out = []
+        for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = dict(base)
+            c.update(zip(axes, idx))
+            out.append(self.rank_of(c))
+        return out
+
+    def axis_groups(self, axes: Sequence[str]) -> List[List[int]]:
+        """Every group of :meth:`axis_ranks` along ``axes``, in the order of
+        their first rank."""
+        seen, out = set(), []
+        for r in range(self.size):
+            if r not in seen:
+                g = self.axis_ranks(axes, r)
+                seen.update(g)
+                out.append(g)
+        return out
+
+
+@dataclasses.dataclass
+class ShardCtx:
+    """The logical axes of the reference's ``ShardCtx`` over a
+    :class:`Mesh` of ranks: ``dp`` (the batch), ``fsdp`` (parameter and
+    optimizer state, ZeRO-3 style; may span several axes), ``tp`` and
+    ``sp``. ``group``: this process's :class:`MeshGroup` (its rank, its
+    device and the collectives); None for the rule table alone, or for a
+    mesh of one rank."""
+    mesh: Optional[Mesh]
+    dp: Tuple[str, ...] = ("data",)
+    fsdp: Optional[Any] = "data"
+    tp: Optional[str] = "model"
+    sp: Optional[str] = "model"
+    group: Optional["MeshGroup"] = None
+
+    def axis_size(self, logical: str) -> int:
+        if self.mesh is None:
+            return 1
+        names = {"dp": self.dp, "fsdp": axes_of(self.fsdp),
+                 "tp": axes_of(self.tp), "sp": axes_of(self.sp)}[logical]
+        return self.mesh.axis_size(names)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank on the mesh (0 on a mesh of one)."""
+        if self.group is not None:
+            return self.group.rank
+        if self.mesh is None or self.mesh.size == 1:
+            return 0
+        raise ValueError(f"a ShardCtx on {self.mesh} without a MeshGroup "
+                         "has no rank of its own; pass the rank")
+
+
+def logical_to_spec(ctx: ShardCtx, logical: Sequence[Any]) -> Spec:
+    """Translate ('dp', None, 'tp') style logical specs to a spec tuple."""
+    out: List[Axis] = []
+    for a in logical:
+        if a is None:
+            out.append(None)
+        elif a == "dp":
+            out.append(ctx.dp if len(ctx.dp) > 1 else ctx.dp[0])
+        elif a == "fsdp":
+            out.append(ctx.fsdp)
+        elif a in ("tp", "sp"):
+            out.append(getattr(ctx, a))
+        else:  # raw mesh axis name
+            out.append(a)
+    return tuple(out)
+
+
+def constrain(x: Any, *logical: Any) -> Any:
+    """The identity. The reference pins an activation's layout for XLA's
+    partitioner with ``with_sharding_constraint``; here no compiler
+    partitions the step (each rank runs its own rows explicitly, see
+    :func:`repro_torch.train.train_step.make_train_step`), so there is
+    nothing to constrain."""
+    return x
+
+
+def _divisible(dim: int, ctx: ShardCtx, axis) -> bool:
+    if axis is None or ctx.mesh is None:
+        return False
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    size = 1
+    for a in axes:
+        size *= ctx.mesh.shape[a]
+    return dim % size == 0
+
+
+def _rule(path: str, shape: Tuple[int, ...], ctx: ShardCtx) -> Spec:
+    """The spec of one parameter (path is '/'-joined key names): the
+    reference's table, leaf for leaf."""
+    tp, fsdp = ctx.tp, ctx.fsdp
+    leaf = path.rsplit("/", 1)[-1]
+
+    def guard(spec_axes):
+        """Drop mesh axes that do not divide the dim (uneven shards)."""
+        return tuple(ax if _divisible(dim, ctx, ax) else None
+                     for dim, ax in zip(shape, spec_axes))
+
+    if leaf in ("embed", "pos_embed"):
+        return guard((tp, fsdp))                       # (V, D)
+    if leaf == "lm_head":
+        return guard((fsdp, tp))                       # (D, V)
+    if leaf in ("wq", "wk", "wv", "wi", "wg", "in_proj", "dt_proj",
+                "shared_wi", "shared_wg", "dense_wi", "dense_wg",
+                "fused_proj"):
+        return guard((fsdp, tp))                       # column parallel
+    if leaf in ("wo", "wd", "out_proj", "shared_wd", "dense_wd"):
+        return guard((tp, fsdp))                       # row parallel
+    if leaf in ("bq", "bk", "bv"):
+        return guard((tp,))
+    if leaf == "router":
+        return guard((fsdp, None))                     # (D, E)
+    if leaf in ("e_wi", "e_wg"):                       # (E, D, F)
+        if _divisible(shape[0], ctx, tp):
+            return guard((tp, fsdp, None))
+        return guard((None, fsdp, tp))
+    if leaf == "e_wd":                                 # (E, F, D)
+        if _divisible(shape[0], ctx, tp):
+            return guard((tp, None, fsdp))
+        return guard((None, tp, fsdp))
+    if leaf in ("conv_w", "conv_b", "x_proj", "A_log", "ssm_D", "dt_bias",
+                "ssm_norm"):
+        return guard((tp,) + (None,) * (len(shape) - 1))  # (dI, ...)
+    # norms / scalars / biases: replicated
+    return (None,) * len(shape)
+
+
+def param_specs(params: Any, ctx: ShardCtx, stacked_prefixes=("blocks",),
+                lead: int = 1) -> Any:
+    """Tree of specs matching ``params`` (nested dicts whose leaves have a
+    ``shape``); leaves under a stacked prefix (the layer stack) get
+    ``lead`` leading unsharded dims."""
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            return {k: visit(v, f"{path}/{k}" if path else str(k))
+                    for k, v in node.items()}
+        shape = tuple(node.shape)
+        if any(path.startswith(p) for p in stacked_prefixes):
+            return (None,) * lead + _rule(path, shape[lead:], ctx)
+        return _rule(path, shape, ctx)
+
+    return visit(params, "")
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the counterpart of ``jax.sharding.NamedSharding``):
+    which block of a full tensor each rank holds. Dimension ``i`` is cut
+    into ``mesh.axis_size(axes_of(spec[i]))`` equal contiguous blocks, and
+    a rank holds the block at its :meth:`Mesh.axis_index` along those
+    axes; a rank off every axis of the spec holds the whole dimension."""
+    mesh: Mesh
+    spec: Spec
+
+    def _cuts(self, ndim: int):
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        return [axes_of(a) for a in spec]
+
+    def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        out = []
+        for n, axes in zip(shape, self._cuts(len(shape))):
+            k = self.mesh.axis_size(axes)
+            if n % k:
+                raise ValueError(f"dim {n} does not divide over {axes} "
+                                 f"({k} ranks) of {self.mesh}")
+            out.append(n // k)
+        return tuple(out)
+
+    def shard(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """``rank``'s block of the full tensor ``t`` (a view)."""
+        local = self.local_shape(t.shape)
+        for d, axes in enumerate(self._cuts(t.dim())):
+            if axes:
+                i = self.mesh.axis_index(axes, rank)
+                t = t.narrow(d, i * local[d], local[d])
+        return t
+
+    def assemble(self, blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The full tensor from every rank's block (``blocks[r]`` is rank
+        ``r``'s): concatenation in axis order, no arithmetic."""
+        ndim = blocks[0].dim()
+        cuts = self._cuts(ndim)
+        # one representative rank per distinct block, then concatenate the
+        # blocks dimension by dimension (the last cut dim first)
+        grid = {}
+        for r in range(self.mesh.size):
+            key = tuple(self.mesh.axis_index(a, r) if a else 0 for a in cuts)
+            grid.setdefault(key, blocks[r])
+        for d in reversed(range(ndim)):
+            n = self.mesh.axis_size(cuts[d]) if cuts[d] else 1
+            merged = {}
+            for key in sorted({k[:d] + k[d + 1:] for k in grid}):
+                parts = [grid[key[:d] + (i,) + key[d:]] for i in range(n)]
+                merged[key] = torch.cat(parts, dim=d) if n > 1 else parts[0]
+            grid = {k[:d] + (0,) + k[d:]: v for k, v in merged.items()}
+        (full,) = grid.values()
+        return full
+
+    def holds_first(self, rank: int) -> bool:
+        """True for exactly one holder of each distinct block: the rank at
+        coordinate 0 of every mesh axis the spec does not use (a leaf
+        replicated along an axis is held by every rank on it)."""
+        used = {a for entry in self.spec for a in axes_of(entry)}
+        c = self.mesh.coords(rank)
+        return all(c[a] == 0 for a in self.mesh.axis_names if a not in used)
+
+    def nbytes(self, shape: Sequence[int], dtype: torch.dtype) -> int:
+        """The bytes of one rank's block of a ``shape`` leaf."""
+        n = 1
+        for k in self.local_shape(shape):
+            n *= k
+        return n * torch.empty((), dtype=dtype).element_size()
+
+
+# --------------------------------------------------------------------------- #
+# training: the collectives over the mesh's axes
+# --------------------------------------------------------------------------- #
+
+class MeshGroup:
+    """This rank's place on a :class:`Mesh` of ``torch.distributed`` ranks
+    and the collectives of the sharded train step over its axes, each
+    counted by kind (calls, and the largest single collective in bytes) as
+    :class:`TPGroup` counts the serve engine's.
+
+    ``pgs`` maps a tuple of axis names to this rank's process group along
+    those axes (:meth:`create` builds them); a collective over axes whose
+    ranks number one is the identity and is not counted. On gloo every
+    collective used here takes CUDA tensors (it stages them through the
+    host itself), so nothing is copied here."""
+
+    def __init__(self, mesh: Mesh, rank: int, device: Any,
+                 pgs: Optional[Dict[Tuple[str, ...], Any]] = None) -> None:
+        self.mesh = mesh
+        self.rank = rank
+        self.coords = mesh.coords(rank)
+        self.device = torch.device(device)
+        self.pgs = dict(pgs or {})
+        self._lock = threading.Lock()
+        self.calls: Dict[str, int] = {}
+        self.max_bytes: Dict[str, int] = {}
+
+    @classmethod
+    def create(cls, mesh: Mesh, rank: int, device: Any,
+               timeout_s: float) -> Optional["MeshGroup"]:
+        """Build the process groups of every combination of ``mesh``'s axes
+        over world ranks ``0 .. mesh.size - 1``. Collective over the whole
+        default group: every rank of it calls this with the same mesh, in
+        the same order (a world rank off the mesh gets None)."""
+        import datetime
+
+        import torch.distributed as dist
+        if mesh.size > dist.get_world_size():
+            raise ValueError(f"{mesh} needs {mesh.size} ranks; the process "
+                             f"group has {dist.get_world_size()}")
+        td = datetime.timedelta(seconds=timeout_s)
+        on = rank < mesh.size
+        pgs = {}
+        for k in range(1, len(mesh.axis_names) + 1):
+            for axes in itertools.combinations(mesh.axis_names, k):
+                for ranks in mesh.axis_groups(axes):
+                    if len(ranks) == 1:
+                        continue
+                    pg = dist.new_group(ranks=ranks, timeout=td)
+                    if on and rank in ranks:
+                        pgs[axes] = pg
+        return cls(mesh, rank, device, pgs) if on else None
+
+    # -- counting ------------------------------------------------------------
+    def count(self, kind: str, nbytes: int) -> None:
+        with self._lock:
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            self.max_bytes[kind] = max(self.max_bytes.get(kind, 0),
+                                       int(nbytes))
+
+    def counters(self) -> Dict[str, Dict[str, int]]:
+        with self._lock:
+            return {"calls": dict(self.calls),
+                    "max_bytes": dict(self.max_bytes)}
+
+    def reset_counters(self) -> None:
+        with self._lock:
+            self.calls.clear()
+            self.max_bytes.clear()
+
+    # -- collectives ---------------------------------------------------------
+    def _pg(self, axes: Sequence[str]):
+        axes = tuple(axes)
+        if axes != tuple(a for a in self.mesh.axis_names if a in axes):
+            # a process group numbers its ranks in increasing order, which
+            # is Mesh.axis_index's order only for axes in mesh order
+            raise ValueError(f"axes {axes} are not in the order of {self.mesh}")
+        if self.mesh.axis_size(axes) == 1:
+            return None
+        return self.pgs[axes]
+
+    def all_gather(self, x: torch.Tensor, axes: Sequence[str],
+                   dim: int) -> torch.Tensor:
+        """Tiled all-gather over the ranks along ``axes``: their ``x``
+        concatenated along ``dim`` in :meth:`Mesh.axis_index` order."""
+        import torch.distributed as dist
+        pg = self._pg(axes)
+        if pg is None:
+            return x
+        n = self.mesh.axis_size(axes)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        self.count("all_gather", x.numel() * x.element_size() * n)
+        dist.all_gather(parts, x, group=pg)
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes: Sequence[str],
+                       dim: int) -> torch.Tensor:
+        """The sum of ``x`` over the ranks along ``axes``, of which this
+        rank keeps its block along ``dim``."""
+        import torch.distributed as dist
+        pg = self._pg(axes)
+        if pg is None:
+            return x
+        n = self.mesh.axis_size(axes)
+        xt = x.movedim(dim, 0).contiguous()
+        out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        self.count("reduce_scatter", xt.numel() * xt.element_size())
+        dist.reduce_scatter_tensor(out, xt, group=pg)
+        return out.movedim(0, dim).contiguous()
+
+    def all_reduce(self, x: torch.Tensor, axes: Optional[Sequence[str]]
+                   = None, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced (``sum`` or ``max``) over the ranks along ``axes``
+        (None: the whole mesh), in place."""
+        import torch.distributed as dist
+        pg = self._pg(self.mesh.axis_names if axes is None else axes)
+        if pg is None:
+            return x
+        self.count(f"all_reduce_{op}", x.numel() * x.element_size())
+        dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op], group=pg)
+        return x
+
+    def barrier(self) -> None:
+        """Every rank of the mesh reaches this point."""
+        import torch.distributed as dist
+        pg = self._pg(self.mesh.axis_names)
+        if pg is not None:
+            self.count("barrier", 0)
+            dist.barrier(group=pg)
+
+    # -- leaves --------------------------------------------------------------
+    def gather_leaf(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """The full tensor from this rank's block ``t`` of a leaf with
+        ``spec``: one tiled all-gather per sharded dimension."""
+        for d, entry in enumerate(spec):
+            if axes_of(entry):
+                t = self.all_gather(t, axes_of(entry), d)
+        return t
+
+    def reduce_leaf(self, g: torch.Tensor, spec: Spec,
+                    axes: Sequence[str]) -> torch.Tensor:
+        """The sum over the ranks along ``axes`` of the full tensor ``g``,
+        cut to this rank's block for ``spec``: a reduce-scatter along the
+        dimension sharded over exactly ``axes`` (an all-reduce when none
+        is), and a local cut along the others."""
+        axes = tuple(axes)
+        done = None
+        for d, entry in enumerate(spec):
+            if axes_of(entry) == axes:
+                g = self.reduce_scatter(g, axes, d)
+                done = d
+                break
+        if done is None:
+            g = self.all_reduce(g.contiguous(), axes)
+        rest = tuple(None if d == done else e for d, e in enumerate(spec))
+        return NamedSharding(self.mesh, rest).shard(g, self.rank) \
+            .contiguous()

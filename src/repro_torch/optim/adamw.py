@@ -11,6 +11,10 @@ The update is made IN PLACE: the reference's jitted step donates its
 params and moments, and at full width (stablelm-1.6b: 6.6 GB of fp32
 masters, 13.2 GB of moments) a second copy would not be free. The
 returned trees are the ones passed in.
+
+Under a mesh (``shardings`` and ``group``: each leaf is this rank's block)
+the update is the same, element for element; only the clip's grad norm is
+the whole tree's, summed over the ranks (:func:`global_norm`).
 """
 from __future__ import annotations
 
@@ -63,19 +67,32 @@ def init_opt_state(params: Any, cfg: OptConfig) -> Dict[str, Any]:
                                  device=first.device)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+def global_norm(tree: Any, shardings=None, group=None) -> torch.Tensor:
+    """The L2 norm of every leaf together. Sharded (``shardings``: a
+    :class:`repro_torch.distributed.sharding.NamedSharding` per leaf, in
+    leaf order; ``group``: this rank's ``MeshGroup``): each rank sums the
+    squares of the blocks it is the first holder of (a block replicated
+    along an axis counts once), and one all-reduce sums the ranks'."""
+    if group is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves(tree)))
+    flat = leaves(tree)
+    total = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    for x, sh in zip(flat, shardings):
+        if sh.holds_first(group.rank):
+            total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(group.all_reduce(total))
 
 
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
-                 cfg: OptConfig) -> Tuple[Any, Dict[str, Any],
-                                          Dict[str, Any]]:
-    """One AdamW step, in place on ``params`` and ``state["m"/"v"]``.
+                 cfg: OptConfig, shardings=None, group=None
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
+    """One AdamW step, in place on ``params`` and ``state["m"/"v"]``
+    (``shardings``/``group``: this rank's blocks, see :func:`global_norm`).
     Returns ``(params, {"m", "v", "count"}, {"grad_norm", "lr"})``."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings, group)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, count)
     c = count.to(torch.float32)

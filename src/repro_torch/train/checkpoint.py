@@ -20,7 +20,13 @@ reference's spelling; neither side reads it back.
   manifest parses and every data file is there); ``restore`` checks the
   leaf count and each shape;
 * **async** — the trainer snapshots to host memory on its critical path
-  and hands :meth:`save` of the snapshot to a detached host task.
+  and hands :meth:`save` of the snapshot to a detached host task;
+* **sharded** — :func:`gather_to_host` reassembles a sharded state's full
+  leaves on rank 0, which writes them with :meth:`save` (the same bytes as
+  the single-device save) while the other ranks wait
+  (:meth:`CheckpointManager.save_sharded`); :meth:`restore` with
+  ``shardings`` gives each rank its blocks, so a state saved at one rank
+  count restores at another.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import torch
 
 from ..tree import leaves, treedef_str, unflatten
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "gather_to_host"]
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -57,6 +63,27 @@ def _from_raw(raw: bytes, meta: Dict[str, Any]) -> torch.Tensor:
         return torch.from_numpy(arr.copy()).view(torch.bfloat16)
     arr = np.frombuffer(raw, np.dtype(meta["dtype"])).reshape(shape)
     return torch.from_numpy(arr.copy())
+
+
+def _process_rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def gather_to_host(tree: Any, shardings: Any, group) -> Optional[Any]:
+    """The full leaves of a sharded ``tree`` (this rank's blocks; a
+    ``NamedSharding`` per leaf in ``shardings``), copied into host memory
+    on rank 0, leaf by leaf (the device holds one gathered leaf at a time);
+    None on the other ranks. Collective over ``group``."""
+    out = []
+    for t, sh in zip(leaves(tree), leaves(shardings)):
+        full = group.gather_leaf(t, sh.spec) if sh is not None else t
+        out.append(full.detach().to("cpu", copy=True)
+                   if group.rank == 0 else None)
+        del full
+    return unflatten(tree, out) if group.rank == 0 else None
 
 
 class CheckpointManager:
@@ -97,6 +124,18 @@ class CheckpointManager:
         self._gc()
         return final
 
+    def save_sharded(self, step: int, tree: Any, shardings: Any,
+                     group) -> Optional[Path]:
+        """A sharded state's checkpoint: :func:`gather_to_host`, written by
+        rank 0 (the bytes :meth:`save` writes for the unsharded state),
+        then every rank waits for the write. Collective over ``group``.
+        Returns the path on rank 0, None elsewhere."""
+        snap = gather_to_host(tree, shardings, group)
+        path = self.save(step, snap) if snap is not None else None
+        del snap
+        group.barrier()
+        return path
+
     def _gc(self) -> None:
         ckpts = self.all_steps()
         for s in ckpts[:-self.keep] if self.keep else []:
@@ -122,9 +161,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, example_tree: Any, device=None) -> Any:
+    def restore(self, step: int, example_tree: Any, device=None,
+                shardings: Any = None, rank: Optional[int] = None) -> Any:
         """Restore into the structure of ``example_tree``, each leaf in its
-        stored dtype, on ``device`` (None: the example leaf's device)."""
+        stored dtype, on ``device`` (None: the example leaf's device).
+        ``shardings`` (a tree like ``example_tree`` of ``NamedSharding`` or
+        None leaves) restores each leaf as ``rank``'s block (default: this
+        process's rank in the default process group, else 0): the elastic
+        path, whatever the rank count at save."""
+        rank = _process_rank() if rank is None else rank
+        shards = leaves(shardings) if shardings is not None else None
         path = self.dir / f"ckpt_{step:08d}"
         manifest = json.loads((path / "manifest.json").read_text())
         ex_leaves = leaves(example_tree)
@@ -135,15 +181,20 @@ class CheckpointManager:
         out = []
         for i, (meta, ex) in enumerate(zip(manifest["leaves"], ex_leaves)):
             t = _from_raw((path / "data" / f"{i}.bin").read_bytes(), meta)
+            if shards is not None and shards[i] is not None:
+                t = shards[i].shard(t, rank).clone(
+                    memory_format=torch.contiguous_format)
             if tuple(t.shape) != tuple(ex.shape):
                 raise ValueError(f"leaf {i} shape {tuple(t.shape)} != model "
                                  f"{tuple(ex.shape)}")
             out.append(t.to(ex.device if device is None else device))
         return unflatten(example_tree, out)
 
-    def restore_latest(self, example_tree: Any, device=None
+    def restore_latest(self, example_tree: Any, device=None,
+                       shardings: Any = None, rank: Optional[int] = None
                        ) -> Tuple[Optional[int], Any]:
         step = self.latest_step()
         if step is None:
             return None, example_tree
-        return step, self.restore(step, example_tree, device)
+        return step, self.restore(step, example_tree, device, shardings,
+                                  rank)

@@ -28,6 +28,19 @@ the port's work-stealing :class:`repro_torch.core.Executor`.
 Fault tolerance: a failed step cancels the topology; :meth:`Trainer.run`
 restores the newest complete checkpoint and resubmits the graph, up to
 ``max_restarts`` times. ``fail_at_step`` injects one failure (tests).
+
+Sharded (``ctx``: a :class:`repro_torch.distributed.sharding.ShardCtx`
+with a mesh and this rank's ``MeshGroup``): one trainer per rank, every
+rank running the same graph. Each draws the full weights from the seed
+and keeps its blocks (:func:`repro_torch.train.elastic.reshard_state`);
+each makes the global batch from the seed and the sharded step runs its
+``dp`` rows, so no data crosses ranks. ``ckpt-save`` gathers the state
+leaf by leaf into rank 0's host memory, rank 0 writes it and every rank
+waits for the write (no detached write: a collective from a second
+thread could interleave with the step's); a restore gives each rank its
+blocks, whatever the rank count at save. With ``fail_at_step`` every rank
+fails at that step and every rank restarts from the newest checkpoint.
+Rank 0 keeps the history.
 """
 from __future__ import annotations
 
@@ -43,11 +56,13 @@ from ..configs.base import ModelConfig
 from ..core import ACCEL, HOST, Executor, TaskError, Taskflow
 from ..data.pipeline import DataConfig, Prefetcher, SyntheticLM
 from ..device import resolve_device
+from ..distributed.sharding import ShardCtx
 from ..optim.adamw import OptConfig, init_opt_state
 from ..params import init_params
 from ..tree import tree_map
 from .checkpoint import CheckpointManager
-from .train_step import make_train_step
+from .elastic import reshard_state
+from .train_step import make_train_step, opt_shardings, param_shardings
 
 __all__ = ["TrainerConfig", "Trainer", "host_snapshot"]
 
@@ -72,17 +87,30 @@ def host_snapshot(tree: Any) -> Any:
 
 class Trainer:
     """``device`` None means CUDA (and raises without it); the tests pass
-    ``"cpu"``."""
+    ``"cpu"``. Under a ``ctx`` with a mesh the device is its group's."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainerConfig,
                  batch: int, seq_len: int,
                  opt: Optional[OptConfig] = None,
                  ckpt_dir: Optional[str] = None,
                  executor: Optional[Executor] = None,
-                 device=None):
+                 device=None, ctx: Optional[ShardCtx] = None):
         self.cfg = cfg
         self.tc = tc
         self.opt = opt or OptConfig()
+        self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
+        self.group = None
+        self._shard = None
+        if self.ctx is not None:
+            self.group = self.ctx.group
+            if self.group is None:
+                raise ValueError("Trainer(ctx=): the ctx needs its "
+                                 "MeshGroup (repro_torch.launch.mesh."
+                                 "mesh_ctx)")
+            device = self.group.device
+            pshard = param_shardings(cfg, self.ctx)
+            self._shard = {"params": pshard,
+                           "opt": opt_shardings(cfg, self.ctx, pshard)}
         self.device = resolve_device(device)
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self._own_executor = executor is None
@@ -94,7 +122,8 @@ class Trainer:
                                            cfg.frontend != "none" else 0),
             d_model=cfg.d_model))
         self._step_fn = make_train_step(cfg, self.opt,
-                                        microbatches=tc.microbatches)
+                                        microbatches=tc.microbatches,
+                                        ctx=self.ctx)
         self.history: List[Dict[str, float]] = []
         self._failed_once = False
 
@@ -104,12 +133,18 @@ class Trainer:
         on the trainer's device, seeded with ``tc.seed``; zero moments."""
         g = torch.Generator(device=self.device).manual_seed(self.tc.seed)
         params = init_params(self.cfg, g, device=self.device, cast=False)
+        if self.ctx is not None:     # keep this rank's blocks
+            params = reshard_state(self.cfg, {"params": params},
+                                   self.ctx)["params"]
         return {"params": params, "opt": init_opt_state(params, self.opt),
                 "step": 0}
 
     def _restore_latest(self, state: Dict[str, Any]) -> Optional[int]:
+        if self.group is not None:    # every rank sees the same newest one
+            self.group.barrier()
         s, restored = self.ckpt.restore_latest(
-            {"params": state["params"], "opt": state["opt"]}, self.device)
+            {"params": state["params"], "opt": state["opt"]}, self.device,
+            self._shard, None if self.ctx is None else self.ctx.rank)
         if s is not None:
             state["params"] = restored["params"]
             state["opt"] = restored["opt"]
@@ -175,7 +210,9 @@ class Trainer:
                     state["params"], state["opt"], batch)
                 state["params"], state["opt"] = params, opt_state
                 state["step"] = step + 1
-                if step % tc.log_every == 0 or step + 1 == tc.total_steps:
+                if (step % tc.log_every == 0
+                        or step + 1 == tc.total_steps) and \
+                        (self.group is None or self.group.rank == 0):
                     names = sorted(metrics)
                     vals = torch.stack([metrics[k].float() for k in names])
                     m = dict(zip(names, vals.tolist()))   # the one sync
@@ -193,8 +230,11 @@ class Trainer:
         t_ckpt_cond = tf.condition(ckpt_due, name="ckpt?")
 
         def save(sf):
-            # snapshot on the critical path, write detached (async ckpt)
             step = state["step"]
+            if self.group is not None:   # rank 0 writes, the others wait
+                self._save_sharded(step, state)
+                return
+            # snapshot on the critical path, write detached (async ckpt)
             snap = host_snapshot({"params": state["params"],
                                "opt": state["opt"]})
             sf.static(lambda: self.ckpt.save(step, snap), name="ckpt-write")
@@ -217,6 +257,15 @@ class Trainer:
 
         self.executor.run(tf).wait()
         if self.ckpt is not None and state["step"] >= tc.total_steps:
-            self.ckpt.save(state["step"],
-                           host_snapshot({"params": state["params"],
-                                       "opt": state["opt"]}))
+            if self.group is not None:
+                self._save_sharded(state["step"], state)
+            else:
+                self.ckpt.save(state["step"],
+                               host_snapshot({"params": state["params"],
+                                              "opt": state["opt"]}))
+
+    def _save_sharded(self, step: int, state: Dict[str, Any]) -> None:
+        with self._device_scope():
+            self.ckpt.save_sharded(
+                step, {"params": state["params"], "opt": state["opt"]},
+                self._shard, self.group)

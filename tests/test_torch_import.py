@@ -47,7 +47,13 @@ def test_import_without_gpu_leaves_jax_out():
         "repro_torch.launch.mesh, repro_torch.serve.tp, "
         "repro_torch.bench.serve_mesh, repro_torch.examples.placement_loop, "
         "repro_torch.examples.serve_lm, repro_torch.examples.train_lm, "
-        "repro_torch.examples.lsdnn_inference\n"
+        "repro_torch.examples.lsdnn_inference, repro_torch.train.elastic, "
+        "repro_torch.train.train_step, repro_torch.train.checkpoint, "
+        "repro_torch.bench.train_mesh\n"
+        "from repro_torch.launch.mesh import MeshSession, make_ctx, "
+        "mesh_ctx, small_mesh\n"
+        "from repro_torch.distributed import Mesh, MeshGroup, "
+        "NamedSharding, ShardCtx\n"
         "from repro_torch.models.lm import forward, loss_fn\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
