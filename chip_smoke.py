@@ -279,6 +279,31 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               over ``data`` and the rest whole; peak memory a rank,
               collectives by kind and step walls (host-staged, not a speed)
               are printed, with a JSON line ``{"train_mesh": ...}``;
+11f. mesh_durable — durable serving, failure isolation and the per-call
+              baseline under the group: stablelm-1.6b at full width in fp32
+              at 4 layers on two ``gloo`` ranks sharing the card against
+              the single-device engine: with the journal and the prefix
+              cache, tokens and journal records (timestamps aside) equal,
+              the snapshot's bytes equal to those of the single-device
+              engine that computes the ranks' column slices, and to the
+              plain single engine's but for KV pages within 1e-5 of
+              their largest magnitude (cuBLAS's fp32 kernels differ by
+              the GEMM's width); a fresh 2-rank engine restored from the
+              snapshot serves a known prefix warm with the same tokens;
+              ``chunk_sync_exc:at=2`` fails the same two requests
+              ``RowFailed`` and the later tokens are equal; the per-call
+              baseline's tokens are equal; a 2-rank incarnation killed by
+              ``crash_at:at=3`` takes its follower down and a fresh 2-rank
+              incarnation recovers an uncrashed engine's tokens; snapshot
+              and restore seconds printed, a JSON line
+              ``{"mesh_durable": ...}``;
+11g. dryrun — the dry run (``repro_torch.distributed.op_analysis``: the
+              step on the meta device, nothing launched) set beside the
+              train phases: stablelm-1.6b's single-device step at 8 x 2048
+              predicts the trainer's state and batch bytes exactly, its
+              predicted peak printed beside ``max_memory_allocated``; the
+              predicted collectives of train_mesh's runs equal its live
+              counters; a JSON line ``{"dryrun": ...}``;
 12. report  — one JSON line of per-kernel numbers (K1-K4, K3's backward
               and ``cond_graph``), the card line, and the final
               ``{"ok": true, ...}`` line.
@@ -2897,14 +2922,10 @@ def _sharded_leaf_bytes(shapes_specs) -> int:
     return total
 
 
-def phase_train_mesh(dev, card: str) -> dict:
-    """Sharded training on TRAIN_MESH_RANKS gloo ranks sharing the card
-    (this process and one spawned rank, one ``MeshSession``); returns the
-    ranks' K3 and K3-backward launches."""
-    from repro_torch.bench.train_mesh import (Runs, TrainRun,
-                                              compare_states, single_run)
-    from repro_torch.launch.mesh import MeshSession
-
+def _train_mesh_runs() -> tuple:
+    """The train_mesh phase's runs: fp32, bf16 unhoisted and hoisted,
+    falcon-mamba."""
+    from repro_torch.bench.train_mesh import TrainRun
     pre, seq = TRAIN_MESH_PRESET, TRAIN_MESH_SEQ
     fp32 = TrainRun("fp32", preset=pre, overrides=(
         ("compute_dtype", "float32"), ("num_layers", TRAIN_MESH_FP32_LAYERS)),
@@ -2917,7 +2938,21 @@ def phase_train_mesh(dev, card: str) -> dict:
     falcon = TrainRun("falcon-mamba", "falcon-mamba-7b", pre, (
         ("num_layers", TRAIN_MESH_FALCON_LAYERS),), batch=2, seq=seq,
         steps=1, lr=3e-4)
-    runs = (fp32, *bf16, falcon)
+    return (fp32, *bf16, falcon)
+
+
+def phase_train_mesh(dev, card: str) -> dict:
+    """Sharded training on TRAIN_MESH_RANKS gloo ranks sharing the card
+    (this process and one spawned rank, one ``MeshSession``); returns each
+    run's summary (``res["falcon-mamba"]["launches"]``: the ranks' K3 and
+    K3-backward launches)."""
+    from repro_torch.bench.train_mesh import (Runs, compare_states,
+                                              single_run)
+    from repro_torch.launch.mesh import MeshSession
+
+    seq = TRAIN_MESH_SEQ
+    runs = _train_mesh_runs()
+    fp32 = runs[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     with MeshSession(TRAIN_MESH_RANKS, "gloo", Runs(runs), dev,
@@ -3009,7 +3044,286 @@ def phase_train_mesh(dev, card: str) -> dict:
     print(json.dumps({"train_mesh": res}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return res
+
+
+# --------------------------------------------------------------- phase 11f
+#: the mesh_durable phase: stablelm-1.6b at full width in fp32 at
+#: MESH_FP32_LAYERS layers (TF32 off), the parity prompts (lengths 23 to
+#: 41, two sharing prompt 0's first 16 and 12 tokens), new tokens a request
+MESH_DURABLE_DIR = Path("build") / "mesh_durable"
+MESH_DURABLE_NEW = 12
+MESH_DURABLE_FAULT = "chunk_sync_exc:at=2"
+#: the 2-rank snapshot against the plain single-device engine's: the
+#: trie, queue and metadata equal, the KV pages within this share of their
+#: largest magnitude. The ranks' K and V projections are column slices of
+#: the single GEMM, for which cuBLAS picks other fp32 kernels on the card
+#: (PR 27 call 1: 7.4e-6 of a 4.7 page maximum, 1.6e-6). Byte for byte,
+#: the snapshot equals the single-device engine that computes those
+#: slices (``column_slice_params``), as on the CPU it equals the plain one.
+MESH_SNAPSHOT_REL = 1e-5
+#: how long a follower may outlive its crashed rank 0
+MESH_FOLLOWER_GONE_S = 60.0
+
+
+def _pid_gone(pid: int) -> bool:
+    """The process has exited (or is a zombie nobody reaped)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except FileNotFoundError:
+        return True
+
+
+def phase_mesh_durable(dev, card: str) -> dict:
+    """Durable serving, failure isolation and the per-call baseline under
+    a tensor-parallel group on the card: stablelm-1.6b at full width in
+    fp32 at MESH_FP32_LAYERS layers, 2 gloo ranks sharing the card (this
+    process and one spawned follower) against the single-device engine
+    on the same weights. The 2-rank engine's tokens (journal on, prefix
+    cache on, the prompts in two waves) and journal records must equal the
+    single engine's, its snapshot bytes the single-device engine's that
+    computes the ranks' column slices (``column_slice_params``), and its
+    snapshot the plain single engine's but for its KV pages, which stay
+    within MESH_SNAPSHOT_REL; a fresh 2-rank engine restored
+    from that snapshot serves prompt 4 warm with the same tokens;
+    ``chunk_sync_exc:at=2`` fails the same two requests ``RowFailed`` as
+    on one device and the later tokens are equal; the per-call baseline's
+    tokens are equal; a 2-rank incarnation (``repro_torch.launch.
+    incarnation --mesh-model 2``) killed by ``crash_at:at=3`` takes its
+    follower down within MESH_FOLLOWER_GONE_S and a fresh 2-rank
+    incarnation recovers an uncrashed engine's tokens. Returns both
+    ranks' K1 and K2 launches over the 2-rank engines."""
+    import shutil
+
+    from repro_torch.bench.serve_mesh import (PARITY_KW, column_slice_params,
+                                              compare_snapshots, durable_case,
+                                              isolation_case,
+                                              journal_records,
+                                              parity_prompts, restore_case)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import incarnation
+    from repro_torch.launch.mesh import ModelSpec, TPSession
+    from repro_torch.serve.engine import ServeEngine
+
+    spec = ModelSpec("stablelm-1.6b", MESH_PRESET, 0, (
+        ("compute_dtype", "float32"), ("num_layers", MESH_FP32_LAYERS)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(MESH_DURABLE_DIR, ignore_errors=True)
+    cfg, params = spec(dev)
+    prompts = parity_prompts(cfg.vocab_size)
+    n, fault = MESH_DURABLE_NEW, MESH_DURABLE_FAULT
+    t0 = time.perf_counter()
+    single = durable_case(cfg, params, dev, MESH_DURABLE_DIR / "single",
+                          prompts, n)
+    sliced = durable_case(cfg, column_slice_params(cfg, params, MESH_RANKS),
+                          dev, MESH_DURABLE_DIR / "sliced", prompts, n)
+    s_iso = isolation_case(lambda: ServeEngine(
+        cfg, params, device=dev, fault_inject=fault, **PARITY_KW), prompts, n)
+    with ServeEngine(cfg, params, device=dev, **PARITY_KW) as eng:
+        s_pc = eng._generate_grouped(prompts, n)
+    t_single = time.perf_counter() - t0
+    before = ops.launch_counts()
+    t1 = time.perf_counter()
+    with TPSession(MESH_RANKS, "gloo", spec, dev, timeout=600.0) as s:
+        t_up = time.perf_counter() - t1
+        mesh = durable_case(cfg, params, dev, MESH_DURABLE_DIR / "mesh",
+                            prompts, n, tp=s.tp)
+        warm = restore_case(cfg, params, dev, mesh["snapshot"], prompts[4],
+                            n, tp=s.tp)
+        m_iso = isolation_case(lambda: ServeEngine(
+            cfg, params, device=dev, tp=s.tp, fault_inject=fault,
+            **PARITY_KW), prompts, n)
+        with ServeEngine(cfg, params, device=dev, tp=s.tp,
+                         **PARITY_KW) as eng:
+            m_pc = eng._generate_grouped(prompts, n)
+        counters = s.tp.counters()
+    t_mesh = time.perf_counter() - t1
+    after = ops.launch_counts()
+    counts = {k: after[k] - before[k]
+              for k in ("paged_attention", "flash_attention")}
+    fcounts = {k: sum(e["launches"].get(k, 0)
+                      for e in s.followers[0]["result"]) for k in counts}
+    if min(fcounts.values()) <= 0 or min(counts.values()) <= 0:
+        raise SystemExit(f"[mesh_durable] launches: rank 0 {counts}, "
+                         f"follower {fcounts}")
+
+    def same(a, b):
+        return len(a) == len(b) and all(np.array_equal(x, y)
+                                        for x, y in zip(a, b))
+
+    vs_sliced = compare_snapshots(sliced["snapshot"], mesh["snapshot"])
+    vs_single = compare_snapshots(single["snapshot"], mesh["snapshot"])
+    checks = {
+        "tokens": same(single["outs"], mesh["outs"])
+        and same(sliced["outs"], mesh["outs"]),
+        "journal_records": journal_records(single["journal"])
+        == journal_records(mesh["journal"]),
+        "snapshot_bytes_vs_column_slices": vs_sliced["bytes_equal"],
+        "snapshot_vs_single": vs_single["rest_equal"]
+        and vs_single["pages_max_abs"]
+        <= MESH_SNAPSHOT_REL * vs_single["pages_max"],
+        "restored_warm": warm["warm_hits"] > 0
+        and np.array_equal(warm["out"], single["outs"][4]),
+        "isolation_failed_ids": s_iso[0] == m_iso[0] == [0, 1],
+        "isolation_later_tokens": same(s_iso[1], m_iso[1]),
+        "per_call_tokens": same(s_pc, m_pc),
+    }
+    res = {"layers": cfg.num_layers, "checks": checks,
+           "snapshot_vs_single": vs_single,
+           "snapshot_bytes": mesh["snapshot_bytes"],
+           "snapshot_s": {"single": single["snapshot_s"],
+                          "mesh": mesh["snapshot_s"]},
+           "restore_s": warm["restore_s"],
+           "warm_started": warm["warm_started"],
+           "warm_hits": warm["warm_hits"],
+           "collectives": counters, "launches": counts,
+           "follower_launches": fcounts,
+           "seconds": {"single": t_single, "group_up": t_up,
+                       "group": t_mesh}}
+    log(f"[mesh_durable] stablelm-1.6b full width, {cfg.num_layers} layers, "
+        f"fp32, {MESH_RANKS} gloo ranks on {card}: single-device side "
+        f"{t_single:.1f}s, group up in {t_up:.1f}s, group side "
+        f"{t_mesh:.1f}s; snapshot {mesh['snapshot_bytes']} B written in "
+        f"{mesh['snapshot_s']:.3f}s under the group ({single['snapshot_s']:.3f}"
+        f"s on one device), restored in {warm['restore_s']:.3f}s "
+        f"({warm['warm_started']} nodes, {warm['warm_hits']} warm hits); "
+        f"checks {checks}; against the plain single engine's snapshot "
+        f"{vs_single} (its bytes equal: {vs_single['bytes_equal']}); "
+        f"collectives {counters['calls']}; launches rank 0 {counts}, "
+        f"follower {fcounts}")
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"[mesh_durable] failed: {bad}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # crash_at under the group, then recover in a fresh group
+    t2 = time.perf_counter()
+    c32, p32 = incarnation.model(MESH_FP32_LAYERS, dev)
+    with incarnation.engine(c32, p32, dev) as eng:
+        oracle = [np.asarray(o).tolist() for o in eng.generate(
+            incarnation.prompts(c32.vocab_size), incarnation.MAX_NEW)]
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = str(MESH_DURABLE_DIR / "crash")
+    base = ["--state-dir", state, "--layers", str(MESH_FP32_LAYERS),
+            "--mesh-model", str(MESH_RANKS)]
+    ((rc, out, err),) = _durable_procs([base + ["--fault-inject",
+                                                "crash_at:at=3"]])
+    if rc != 137:
+        raise SystemExit(f"[mesh_durable] crash_at: rc {rc}\n{err[-3000:]}")
+    pids = [int(p) for line in out.splitlines()
+            if line.startswith("FOLLOWERS") for p in line.split()[1]
+            .split(",")]
+    t_dead = time.perf_counter()
+    while not all(_pid_gone(p) for p in pids) and \
+            time.perf_counter() - t_dead < MESH_FOLLOWER_GONE_S:
+        time.sleep(0.1)
+    gone_s = time.perf_counter() - t_dead
+    if not pids or not all(_pid_gone(p) for p in pids):
+        raise SystemExit(f"[mesh_durable] followers {pids} outlived rank 0 "
+                         f"by {MESH_FOLLOWER_GONE_S} s")
+    ((rc2, out2, err2),) = _durable_procs([base + ["--no-submit"]])
+    done, _ = _parse_durable(out)
+    _, replayed = _parse_durable(out2)
+    lost = [i for i in range(len(oracle))
+            if (done.get(i) or replayed.get(i)) != oracle[i]]
+    if rc2 != 0 or not replayed or lost:
+        raise SystemExit(f"[mesh_durable] recover: rc {rc2}, replayed "
+                         f"{sorted(replayed)}, wrong or lost {lost}\n"
+                         f"{err2[-3000:]}")
+    res["crash"] = {"followers": pids, "followers_gone_s": gone_s,
+                    "replayed": sorted(replayed), "done": sorted(done),
+                    "seconds": time.perf_counter() - t2}
+    log(f"[mesh_durable] crash_at:at=3 in a {MESH_RANKS}-rank incarnation: "
+        f"rc 137, follower(s) {pids} gone {gone_s:.2f}s after rank 0; a "
+        f"fresh {MESH_RANKS}-rank incarnation replayed {sorted(replayed)} "
+        f"with an uncrashed engine's tokens ({len(done)} done before the "
+        f"crash) in {res['crash']['seconds']:.1f}s")
+    print(json.dumps({"mesh_durable": res}), flush=True)
+    return {k: counts[k] + fcounts[k] for k in counts}
+
+
+# --------------------------------------------------------------- phase 11g
+def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
+    """The dry run (``repro_torch.distributed.op_analysis`` on the meta
+    device, nothing launched) beside what the train and train_mesh phases
+    measured: stablelm-1.6b's single-device step at TRAIN_BATCH x
+    TRAIN_SEQ (TRAIN_MB microbatches, remat as the trainer runs it) must
+    predict the trainer's state bytes plus the batch as its argument
+    bytes exactly, and its predicted peak is printed beside the trainer's
+    ``max_memory_allocated``; for train_mesh's runs on its (2, 1) mesh,
+    one step's predicted collectives (calls times the run's steps, and the
+    largest bytes, by kind) must equal rank 0's live ``MeshGroup``
+    counters."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.op_analysis import (DryMeshGroup,
+                                                     StepCost, analyze_step)
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch.mesh import make_ctx, small_mesh
+    from repro_torch.launch.train import build_cfg
+    from repro_torch.optim import OptConfig
+    from repro_torch.train.train_step import train_input_specs
+
+    t0 = time.perf_counter()
+    cfg, _, _ = build_cfg("stablelm-1.6b", "full")
+    opt = OptConfig(lr=3e-4, warmup_steps=max(10, TRAIN_STEPS // 20),
+                    total_steps=TRAIN_STEPS)
+    step, args, _ = train_input_specs(
+        cfg, ShardCtx(mesh=None), ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"),
+        opt=opt, microbatches=TRAIN_MB)
+    cost = analyze_step(step, *args)
+    del args
+    live_args = train["snapshot_bytes"] + TRAIN_BATCH * TRAIN_SEQ * 4
+    res = {"train": {"argument_bytes": cost.argument_bytes,
+                     "live_argument_bytes": live_args,
+                     "predicted_peak_bytes": cost.peak_bytes,
+                     "measured_peak_bytes": train["peak_bytes"],
+                     "predicted_flops": cost.flops,
+                     "predicted_bytes_accessed": cost.bytes_accessed,
+                     "seconds": time.perf_counter() - t0}}
+    log(f"[dryrun] {cfg.name} single-device step, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {TRAIN_MB} microbatches, on the meta device in "
+        f"{res['train']['seconds']:.1f}s: argument bytes {cost.argument_bytes}"
+        f" predicted, {live_args} live (the trainer's params and AdamW "
+        f"state, {train['snapshot_bytes']} B, and the batch); peak "
+        f"{cost.peak_bytes / 1e9:.3f} GB predicted against "
+        f"{train['peak_bytes'] / 1e9:.3f} GB max_memory_allocated on {card} "
+        f"({cost.peak_bytes / train['peak_bytes']:.3f}x); {cost.flops:.4e} "
+        f"FLOPs, {cost.bytes_accessed:.4e} bytes accessed a step")
+    if cost.argument_bytes != live_args:
+        raise SystemExit("[dryrun] the predicted argument bytes are not the "
+                         "trainer's state and batch")
+    res["train_mesh"] = {}
+    for run in _train_mesh_runs()[:3]:
+        t1 = time.perf_counter()
+        mesh = small_mesh(*run.mesh)
+        ctx = make_ctx(mesh, DryMeshGroup(mesh, 0, StepCost()))
+        step, args, _ = train_input_specs(
+            run.config(), ctx, ShapeSpec("t", run.seq, run.batch, "train"),
+            opt=run.opt(), microbatches=run.microbatches)
+        analyze_step(step, *args, cost=ctx.group.cost)
+        del args
+        one = ctx.group.counters()
+        pred = {"calls": {k: v * run.steps for k, v in one["calls"].items()},
+                "max_bytes": one["max_bytes"]}
+        live = {"calls": train_mesh[run.name]["collective_calls"],
+                "max_bytes": train_mesh[run.name]["collective_max_bytes"]}
+        res["train_mesh"][run.name] = {"predicted": pred, "live": live,
+                                       "seconds": time.perf_counter() - t1}
+        log(f"[dryrun] train_mesh {run.name} ({run.config().num_layers} "
+            f"layers, {run.batch} x {run.seq}, {run.steps} step(s), mesh "
+            f"{run.mesh}): predicted {pred}, live {live} "
+            f"({time.perf_counter() - t1:.1f}s)")
+        if pred != live:
+            raise SystemExit(f"[dryrun] {run.name}: predicted collectives "
+                             "differ from the live counters")
+    print(json.dumps({"dryrun": res}), flush=True)
+    return res
 
 
 # ------------------------------------------------------------------ main
@@ -4182,7 +4496,7 @@ def main(argv=None) -> None:
     gc.collect()              # free qwen2-moe's weights and frozen pool
     torch.cuda.empty_cache()
     done("qwen2-moe serve and steps")
-    phase_train(dev, smi)
+    train = phase_train(dev, smi)
     done("train")
     report["mamba_scan_bwd"] = phase_k3bwd(dev)
     done("K3 backward")
@@ -4208,21 +4522,28 @@ def main(argv=None) -> None:
     done("nested (a DeviceFlow holding a compiled CondGraph)")
     tcounts = phase_mesh(dev, smi)
     done("mesh (2 gloo ranks on the card)")
-    mcounts_tm = phase_train_mesh(dev, smi)
+    tmesh = phase_train_mesh(dev, smi)
+    mcounts_tm = tmesh["falcon-mamba"]["launches"]
     done("train_mesh (sharded training, 2 gloo ranks on the card)")
+    dcounts_tm = phase_mesh_durable(dev, smi)
+    done("mesh_durable (journal, snapshot, restore, isolation, per-call and "
+         "crash_at under 2 gloo ranks)")
+    phase_dryrun(train, tmesh, smi)
+    done("dryrun (the meta-device dry run against the train phases)")
     report["paged_attention"]["launches"] = counts["paged_attention"] \
         + acounts["paged_attention"] + pcounts["paged_attention"] \
         + scounts["paged_attention"] + dcounts["paged_attention"] \
         + ccounts["paged_attention"] + qcounts["paged_attention"] \
         + report["cond_graph"]["k1_sweep"] + ecounts["paged_attention"] \
-        + tcounts["paged_attention"]
+        + tcounts["paged_attention"] + dcounts_tm["paged_attention"]
     report["flash_attention"]["launches"] = counts["flash_attention"] \
         + acounts["flash_attention"] + pcounts["flash_attention"] \
         + scounts["flash_attention"] + dcounts["flash_attention"] \
         + ccounts["flash_attention"] + zcounts["flash_attention"] \
         + zpre["flash_attention"] + qcounts["flash_attention"] \
         + sum(c["flash_attention"] for c in train_counts) \
-        + ecounts["flash_attention"] + tcounts["flash_attention"]
+        + ecounts["flash_attention"] + tcounts["flash_attention"] \
+        + dcounts_tm["flash_attention"]
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"] \
         + mpre["mamba_scan"] + sum(c["mamba_scan"] for c in train_counts) \
         + mcounts_tm["mamba_scan"]

@@ -141,17 +141,15 @@ def _serve_rows(quick: bool, device=None):
         t0 = time.perf_counter()
         with torch.inference_mode():
             for s in lens:
-                toks = torch.from_numpy(
-                    np.stack([p for p in prompts if len(p) == s])).to(dev)
-                cur, cache = eng._prefill_contig(toks, s + max_new + 1)
+                toks = np.stack([p for p in prompts if len(p) == s])
+                key, cur = eng._prefill_contig(toks, s + max_new + 1)
                 seqs = [cur[:, None].cpu()]
                 remaining = max_new - 1
                 while remaining > 0:
                     n = min(chunk, remaining)
-                    cache, ch = eng._decode_n(cache, cur, n)
-                    seqs.append(ch.cpu())
-                    cur = ch[:, -1]
+                    seqs.append(eng._decode_n(key, n).cpu())
                     remaining -= n
+                eng._drop_contig(key)
         loop_dt = time.perf_counter() - t0
 
     if any(o is None or len(o) != max_new for o in outs):

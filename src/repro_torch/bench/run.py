@@ -40,7 +40,11 @@ serve_mesh   — tensor-parallel serving (``--mesh-model N`` ranks, spawned
                over one trace, parity asserted; under ``gloo`` on one card
                or the CPU its speed is not a tensor-parallel speed
 
-Not ported yet (ROADMAP.md Queue 1): ``roofline`` waits for item 14.
+roofline     — the roofline table of the dry run
+               (``repro_torch.launch.dryrun``: every arch x shape on an
+               8-card and a 4 x 8-card H100 mesh, counted on the meta
+               device against the H100 SXM datasheet peaks), its missing
+               cells run first; on the CPU, no device allocation
 
 ``--quick`` shrinks every suite to seconds: table2 20,000 operations,
 fig9 graphs of 1,000 and 5,000 tasks, fig11 1,000 tasks, fig21 1,000
@@ -70,8 +74,8 @@ from datetime import datetime, timezone
 _METRIC_SUFFIXES = ("tok_per_s", "p50_ms", "p99_ms")
 
 #: suites of ``benchmarks/run.py`` the port does not have yet, with the
-#: ROADMAP Queue 1 item each waits for
-NOT_PORTED = {"roofline": "item 14"}
+#: ROADMAP Queue 1 item each waits for (none)
+NOT_PORTED: dict = {}
 
 
 def _git_sha() -> str:
@@ -137,7 +141,7 @@ def suites(dev, quick: bool, prompt_dist: str = "choice",
                    fig21_incremental_timing, journal_gate,
                    obs_overhead_gate,
                    paged_decode_microbench, pipeline_throughput,
-                   serve_continuous, serve_mesh, serve_slo,
+                   roofline_report, serve_continuous, serve_mesh, serve_slo,
                    table2_task_overhead)
     trace = os.path.join(trace_dir, "TRACE_serve.json")
     return {
@@ -174,6 +178,9 @@ def suites(dev, quick: bool, prompt_dist: str = "choice",
         "serve_mesh": lambda: serve_mesh.bench_mesh(
             quick=quick, mesh_model=mesh_model, device=dev,
             backend=tp_backend),
+        "roofline": lambda: roofline_report.bench(
+            quick=quick,
+            path=os.path.join(trace_dir, "results", "dryrun.jsonl")),
     }
 
 

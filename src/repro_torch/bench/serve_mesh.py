@@ -26,6 +26,12 @@ engines (:mod:`repro_torch.serve.tp`).
 * :func:`bench_mesh`: the reference's rows, mesh against single tok/s and
   latency over one seeded Poisson trace, per-rank pool bytes and the
   admission capacity at a fixed per-rank byte budget, parity asserted.
+* :func:`durable_case`, :func:`restore_case`, :func:`isolation_case`,
+  :func:`journal_records`: durable serving and failure isolation on any
+  engine (one device, a group, or the reference's): the prompts in two
+  waves with the journal and the prefix cache, a drain and a snapshot; a
+  restore and a warm request; an injected decode fault with two rows
+  seated, then the other prompts.
 
 Under ``gloo`` on one card (or the CPU) every all-gather is staged through
 host memory: its tok/s and latency are not a tensor-parallel speed.
@@ -41,7 +47,9 @@ import torch
 
 __all__ = ["parity_prompts", "run_case", "parity_matrix", "probe_logits",
            "ProbeThenFollow", "FollowEach", "bench_mesh", "MATRIX",
-           "PARITY_KW", "ColumnSlices", "column_slice_params"]
+           "PARITY_KW", "ColumnSlices", "column_slice_params", "serve_waves",
+           "durable_case", "restore_case", "isolation_case",
+           "journal_records", "compare_snapshots"]
 
 #: (async_decode, prefix_cache) of the parity matrix
 MATRIX = ((False, False), (False, True), (True, False), (True, True))
@@ -98,6 +106,118 @@ def parity_matrix(tp, cfg, params, prompts, max_new: int, device,
         run.update(equal=not diff, first_diff=diff[0] if diff else None,
                    counters=tp.counters())
         out["cases"][f"async={async_decode},prefix={prefix}"] = run
+    return out
+
+
+def serve_waves(eng, prompts: Sequence[np.ndarray], max_new: int
+                ) -> List[np.ndarray]:
+    """Prompt 0 alone, then the rest at once (so a prefix cache's hits do
+    not depend on thread timing); outputs in prompt order."""
+    first = [np.asarray(eng.result(eng.submit(prompts[0], max_new),
+                                   timeout=600.0))]
+    reqs = [eng.submit(p, max_new) for p in prompts[1:]]
+    return first + [np.asarray(eng.result(r, timeout=600.0)) for r in reqs]
+
+
+def durable_case(cfg, params, device, state, prompts, max_new: int,
+                 tp=None, **kw) -> Dict[str, Any]:
+    """The engine (``tp``: rank 0 of a group) with a journal at
+    ``state/journal.wal`` and the prefix cache serves :func:`serve_waves`,
+    drains and writes its snapshot to ``state/engine.snap``: outputs, the
+    snapshot's bytes and the seconds of its write."""
+    from pathlib import Path
+
+    from ..serve.engine import JOURNAL_FILE, SNAPSHOT_FILE, ServeEngine
+    state = Path(state)
+    state.mkdir(parents=True, exist_ok=True)
+    with ServeEngine(cfg, params, tp=tp, device=device, prefix_cache=True,
+                     journal=str(state / JOURNAL_FILE),
+                     **{**PARITY_KW, **kw}) as eng:
+        outs = serve_waves(eng, prompts, max_new)
+        if not eng.drain():
+            raise RuntimeError("durable case: the engine did not settle")
+        t0 = time.perf_counter()
+        nbytes = eng.snapshot(str(state / SNAPSHOT_FILE))
+        snap_s = time.perf_counter() - t0
+    return {"outs": outs, "snapshot_bytes": nbytes, "snapshot_s": snap_s,
+            "journal": str(state / JOURNAL_FILE),
+            "snapshot": str(state / SNAPSHOT_FILE)}
+
+
+def restore_case(cfg, params, device, path, prompt, max_new: int, tp=None,
+                 **kw) -> Dict[str, Any]:
+    """A fresh engine restores the snapshot at ``path`` and serves
+    ``prompt``: its tokens, the restored nodes, the warm hits and the
+    seconds of the restore."""
+    from ..serve.engine import ServeEngine
+    with ServeEngine(cfg, params, tp=tp, device=device, prefix_cache=True,
+                     **{**PARITY_KW, **kw}) as eng:
+        t0 = time.perf_counter()
+        eng.restore(str(path))
+        restore_s = time.perf_counter() - t0
+        out = eng.result(eng.submit(prompt, max_new), timeout=600.0)
+        return {"out": np.asarray(out),
+                "warm_started": eng.stats["warm_started"],
+                "warm_hits": eng._prefix.stats["warm_hits"],
+                "restore_s": restore_s}
+
+
+def isolation_case(make_engine, prompts, max_new: int
+                   ) -> Tuple[List[int], List[np.ndarray]]:
+    """On ``make_engine()`` (an engine with a decode fault injected early):
+    prompts 0 and 1 with 16 new tokens each, seated when the fault fires,
+    then the other prompts. Returns the indices of those that failed
+    ``RowFailed`` (either package's) and the later outputs."""
+    prompts = list(prompts)
+    with make_engine() as eng:
+        reqs = [eng.submit(p, 16) for p in prompts[:2]]
+        failed = []
+        for i, r in enumerate(reqs):
+            try:
+                eng.result(r, timeout=600.0)
+            except Exception as e:      # noqa: BLE001 — typed by name: the
+                if type(e).__name__ != "RowFailed":   # reference's or ours
+                    raise
+                failed.append(i)
+        later = [np.asarray(o) for o in eng.generate(prompts[2:], max_new)]
+    return failed, later
+
+
+def journal_records(path) -> Dict[int, List[Dict[str, Any]]]:
+    """A journal's records by request, in file order: each without its
+    timestamp, ids relative to the run's first (ids are process-wide)."""
+    import json
+    recs = [json.loads(line.split(b" ", 1)[1])
+            for line in open(path, "rb").read().splitlines()]
+    base = min(r["id"] for r in recs)
+    out: Dict[int, List[Dict[str, Any]]] = {}
+    for r in recs:
+        r.pop("t")
+        r["id"] -= base
+        out.setdefault(r["id"], []).append(r)
+    return out
+
+
+def compare_snapshots(a, b) -> Dict[str, Any]:
+    """Two snapshot files: ``bytes_equal``; ``rest_equal`` (the metadata
+    and every array but the KV pages); and the pages' largest difference
+    ``pages_max_abs`` beside their largest magnitude ``pages_max`` (read as
+    the pool's dtype)."""
+    from pathlib import Path
+
+    from ..serve.snapshot import read_snapshot
+    (ma, xa), (mb, xb) = read_snapshot(str(a)), read_snapshot(str(b))
+    rest = ma == mb and set(xa) == set(xb) and all(
+        np.array_equal(xa[k], xb[k]) for k in xa if k != "prefix_pages")
+    out = {"bytes_equal": Path(a).read_bytes() == Path(b).read_bytes(),
+           "rest_equal": rest, "pages_max_abs": 0.0, "pages_max": 0.0}
+    if "prefix_pages" in xa and rest and \
+            xa["prefix_pages"].shape == xb["prefix_pages"].shape:
+        dt = getattr(torch, ma["pool_dtype"])
+        pa, pb = (torch.from_numpy(np.ascontiguousarray(x["prefix_pages"]))
+                  .view(dt).float() for x in (xa, xb))
+        out["pages_max_abs"] = float((pa - pb).abs().max())
+        out["pages_max"] = float(pa.abs().max())
     return out
 
 

@@ -12,6 +12,13 @@ SIGKILL, and run it again on the same state directory.
 
     python -m repro_torch.launch.incarnation --state-dir DIR [--device cpu]
         [--layers N] [--async] [--fault-inject SPEC] [--no-submit]
+        [--mesh-model N]
+
+``--mesh-model N`` serves on an N-rank ``gloo`` group: this process is
+rank 0 (the engine, its journal and its fault injector), ranks 1..N-1 are
+spawned on the same device (:class:`repro_torch.launch.mesh.TPSession`)
+and their pids printed first as ``FOLLOWERS <pid>,...``. A crash of rank 0
+ends them (:func:`repro_torch.launch.mesh.exit_with_parent`).
 
 Without ``--layers`` the model is the smoke config (the CPU tests'); with
 it, the full width cut to the first N layers (the weights are drawn at full
@@ -20,7 +27,9 @@ depth on the device from seed 0 and cut, as ``chip_smoke.py`` draws them).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,6 +63,15 @@ def model(layers, device):
     return dataclasses.replace(cfg, compute_dtype="float32"), params
 
 
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """:func:`model` as a picklable builder (a spawned rank's weights)."""
+    layers: Optional[int] = None
+
+    def __call__(self, device):
+        return model(self.layers, torch.device(device))
+
+
 def prompts(vocab: int):
     rng = np.random.default_rng(7)
     return [rng.integers(1, vocab, size=n).astype(np.int32)
@@ -74,6 +92,8 @@ def main(argv=None) -> None:
     ap.add_argument("--async", dest="async_decode", action="store_true")
     ap.add_argument("--fault-inject", default=None)
     ap.add_argument("--no-submit", action="store_true")
+    ap.add_argument("--mesh-model", type=int, default=1, metavar="N",
+                    help="serve on N gloo ranks on this device")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type == "cpu":
@@ -81,8 +101,23 @@ def main(argv=None) -> None:
     else:
         torch.cuda.set_device(dev)
     cfg, params = model(args.layers, dev)
+    with contextlib.ExitStack() as stack:
+        tp = None
+        if args.mesh_model > 1:
+            from .mesh import TPSession
+            s = stack.enter_context(TPSession(
+                args.mesh_model, "gloo", Model(args.layers), dev))
+            print("FOLLOWERS", ",".join(map(str, s.pids)),
+                  flush=True)
+            tp = s.tp
+        serve(args, cfg, params, dev, tp)
+    print("EXIT CLEAN", flush=True)
+
+
+def serve(args, cfg, params, dev, tp) -> None:
+    """Recover, then serve the new requests, drain and close."""
     eng = engine(cfg, params, dev, async_decode=args.async_decode,
-                 fault_inject=args.fault_inject)
+                 fault_inject=args.fault_inject, tp=tp)
     replayed = eng.recover(args.state_dir)
     for old_id in sorted(replayed):
         out = eng.result(replayed[old_id], timeout=300.0)
@@ -96,7 +131,6 @@ def main(argv=None) -> None:
                   flush=True)
     eng.drain(deadline_s=30.0)
     eng.close()
-    print("EXIT CLEAN", flush=True)
 
 
 if __name__ == "__main__":

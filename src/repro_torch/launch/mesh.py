@@ -20,7 +20,9 @@ of ranks. :func:`mesh_ctx` builds this rank's
 spawns the others, every rank running the same body (SPMD).
 
 Nothing here picks a backend behind the caller's back, and every join and
-collective has a timeout.
+collective has a timeout. A spawned rank whose rank 0 dies (a crash, a
+SIGKILL, ``os._exit``) exits :data:`EXIT_RANK0_LOST` at once, wherever it
+waits: a dead rank 0 ends the session, no follower is left behind.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from ..distributed.sharding import (Mesh, MeshGroup, ShardCtx, TPGroup,
 __all__ = ["init_tp", "check_backend", "env_mesh_model", "BACKENDS",
            "OP_TIMEOUT_S", "IDLE_TIMEOUT_S", "ModelSpec", "TPSession",
            "follower_main", "free_init_method", "make_ctx", "small_mesh",
-           "join_group", "mesh_ctx", "MeshSession"]
+           "join_group", "mesh_ctx", "MeshSession", "EXIT_RANK0_LOST",
+           "exit_with_parent"]
 
 BACKENDS = ("nccl", "gloo")
 #: bound on one collective of the model (a rank that died or hung fails
@@ -46,6 +49,31 @@ OP_TIMEOUT_S = 300.0
 #: bound on a follower's wait for rank 0's next op descriptor, i.e. on
 #: how long an engine may sit idle
 IDLE_TIMEOUT_S = 7 * 24 * 3600.0
+#: a spawned rank's exit code when its rank 0 is gone
+EXIT_RANK0_LOST = 3
+
+
+def exit_with_parent(rank: int) -> None:
+    """In a spawned rank: a daemon thread that waits on the parent
+    process (rank 0) and, once it is gone, exits this process with
+    :data:`EXIT_RANK0_LOST` (``os._exit``: this rank may be blocked in a
+    collective that would otherwise wait out the group's timeout)."""
+    import multiprocessing as mp
+    import sys
+    import threading
+    from multiprocessing.connection import wait
+
+    parent = mp.parent_process()
+    if parent is None:
+        return
+
+    def watch():
+        wait([parent.sentinel])
+        print(f"[rank {rank}] rank 0 (pid {parent.pid}) is gone: exiting "
+              f"{EXIT_RANK0_LOST}", file=sys.stderr, flush=True)
+        os._exit(EXIT_RANK0_LOST)
+
+    threading.Thread(target=watch, name="rank0-watch", daemon=True).start()
 
 
 def env_mesh_model(cfg: Any, available: Optional[int] = None) -> int:
@@ -205,6 +233,7 @@ def follower_main(rank: int, world: int, backend: str, init_method: str,
     import sys
     import traceback
 
+    exit_with_parent(rank)
     try:
         from ..serve.tp import follow_engines
         dev = torch.device(device) if device is not None else None
@@ -283,6 +312,11 @@ class TPSession:
         if err is not None and exc_type is None:
             raise err
 
+    @property
+    def pids(self) -> list:
+        """The spawned ranks' process ids, rank 1 first."""
+        return [p.pid for p in self._procs]
+
     def _join(self) -> list:
         return _join_ranks(self._procs, self._out, self.timeout,
                            "tensor-parallel followers")
@@ -348,6 +382,7 @@ def mesh_rank_main(rank: int, world: int, backend: str, init_method: str,
     import sys
     import traceback
 
+    exit_with_parent(rank)
     try:
         import torch.distributed as dist
         dev = join_group(world, rank, backend, init_method,

@@ -69,9 +69,9 @@ the CPU), its all-gathers staged through host memory. Unset,
 of the KV-head count (and to the GPUs, under ``nccl``); an explicit
 indivisible ``--mesh-model`` raises ``MeshDivisibilityError``. SSM and
 hybrid archs serve on rank 0 with the followers idle. The journal, state
-directory, fault injection, the per-call baseline and the captured decode
-chunk are refused under a group (``TPUnsupported``; the chunk runs
-eagerly).
+directory, fault injection and the per-call baseline work under a group as
+on one device; the decode chunk runs eagerly there (a captured chunk is
+refused, ``TPUnsupported``).
 """
 from __future__ import annotations
 

@@ -190,16 +190,23 @@ chunk, pool scatters, forks, table and carry writes) is one function of
 which broadcasts its descriptor to the followers
 (:func:`repro_torch.serve.tp.serve_follower`, which run the same
 function) and runs rank 0's shard under one lock, so the stage threads never issue collectives in
-different orders on different ranks. Differences from the reference under
-a group: the chunk runs eagerly (``gloo`` collectives cannot be captured;
-``chunk_graph=True`` raises); the prefill runs on the decode stage's
-stream; ``journal=``, ``fault_inject=``, :meth:`snapshot`,
-:meth:`restore`, :meth:`recover`, :meth:`set_journal` and the per-call
-baseline raise :class:`repro_torch.serve.errors.TPUnsupported` (ROADMAP
-item 11(c)); a raising prefill or decode stage breaks the engine (every
-future fails typed) instead of resetting in place, as the followers' state
-cannot be reset with it; SSM and hybrid archs serve here with the
-followers idle (the reference replicates them; the tokens are the same).
+different orders on different ranks. The journal, the fault injector and
+the scheduler live on rank 0; :meth:`snapshot` gathers every rank's heads
+of the indexed pages (the file a single-device engine computing the ranks'
+column-slice products writes, byte for byte), :meth:`restore` writes each
+rank's heads back, :meth:`recover`
+replays on rank 0, failure isolation resets every rank's shard through
+one op, and the per-call baseline keeps each rank's head-sharded
+contiguous cache under its group's key. Differences from the reference
+under a group: the chunk runs eagerly (``gloo`` collectives cannot be
+captured; ``chunk_graph=True`` raises
+:class:`repro_torch.serve.errors.TPUnsupported`); the prefill runs on the
+decode stage's stream; an exception raised INSIDE an op (a follower may
+be left mid-collective) breaks the engine, every future failing typed,
+where one raised between ops (an injected ``chunk_sync_exc``) is isolated
+and reset on every rank as on one device; SSM and hybrid archs serve here
+with the followers idle (the reference replicates them; the tokens are
+the same).
 
 The engine raises :class:`UnsupportedArch` on the modality-frontend archs,
 whose frames the reference engine never feeds either (``lm.prefill`` and
@@ -236,10 +243,13 @@ from .journal import replay as replay_journal
 from .kvcache import BlockPool, init_kv_pool
 from .prefix import PrefixCache
 from .scheduler import Scheduler, ServeRequest
-from .tp import (OP_CARRY_REM, OP_CARRY_ROWS, OP_CHUNK, OP_CLEAR, OP_COPY,
-                 OP_EXTEND, OP_INIT, OP_NAMES, OP_PREFILL, OP_SCATTER,
-                 OP_STOP, OP_TABLE_ROWS, OP_WINDOW, OPS, PAGED_IMPL_CODES,
-                 chunk_step, tp_active)
+from .tp import (HOST_ARGS, OP_CARRY_REM, OP_CARRY_ROWS, OP_CHUNK,
+                 OP_CLEAR, OP_CONTIG_DECODE, OP_CONTIG_DROP,
+                 OP_CONTIG_PREFILL, OP_COPY, OP_EXTEND, OP_GATHER_PAGES,
+                 OP_INIT, OP_NAMES, OP_PREFILL, OP_RESET, OP_SCATTER,
+                 OP_STOP, OP_TABLE_ROWS, OP_WINDOW, OP_WRITE_PAGES, OPS,
+                 PAGED_IMPL_CODES, chunk_step, tp_active)
+from .tp import tensors as _tensors
 from .snapshot import corrupt_snapshot, read_snapshot, write_snapshot
 
 __all__ = ["ServeEngine", "ServeRequest", "UnsupportedArch",
@@ -355,8 +365,8 @@ class ServeEngine:
         (the other ranks run :func:`repro_torch.serve.tp.serve_follower`
         on the same weights), or None for one device. An attention arch
         whose heads the group cannot divide raises
-        :class:`repro_torch.distributed.MeshDivisibilityError`; see the
-        module docstring for what a group refuses.
+        :class:`repro_torch.distributed.MeshDivisibilityError`; a group
+        refuses ``chunk_graph=True`` (see the module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, params,
@@ -404,8 +414,15 @@ class ServeEngine:
         #: the group while it shards this arch (None for SSM and hybrid
         #: archs, which serve here with the followers idle)
         self._tp = None
+        #: the exception an op on sharded state raised under the group (a
+        #: follower may be mid-collective: the engine breaks)
+        self._tp_torn: Optional[BaseException] = None
+        # the per-call baseline's contiguous caches, by group key
+        # (OP_CONTIG_*)
+        self._contig: Dict[int, tuple] = {}
+        self._contig_key = 0
         if tp is not None:
-            self._check_tp(tp, journal, fault_inject, chunk_graph)
+            self._check_tp(tp, chunk_graph)
             chunk_graph = False          # gloo collectives cannot be captured
             if tp_active(cfg, tp):
                 validate_serve_mesh(cfg, tp.world)
@@ -613,28 +630,17 @@ class ServeEngine:
 
     # ------------------------------------------------------------- helpers
     @staticmethod
-    def _check_tp(tp, journal, fault_inject, chunk_graph) -> None:
+    def _check_tp(tp, chunk_graph) -> None:
         """Refuse, typed, what this engine does not do under a group."""
         if tp.rank != 0:
             raise ValueError(f"ServeEngine(tp=...) runs on rank 0; rank "
                              f"{tp.rank} runs repro_torch.serve.tp."
                              "serve_follower")
-        fi = fault_inject or os.environ.get("REPRO_FAULT_INJECT") or None
-        refused = [what for what, v in (
-            ("journal=", journal), ("fault_inject=", fi),
-            ("chunk_graph=True (a captured chunk)", chunk_graph)) if v]
-        if refused:
+        if chunk_graph:
             raise TPUnsupported(
-                f"tensor-parallel serving does not support {refused} "
-                "(ROADMAP item 11(c)): gloo collectives cannot be captured, "
-                "and durability and fault injection are not carried across "
-                "to the followers")
-
-    def _refuse_tp(self, what: str) -> None:
-        if self.tp is not None:
-            raise TPUnsupported(f"{what} is not supported under "
-                                "tensor-parallel serving (ROADMAP item "
-                                "11(c))")
+                "tensor-parallel serving runs its decode chunk eagerly: "
+                "chunk_graph=True (a captured chunk) is refused, as gloo "
+                "collectives cannot be captured")
 
     def _tp_op(self, op: int, *arrays: np.ndarray, key: int = 0):
         """Run the device op ``op`` of :data:`repro_torch.serve.tp.OPS` on
@@ -644,13 +650,18 @@ class ServeEngine:
         op's descriptor (``op``, ``key``, ``arrays``) goes to the
         followers, which run the same function on their shard, and rank
         0's shard runs with the group active."""
+        args = arrays if op in HOST_ARGS else self._to_dev(*arrays)
         tp = self._tp
         if tp is None:
-            return OPS[op](self, key, *self._to_dev(*arrays))
+            return OPS[op](self, key, *args)
         with tp.lock:
-            tp.send(op, key, arrays)
-            with tp.active(OP_NAMES[op]):
-                return OPS[op](self, key, *self._to_dev(*arrays))
+            try:
+                tp.send(op, key, arrays)
+                with tp.active(OP_NAMES[op]):
+                    return OPS[op](self, key, *args)
+            except BaseException as e:
+                self._tp_torn = e
+                raise
 
     def _to_dev(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         """Device copies of ``arrays``. Sync: a blocking copy each. Async:
@@ -773,7 +784,6 @@ class ServeEngine:
         """Attach (or detach, with None) a request :class:`~repro_torch.serve
         .journal.Journal` or its path; a replaced journal is closed.
         Rebindable at idle (the journal gate toggles it on one engine)."""
-        self._refuse_tp("set_journal")
         if isinstance(journal, str):
             journal = Journal(journal)
         old = self._journal
@@ -978,7 +988,6 @@ class ServeEngine:
         so either package restores them. Returns the bytes written. The
         ``snapshot_corrupt`` fault site flips a payload byte after the
         write."""
-        self._refuse_tp("snapshot()")
         if self._journal is not None:
             self._journal.flush()
         meta: Dict[str, Any] = {"paged": self.paged}
@@ -1008,12 +1017,11 @@ class ServeEngine:
             if self.device.type == "cuda":
                 # no scatter still queued may race the copy
                 torch.cuda.synchronize(self.device)
-            ids = torch.as_tensor([n["block"] for n in nodes],
-                                  dtype=torch.long, device=self.device)
-            # (L, 2, N, KV, bs, hd): page i on axis 2 is node i's block;
-            # raw bytes, as the reference stores them (npz keeps bfloat16
-            # only as opaque void)
-            pages = self._pkv.index_select(2, ids).contiguous()
+            # (L, 2, N, KV, bs, hd): page i on axis 2 is node i's block,
+            # every rank's heads; raw bytes, as the reference stores them
+            # (npz keeps bfloat16 only as opaque void)
+            pages = self._tp_op(OP_GATHER_PAGES, np.asarray(
+                [n["block"] for n in nodes], np.int32))
             arrays["prefix_pages"] = pages.view(torch.uint8).cpu().numpy()
             meta["pool_dtype"] = _dtype_name(self._pkv.dtype)
         n = write_snapshot(path, meta, arrays)
@@ -1033,7 +1041,6 @@ class ServeEngine:
         :class:`SnapshotCorrupt` on an integrity, dtype or geometry
         mismatch BEFORE touching engine state: a snapshot can lose warmth,
         never serve wrong tokens."""
-        self._refuse_tp("restore()")
         meta, arrays = read_snapshot(path)
         if bool(meta.get("paged")) != self.paged:
             raise SnapshotCorrupt(
@@ -1063,8 +1070,12 @@ class ServeEngine:
                     f"snapshot pages of shape {raw.shape} (bytes) do not "
                     f"fit a pool of {tuple(pool.shape)}")
             pages = torch.from_numpy(raw).view(pool.dtype)  # re-viewed bytes
-            want = tuple(pool.shape[:2]) + (pages.shape[2],) \
-                + tuple(pool.shape[3:])
+            # the whole pool's geometry: a group's rank 0 holds 1/world of
+            # the heads
+            world = self._tp.world if self._tp is not None else 1
+            want = tuple(pool.shape[:2]) + (pages.shape[2],
+                                            pool.shape[3] * world) \
+                + tuple(pool.shape[4:])
             if int(meta.get("block_size", -1)) != self._pool.block_size \
                     or tuple(pages.shape) != want:
                 raise SnapshotCorrupt(
@@ -1083,10 +1094,10 @@ class ServeEngine:
             n = min(len(entries), max(0, self._pool.num_free_unreserved - 1))
             ids = self._pool.alloc(n) if n > 0 else []
             if ids:
-                pool.index_copy_(
-                    2, torch.as_tensor(ids, dtype=torch.long,
-                                       device=pool.device),
-                    pages[:, :, :len(ids)].to(pool.device))
+                # every rank copies its heads of the pages in, in place
+                words = np.ascontiguousarray(raw[:, :, :len(ids)]) \
+                    .reshape(-1).view(np.int32)
+                self._tp_op(OP_WRITE_PAGES, np.asarray(ids, np.int32), words)
                 created = self._prefix.import_nodes(entries[:len(ids)], ids)
                 with self._state_lock:
                     self.stats["warm_started"] += created
@@ -1102,7 +1113,6 @@ class ServeEngine:
         attach a fresh one at the same path. The snapshot's queue is used
         only without a journal (the journal's submits are a superset).
         Returns ``{old request id: new future}``."""
-        self._refuse_tp("recover()")
         os.makedirs(state_dir, exist_ok=True)
         spath = os.path.join(state_dir, SNAPSHOT_FILE)
         jpath = os.path.join(state_dir, JOURNAL_FILE)
@@ -1316,8 +1326,8 @@ class ServeEngine:
                 with torch.cuda.stream(self._pf_stream):
                     return self._prefill_group(pf, payload)
             except Exception as exc:        # per-group failure isolation
-                if self._tp is not None:
-                    raise       # the followers' state: the engine breaks
+                if self._tp_torn is not None:
+                    raise       # a follower may be mid-collective: break
                 return self._prefill_failed(pf, payload, exc)
 
     def _prefill_failed(self, pf, group, exc):
@@ -2115,9 +2125,11 @@ class ServeEngine:
         address: after a device synchronize (the chunk in flight, and
         window and window-0 prefills on the prefill stream, have finished
         writing) the pool or slot state, the device tables and the carry
-        are zeroed in place; the host ``BlockPool`` and ``PrefixCache`` are
-        new. The reset epoch bumps under the state lock, so retire payloads
-        and admitted groups of the old epoch free and seat nothing. A
+        are zeroed in place, on every rank of a group (:data:`OP_RESET`,
+        at the same point of the op order: the failure was raised between
+        ops); the host ``BlockPool`` and ``PrefixCache`` are new. The reset
+        epoch bumps under the state lock, so retire payloads and admitted
+        groups of the old epoch free and seat nothing. A
         sticky CUDA error makes the synchronize raise: the engine then goes
         broken (every future fails), it never hangs."""
         if self.device.type == "cuda":
@@ -2155,9 +2167,8 @@ class ServeEngine:
         self._rem[:] = 0
         self._pending = None
         self._window_pending = None
+        self._tp_op(OP_RESET)
         if self.paged:
-            self._pkv.zero_()
-            self._tables_dev.zero_()
             self._stall_rem[:] = 0
             self._pref_pos[:] = 0
             self._wp_valid[:] = False
@@ -2168,10 +2179,6 @@ class ServeEngine:
             if self.prefix_cache:
                 self._prefix = PrefixCache(self._pool)
                 self._prefix.set_metrics(metrics)
-        else:
-            for t in _tensors(self._sstate):
-                t.zero_()
-        self._chunk.carry.zero_()
         for b, r in seated:
             if self._tr is not None:
                 self._phase_end(b, now, r)
@@ -2198,8 +2205,8 @@ class ServeEngine:
                 else:
                     out = self._st_decode_sync(pf, msg)
             except Exception as exc:       # per-row failure isolation
-                if self._tp is not None:
-                    raise       # the followers' state: the engine breaks
+                if self._tp_torn is not None:
+                    raise       # a follower may be mid-collective: break
                 out = self._isolate_failure(pf, exc)
         self._wd_beat = time.perf_counter()
         return out
@@ -2663,24 +2670,29 @@ class ServeEngine:
         return [self.result(r, timeout=600.0) for r in reqs]
 
     # ------------------------------------------ per-call baseline (bench)
-    def _prefill_contig(self, tokens: torch.Tensor, max_len: int):
-        """The per-call path's prefill: greedy first tokens (B,) int32 and
-        the contiguous cache of :func:`repro_torch.models.lm.prefill`."""
-        logits, cache = lm.prefill(self.cfg, self.params, tokens,
-                                   max_len=max_len, layers=self._layers)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    def _prefill_contig(self, tokens: np.ndarray, max_len: int) -> tuple:
+        """The per-call path's prefill of one group (host ``tokens`` (B,
+        S)): ``(key, greedy first tokens (B,) int32)``; the contiguous
+        cache of :func:`repro_torch.models.lm.prefill` (``max_len``
+        positions) stays under ``key`` on every rank
+        (:data:`~repro_torch.serve.tp.OP_CONTIG_PREFILL`) until
+        :meth:`_drop_contig`."""
+        self._contig_key += 1
+        key = self._contig_key
+        return key, self._tp_op(OP_CONTIG_PREFILL,
+                                np.ascontiguousarray(tokens, np.int32),
+                                np.asarray([max_len], np.int32), key=key)
 
-    def _decode_n(self, cache, cur: torch.Tensor, n: int):
-        """``n`` greedy contiguous decode steps from ``cur`` (B,), eagerly
-        (the reference jits this as one scan). Returns (cache, (B, n)
-        int32 tokens)."""
-        toks = []
-        for _ in range(n):
-            logits, cache = lm.decode_step(self.cfg, self.params, cache, cur,
-                                           layers=self._layers)
-            cur = torch.argmax(logits, dim=-1).to(torch.int32)
-            toks.append(cur)
-        return cache, torch.stack(toks, dim=1)
+    def _decode_n(self, key: int, n: int) -> torch.Tensor:
+        """``n`` greedy contiguous decode steps of group ``key`` from its
+        last tokens, eagerly (the reference jits this as one scan): the
+        (B, n) int32 tokens."""
+        return self._tp_op(OP_CONTIG_DECODE, np.asarray([n], np.int32),
+                           key=key)
+
+    def _drop_contig(self, key: int) -> None:
+        """Free group ``key``'s contiguous cache on every rank."""
+        self._tp_op(OP_CONTIG_DROP, key=key)
 
     def _generate_grouped(self, prompts: List[Any], max_new: int
                           ) -> List[Any]:
@@ -2689,7 +2701,6 @@ class ServeEngine:
         cache of ``S + max_new + 1`` positions) -> chunked contiguous
         decode -> complete through a throwaway pipeline on the engine's
         executor. It shares no state with the resident pipeline."""
-        self._refuse_tp("the per-call baseline")
         groups: "OrderedDict[int, List[int]]" = OrderedDict()
         arrs = [np.asarray(p, np.int32) for p in prompts]
         for i, a in enumerate(arrs):
@@ -2704,24 +2715,22 @@ class ServeEngine:
             return work.popleft()
 
         def prefill(pf, idxs):
+            toks = np.stack([arrs[i] for i in idxs])
             with self._stage_ctx():
-                toks = torch.from_numpy(np.stack([arrs[i] for i in idxs])
-                                        ).to(self.device)
-                cur, cache = self._prefill_contig(
+                key, cur = self._prefill_contig(
                     toks, toks.shape[1] + max_new + 1)
-            return idxs, cache, cur
+            return idxs, key, cur
 
         def decode(pf, state):
-            idxs, cache, cur = state
+            idxs, key, cur = state
             with self._stage_ctx():
                 chunks = [cur[:, None]]
                 remaining = max_new - 1
                 while remaining > 0:
                     n = min(self.decode_chunk, remaining)
-                    cache, chunk = self._decode_n(cache, cur, n)
-                    chunks.append(chunk)
-                    cur = chunk[:, -1]
+                    chunks.append(self._decode_n(key, n))
                     remaining -= n
+                self._drop_contig(key)
                 seqs = torch.cat(chunks, dim=1).cpu().numpy()
             return idxs, seqs
 
@@ -2765,18 +2774,6 @@ def _dtype_name(dtype: torch.dtype) -> str:
     """numpy's name of a torch dtype (``"bfloat16"``, ``"float32"``): the
     snapshot's ``pool_dtype``, as the reference writes it."""
     return str(dtype).rpartition(".")[2]
-
-
-def _tensors(tree):
-    """Every tensor in a nest of dicts, tuples and lists."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _tensors(v)
 
 
 def _leaves(tree, prefix: str = ""):

@@ -77,8 +77,8 @@ class EngineClosed(ServeError):
 
 class TPUnsupported(ServeError, ValueError):
     """A mode the tensor-parallel engine does not carry across to its
-    followers (the captured chunk, journal, snapshot and restore, fault
-    injection, the per-call baseline): refused at construction or call."""
+    followers (the captured chunk: ``gloo`` collectives cannot be
+    captured): refused at construction."""
 
 
 class SnapshotCorrupt(ServeError):

@@ -32,7 +32,23 @@ code by construction:
 * ``OP_WINDOW``: one chunked-prefill window;
 * ``OP_CHUNK``: one decode chunk, eager under a group
   (``ChunkProgram(graph=False)``; the synchronous engine sends its host
-  carry first).
+  carry first);
+* ``OP_GATHER_PAGES``: the snapshot's pages of the indexed blocks, every
+  rank's heads all-gathered in rank order, so rank 0 writes a
+  single-device engine's file;
+* ``OP_WRITE_PAGES``: restore's page writes; the snapshot's whole pages
+  travel in the descriptor as int32 words of their bytes (a descriptor is
+  broadcast, so each follower receives every head) and each rank copies
+  its own heads into its pool shard;
+* ``OP_RESET``: failure isolation's in-place reset of the pool shard (or
+  slot state), the device tables and the carry;
+* ``OP_CONTIG_PREFILL``, ``OP_CONTIG_DECODE``, ``OP_CONTIG_DROP``: the
+  per-call baseline's contiguous prefill and ``n``-step greedy decode,
+  each rank's head-sharded contiguous cache kept under the group's key.
+
+The ops of :data:`HOST_ARGS` take the descriptor's host arrays as they
+are (their counts set Python loop bounds, which a device copy would have
+to read back); every other op gets device copies.
 """
 from __future__ import annotations
 
@@ -43,8 +59,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import (TPGroup, shard_serve_params,
-                                    validate_serve_mesh)
+from ..distributed.sharding import (TPGroup, gather_tp,
+                                    shard_serve_params, validate_serve_mesh)
 from ..kernels import ops as kernel_ops
 from ..models import lm
 from .chunk_graph import ChunkProgram
@@ -55,16 +71,21 @@ __all__ = ["serve_follower", "follow_engines", "release_followers",
            "tp_active", "chunk_step", "OPS", "OP_STOP", "OP_EXIT", "OP_INIT", "OP_PREFILL",
            "OP_SCATTER", "OP_TABLE_ROWS", "OP_EXTEND", "OP_COPY",
            "OP_CARRY_ROWS", "OP_CARRY_REM", "OP_CLEAR", "OP_WINDOW",
-           "OP_CHUNK", "OP_NAMES", "PAGED_IMPL_CODES"]
+           "OP_CHUNK", "OP_GATHER_PAGES", "OP_WRITE_PAGES", "OP_RESET",
+           "OP_CONTIG_PREFILL", "OP_CONTIG_DECODE", "OP_CONTIG_DROP",
+           "OP_NAMES", "HOST_ARGS", "PAGED_IMPL_CODES", "tensors",
+           "op_args"]
 
 (OP_STOP, OP_INIT, OP_PREFILL, OP_SCATTER, OP_TABLE_ROWS, OP_EXTEND,
  OP_COPY, OP_CARRY_ROWS, OP_CARRY_REM, OP_CLEAR, OP_WINDOW,
- OP_CHUNK, OP_EXIT) = range(13)
+ OP_CHUNK, OP_EXIT, OP_GATHER_PAGES, OP_WRITE_PAGES, OP_RESET,
+ OP_CONTIG_PREFILL, OP_CONTIG_DECODE, OP_CONTIG_DROP) = range(19)
 
 #: op names, by id (the collective counters' labels)
 OP_NAMES = ("stop", "init", "prefill", "scatter", "table_rows", "extend",
             "copy", "carry_rows", "carry_rem", "clear", "window", "chunk",
-            "exit")
+            "exit", "gather_pages", "write_pages", "reset",
+            "contig_prefill", "contig_decode", "contig_drop")
 
 #: the paged read path, as an int of the OP_INIT descriptor
 PAGED_IMPL_CODES = {"kernel": 0, "loop": 1, "gather": 2}
@@ -151,6 +172,73 @@ def _op_chunk(st, key, *carry):
     st._chunk.run()
 
 
+def _group_of(st):
+    """(rank, world) of ``st``'s shard: (0, 1) off a group."""
+    tp = st._tp
+    return (0, 1) if tp is None else (tp.rank, tp.world)
+
+
+def _op_gather_pages(st, key, ids):
+    """The pages of blocks ``ids``, (L, 2, n, KV, bs, hd): each rank's
+    (L, 2, n, KV / world, bs, hd) gathered along the head axis in rank
+    order (the identity off a group)."""
+    return gather_tp(st._pkv.index_select(2, ids.long()).contiguous(), dim=3)
+
+
+def _op_write_pages(st, key, ids, words):
+    """Copy this rank's heads of the pages ``words`` (the whole pages
+    (L, 2, n, KV, bs, hd), their bytes as int32 words) into blocks
+    ``ids`` of its pool shard, in place."""
+    rank, world = _group_of(st)
+    pool = st._pkv
+    L, two, _, kv, bs, hd = pool.shape
+    pages = words.view(pool.dtype).reshape(L, two, ids.numel(), kv * world,
+                                           bs, hd)
+    pool.index_copy_(2, ids.long(), pages[:, :, :, rank * kv:(rank + 1) * kv])
+
+
+def _op_reset(st, key):
+    """Failure isolation's reset, in place (the captured chunk keeps its
+    addresses): zero the pool shard and the device tables (paged) or the
+    slot state, and the carry; drop the window-0 caches waiting for a
+    scatter and the per-call caches."""
+    if st.paged:
+        st._pkv.zero_()
+        st._tables_dev.zero_()
+        st._group_kv.clear()
+    else:
+        for t in tensors(st._sstate):
+            t.zero_()
+    st._chunk.carry.zero_()
+    st._contig.clear()
+
+
+def _op_contig_prefill(st, key, toks, max_len):
+    """The per-call baseline's prefill of one group (host ``toks`` (B, S),
+    ``max_len`` cache positions): its greedy first tokens (B,) int32; the
+    contiguous cache and those tokens stay under ``key``."""
+    logits, cache = lm.prefill(
+        st.cfg, st.params, torch.from_numpy(toks).to(st.device),
+        max_len=int(max_len[0]), layers=st._layers)
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    st._contig[key] = (cache, cur)
+    return cur
+
+
+def _op_contig_decode(st, key, n):
+    """``n[0]`` greedy contiguous decode steps of group ``key`` (eagerly;
+    the reference jits them as one scan): its (B, n) int32 tokens."""
+    cache, cur = st._contig[key]
+    toks = []
+    for _ in range(int(n[0])):
+        logits, cache = lm.decode_step(st.cfg, st.params, cache, cur,
+                                       layers=st._layers)
+        cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(cur)
+    st._contig[key] = (cache, cur)
+    return torch.stack(toks, dim=1)
+
+
 OPS = {
     OP_PREFILL: _op_prefill,
     OP_SCATTER: _op_scatter,
@@ -164,7 +252,37 @@ OPS = {
     OP_CLEAR: _op_clear,
     OP_WINDOW: _op_window,
     OP_CHUNK: _op_chunk,
+    OP_GATHER_PAGES: _op_gather_pages,
+    OP_WRITE_PAGES: _op_write_pages,
+    OP_RESET: _op_reset,
+    OP_CONTIG_PREFILL: _op_contig_prefill,
+    OP_CONTIG_DECODE: _op_contig_decode,
+    OP_CONTIG_DROP: lambda st, key: st._contig.pop(key, None),
 }
+
+#: ops that take the descriptor's host arrays, not device copies
+HOST_ARGS = frozenset({OP_CONTIG_PREFILL, OP_CONTIG_DECODE})
+
+
+def op_args(op: int, arrays, device) -> list:
+    """The arguments op ``op`` takes for the descriptor's ``arrays``:
+    the host arrays (:data:`HOST_ARGS`) or their copies on ``device``."""
+    if op in HOST_ARGS:
+        return list(arrays)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+def tensors(tree):
+    """Every tensor in a nest of dicts, tuples and lists."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from tensors(v)
 
 
 class _Shard:
@@ -180,6 +298,8 @@ class _Shard:
             (int(v) for v in geometry)
         self.cfg = cfg
         self.params = params
+        self._tp = tp
+        self.device = tp.device
         self._layers = lm.layer_views(params)
         self.decode_chunk = n
         self.async_decode = bool(async_decode)
@@ -190,6 +310,7 @@ class _Shard:
         self._tables_dev = torch.zeros((B, mb), dtype=torch.int32,
                                        device=dev)
         self._group_kv: Dict[int, tuple] = {}
+        self._contig: Dict[int, tuple] = {}
         self._chunk = ChunkProgram(lambda carry: chunk_step(self, carry),
                                    lambda: (), B, n, dev, graph=False)
 
@@ -234,8 +355,7 @@ def serve_follower(cfg: ModelConfig, params, tp: TPGroup
             if op not in OPS:
                 raise RuntimeError(f"serve follower: unknown op {op}")
             with tp.active(OP_NAMES[op]):
-                OPS[op](shard, key, *[torch.from_numpy(a).to(tp.device)
-                                      for a in arrays])
+                OPS[op](shard, key, *op_args(op, arrays, tp.device))
     after = kernel_ops.launch_counts()
     return {"ops": n_ops,
             "pool_bytes": shard._pkv.numel() * shard._pkv.element_size(),

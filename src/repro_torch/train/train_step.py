@@ -33,8 +33,13 @@ shards storage here, not compute (ROADMAP Queue 3). Under a mesh the MoE
 router's aux loss is each rank's over its rows, averaged, where the
 reference's is the global batch's (Queue 3).
 
-The reference's ``make_prefill_step`` / ``make_decode_step`` and its
-dry-run input specs are not here (ROADMAP Queue 1 item 14).
+The dry run's inputs (the reference's ``train_input_specs``,
+``make_prefill_step`` and ``make_decode_step``) are meta tensors of one
+rank's blocks (:func:`train_input_specs`): shapes and dtypes with no
+storage, which :func:`repro_torch.distributed.op_analysis.analyze_step`
+runs the step on. Under a mesh the serve steps gather every weight whole,
+as the train step does (the ``tp`` axis shards storage here), and run this
+rank's ``dp`` rows of the batch (all rows when ``dp`` does not divide it).
 """
 from __future__ import annotations
 
@@ -42,30 +47,37 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..configs.base import ModelConfig
+import dataclasses
+
+from ..configs.base import ModelConfig, ShapeSpec
 from ..distributed.sharding import (MeshGroup, NamedSharding, ShardCtx,
                                     logical_to_spec, param_specs)
 from ..models import lm
+from ..models.layers import dtype_of
 from ..optim.adamw import OptConfig, adamw_update
 from ..optim.compress import compress_grads
 from ..tree import leaves, tree_map, unflatten
 
 __all__ = ["make_train_step", "split_microbatches", "param_shapes",
-           "param_shardings", "opt_shardings", "batch_shardings"]
+           "param_shardings", "opt_shardings", "batch_shardings",
+           "train_batch_shapes", "train_input_specs", "make_prefill_step",
+           "make_decode_step", "meta_blocks"]
 
 StepFn = Callable[[Any, Dict[str, Any], Dict[str, torch.Tensor]],
                   Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]]
 
 
 # --------------------------------------------------------------- shardings
-def param_shapes(cfg: ModelConfig) -> Any:
+def param_shapes(cfg: ModelConfig, cast: bool = False) -> Any:
     """The tree of ``cfg``'s parameters as fake tensors (shapes and dtypes,
-    no storage), as ``jax.eval_shape`` of the reference's init."""
+    no storage), as ``jax.eval_shape`` of the reference's init: the fp32
+    masters a trainer updates (``cast=True``: matrices in the compute
+    dtype, as a served model holds them)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from ..params import init_params
     with FakeTensorMode():
-        return init_params(cfg, torch.Generator(), device="cpu", cast=False)
+        return init_params(cfg, torch.Generator(), device="cpu", cast=cast)
 
 
 def param_shardings(cfg: ModelConfig, ctx: ShardCtx) -> Any:
@@ -99,6 +111,123 @@ def batch_shardings(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, Any]:
     if cfg.frontend != "none":
         b["frontend_embeds"] = ns(("dp", None, None))
     return b
+
+
+# ------------------------------------------------- the dry run's inputs
+def meta_blocks(shapes: Any, shardings: Any,
+                dtype: Optional[torch.dtype] = None) -> Any:
+    """Meta tensors of one rank's block of each leaf of ``shapes`` (the
+    whole leaf where its sharding is None), in the leaf's dtype or
+    ``dtype``."""
+    def block(t, sh):
+        shape = tuple(t.shape) if sh is None else sh.local_shape(t.shape)
+        return torch.empty(shape, dtype=dtype or t.dtype, device="meta")
+    return tree_map(block, shapes, shardings)
+
+
+def train_batch_shapes(cfg: ModelConfig, batch: int, seq: int
+                       ) -> Dict[str, torch.Tensor]:
+    """A ``batch x seq`` batch as meta tensors (tokens int32; a frontend
+    arch's frames bf16), as the reference's."""
+    b = {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                               device="meta")}
+    if cfg.frontend != "none":
+        b["frontend_embeds"] = torch.empty(
+            (batch, cfg.frontend_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    return b
+
+
+def train_input_specs(cfg: ModelConfig, ctx: ShardCtx, shape: ShapeSpec,
+                      opt: Optional[OptConfig] = None,
+                      compress: bool = False,
+                      microbatches: Optional[int] = None):
+    """``(step, (params, opt_state, batch), (pshard, oshard))``: the train
+    step on ``ctx`` and meta tensors of one rank's inputs, its blocks of
+    the fp32 masters and of the AdamW moments under the rule table
+    (:func:`param_shardings`, :func:`opt_shardings`; compression's error
+    state like the params) and the global ``shape`` batch, which the
+    sharded step takes whole and cuts to its ``dp`` rows
+    (:func:`batch_shardings` names those rows)."""
+    opt = opt or OptConfig()
+    step = make_train_step(cfg, opt, compress, microbatches, ctx=ctx)
+    pshard = param_shardings(cfg, ctx)
+    oshard = opt_shardings(cfg, ctx, pshard)
+    shapes = param_shapes(cfg)
+    mdt = dtype_of(opt.moment_dtype)
+    o = {"m": meta_blocks(shapes, pshard, mdt),
+         "v": meta_blocks(shapes, pshard, mdt),
+         "count": torch.empty((), dtype=torch.int32, device="meta")}
+    if compress:
+        o["err"] = meta_blocks(shapes, pshard, torch.bfloat16)
+    batch = train_batch_shapes(cfg, shape.global_batch, shape.seq_len)
+    return step, (meta_blocks(shapes, pshard), o, batch), (pshard, oshard)
+
+
+def _serve_rows(ctx: ShardCtx, B: int):
+    """This rank's ``dp`` rows of a batch of ``B`` (a slice), all of them
+    when ``dp`` does not divide ``B``."""
+    dp = ctx.axis_size("dp") if ctx.mesh is not None else 1
+    if dp == 1 or B % dp:
+        return slice(0, B)
+    r = B // dp
+    d = ctx.mesh.axis_index(tuple(ctx.dp), ctx.rank)
+    return slice(d * r, (d + 1) * r)
+
+
+def _gather_params(ctx: ShardCtx, pshard, params):
+    """Every leaf whole from this rank's blocks (the train step's gather)."""
+    if ctx.mesh is None:
+        return params
+    group = ctx.group
+    return unflatten(params, [t if sh is None else
+                              group.gather_leaf(t, sh.spec)
+                              for t, sh in zip(leaves(params),
+                                               leaves(pshard))])
+
+
+def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx, shape: ShapeSpec):
+    """``(prefill_step, (params, batch), pshard)``: ``prefill_step(params,
+    batch) -> (logits, cache)`` of this rank's rows, and meta tensors of
+    one rank's blocks of the served weights (matrices in the compute
+    dtype) and of the global ``shape`` batch."""
+    pshard = param_shardings(cfg, ctx)
+    rows = _serve_rows(ctx, shape.global_batch)
+
+    def prefill_step(params, batch):
+        full = _gather_params(ctx, pshard, params)
+        fe = batch.get("frontend_embeds")
+        return lm.prefill(cfg, full, batch["tokens"][rows],
+                          frontend_embeds=None if fe is None else fe[rows])
+
+    p = meta_blocks(param_shapes(cfg, cast=True), pshard)
+    b = train_batch_shapes(cfg, shape.global_batch, shape.seq_len)
+    return prefill_step, (p, b), pshard
+
+
+def make_decode_step(cfg: ModelConfig, ctx: ShardCtx, shape: ShapeSpec,
+                     serve_tp_only: bool = False):
+    """``(decode_step, (params, cache, token), (pshard, None))``: ONE new
+    token of this rank's rows against a ``shape.seq_len`` cache, read
+    whole (its ``pos`` is the last position), and meta tensors of one
+    rank's weight blocks, its rows of the cache and the global (B,)
+    tokens. ``serve_tp_only`` drops the ``fsdp`` axis from the weights'
+    shardings (resident model-sharded, as the reference's)."""
+    pctx = dataclasses.replace(ctx, fsdp=None) if serve_tp_only else ctx
+    pshard = param_shardings(cfg, pctx)
+    rows = _serve_rows(ctx, shape.global_batch)
+    n = rows.stop - rows.start
+
+    def decode_step(params, cache, token):
+        full = _gather_params(pctx, pshard, params)
+        return lm.decode_step(cfg, full, cache, token[rows])
+
+    cache = lm.init_cache(cfg, n, shape.seq_len, device="meta")
+    cache["pos"] = shape.seq_len - 1
+    p = meta_blocks(param_shapes(cfg, cast=True), pshard)
+    tok = torch.empty((shape.global_batch,), dtype=torch.int32,
+                      device="meta")
+    return decode_step, (p, cache, tok), (pshard, None)
 
 
 # --------------------------------------------------------------- the step

@@ -102,11 +102,28 @@ def test_run_writes_the_reference_trajectory_schema(tmp_path):
     assert names == _names(jtable2.bench(2_000))
 
 
-def test_run_refuses_unported_and_unknown_suites():
-    assert "journal_gate" not in trun.NOT_PORTED
-    assert "serve_mesh" not in trun.NOT_PORTED
-    with pytest.raises(SystemExit, match="item 14"):
-        trun.main(["--device", "cpu", "--only", "roofline"])
+def test_run_refuses_unported_and_unknown_suites(tmp_path):
+    """Every suite of the reference is ported (``NOT_PORTED`` is empty):
+    ``roofline`` runs on the CPU (its quick cells dry-run on the meta
+    device, nothing allocated on a card) and writes a row per cell with
+    the reference's table columns; an unknown suite is refused."""
+    import json
+
+    from repro_torch.bench import roofline_report
+    assert trun.NOT_PORTED == {}
+    assert trun.main(["--device", "cpu", "--only", "roofline", "--quick",
+                      "--bench-dir", str(tmp_path)]) == 0
+    rows = json.loads((tmp_path / "BENCH_roofline.json").read_text())["rows"]
+    assert [r["name"] for r in rows] == [
+        "roofline/stablelm-1.6b/decode_32k/8x1",
+        "roofline/stablelm-1.6b/prefill_32k/8x1"]
+    assert all(0.0 <= float(r["value"]) <= 1.0 for r in rows)
+    table = roofline_report.rows(tmp_path / "results" / "dryrun.jsonl")
+    assert [tuple(t) for t in table] == [roofline_report.COLUMNS] * 2
+    assert table[0]["dominant"].endswith("(bw-bound)")
+    md = roofline_report.markdown(tmp_path / "results" / "dryrun.jsonl")
+    assert "| arch | shape | mesh | peak GB | fits 80 GB |" in md
+    assert "H100" in md
     with pytest.raises(SystemExit, match="unknown suite"):
         trun.main(["--device", "cpu", "--only", "fig99"])
 

@@ -2,8 +2,10 @@
 ``tests/test_serve_mesh.py``), on the CPU.
 
 * The serving gates and the typed refusal against the reference's
-  (``repro.distributed.sharding``), the ``REPRO_MESH_MODEL`` clamp, the
-  shard layout, and what a group refuses (``TPUnsupported``), in-process.
+  (``repro.distributed.sharding``), the ``REPRO_MESH_MODEL`` clamp and the
+  shard layout, in-process; a group refuses only a captured chunk
+  (``TPUnsupported``) and a rank other than 0, and a journal and a benign
+  fault-injection spec serve the single-device tokens under it.
 * One spawned 2-rank ``gloo`` group for the module (rank 0 is this
   process, the follower is spawned; rendezvous through a ``FileStore``
   under the module's temp dir), on the fp32 smoke config (KV 2: one head
@@ -35,7 +37,8 @@ from repro.distributed import sharding as jsharding
 from repro.serve.engine import ServeEngine as JEngine
 from repro_torch.bench.serve_mesh import (MATRIX, PARITY_KW,
                                           ProbeThenFollow, parity_matrix,
-                                          parity_prompts, probe_logits)
+                                          parity_prompts, probe_logits,
+                                          run_case)
 from repro_torch.configs import get_config
 from repro_torch.distributed import (MeshDivisibilityError, TPGroup,
                                      serve_attn_sharded, serve_mlp_sharded,
@@ -123,37 +126,55 @@ def test_shards_cut_the_reference_leaves_on_their_last_dim():
                 assert shards[1][name] is params[name]
 
 
-def test_what_a_group_refuses():
+@pytest.mark.parametrize("mode", ["journal", "fault_inject", "chunk_graph"])
+def test_what_a_group_refuses(mesh, mode):
+    """Only a captured chunk is refused under a group (typed, before any
+    collective: this group has no process group behind it), as is a rank
+    other than 0. A journal and a benign fault-injection spec (refused
+    until the group carried them) serve the single-device engine's tokens
+    on the module's 2-rank group, the journal holding every request."""
     cfg, params = SPEC(CPU)
-    tp = TPGroup(0, 2, CPU)
-    for kw in ({"journal": "/nonexistent/j.wal"},
-               {"fault_inject": "alloc_fail:p=0.1,seed=1"},
-               {"chunk_graph": True}):
-        with pytest.raises(TPUnsupported):
-            ServeEngine(cfg, params, tp=tp, device=CPU, **kw)
-    with pytest.raises(ValueError, match="rank 0"):
-        ServeEngine(cfg, params, tp=TPGroup(1, 2, CPU), device=CPU)
+    if mode == "chunk_graph":
+        with pytest.raises(TPUnsupported, match="chunk_graph=True"):
+            ServeEngine(cfg, params, tp=TPGroup(0, 2, CPU), device=CPU,
+                        chunk_graph=True)
+        with pytest.raises(ValueError, match="rank 0"):
+            ServeEngine(cfg, params, tp=TPGroup(1, 2, CPU), device=CPU)
+        return
+    run = mesh["modes"][mode]
+    for got, want in zip(run["outs"], mesh["single"]["outs"]):
+        assert np.array_equal(got, want), mode
+    if mode == "journal":
+        blob = open(run["journal"], "rb").read()
+        assert blob.count(b'"k":"submit"') == blob.count(b'"k":"finish"') \
+            == len(run["outs"]) == 6
 
 
-def test_ssm_serves_on_rank_zero_with_the_followers_idle():
+def test_ssm_serves_on_rank_zero_with_the_followers_idle(tmp_path):
     """SSM archs do not shard: the engine serves alone (no collective;
     this group has no process group behind it) with the single engine's
-    tokens, and refuses the durability calls all the same."""
+    tokens, and its snapshot and per-call baseline (refused until the
+    group carried them) are the single engine's: the same snapshot bytes
+    and the same per-call tokens."""
     cfg = dataclasses.replace(get_config("falcon-mamba-7b").smoke(),
                               compute_dtype="float32")
     _, params = ModelSpec("falcon-mamba-7b",
                           overrides=(("compute_dtype", "float32"),))(CPU)
     prompts = parity_prompts(cfg.vocab_size)[:3]
-    with ServeEngine(cfg, params, device=CPU, max_batch=2) as eng:
-        want = eng.generate(prompts, max_new=6)
-    with ServeEngine(cfg, params, device=CPU, max_batch=2,
-                     tp=TPGroup(0, 2, CPU)) as eng:
-        got = eng.generate(prompts, max_new=6)
-        with pytest.raises(TPUnsupported):
-            eng.snapshot("/nonexistent/engine.snap")
-        with pytest.raises(TPUnsupported):
-            eng._generate_grouped(prompts, 2)
+    runs = []
+    for tag, tp in (("single", None), ("group", TPGroup(0, 2, CPU))):
+        with ServeEngine(cfg, params, device=CPU, max_batch=2,
+                         tp=tp) as eng:
+            outs = eng.generate(prompts, max_new=6)
+            assert eng.drain()
+            eng.snapshot(str(tmp_path / f"{tag}.snap"))
+            per_call = eng._generate_grouped(prompts, 4)
+        runs.append((outs, (tmp_path / f"{tag}.snap").read_bytes(),
+                     per_call))
+    (want, snap, pc), (got, gsnap, gpc) = runs
     assert all(np.array_equal(a, b) for a, b in zip(want, got))
+    assert gsnap == snap
+    assert all(np.array_equal(a, b) for a, b in zip(pc, gpc))
 
 
 # ------------------------------------------------- one 2-rank gloo group
@@ -180,6 +201,14 @@ def mesh(tmp_path_factory):
         got = probe_logits(cfg, params, s.tp, torch.from_numpy(probe))
         want, _ = lm.prefill(cfg, params, torch.from_numpy(probe))
         res = parity_matrix(s.tp, cfg, params, prompts, MAX_NEW, CPU)
+        journal = str(tmp_path_factory.mktemp("journal") / "j.wal")
+        res["modes"] = {
+            "journal": dict(run_case(cfg, params, prompts, MAX_NEW, CPU,
+                                     tp=s.tp, journal=journal, **PARITY_KW),
+                            journal=journal),
+            "fault_inject": run_case(
+                cfg, params, prompts, MAX_NEW, CPU, tp=s.tp,
+                fault_inject="alloc_fail:p=0.1,seed=1", **PARITY_KW)}
     res["logits"] = (got, want)
     res["followers"] = s.followers
     res["jax"] = jax_outs
@@ -219,7 +248,7 @@ def test_each_rank_holds_half_the_pool(mesh):
         assert run["pool_bytes"] * 2 == full
     (follower,) = mesh["followers"]
     engines = follower["result"]
-    assert len(engines) == len(MATRIX)
+    assert len(engines) == len(MATRIX) + len(mesh["modes"])
     assert all(e["pool_bytes"] * 2 == full for e in engines)
 
 

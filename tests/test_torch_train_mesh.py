@@ -58,7 +58,9 @@ from repro.launch import mesh as jmesh
 from repro.models import lm as jlm
 from repro.train import train_step as jtrain_step
 from repro.train.checkpoint import CheckpointManager as JCheckpointManager
-from repro_torch.configs import get_config
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.distributed.op_analysis import (DryMeshGroup, StepCost,
+                                                 analyze_step)
 from repro_torch.distributed.sharding import Mesh, NamedSharding
 from repro_torch.launch.mesh import MeshSession, make_ctx, small_mesh
 from repro_torch.optim import init_error_state, init_opt_state
@@ -66,7 +68,7 @@ from repro_torch.params import from_reference
 from repro_torch.train import CheckpointManager
 from repro_torch.train.train_step import (batch_shardings, make_train_step,
                                           opt_shardings, param_shapes,
-                                          param_shardings)
+                                          param_shardings, train_input_specs)
 from repro_torch.tree import leaves
 from test_torch_train_mesh_ranks import (ARCH, B, CASES, CPU, LR, S,
                                          TRAIN_TC, Body, case_id, cfg_of,
@@ -477,6 +479,33 @@ def test_collectives_per_step(run):
     comp = steps["2x1-hoist0-mbNone-compress"]["counters"]["calls"]
     assert comp["all_reduce_max"] == 1
     assert plain.get("all_reduce_max", 0) == 0
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] != (1, 1)],
+                         ids=case_id)
+def test_dry_run_predicts_each_rank_s_collectives_and_bytes(run, case):
+    """The step of ``case`` on the meta device, each rank with a dry-run
+    group (``repro_torch.distributed.op_analysis``): its collective
+    counters (calls and largest bytes, by kind) equal the ones the live
+    gloo step recorded on that rank, and its argument bytes the rank's
+    live blocks of the masters and moments (compression's bf16 error
+    state too), the step count and the global batch, exactly."""
+    (d, m), hoist, mb, comp = case
+    mesh = small_mesh(d, m)
+    for rank in range(d * m):
+        cost = StepCost()
+        ctx = make_ctx(mesh, DryMeshGroup(mesh, rank, cost))
+        step, args, _ = train_input_specs(
+            cfg_of(hoist), ctx, ShapeSpec("t", S, B, "train"), opt=opt_of(),
+            compress=comp, microbatches=mb)
+        analyze_step(step, *args, cost=cost)
+        live = run["ranks"][rank]
+        assert ctx.group.counters() == \
+            live["steps"][case_id(case)]["counters"], (case, rank)
+        b = live["bytes"][case_id(case)]
+        want = b["params"] + b["moments"] + 4 + B * S * 4 \
+            + (b["params"] // 2 if comp else 0)
+        assert cost.argument_bytes == want, (case, rank)
 
 
 def test_elastic_restore_across_rank_counts(run):
