@@ -33,12 +33,12 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               stablelm-1.6b's full width and depth with the same weights:
               the continuous trace (``choice`` lengths 16/24/32, 32 new
               tokens, decode chunk 8, block 8, a 16-token window, Poisson
-              at 20 Hz, 128 requests) in three modes — eager-sync (the
+              at 20 Hz, 104 requests) in three modes — eager-sync (the
               eager chunk), graph-sync (the default), graph-async (the
               async decode lookahead): in fp32 compute at full width and 4
               layers their tokens must be equal, with PyTorch's stream
               syncs counted by engine function; in bf16 at full depth one
-              warmed engine per mode, three rounds in turns, each run held to
+              warmed engine per mode, two rounds in turns, each run held to
               the suite's gates below, its launches counted, and per mode
               tok/s, TTFT and admission p50/p99 and the mean cycle split
               (dispatch, sync, bookkeeping, gap) printed, with a JSON line
@@ -158,7 +158,7 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 8e. train   — stablelm-1.6b at full width and depth (fp32 masters from a
               seeded ``torch.Generator``, AdamW with fp32 moments, bf16
               compute with remat) trained through the port's ``Trainer``
-              (the cyclic conditional taskflow) for 6 steps of 8 x 2048
+              (the cyclic conditional taskflow) for 4 steps of 8 x 2048
               tokens, cut from the ``full`` preset's 256 x 4096: step
               walls, tok/s, MFU, peak memory and the loss curve; then a
               step under ``set_sync_debug_mode("error")``, a step traced
@@ -172,10 +172,12 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               behind ``MambaScan``) against autograd through the plain
               sequential scan: B=2, S=250 (off the 32-step chunks), dI=512,
               N=16 in fp32 and with bf16 x/B/C, a ragged dI with an initial
-              state and a final-state gradient, N=12; then at the training
-              shape (B=1, S=2048, dI=8192, N=16) compared again and timed
-              beside its bound and the plain backward, with K3's serving
-              and training entry points timed there too;
+              state and a final-state gradient, N=12; its recomputed
+              states against K3's, bit for bit; then at the training shape
+              (B=1, S=2048, dI=8192, N=16) compared again, two calls
+              bitwise equal, timed beside its bound and the plain
+              backward, with K3's serving and training entry points timed
+              there too; registers and resident blocks per SM;
 8g. train_ssm — in fp32 at full width, one batch's loss and every
               gradient on the card against the CPU's (falcon-mamba-7b at 4
               layers, zamba2-1.2b at 14: two groups and a 2-layer tail);
@@ -269,8 +271,8 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               (one ``MeshSession``, a (2, 1) mesh; ``bench/train_mesh.py``):
               stablelm-1.6b at full width in fp32 at 4 layers, one step of
               2 x 2048 against the single-device step (metrics, moments,
-              params within TRAIN_MESH_TOL); in bf16 with remat at 8 layers
-              (cut from 24 for time), 3 steps of 4 x 2048 (two microbatches
+              params within TRAIN_MESH_TOL); in bf16 with remat at 4 layers
+              (cut from 24 for time), 2 steps of 4 x 2048 (two microbatches
               of one sequence a rank) with the weight gather hoisted and not
               (half the all-gathers hoisted); falcon-mamba-7b at full width
               and 4 of 64 layers, one bf16 step of 2 x 2048, K3 and its
@@ -310,11 +312,16 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --other-csrc build/parent/src/repro_torch/kernels/csrc
+    python3 chip_smoke.py --k3bwd-ablations
 
-The second form adds another tree's K1 and K3 (e.g. the parent commit's,
-unpacked with ``git archive <commit> src/repro_torch/kernels/csrc | tar -x
--C build/parent``) to their ablations: built from its sources, timed in
-turns beside this tree's in CUDA graphs.
+The second form adds another tree's K1, K3 and K3's backward (e.g. the
+parent commit's, unpacked with ``git archive <commit>
+src/repro_torch/kernels/csrc | tar -x -C build/parent``) to their
+ablations: built from its sources, timed in turns beside this tree's in
+CUDA graphs (K3's backward with its registers, and its resident blocks per
+SM where its build reports them). The third takes K3's backward apart:
+copies built without its d-sum tile, its B/C or a_t loads, or its second
+half-chunk recompute, timed in turns beside it.
 
 Exits non-zero, without the final line, when a phase fails or CUDA is
 unavailable. Imports nothing of JAX.
@@ -323,6 +330,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gc
 import json
 import os
@@ -372,7 +380,7 @@ MOE_FP32_LAYERS = 8
 # the train phase: stablelm-1.6b at full width and depth, the full
 # preset's batch of 256 x 4096 cut to 8 x 2048 (one sequence per
 # microbatch) so that the phase stays near 90 s
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 8, 2048, 8, 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 8, 2048, 8, 4
 # its checks: bf16 against fp32 compute at full width and 4 layers, |d
 # loss| in nats and the grad norm's relative difference (measured on the
 # H100: 2.6e-4 nats and 2.7e-4; the bounds are ~20x that)
@@ -423,19 +431,22 @@ MESH_FP32_LAYERS = 4
 MESH_PRESET = "full"
 # the train_mesh phase: 2 gloo ranks on the one card, a (2, 1) mesh;
 # stablelm-1.6b at full width in fp32 at 4 layers (one step of 2 x 2048,
-# against the single-device step), in bf16 with remat (3 steps of 4 x
+# against the single-device step), in bf16 with remat (2 steps of 4 x
 # 2048, two microbatches of one sequence a rank, the weight gather hoisted
-# and not) and falcon-mamba-7b at full width cut to 4 of 64 layers (one
+# and not; 3 steps before, cut for the script's time: a run on an H100
+# whose host ran the host-bound phases 15-30% slower took 1,144 s of the
+# 1,200) and falcon-mamba-7b at full width cut to 4 of 64 layers (one
 # bf16 step of 2 x 2048: K3 and its backward under the group)
 TRAIN_MESH_RANKS = 2
 TRAIN_MESH_PRESET = "full"
 TRAIN_MESH_SEQ = 2048
-TRAIN_MESH_STEPS = 3
+TRAIN_MESH_STEPS = 2
 TRAIN_MESH_FP32_LAYERS = 4
 # bf16 cut from 24 to 8 layers: at 24 the phase took 175 s (PR 26 call
 # 3: 14-28 s a step, each rank gathering and reducing 6.6 GB a step
-# through the host), over its ~120 s budget
-TRAIN_MESH_BF16_LAYERS = 8
+# through the host), over its ~120 s budget; then to 4, as a run on an
+# H100 with a slow host took 166.5 s in this phase at 8
+TRAIN_MESH_BF16_LAYERS = 4
 TRAIN_MESH_JOIN_S, TRAIN_MESH_OP_S = 900.0, 600.0
 TRAIN_MESH_FALCON_LAYERS = 4
 # fp32, 2 ranks against one device: the metrics relative, the moments per
@@ -449,9 +460,11 @@ TRAIN_MESH_TOL = {"metric": 1e-5, "moment": 5e-5, "param_lr": 5e-2,
                   "ill_param_lr": 2.05}
 
 # the prefix phase: the serve suite's continuous trace at the reference's
-# non-quick shapes with 128 requests (so that p99 is not the maximum), and
-# its fp32 check of warm against cold tokens at full width and 4 layers
-PREFIX_N_REQ = 128
+# non-quick shapes with 104 requests (over 100, so that the nearest-rank
+# p99 is not the maximum; 128 until a run of the whole script on an H100
+# with a slow host took 1,146.5 s of its 1,200), and its fp32 check of warm against cold
+# tokens at full width and 4 layers
+PREFIX_N_REQ = 104
 PREFIX_FP32_LAYERS = 4
 PREFIX_DIR = Path("build") / "prefix"
 
@@ -524,6 +537,31 @@ K3_ABLATIONS = {
         ("    a_n[k] = live ? A[(size_t)d * N + n0 + k] : 0.f;",
          "    a_n[k] = live ? A[(size_t)d * N + n0 + k] * "
          "1.44269504088896341f : 0.f;")],
+}
+# K3's backward taken apart the same way (timed in CUDA graphs beside it,
+# with --k3bwd-ablations):
+# without its d-sum tile (the products neither written nor summed), with B
+# and C (then a_t) taken from registers instead of shared memory, and
+# without the first half's second recompute
+_BWD_TILE_READ = "        if (i % kTile == 0) {\n"
+_BWD_TILE_W1 = ("        *reinterpret_cast<float4*>(row + ((kStates * r) ^ "
+                "sw)) =\n")
+_BWD_TILE_W2 = ("        *reinterpret_cast<float4*>(row + ((kMaxN + kStates * "
+                "r) ^ sw)) =\n")
+K3BWD_ABLATIONS = {
+    "no_dsum_tile": [(_BWD_TILE_READ, "        if (false) {\n"),
+                     (_BWD_TILE_W1, "        if (false)" + _BWD_TILE_W1[7:]),
+                     (_BWD_TILE_W2, "        if (false)" + _BWD_TILE_W2[7:])],
+    "no_bc_loads": [(
+        "        unpack4(*reinterpret_cast<const float4*>(&sm.b[u][n0]), bb);\n"
+        "        unpack4(*reinterpret_cast<const float4*>(&sm.c[u][n0]), cc);\n",
+        "        unpack4(make_float4(a_n[1], a_n[2], a_n[3], a_n[0]), bb);\n"
+        "        unpack4(make_float4(a_n[2], a_n[3], a_n[0], a_n[1]), cc);\n")],
+    "no_a_loads": [("        unpack4(sm.a[u][tid], aa);\n",
+                    "        unpack4(make_float4(a_n[0], a_n[1], a_n[2], "
+                    "a_n[3]), aa);\n")],
+    "no_second_recompute": [("      if (half == 0) {\n",
+                             "      if (false) {\n")],
 }
 # SASS instructions counted in K1 and K3 (static counts over each entry)
 K1_SASS = ("ALL", "LDG", "SHFL", "MUFU", "FFMA", "BAR", "LDS", "STS")
@@ -606,12 +644,14 @@ def _demangle(names):
         return list(names)
 
 
-def ptxas_of(kernel: str):
+def ptxas_of(kernel: str, log_text=None):
     """ptxas's registers / shared memory / spill lines for each compiled
-    entry whose name holds ``kernel``, from the build log."""
+    entry whose name holds ``kernel``, from the build log (or
+    ``log_text``, another build's)."""
     from repro_torch.kernels._build import build_info
     entries, cur = {}, None
-    for ln in build_info()["ptxas"].splitlines():
+    text = build_info()["ptxas"] if log_text is None else log_text
+    for ln in text.splitlines():
         if "Compiling entry function" in ln:
             cur = ln.split("'")[1]
             entries[cur] = []
@@ -1852,19 +1892,53 @@ def _scan_grads(fn, ins, dy, dhT=None):
     return torch.autograd.grad(outs, ins, gouts)
 
 
-def phase_k3bwd(dev):
+def _k3bwd_states_match(dev, B=2, S=250, dI=512, N=16, dstar=300) -> bool:
+    """The backward's recomputed states are K3's, bit for bit: with dy one
+    at channel ``dstar`` and zero elsewhere (fp32), dC_t[n] is h_t[dstar,
+    n] summed with zeros; K3 with C the n-th unit vector gives y_t[d] =
+    h_t[d, n] the same way."""
+    from repro_torch.kernels import mamba_scan as scan_mod
+    from repro_torch.kernels import mamba_scan_bwd as bwd_mod
+    g = torch.Generator(dev).manual_seed(6)
+    dt = F.softplus(torch.randn((B, S, dI), generator=g, device=dev)) * 0.1
+    x, Bc, Cc = (torch.randn(shape, generator=g, device=dev)
+                 for shape in ((B, S, dI), (B, S, N), (B, S, N)))
+    A = -torch.exp(torch.randn((dI, N), generator=g, device=dev) * 0.5)
+    _, _, hs = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A, save_states=True)
+    dy = torch.zeros((B, S, dI), device=dev)
+    dy[:, :, dstar] = 1.0
+    dC = bwd_mod.mamba_scan_bwd_cuda(dt, x, Bc, Cc, A, hs, dy)[3]
+    ok = True
+    for n in range(N):
+        e = torch.zeros((B, S, N), device=dev)
+        e[:, :, n] = 1.0
+        y, _ = scan_mod.mamba_scan_cuda(dt, x, Bc, e, A)
+        ok = ok and torch.equal(dC[:, :, n], y[:, :, dstar])
+    return ok
+
+
+def phase_k3bwd(dev, other=None, ablations=False):
     """The backward kernel (``csrc/mamba_scan_bwd.cu``, behind
     ``MambaScan``) against ``torch.autograd`` through the plain
     sequential scan: the training layout at a reduced size (B=2, S=250, off
-    the 32-step chunks, dI=512, N=16) in fp32 and with bf16 x/B/C, a ragged
-    dI with an initial state and a final-state gradient, N=12; then at the
-    training shape (one falcon-mamba sequence: B=1, S=2048, dI=8192, N=16,
-    bf16 x/B/C) compared again and timed beside its bound and the plain
-    backward (no PyTorch call computes a selective scan's gradient), with
-    K3's serving and training entry points timed at that shape too."""
+    the 32-step chunks, dI=512, N=16) in fp32 and with bf16 x/B/C, a
+    ragged dI with an initial state and a final-state gradient, N=12; then
+    at the training shape (one falcon-mamba sequence: B=1, S=2048, dI=8192,
+    N=16, bf16 x/B/C) compared again and timed beside its bound and the
+    plain backward (no PyTorch call computes a selective scan's gradient),
+    with K3's serving and training entry points timed at that shape too;
+    two calls bitwise equal; the recomputed states K3's; registers and
+    resident blocks per SM. ``other``'s ``mamba_scan_bwd.cu`` (another
+    tree's, whose C entry takes this tree's arguments, as the design
+    before this one does) and, with ``ablations``, the K3BWD_ABLATIONS
+    copies are timed in turns beside this tree's in CUDA graphs."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import mamba_scan as scan_mod
     from repro_torch.kernels import mamba_scan_bwd as bwd_mod
     from repro_torch.kernels.ref import mamba_scan_ref
+    builds = _build_ablations("mamba_scan_bwd.cu",
+                              K3BWD_ABLATIONS if ablations else {}, other)
+    # (they build while the checks run)
     g = torch.Generator(dev).manual_seed(5)
 
     def randn(*shape):
@@ -1908,6 +1982,10 @@ def phase_k3bwd(dev):
         errs.append(compare(what, ins, dtype,
                             randn(B, dI, N) if h0 else None,
                             randn(B, S, dI), randn(B, dI, N) if fin else None))
+    if not _k3bwd_states_match(dev):
+        raise SystemExit("the K3 backward's recomputed states are not K3's")
+    log("[k3bwd] recomputed states equal K3's bit for bit (dC against K3's "
+        "y with unit-vector C, fp32, B=2 S=250 dI=512)")
 
     B, S, dI, N = K3BWD_SHAPE
     ins = inputs(B, S, dI, N, BF16)
@@ -1919,6 +1997,10 @@ def phase_k3bwd(dev):
     def run():
         return bwd_mod.mamba_scan_bwd_cuda(dt, x, Bc, Cc, A, hs, dy)
 
+    one, again = run(), run()
+    if not all(torch.equal(a, b) for a, b in zip(one, again)):
+        raise SystemExit("the K3 backward is not deterministic")
+    nch = -(-S // scan_mod.STATE_CHUNK)
     ms = time_ms(run, iters=20)
     dev_ms = graph_ms(run, n=5, replays=4)
     host = host_us(run, iters=20)
@@ -1933,7 +2015,6 @@ def phase_k3bwd(dev):
                                                    retain_graph=True),
                        iters=2, warmup=1)
     del yr, leaves_
-    nch = -(-S // scan_mod.STATE_CHUNK)
     elems = B * S * dI * N
     # read once: dt, dy (fp32), x, B, C (bf16), A, hs; written once: d dt
     # (fp32), dx, dB, dC (bf16, x's type), dA
@@ -1956,8 +2037,82 @@ def phase_k3bwd(dev):
         f"flop) | device time in a CUDA graph {dev_ms:.5f} ms | K3 at this "
         f"shape: serving entry {fwd:.4f} ms, training entry (states kept, "
         f"{4 * B * nch * dI * N / 1e6:.1f} MB) {fwd_states:.4f} ms")
+    log("[k3bwd] two calls at the training shape bitwise equal")
     kernel_report("[k3bwd]", "mamba_scan_bwd", flops, ms, b_ms, None,
                   sass_counts("mamba_scan_bwd", K3_SASS), dev_ms, host=host)
+    occ = bwd_mod.occupancy(BF16)
+
+    def regs_of(text=None):
+        """Registers a thread of the bf16 reverse scan (this tree's
+        16-byte staging copy) in a build's ptxas log."""
+        for ln in ptxas_of("mamba_scan_bwd_kernel", text):
+            if "__nv_bfloat16" in ln and "registers" in ln \
+                    and "false>" not in ln:
+                return int(ln.split("Used ")[1].split()[0])
+        return None
+
+    regs = {"kernel": regs_of()}
+    log(f"[k3bwd] reverse scan (bf16): {regs['kernel']} registers a "
+        f"thread, {occ[0]} resident block(s) per SM (CUDA runtime, 8 warps "
+        f"a block); sum kernel {occ[1]}")
+    if not builds:
+        return _k3bwd_entry(errs, ms, plain_ms, b_ms, b_by)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def c_args():
+        """The C entry's arguments at this shape with fresh outputs (d dt,
+        dx, dB, dC, dA, part, dA_part), and those outputs."""
+        outs = [torch.empty((B, S, dI), **f32),
+                torch.empty((B, S, dI), dtype=BF16, device=dev),
+                torch.empty((B, S, N), dtype=BF16, device=dev),
+                torch.empty((B, S, N), dtype=BF16, device=dev),
+                torch.empty((dI, N), **f32),
+                torch.empty((-(-dI // 64), B, S, 32), **f32),
+                torch.empty((B, dI, N), **f32)]
+        return (_build.BFLOAT16, *(t.data_ptr() for t in (
+            dt, x, Bc, Cc, A, hs, dy)), None,
+            *(t.data_ptr() for t in outs), B, S, dI, N), outs
+
+    cut_args, cut_outs = c_args()
+    other_args, other_outs = c_args()
+    libs, logs = {}, {}
+    turns = _time_ablations(
+        builds, "repro_mamba_scan_bwd", cut_args, run,
+        init="repro_mamba_scan_bwd_init",
+        timer=lambda f: graph_ms(f, n=5, replays=4),
+        args_of={"other": other_args}, libs=libs, logs=logs)
+    log(f"[k3bwd] in turns (same shape; device time in CUDA graphs"
+        f"{', ablations: one part cut out' if ablations else ''}): "
+        f"{_turns(turns)}")
+    if other is not None:
+        torch.cuda.synchronize()
+        diff = max((a.float() - b.float()).abs().max().item()
+                   / max(a.float().abs().max().item(), 1e-30)
+                   for a, b in zip(one, other_outs))
+        regs["other"] = regs_of(logs["other"])
+        # the other build's occupancy where it exports the entry that
+        # reports it (the design before this one does not)
+        occ_other = "not reported by its build"
+        fn = getattr(libs["other"], "repro_mamba_scan_bwd_occupancy", None)
+        if fn is not None:
+            out = (ctypes.c_int * 2)()
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            if fn(_build.BFLOAT16, out) == 0:
+                occ_other = str(out[0])
+        log(f"[k3bwd] this tree against --other-csrc, device time in CUDA "
+            f"graphs in turns: this "
+            f"{min(turns['kernel']):.5f}-{max(turns['kernel']):.5f} ms, "
+            f"other {min(turns['other']):.5f}-{max(turns['other']):.5f} ms; "
+            f"registers a thread (bf16 reverse scan) {regs.get('kernel')} "
+            f"against {regs.get('other')}; resident blocks per SM {occ[0]} "
+            f"against {occ_other}; max |this - other| / max |this| "
+            f"{diff:.3e}")
+    return _k3bwd_entry(errs, ms, plain_ms, b_ms, b_by)
+
+
+def _k3bwd_entry(errs, ms, plain_ms, b_ms, b_by) -> dict:
+    """The backward's entry of the kernels line."""
     return dict(name="mamba_scan_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
                 replaces="src/repro/models/mamba.py:70",
@@ -2329,12 +2484,15 @@ def _build_ablations(source: str, table: dict, other=None) -> dict:
 
 
 def _time_ablations(procs, entry: str, args, own, init=None,
-                    timer=time_ms) -> dict:
-    """Time each build's C entry point ``entry`` on ``args`` and the current
-    stream (after its ``init`` entry, where the build has one) beside
-    ``own``, the kernel through its wrapper, with ``timer``, in turns: own,
-    the builds, the builds backwards, own. Returns {name: [ms, ms]}, own's
-    times under "kernel"."""
+                    timer=time_ms, args_of=None, libs=None,
+                    logs=None) -> dict:
+    """Time each build's C entry point ``entry`` on ``args`` (or on
+    ``args_of[name]``) and the current stream (after its ``init`` entry,
+    where the build has one) beside ``own``, the kernel through its
+    wrapper, with ``timer``, in turns: own, the builds, the builds
+    backwards, own. ``libs`` and ``logs`` receive each build's loaded
+    library and compiler output. Returns {name: [ms, ms]}, own's times
+    under "kernel"."""
     import ctypes
 
     from repro_torch.kernels._build import _SIGNATURES, current_stream
@@ -2345,16 +2503,21 @@ def _time_ablations(procs, entry: str, args, own, init=None,
         if p.returncode != 0:
             raise SystemExit(f"ablation {name} does not build:\n{text}")
         lib = ctypes.CDLL(str(d / "lib.so"))
+        if logs is not None:
+            logs[name] = text
+        if libs is not None:
+            libs[name] = lib
         fn = getattr(lib, entry)
+        args_ = (args_of or {}).get(name, args)
         fn.argtypes = list(_SIGNATURES[entry])
         fn.restype = ctypes.c_int
         if init is not None and hasattr(lib, init):
             getattr(lib, init).restype = ctypes.c_int
             if getattr(lib, init)() != 0:
                 raise SystemExit(f"ablation {name}: {init} failed")
-        if fn(*args, current_stream(idx)) != 0:
+        if fn(*args_, current_stream(idx)) != 0:
             raise SystemExit(f"ablation {name} does not launch")
-        calls[name] = lambda fn=fn: fn(*args, current_stream(idx))
+        calls[name] = lambda fn=fn, a=args_: fn(*a, current_stream(idx))
     times = {name: [] for name in calls}
     for name in [*calls, *reversed(calls)]:
         times[name].append(timer(calls[name]))
@@ -3559,8 +3722,8 @@ def phase_async(dev, cfg, params, chunk_ms: dict, card: str) -> dict:
     chunk's tokens must equal the eager chunk's and the async engine's the
     sync engine's, and PyTorch's stream syncs are counted by engine
     function. At full width and depth in bf16 (``params``): one warmed
-    engine per mode, three rounds in turns (eager, graph, async, then
-    backwards, then forwards), each run held to ``_check_serve_run`` and
+    engine per mode, two rounds in turns (eager, graph, async, then
+    backwards), each run held to ``_check_serve_run`` and
     its launches counted; tok/s, TTFT and admission p50/p99 and the mean
     cycle split per mode (medians over the rounds: host time varies run to
     run), async-vs-sync token equality reported.
@@ -3624,7 +3787,7 @@ def phase_async(dev, cfg, params, chunk_ms: dict, card: str) -> dict:
     toks = {}
     order = [n for n, _ in ASYNC_MODES]
     try:
-        for rnd, names in enumerate((order, order[::-1], order)):
+        for rnd, names in enumerate((order, order[::-1])):
             for name in names:
                 eng, obs = engines[name]
                 ops.reset_launch_counts()
@@ -4330,8 +4493,9 @@ def phase_durable(dev, cfg, params, card: str) -> dict:
 
 # ------------------------------------------------------------------ phase 5e
 #: the percall phase's shortened serve trace (the per-call arm serves one
-#: request after another, eagerly, ~0.8-1 s each at full width)
-PERCALL_N_REQ = 24
+#: request after another, eagerly, ~0.8-1 s each at full width; 24 until a
+#: run on an H100 with a slow host took 63.4 s in this phase)
+PERCALL_N_REQ = 12
 #: its fp32 checks cut stablelm to its first 4 layers at full width
 PERCALL_FP32_LAYERS = 4
 
@@ -4436,9 +4600,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other-csrc", type=Path, default=None, help=(
         "a directory of another tree's kernel sources (csrc/*.cu and "
-        "common.cuh, e.g. the parent commit's); its K1 and K3 are then "
-        "built and timed in turns beside this tree's, as one more build of "
-        "their ablations"))
+        "common.cuh, e.g. the parent commit's); its K1, K3 and K3's "
+        "backward are then built and timed in turns beside this tree's, as "
+        "one more build of their ablations"))
+    ap.add_argument("--k3bwd-ablations", action="store_true", help=(
+        "also time copies of K3's backward with one part cut out "
+        "(K3BWD_ABLATIONS) in turns beside it"))
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     t_phase = [t_start]
@@ -4498,7 +4665,8 @@ def main(argv=None) -> None:
     done("qwen2-moe serve and steps")
     train = phase_train(dev, smi)
     done("train")
-    report["mamba_scan_bwd"] = phase_k3bwd(dev)
+    report["mamba_scan_bwd"] = phase_k3bwd(dev, args.other_csrc,
+                                           args.k3bwd_ablations)
     done("K3 backward")
     ssm_train = phase_train_ssm(dev, smi)
     done("train_ssm (zamba2-1.2b, falcon-mamba-7b at 16 layers)")

@@ -142,17 +142,23 @@ def continuous_engine(cfg, params, trace, *, chunk: int = 8, impl=None,
     return eng, obs
 
 
+def settle(eng, timeout: float = 60.0) -> None:
+    """Wait until the engine's pipeline rests. Its stages record their
+    last spans and stats after the futures they fulfil: a reader woken by
+    the last result would otherwise export a trace, or read a span count,
+    that the engine thread is still adding to."""
+    limit = time.perf_counter() + timeout
+    while eng._pipeline is not None and not eng._pipeline.idle() \
+            and time.perf_counter() < limit:
+        time.sleep(0.001)
+
+
 def measured_run(eng, obs, trace, trace_path: Optional[str] = None) -> dict:
     """One measured replay of ``trace`` on a warmed engine (stats and the
     registry zeroed first). Returns what :func:`continuous_run` does."""
     _reset(eng, obs)
     reqs, outs, dt = _replay(eng, trace, obs)
-    # the complete stage records its last spans after the futures are
-    # fulfilled: the stats and the trace are read once the pipeline rests
-    limit = time.perf_counter() + 60.0
-    while eng._pipeline is not None and not eng._pipeline.idle() \
-            and time.perf_counter() < limit:
-        time.sleep(0.001)
+    settle(eng)
     stats = dict(eng.stats)
     if trace_path:
         obs.export(trace_path)
@@ -333,6 +339,7 @@ def prefix_share_run(cfg, params, trace, geom: dict, prefix_cache: bool, *,
             eng.generate([p for _, p, _ in trace], max_new=chunk + 1)
         _reset(eng, obs)
         reqs, outs, dt = _replay(eng, trace, obs)
+        settle(eng)
         stats = dict(eng.stats)
         if trace_path:
             obs.export(trace_path)

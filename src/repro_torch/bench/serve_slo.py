@@ -116,6 +116,7 @@ def slo_run(eng, obs, trace) -> dict:
     completion counts, each submitted request's outcome (tokens or the
     typed error) and the engine's stats."""
     from ..serve.errors import ServeError
+    from .serve_continuous import settle
     for k in eng.stats:
         eng.stats[k] = 0
     obs.reset()
@@ -139,6 +140,7 @@ def slo_run(eng, obs, trace) -> dict:
             outcomes.append((r, e))        # expired / cancelled / failed
             failed += 1
     dt = time.perf_counter() - t_start
+    settle(eng)      # the last spans and stats land after the last result
     h0 = obs.metrics.get("serve.ttft_s.tier0")
     h1 = obs.metrics.get("serve.ttft_s.tier1")
     return {"dt": dt, "ttft0": h0.summary() if h0 is not None else None,

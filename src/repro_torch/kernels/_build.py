@@ -74,6 +74,8 @@ _SIGNATURES = {
     # dtype, dt, x, Bc, Cc, A, hs, dy, dhT, ddt, dx, dB, dC, dA, part,
     # dA_part, B, S, dI, N, stream
     "repro_mamba_scan_bwd": (_i, *(_vp,) * 15, _i, _i, _i, _i, _vp),
+    # dtype, out[2]: resident blocks per SM of its two kernels
+    "repro_mamba_scan_bwd_occupancy": (_i, _pi),
     # the conditional-graph program (csrc/cond_graph.cu): versions(out[3]);
     # check(graph, bad); count(graph, total); create(blocks, nblocks,
     # start, max_iters, ctrl, succ, meta, width, device, out);

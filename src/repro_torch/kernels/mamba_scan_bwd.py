@@ -1,7 +1,10 @@
 """The backward of K3: :func:`mamba_scan_bwd_cuda`, the hand-written
 reverse scan of ``csrc/mamba_scan_bwd.cu``, which recomputes each
 :data:`STATE_CHUNK`-step chunk's states from the one K3 saved before it
-(``mamba_scan_cuda(..., save_states=True)``).
+(``mamba_scan_cuda(..., save_states=True)``), keeping each step's
+exp(dt A) for its reverse step. A call launches two kernels: the reverse
+scan, a block a (64 channels, batch row), and the fixed-order sums behind
+it.
 
 No TPU kernel is replaced: the JAX package differentiates its plain
 chunked scan (``_m1_scan``) with XLA, and its Pallas scan has no backward.
@@ -12,16 +15,18 @@ kernel or an exception, never the plain version.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["mamba_scan_bwd_cuda", "launches", "MAX_STATE", "STATE_CHUNK"]
+__all__ = ["mamba_scan_bwd_cuda", "occupancy", "launches", "MAX_STATE",
+           "STATE_CHUNK"]
 
-#: kernel launches made by :func:`mamba_scan_bwd_cuda` in this process:
-#: two a call, the reverse scan and the fixed-order sums behind it
+#: kernel launches made by :func:`mamba_scan_bwd_cuda` in this process
+#: (two a call: the reverse scan and the fixed-order sums behind it)
 launches = 0
 
 #: the backward keeps 4 states per lane of a 4-lane group per channel
@@ -34,6 +39,17 @@ STATE_CHUNK = 32
 _BLOCK_CH = 64
 
 _DTYPES = {torch.float32: _build.FLOAT32, torch.bfloat16: _build.BFLOAT16}
+
+
+def occupancy(dtype: torch.dtype, device: Optional[int] = None
+              ) -> Tuple[int, int]:
+    """Resident blocks per SM of the reverse scan and the sum kernel for
+    x's ``dtype``, from the CUDA runtime."""
+    lib = _build.ensure_built(device)
+    out = (ctypes.c_int * 2)()
+    _build.check(lib.repro_mamba_scan_bwd_occupancy(_DTYPES[dtype], out),
+                 "mamba_scan_bwd occupancy")
+    return tuple(out)
 
 
 def mamba_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor, Bc: torch.Tensor,

@@ -16,6 +16,7 @@ host-clock numbers of this machine and are not compared.
 import json
 import re
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -243,6 +244,31 @@ def test_serve_slo_rows_carry_the_reference_names(tmp_path):
     trace = json.loads((tmp_path / "TRACE_serve_slo.json").read_text())
     assert trace["otherData"]["spans"] == int(val["serve_slo_trace_spans"])
     assert "serve_slo" not in trun.NOT_PORTED
+
+
+def test_serve_slo_trace_waits_for_the_spans_after_the_last_result(
+        tmp_path, monkeypatch):
+    """The engine's stages record their spans after fulfilling a future, so
+    a busy machine can wake the suite on its last result before the engine
+    thread has recorded them. Here every fulfilment holds the engine thread
+    20 ms, which makes that order certain: the exported trace must still
+    hold every span the tracer ends with."""
+    from repro_torch.serve import scheduler
+
+    for name in ("set_result", "set_error"):
+        fulfil = getattr(scheduler.ServeRequest, name)
+
+        def late(self, value, fulfil=fulfil):
+            fulfil(self, value)
+            time.sleep(0.02)
+        monkeypatch.setattr(scheduler.ServeRequest, name, late)
+    rc = trun.main(["--device", "cpu", "--quick", "--only", "serve_slo",
+                    "--bench-dir", str(tmp_path)])
+    assert rc == 0
+    got = json.loads((tmp_path / "BENCH_serve_slo.json").read_text())
+    val = {r["name"]: r["value"] for r in got["rows"]}
+    trace = json.loads((tmp_path / "TRACE_serve_slo.json").read_text())
+    assert trace["otherData"]["spans"] == int(val["serve_slo_trace_spans"])
 
 
 def test_obs_gate_measures_both_modes_on_cpu():

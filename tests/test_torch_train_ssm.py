@@ -15,7 +15,10 @@ On the CPU the port's Mamba1 scan is the plain sequential scan under
 autograd (the backward kernel's plain version). The kernel's own order of
 work (states saved every 32 steps, each chunk recomputed from its saved
 state, then walked backwards) is rendered in plain torch here and held to
-autograd through ``mamba_scan_ref``.
+autograd through ``mamba_scan_ref``, both as the previous kernel did it and
+as the kernel does it now: the recompute's exp(dt A) kept for the reverse
+step, the first half-chunk's states recomputed again from the kept
+exponentials, and dA summed from per-row partials.
 
 Tolerances, with a margin over what these inputs give:
 
@@ -231,11 +234,75 @@ def _bwd_in_kernel_order(dt, x, Bc, Cc, A, h0, dy, dhT, chunk=32):
     return ddt, dx, dB, dC, dA
 
 
-@pytest.mark.parametrize("final_grad", [False, True])
-@pytest.mark.parametrize("S,h0", [(45, False), (64, False), (40, True)])
-def test_backward_order_of_work_matches_autograd(S, h0, final_grad):
+def _bwd_kept_exp(dt, x, Bc, Cc, A, h0, dy, dhT, chunk=32):
+    """The redesigned kernel's work in plain torch: each chunk's states
+    recomputed from the saved one keeping a_t = exp(dt_t A); the chunk's
+    second half walked backwards first, then the first half's states
+    recomputed again from the saved state and the kept a_t (no
+    exponential) and walked; each step ga = g a_t (the next step's carry),
+    w = ga h_{t-1}; dA added from the per-row partials row by row."""
+    Bb, S, dI = x.shape
+    N = A.shape[1]
+    half = chunk // 2
+    h = torch.zeros((Bb, dI, N)) if h0 is None else h0.clone()
+    saved = []
+    for t in range(S):
+        if t % chunk == 0:
+            saved.append(h)
+        h = torch.exp(dt[:, t, :, None] * A) * h \
+            + (dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
+    ddt, dx = torch.zeros_like(dt), torch.zeros_like(x)
+    dB, dC = torch.zeros_like(Bc), torch.zeros_like(Cc)
+    dA_part = torch.zeros((Bb, dI, N))
+    g = torch.zeros((Bb, dI, N)) if dhT is None else dhT.clone()
+    for c in reversed(range(len(saved))):
+        t0 = c * chunk
+        hs, kept = [saved[c]], []
+        for t in range(t0, min(S, t0 + chunk)):
+            kept.append(torch.exp(dt[:, t, :, None] * A))
+            hs.append(kept[-1] * hs[-1] + (dt[:, t] * x[:, t])[..., None]
+                      * Bc[:, t, None, :])
+        for lo in (half, 0):
+            if lo == 0:   # the first half again, from the kept a_t
+                for u in range(min(half, len(kept))):
+                    t = t0 + u
+                    hs[u + 1] = kept[u] * hs[u] \
+                        + (dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
+            for u in reversed(range(lo, min(lo + half, len(kept)))):
+                t = t0 + u
+                g = g + Cc[:, t, None, :] * dy[:, t, :, None]
+                ga = g * kept[u]
+                w = ga * hs[u]
+                s1 = (g * Bc[:, t, None, :]).sum(-1)
+                ddt[:, t] = x[:, t] * s1 + (w * A).sum(-1)
+                dx[:, t] = dt[:, t] * s1
+                dB[:, t] = (g * (dt[:, t] * x[:, t])[..., None]).sum(1)
+                dC[:, t] = (hs[u + 1] * dy[:, t, :, None]).sum(1)
+                dA_part += w * dt[:, t, :, None]
+                g = ga
+    dA = torch.zeros_like(A)
+    for b in range(Bb):
+        dA += dA_part[b]
+    return ddt, dx, dB, dC, dA
+
+
+# (S, h0, final_grad, order): the previous order of work keeps its cases'
+# ids; the kept-exponential order on ragged S (150 = 4 x 32 + 22 steps, 70,
+# 45: a last chunk shorter than its half) and whole chunks (96), with and
+# without h0 and dhT
+_ORDER_CASES = [pytest.param(S, h0, fin, "previous", id=f"{S}-{h0}-{fin}")
+                for S, h0 in ((45, False), (64, False), (40, True))
+                for fin in (False, True)] + [
+    pytest.param(S, h0, fin, "kept", id=f"kept-{S}-{h0}-{fin}")
+    for S, h0, fin in ((150, False, True), (150, True, False),
+                       (96, False, False), (96, True, True),
+                       (70, False, True), (45, True, True))]
+
+
+@pytest.mark.parametrize("S,h0,final_grad,order", _ORDER_CASES)
+def test_backward_order_of_work_matches_autograd(S, h0, final_grad, order):
     """Ragged and whole chunks, a given initial state, a gradient on the
-    final state or none."""
+    final state or none; the previous order and the kept-exponential one."""
     dt, x, Bc, Cc, A, init = _scan_inputs(2, S, 12, 16, seed=S, h0=h0)
     rng = np.random.default_rng(7)
     dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
@@ -249,7 +316,8 @@ def test_backward_order_of_work_matches_autograd(S, h0, final_grad):
         outs.append(hT)
         gouts.append(dhT.double())
     want = torch.autograd.grad(outs, ins, gouts)
-    got = _bwd_in_kernel_order(dt, x, Bc, Cc, A, init, dy, dhT)
+    got = (_bwd_in_kernel_order if order == "previous" else _bwd_kept_exp)(
+        dt, x, Bc, Cc, A, init, dy, dhT)
     for name, a, b in zip(("dt", "x", "B", "C", "A"), got, want):
         _rel_close(a, b.float(), ORDER_REL, f"d{name}")
 

@@ -10,8 +10,10 @@ C++ for sm_90a and have no interpret mode. Run on the card:
   through the plain sequential scan: S on and off the 32-step chunks
   (S = 1 and 33 among them), a ragged dI (off the 64-channel blocks), N <
   16, an initial state, a final-state gradient, bf16 x/B/C (whose
-  gradients come back in bf16); the inputs it refuses; K3's training entry
-  point keeps the state before every chunk.
+  gradients come back in bf16); S over many chunks with a ragged last
+  one; the inputs it refuses; K3's training entry point keeps the state
+  before every chunk, and the backward's recomputed states are K3's bit
+  for bit; two calls give the same bits.
 * One fp32 batch's loss and every gradient of falcon-mamba and zamba2 (4
   layers at smoke width: zamba2 as 2 groups of 2) on the card against the
   CPU's, with remat; the launches of K3 and its backward.
@@ -102,6 +104,62 @@ def test_backward_matches_autograd_through_the_plain_scan(
         err = float((a.float() - b.float()).abs().max())
         scale = float(b.float().abs().max())
         assert err <= BWD_REL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("S,dI", [(300, 512), (200, 500)])
+def test_backward_over_many_chunks_matches_autograd(cuda, S, dI):
+    """S over several chunks whose last is ragged (10 chunks, the last of
+    12 steps; 7, the last of 8), a dI on and off the 64-channel blocks, an
+    initial state and a final-state gradient."""
+    B, N = 2, 16
+    ins = _inputs(B, S, dI, N, torch.float32, cuda, seed=S)
+    g = torch.Generator(cuda).manual_seed(2)
+    init = torch.randn((B, dI, N), generator=g, device=cuda)
+    dy = torch.randn((B, S, dI), generator=g, device=cuda)
+    dhT = torch.randn((B, dI, N), generator=g, device=cuda)
+    dt, x, Bc, Cc, A = ins
+    _, _, hs = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A, h0=init,
+                                        save_states=True)
+    n0 = ops.launch_counts()["mamba_scan_bwd"]
+    got = bwd_mod.mamba_scan_bwd_cuda(dt, x, Bc, Cc, A, hs, dy, dhT)
+    assert ops.launch_counts()["mamba_scan_bwd"] == n0 + 2
+    want = _grads(lambda dt, x, b, c, a: mamba_scan_ref(dt, a, b, c, x,
+                                                        h0=init),
+                  ins, dy, dhT)
+    for name, a, b in zip(("dt", "x", "B", "C", "A"), got, want):
+        err = float((a - b).abs().max())
+        assert err <= BWD_REL[torch.float32] * float(b.abs().max()), \
+            (name, err)
+
+
+@pytest.mark.parametrize("dtype,dI", [(torch.float32, 512),
+                                      (torch.bfloat16, 512),
+                                      (torch.float32, 500)])
+def test_backward_gives_the_same_bits_twice(cuda, dtype, dI):
+    dt, x, Bc, Cc, A = _inputs(2, 250, dI, 16, dtype, cuda, seed=9)
+    _, _, hs = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A, save_states=True)
+    dy = torch.randn((2, 250, dI), generator=torch.Generator(
+        cuda).manual_seed(3), device=cuda)
+    one = bwd_mod.mamba_scan_bwd_cuda(dt, x, Bc, Cc, A, hs, dy)
+    two = bwd_mod.mamba_scan_bwd_cuda(dt, x, Bc, Cc, A, hs, dy)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_backward_recomputes_k3s_states_bit_for_bit(cuda):
+    """With dy one at channel 300 and zero elsewhere, dC_t[n] is h_t[300,
+    n] summed with zeros; K3 with C the n-th unit vector gives y_t[d] =
+    h_t[d, n] the same way (fp32)."""
+    B, S, dI, N, dstar = 2, 250, 512, 16, 300
+    dt, x, Bc, Cc, A = _inputs(B, S, dI, N, torch.float32, cuda, seed=4)
+    _, _, hs = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A, save_states=True)
+    dy = torch.zeros((B, S, dI), device=cuda)
+    dy[:, :, dstar] = 1.0
+    dC = bwd_mod.mamba_scan_bwd_cuda(dt, x, Bc, Cc, A, hs, dy)[3]
+    for n in range(N):
+        e = torch.zeros((B, S, N), device=cuda)
+        e[:, :, n] = 1.0
+        y, _ = scan_mod.mamba_scan_cuda(dt, x, Bc, e, A)
+        assert torch.equal(dC[:, :, n], y[:, :, dstar]), n
 
 
 def test_training_entry_keeps_the_state_before_each_chunk(cuda):
