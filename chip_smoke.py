@@ -158,7 +158,7 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 8e. train   — stablelm-1.6b at full width and depth (fp32 masters from a
               seeded ``torch.Generator``, AdamW with fp32 moments, bf16
               compute with remat) trained through the port's ``Trainer``
-              (the cyclic conditional taskflow) for 4 steps of 8 x 2048
+              (the cyclic conditional taskflow) for 3 steps of 8 x 2048
               tokens, cut from the ``full`` preset's 256 x 4096: step
               walls, tok/s, MFU, peak memory and the loss curve; then a
               step under ``set_sync_debug_mode("error")``, a step traced
@@ -181,7 +181,7 @@ Drives the port's main path on one NVIDIA GPU and checks it:
 8g. train_ssm — in fp32 at full width, one batch's loss and every
               gradient on the card against the CPU's (falcon-mamba-7b at 4
               layers, zamba2-1.2b at 14: two groups and a 2-layer tail);
-              then 3 steps of 8 x 2048 through the ``Trainer`` (fp32
+              then 2 steps of 8 x 2048 through the ``Trainer`` (fp32
               masters, bf16 compute with remat) for zamba2-1.2b at full
               width and depth and falcon-mamba-7b at full width cut to 16
               of 64 layers: step walls, tok/s, MFU, peak memory and a
@@ -191,7 +191,7 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               fp32 at full width and 4 layers, the prefill through K2
               against the chunked plain path and decode-after-prefill
               against ``forward`` (internvl2-1b, musicgen-large);
-              internvl2-1b at full width and depth trained 3 steps of 8 x
+              internvl2-1b at full width and depth trained 2 steps of 8 x
               2048 tokens behind its 256 frames; musicgen-large at full
               width and depth (bf16): 8 prompts of 64 tokens behind its 64
               frames prefilled through K2, then 16 greedy ``decode_step``s;
@@ -271,16 +271,21 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               (one ``MeshSession``, a (2, 1) mesh; ``bench/train_mesh.py``):
               stablelm-1.6b at full width in fp32 at 4 layers, one step of
               2 x 2048 against the single-device step (metrics, moments,
-              params within TRAIN_MESH_TOL); in bf16 with remat at 4 layers
+              params within TRAIN_MESH_TOL); in bf16 with remat at 2 layers
               (cut from 24 for time), 2 steps of 4 x 2048 (two microbatches
               of one sequence a rank) with the weight gather hoisted and not
               (half the all-gathers hoisted); falcon-mamba-7b at full width
-              and 4 of 64 layers, one bf16 step of 2 x 2048, K3 and its
-              backward launched on both ranks and counted. Each rank's
-              parameter and moment bytes must be half of every leaf sharded
-              over ``data`` and the rest whole; peak memory a rank,
-              collectives by kind and step walls (host-staged, not a speed)
-              are printed, with a JSON line ``{"train_mesh": ...}``;
+              and 2 of 64 layers, one bf16 step of 2 x 2048, K3 and its
+              backward launched on both ranks and counted. Then a (1, 2)
+              mesh, whose step partitions its products over ``model``:
+              the fp32 stablelm step again against the single-device step,
+              no leaf all-gathered; falcon-mamba-7b at 4 layers, K3 and its
+              backward launched on each rank's 4,096 channels; K3 and its
+              backward timed at dI 4,096 and 8,192. Each rank's parameter
+              and moment bytes must be each leaf's over the ranks its spec
+              shards it across; peak memory a rank, collectives by kind and
+              step walls (host-staged, not a speed) are printed, with a
+              JSON line ``{"train_mesh": ...}``;
 11f. mesh_durable — durable serving, failure isolation and the per-call
               baseline under the group: stablelm-1.6b at full width in fp32
               at 4 layers on two ``gloo`` ranks sharing the card against
@@ -305,7 +310,8 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               predicts the trainer's state and batch bytes exactly, its
               predicted peak printed beside ``max_memory_allocated``; the
               predicted collectives of train_mesh's runs equal its live
-              counters; a JSON line ``{"dryrun": ...}``;
+              counters (both ranks' on the (1, 2) mesh, whose FLOPs a rank
+              must be half one device's); a JSON line ``{"dryrun": ...}``;
 12. report  — one JSON line of per-kernel numbers (K1-K4, K3's backward
               and ``cond_graph``), the card line, and the final
               ``{"ok": true, ...}`` line.
@@ -330,6 +336,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import ctypes
 import gc
 import json
@@ -379,8 +386,10 @@ MOE_FP32_LAYERS = 8
 
 # the train phase: stablelm-1.6b at full width and depth, the full
 # preset's batch of 256 x 4096 cut to 8 x 2048 (one sequence per
-# microbatch) so that the phase stays near 90 s
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 8, 2048, 8, 4
+# microbatch) so that the phase stays near 90 s; 3 steps (6, then 4,
+# before; cut for the script's time: it took 984.0 s on an H100 whose
+# host ran its host-bound phases slowly)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 8, 2048, 8, 3
 # its checks: bf16 against fp32 compute at full width and 4 layers, |d
 # loss| in nats and the grad norm's relative difference (measured on the
 # H100: 2.6e-4 nats and 2.7e-4; the bounds are ~20x that)
@@ -399,11 +408,12 @@ TRAIN_RERUN_REL = 1e-5
 K3BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the training shape: one falcon-mamba-7b sequence a microbatch
 K3BWD_SHAPE = (1, 2048, 8192, 16)
-# the train_ssm and frontend phases: 3 steps of TRAIN_BATCH x TRAIN_SEQ
-# each; falcon-mamba-7b at full width cut to 16 of its 64 layers (its
+# the train_ssm and frontend phases: 2 steps (3 before, cut for the
+# script's time) of TRAIN_BATCH x TRAIN_SEQ each, then a traced one;
+# falcon-mamba-7b at full width cut to 16 of its 64 layers (its
 # 7.27 B parameters' fp32 masters, gradients and moments, ~116 GB, do not
 # fit the 80 GB card; 16 layers are ~2.2 B, ~36 GB)
-TRAIN_SSM_STEPS = 3
+TRAIN_SSM_STEPS = 2
 FALCON_TRAIN_LAYERS = 16
 # before them, in fp32 at full width, one batch's loss and gradients on
 # the card against the CPU's: falcon-mamba at 4 layers, zamba2 at 14 (two
@@ -436,19 +446,25 @@ MESH_PRESET = "full"
 # and not; 3 steps before, cut for the script's time: a run on an H100
 # whose host ran the host-bound phases 15-30% slower took 1,144 s of the
 # 1,200) and falcon-mamba-7b at full width cut to 4 of 64 layers (one
-# bf16 step of 2 x 2048: K3 and its backward under the group)
+# bf16 step of 2 x 2048: K3 and its backward under the group); then the
+# same fp32 stablelm step and falcon-mamba step on a (1, 2) mesh, whose
+# step partitions its products over the model axis
 TRAIN_MESH_RANKS = 2
 TRAIN_MESH_PRESET = "full"
 TRAIN_MESH_SEQ = 2048
 TRAIN_MESH_STEPS = 2
 TRAIN_MESH_FP32_LAYERS = 4
-# bf16 cut from 24 to 8 layers: at 24 the phase took 175 s (PR 26 call
-# 3: 14-28 s a step, each rank gathering and reducing 6.6 GB a step
-# through the host), over its ~120 s budget; then to 4, as a run on an
-# H100 with a slow host took 166.5 s in this phase at 8
-TRAIN_MESH_BF16_LAYERS = 4
+# bf16 cut from 24 to 8 layers: at 24 the phase took 175 s (14-28 s a
+# step, each rank gathering and reducing 6.6 GB a step through the host),
+# over its ~120 s budget; then to 4, as a run on an H100 with a slow host
+# took 166.5 s in this phase at 8; then to 2 for the time of the (1, 2)
+# runs (the phase took 124.5 s with them at 4)
+TRAIN_MESH_BF16_LAYERS = 2
 TRAIN_MESH_JOIN_S, TRAIN_MESH_OP_S = 900.0, 600.0
+# falcon-mamba-7b's layers: the (1, 2) run's 4, the (2, 1) run's 2 (4
+# before, cut for the script's time: its kernels are the (1, 2) run's)
 TRAIN_MESH_FALCON_LAYERS = 4
+TRAIN_MESH_FALCON_DP_LAYERS = 2
 # fp32, 2 ranks against one device: the metrics relative, the moments per
 # leaf relative to its largest magnitude, the params in units of lr where
 # AdamW's first step is well-conditioned and where a gradient lies within
@@ -3071,17 +3087,20 @@ def phase_mesh(dev, card: str) -> dict:
 
 
 # ------------------------------------------------------------------ phase 11e
-def _sharded_leaf_bytes(shapes_specs) -> int:
-    """What a rank of the (2, 1) mesh must hold: half of every leaf its
-    spec shards over ``data``, every other leaf whole (fp32 masters)."""
+def _sharded_leaf_bytes(shapes_specs, mesh) -> int:
+    """What a rank of ``mesh`` (data, model) must hold: each leaf's fp32
+    masters over the ranks its spec shards it across, the rest whole."""
+    sizes = {"data": mesh[0], "model": mesh[1]}
     total = 0
     for shape, spec in shapes_specs:
         n = 4
         for k in shape:
             n *= k
-        used = {a for e in spec if e
-                for a in (e if isinstance(e, (tuple, list)) else (e,))}
-        total += n // 2 if "data" in used else n
+        for e in spec:
+            for a in (e if isinstance(e, (tuple, list)) else (e,)) if e \
+                    else ():
+                n //= sizes[a]
+        total += n
     return total
 
 
@@ -3099,16 +3118,25 @@ def _train_mesh_runs() -> tuple:
         batch=4, seq=seq, steps=TRAIN_MESH_STEPS, lr=3e-4)
         for h in (False, True)]
     falcon = TrainRun("falcon-mamba", "falcon-mamba-7b", pre, (
-        ("num_layers", TRAIN_MESH_FALCON_LAYERS),), batch=2, seq=seq,
+        ("num_layers", TRAIN_MESH_FALCON_DP_LAYERS),), batch=2, seq=seq,
         steps=1, lr=3e-4)
-    return (fp32, *bf16, falcon)
+    # (1, 2): the products partitioned over the model axis; fp32 in one
+    # microbatch of 2 rows, the single-device step the (2, 1) fp32 run's
+    fp32_tp = dataclasses.replace(fp32, name="fp32-tp", microbatches=1,
+                                  mesh=(1, 2))
+    falcon_tp = dataclasses.replace(
+        falcon, name="falcon-mamba-tp", mesh=(1, 2),
+        overrides=(("num_layers", TRAIN_MESH_FALCON_LAYERS),))
+    return (fp32, *bf16, falcon, fp32_tp, falcon_tp)
 
 
 def phase_train_mesh(dev, card: str) -> dict:
     """Sharded training on TRAIN_MESH_RANKS gloo ranks sharing the card
-    (this process and one spawned rank, one ``MeshSession``); returns each
-    run's summary (``res["falcon-mamba"]["launches"]``: the ranks' K3 and
-    K3-backward launches)."""
+    (this process and one spawned rank, one ``MeshSession``): the (2, 1)
+    runs (every leaf gathered whole) and the (1, 2) runs (the products
+    partitioned over the model axis, falcon-mamba's K3 and its backward on
+    each rank's dI / 2 channels); returns each run's summary
+    (``res[name]["launches"]``: the ranks' kernel launches)."""
     from repro_torch.bench.train_mesh import (Runs, compare_states,
                                               single_run)
     from repro_torch.launch.mesh import MeshSession
@@ -3135,7 +3163,7 @@ def phase_train_mesh(dev, card: str) -> dict:
     for i, run in enumerate(runs):
         per = [r[i] for r in ranks]
         for r in per:
-            want = _sharded_leaf_bytes(r["leaf_shapes_specs"])
+            want = _sharded_leaf_bytes(r["leaf_shapes_specs"], run.mesh)
             if not (r["param_bytes"] == r["spec_bytes"] == want
                     and r["moment_bytes"] == 2 * want):
                 raise SystemExit(f"[train_mesh] {run.name} rank {r['rank']}: "
@@ -3151,7 +3179,10 @@ def phase_train_mesh(dev, card: str) -> dict:
             raise SystemExit(f"[train_mesh] {run.name}: losses do not move "
                              f"{losses}")
         c = per[0]["counters"]
+        kinds = ("mamba_scan", "mamba_scan_bwd", "flash_attention",
+                 "paged_attention")
         res[run.name] = {
+            "arch": run.arch, "mesh": list(run.mesh),
             "layers": run.config().num_layers, "batch": [run.batch, run.seq],
             "steps": run.steps, "loss": losses,
             "grad_norm": [h["grad_norm"] for h in hist],
@@ -3160,54 +3191,107 @@ def phase_train_mesh(dev, card: str) -> dict:
             "full_param_bytes": per[0]["full_bytes"],
             "peak_bytes": [r["peak_bytes"] for r in per],
             "walls_s": [r["walls"] for r in per],
+            "run_s": [r["run_s"] for r in per],
             "collective_calls": c["calls"], "collective_max_bytes":
                 c["max_bytes"],
+            "rank_collectives": [r["counters"] for r in per],
+            "rank_launches": [{k: r["launches"].get(k, 0) for k in kinds}
+                              for r in per],
             "launches": {k: sum(r["launches"].get(k, 0) for r in per)
-                         for k in ("mamba_scan", "mamba_scan_bwd",
-                                   "flash_attention", "paged_attention")}}
+                         for k in kinds}}
         log(f"[train_mesh] {run.name} ({run.arch}, {res[run.name]['layers']} "
             f"layers, full width, batch {run.batch} x {run.seq}, "
-            f"{run.steps} step(s)) on {card}: losses {losses}; per rank "
-            f"params {res[run.name]['param_bytes']} B and moments "
-            f"{res[run.name]['moment_bytes']} B of {per[0]['full_bytes']} B "
-            f"whole (half of every data-sharded leaf, the rest whole); peak "
-            f"device memory {[r['peak_bytes'] for r in per]} B; collectives "
-            f"{c['calls']}, largest {c['max_bytes']} B; step walls "
-            f"{[[round(w, 3) for w in r['walls']] for r in per]} s "
-            f"(host-staged gloo, two ranks on one card: not a speed); "
-            f"launches {res[run.name]['launches']}")
+            f"{run.steps} step(s), mesh {run.mesh}) on {card}: losses "
+            f"{losses}; per rank params {res[run.name]['param_bytes']} B and "
+            f"moments {res[run.name]['moment_bytes']} B of "
+            f"{per[0]['full_bytes']} B whole (each leaf over the ranks its "
+            f"spec shards it across); peak device memory "
+            f"{[r['peak_bytes'] for r in per]} B; collectives by rank "
+            f"{[r['counters'] for r in per]} (calls, largest bytes); step "
+            f"walls {[[round(w, 3) for w in r['walls']] for r in per]} s "
+            f"(host-staged gloo, two ranks on one card: not a speed); the "
+            f"run {[round(r['run_s'], 1) for r in per]} s with its set-up; "
+            f"launches by rank {res[run.name]['rank_launches']}")
     b0, b1 = res["bf16-hoist0"], res["bf16-hoist1"]
     g0 = b0["collective_calls"]["all_gather"]
     g1 = b1["collective_calls"]["all_gather"]
     if g0 != 2 * g1:
         raise SystemExit(f"[train_mesh] all-gathers: {g0} unhoisted (2 "
                          f"microbatches) against {g1} hoisted")
-    cmp = compare_states(ranks[0][0]["whole"], one["whole"],
-                         ranks[0][0]["history"], one["history"], fp32.lr)
-    res["fp32"]["vs_single"] = cmp
+    for name in ("fp32-tp", "falcon-mamba-tp"):
+        for rc in res[name]["rank_collectives"]:
+            if "all_gather" in rc["calls"]:
+                raise SystemExit(f"[train_mesh] {name}: the (1, 2) step "
+                                 f"all-gathered a leaf {rc}")
+    names = [run.name for run in runs]
+    for name in ("fp32", "fp32-tp"):
+        idx = names.index(name)
+        cmp = compare_states(ranks[0][idx]["whole"], one["whole"],
+                             ranks[0][idx]["history"], one["history"],
+                             fp32.lr)
+        res[name]["vs_single"] = cmp
+        log(f"[train_mesh] {name} ({TRAIN_MESH_FP32_LAYERS} layers, full "
+            f"width, 2 x {seq}, mesh {runs[idx].mesh}): 2 ranks "
+            f"{ranks[0][idx]['history']} | one device {one['history']} | "
+            f"{cmp} (tolerances {TRAIN_MESH_TOL})")
+        if cmp["metric_rel"] > TRAIN_MESH_TOL["metric"] \
+                or max(cmp["m_rel"], cmp["v_rel"]) > TRAIN_MESH_TOL["moment"] \
+                or cmp["param_lr"] > TRAIN_MESH_TOL["param_lr"] \
+                or cmp["ill_param_lr"] > TRAIN_MESH_TOL["ill_param_lr"]:
+            raise SystemExit(f"[train_mesh] the 2-rank fp32 step ({name}) "
+                             "differs from the single-device step")
     res["fp32"]["single_peak_bytes"] = one["peak_bytes"]
     res["fp32"]["single_history"] = one["history"]
-    log(f"[train_mesh] fp32 ({TRAIN_MESH_FP32_LAYERS} layers, full width, 2 x "
-        f"{seq}): 2 ranks {ranks[0][0]['history']} | one device "
-        f"{one['history']} | {cmp} (tolerances {TRAIN_MESH_TOL}); single-"
-        f"device peak {one['peak_bytes']} B")
-    if cmp["metric_rel"] > TRAIN_MESH_TOL["metric"] \
-            or max(cmp["m_rel"], cmp["v_rel"]) > TRAIN_MESH_TOL["moment"] \
-            or cmp["param_lr"] > TRAIN_MESH_TOL["param_lr"] \
-            or cmp["ill_param_lr"] > TRAIN_MESH_TOL["ill_param_lr"]:
-        raise SystemExit("[train_mesh] the 2-rank fp32 step differs from the "
-                         "single-device step")
+    log(f"[train_mesh] single-device fp32 peak {one['peak_bytes']} B")
     del one
-    counts = res["falcon-mamba"]["launches"]
-    if not counts["mamba_scan"] or not counts["mamba_scan_bwd"]:
-        raise SystemExit(f"[train_mesh] falcon-mamba launched {counts}")
-    log(f"[train_mesh] falcon-mamba-7b under the group: K3 "
-        f"{counts['mamba_scan']} and its backward {counts['mamba_scan_bwd']} "
-        "launches over both ranks")
+    for name in ("falcon-mamba", "falcon-mamba-tp"):
+        for r, counts in enumerate(res[name]["rank_launches"]):
+            if not counts["mamba_scan"] or not counts["mamba_scan_bwd"]:
+                raise SystemExit(f"[train_mesh] {name} rank {r} launched "
+                                 f"{counts}")
+        log(f"[train_mesh] falcon-mamba-7b under the group, mesh "
+            f"{res[name]['mesh']}: K3 and its backward launched "
+            f"{res[name]['rank_launches']} by rank")
+    res["k3_at_rank_width"] = _k3_at_widths(dev, card)
     print(json.dumps({"train_mesh": res}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def _k3_at_widths(dev, card: str) -> dict:
+    """K3's training entry (the states kept) and its backward at a (1, 2)
+    rank's falcon-mamba-7b shape, dI = 4096, beside one device's, dI =
+    8192: B=1, S=TRAIN_MESH_SEQ, N=16, bf16 x/B/C, timed with CUDA events
+    on the free card."""
+    from repro_torch.kernels import mamba_scan as scan_mod
+    from repro_torch.kernels import mamba_scan_bwd as bwd_mod
+    g = torch.Generator(dev).manual_seed(9)
+    out = {}
+    for dI in (4096, 8192):
+        B, S, N = 1, TRAIN_MESH_SEQ, 16
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        dt = F.softplus(randn(B, S, dI)) * 0.1
+        x, Bc, Cc = (randn(B, S, dI).to(BF16), randn(B, S, N).to(BF16),
+                     randn(B, S, N).to(BF16))
+        A = -torch.exp(randn(dI, N) * 0.5)
+        dy = randn(B, S, dI)
+        _, _, hs = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A,
+                                            save_states=True)
+        fwd = time_ms(lambda: scan_mod.mamba_scan_cuda(
+            dt, x, Bc, Cc, A, save_states=True), iters=20)
+        bwd = time_ms(lambda: bwd_mod.mamba_scan_bwd_cuda(
+            dt, x, Bc, Cc, A, hs, dy), iters=20)
+        out[dI] = {"fwd_ms": fwd, "bwd_ms": bwd}
+        del dt, x, Bc, Cc, A, dy, hs
+    log(f"[train_mesh] K3 (training entry, states kept) and its backward "
+        f"at B=1 S={TRAIN_MESH_SEQ} N=16 bf16 on {card}: dI=4096 (a (1, 2) "
+        f"rank's) fwd {out[4096]['fwd_ms']:.4f} ms, bwd "
+        f"{out[4096]['bwd_ms']:.4f} ms; dI=8192 (one device's) fwd "
+        f"{out[8192]['fwd_ms']:.4f} ms, bwd {out[8192]['bwd_ms']:.4f} ms")
+    return out
 
 
 # --------------------------------------------------------------- phase 11f
@@ -3411,6 +3495,100 @@ def phase_mesh_durable(dev, card: str) -> dict:
 
 
 # --------------------------------------------------------------- phase 11g
+class _MetaScanFn(torch.autograd.Function):
+    """K3 and its backward as the meta device sees them: outputs and
+    gradients of their shapes, no arithmetic."""
+
+    @staticmethod
+    def forward(ctx, dt, x, Bc, Cc, A):
+        ctx.shapes = [(t.shape, t.dtype) for t in (dt, x, Bc, Cc, A)]
+        return dt.new_empty(dt.shape), dt.new_empty(
+            (dt.shape[0],) + tuple(A.shape))
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        return tuple(dy.new_empty(sh, dtype=dt) for sh, dt in ctx.shapes)
+
+
+def _meta_scan():
+    """Within it, the dry run takes K3 (forward and backward) as one op
+    each, as the card runs them, where the meta device would step the
+    plain scan's 2,048 steps one by one (~100 s a falcon-mamba-7b step at
+    4 layers on the host): the collectives and the products' FLOPs are the
+    same, the plain scan's own per-step products are not counted."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    return mock.patch.object(
+        ops, "mamba_scan",
+        lambda dt, x, Bc, Cc, A, h0=None: _MetaScanFn.apply(dt, x, Bc, Cc,
+                                                            A))
+
+
+def _dryrun_mesh_runs(train_mesh: dict) -> dict:
+    """The train_mesh runs on the meta device against their live
+    counters (see :func:`phase_dryrun`)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.op_analysis import (DryMeshGroup,
+                                                     StepCost, analyze_step)
+    from repro_torch.launch.mesh import make_ctx, small_mesh
+    from repro_torch.train.train_step import train_input_specs
+
+    out = {}
+    runs = _train_mesh_runs()
+    for run in runs[:3] + runs[4:]:
+        t1 = time.perf_counter()
+        mesh = small_mesh(*run.mesh)
+        # rank 0 of the (2, 1) runs; both ranks of the partitioned (1, 2)
+        # runs, and beside them the same rows on one device (a (1, 1)
+        # mesh): a rank's FLOPs are 1/2 of its
+        ranks = range(mesh.size) if run.mesh[1] > 1 else (0,)
+        pred, flops, rest = [], [], []
+        scan = _meta_scan() if run.arch == "falcon-mamba-7b" \
+            else contextlib.nullcontext()
+        for rank in list(ranks) + ([None] if run.mesh[1] > 1 else []):
+            m = mesh if rank is not None else small_mesh(1, 1)
+            ctx = make_ctx(m, DryMeshGroup(m, rank or 0, StepCost()))
+            step, args, _ = train_input_specs(
+                run.config(), ctx, ShapeSpec("t", run.seq, run.batch,
+                                             "train"),
+                opt=run.opt(), microbatches=run.microbatches)
+            with scan:
+                analyze_step(step, *args, cost=ctx.group.cost)
+            del args
+            flops.append(ctx.group.cost.flops)
+            rest.append((ctx.group.cost.transcendentals,
+                         ctx.group.cost.bytes_accessed,
+                         ctx.group.cost.peak_bytes))
+            if rank is None:
+                continue
+            one = ctx.group.counters()
+            pred.append({"calls": {k: v * run.steps
+                                   for k, v in one["calls"].items()},
+                         "max_bytes": one["max_bytes"]})
+        live = train_mesh[run.name]["rank_collectives"][:len(pred)]
+        out[run.name] = {"predicted": pred, "live": live,
+                                       "flops": flops, "rest": rest,
+                                       "seconds": time.perf_counter() - t1}
+        log(f"[dryrun] train_mesh {run.name} ({run.config().num_layers} "
+            f"layers, {run.batch} x {run.seq}, {run.steps} step(s), mesh "
+            f"{run.mesh}): predicted by rank {pred}, live {live}; FLOPs a "
+            f"step by rank {flops[:len(pred)]}"
+            + (f", one device {flops[-1]:.6e} ({flops[0] / flops[-1]:.6f}x)"
+               if run.mesh[1] > 1 else "")
+            + "; transcendentals, bytes accessed and peak bytes by rank "
+            f"(the last one device's where there is one) {rest}"
+            + f" ({time.perf_counter() - t1:.1f}s)")
+        if pred != live:
+            raise SystemExit(f"[dryrun] {run.name}: predicted collectives "
+                             "differ from the live counters")
+        if run.mesh[1] > 1 and any(f * run.mesh[1] != flops[-1]
+                                   for f in flops[:-1]):
+            raise SystemExit(f"[dryrun] {run.name}: a rank's FLOPs are not "
+                             "1/2 of one device's")
+    return out
+
+
 def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
     """The dry run (``repro_torch.distributed.op_analysis`` on the meta
     device, nothing launched) beside what the train and train_mesh phases
@@ -3418,15 +3596,14 @@ def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
     TRAIN_SEQ (TRAIN_MB microbatches, remat as the trainer runs it) must
     predict the trainer's state bytes plus the batch as its argument
     bytes exactly, and its predicted peak is printed beside the trainer's
-    ``max_memory_allocated``; for train_mesh's runs on its (2, 1) mesh,
-    one step's predicted collectives (calls times the run's steps, and the
-    largest bytes, by kind) must equal rank 0's live ``MeshGroup``
-    counters."""
+    ``max_memory_allocated``; for train_mesh's runs, one step's predicted
+    collectives (calls times the run's steps, and the largest bytes, by
+    kind) must equal the live ``MeshGroup`` counters, rank 0's on the
+    (2, 1) mesh and both ranks' on the (1, 2) mesh, whose FLOPs a rank
+    must be exactly 1/2 of the same rows' on one device."""
     from repro_torch.configs import ShapeSpec
-    from repro_torch.distributed.op_analysis import (DryMeshGroup,
-                                                     StepCost, analyze_step)
+    from repro_torch.distributed.op_analysis import analyze_step
     from repro_torch.distributed.sharding import ShardCtx
-    from repro_torch.launch.mesh import make_ctx, small_mesh
     from repro_torch.launch.train import build_cfg
     from repro_torch.optim import OptConfig
     from repro_torch.train.train_step import train_input_specs
@@ -3461,30 +3638,7 @@ def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
     if cost.argument_bytes != live_args:
         raise SystemExit("[dryrun] the predicted argument bytes are not the "
                          "trainer's state and batch")
-    res["train_mesh"] = {}
-    for run in _train_mesh_runs()[:3]:
-        t1 = time.perf_counter()
-        mesh = small_mesh(*run.mesh)
-        ctx = make_ctx(mesh, DryMeshGroup(mesh, 0, StepCost()))
-        step, args, _ = train_input_specs(
-            run.config(), ctx, ShapeSpec("t", run.seq, run.batch, "train"),
-            opt=run.opt(), microbatches=run.microbatches)
-        analyze_step(step, *args, cost=ctx.group.cost)
-        del args
-        one = ctx.group.counters()
-        pred = {"calls": {k: v * run.steps for k, v in one["calls"].items()},
-                "max_bytes": one["max_bytes"]}
-        live = {"calls": train_mesh[run.name]["collective_calls"],
-                "max_bytes": train_mesh[run.name]["collective_max_bytes"]}
-        res["train_mesh"][run.name] = {"predicted": pred, "live": live,
-                                       "seconds": time.perf_counter() - t1}
-        log(f"[dryrun] train_mesh {run.name} ({run.config().num_layers} "
-            f"layers, {run.batch} x {run.seq}, {run.steps} step(s), mesh "
-            f"{run.mesh}): predicted {pred}, live {live} "
-            f"({time.perf_counter() - t1:.1f}s)")
-        if pred != live:
-            raise SystemExit(f"[dryrun] {run.name}: predicted collectives "
-                             "differ from the live counters")
+    res["train_mesh"] = _dryrun_mesh_runs(train_mesh)
     print(json.dumps({"dryrun": res}), flush=True)
     return res
 
@@ -4691,7 +4845,9 @@ def main(argv=None) -> None:
     tcounts = phase_mesh(dev, smi)
     done("mesh (2 gloo ranks on the card)")
     tmesh = phase_train_mesh(dev, smi)
-    mcounts_tm = tmesh["falcon-mamba"]["launches"]
+    mcounts_tm = {k: tmesh["falcon-mamba"]["launches"][k]
+                  + tmesh["falcon-mamba-tp"]["launches"][k]
+                  for k in ("mamba_scan", "mamba_scan_bwd")}
     done("train_mesh (sharded training, 2 gloo ranks on the card)")
     dcounts_tm = phase_mesh_durable(dev, smi)
     done("mesh_durable (journal, snapshot, restore, isolation, per-call and "

@@ -10,9 +10,11 @@ rank, and the single-device run they are held to:
 * :class:`Runs`: a session's body, the runs one after another on this
   rank's :class:`~repro_torch.distributed.sharding.MeshGroup` (one per
   mesh shape), each reporting the rank's state bytes against what its
-  specs give, its peak device memory, its collectives, its step walls, its
-  kernel launches and (rank 0) the metrics and, if asked, the whole state
-  gathered into host memory;
+  specs give, its peak device memory, its collectives, its step walls, the
+  run's wall (its weights built and placed too), its kernel launches and
+  (rank 0) the metrics and, if asked, the whole state gathered into host
+  memory. A run on a mesh with a ``model`` axis takes the step its arch
+  takes there (:func:`repro_torch.distributed.sharding.tp_compute`);
 * :func:`single_run`: the same steps through the single-device step;
 * :func:`compare_states`: the largest differences between two states
   (metrics, moments per leaf, params in units of lr), the params split by
@@ -124,7 +126,10 @@ class Runs:
                 ctxs[run.mesh] = mesh_ctx(small_mesh(*run.mesh), device,
                                           self.op_timeout_s)
             ctx = ctxs[run.mesh]
-            out.append(None if ctx is None else _sharded(run, ctx, device))
+            t0 = time.perf_counter()
+            out.append(None if ctx is None else dict(
+                _sharded(run, ctx, device),
+                run_s=time.perf_counter() - t0))
             gc.collect()
             if torch.device(device).type == "cuda":
                 torch.cuda.empty_cache()

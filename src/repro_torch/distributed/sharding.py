@@ -40,6 +40,15 @@ a rank's block and reassembles the blocks. XLA partitions the reference's
 step; here each rank is a process holding its blocks, and
 :class:`MeshGroup` runs the step's explicit, counted collectives over the
 subgroups of each mesh axis.
+
+The partitioned compute of the train step: :func:`tp_compute` decides
+which archs partition their products over the ``tp`` axis; inside the
+step's :class:`TrainRegion` the layers call four collectives that sit in
+the autograd graph, each counted by the group: into the ``tp`` region
+(identity forward, sum backward), out of it (sum forward, identity
+backward), the vocab-parallel max (no gradient) and the MoE router's sum
+over ``dp``. :func:`exchange_xz` moves Mamba1's fused ``in_proj`` between
+its stored layout and the one the partitioned layer computes with.
 """
 from __future__ import annotations
 
@@ -56,7 +65,9 @@ __all__ = ["MeshDivisibilityError", "serve_attn_sharded",
            "serve_mlp_sharded", "validate_serve_mesh", "shard_serve_params",
            "TPGroup", "gather_tp", "SERVE_ATTN_LEAVES", "SERVE_MLP_LEAVES",
            "Mesh", "ShardCtx", "logical_to_spec", "constrain",
-           "param_specs", "NamedSharding", "axes_of", "MeshGroup"]
+           "param_specs", "NamedSharding", "axes_of", "MeshGroup",
+           "TrainRegion", "use_region", "current_region", "tp_part",
+           "tp_compute", "tp_compute_why", "split_spec", "exchange_xz"]
 
 
 class MeshDivisibilityError(ValueError):
@@ -379,7 +390,8 @@ def logical_to_spec(ctx: ShardCtx, logical: Sequence[Any]) -> Spec:
 def constrain(x: Any, *logical: Any) -> Any:
     """The identity. The reference pins an activation's layout for XLA's
     partitioner with ``with_sharding_constraint``; here no compiler
-    partitions the step (each rank runs its own rows explicitly, see
+    partitions the step: each rank runs its own rows, and the partitioned
+    layers their own heads and channels, explicitly (:class:`TrainRegion`,
     :func:`repro_torch.train.train_step.make_train_step`), so there is
     nothing to constrain."""
     return x
@@ -648,6 +660,23 @@ class MeshGroup:
                                "max": dist.ReduceOp.MAX}[op], group=pg)
         return x
 
+    def all_to_all(self, x: torch.Tensor, axes: Sequence[str],
+                   send: Sequence[int], recv: Sequence[int]) -> torch.Tensor:
+        """The exchange over the ranks along ``axes``: ``x``'s consecutive
+        slices of ``send[j]`` rows (dim 0) go to the j-th of them; the
+        result is the rows received, ``recv[j]`` from the j-th, in rank
+        order."""
+        import torch.distributed as dist
+        pg = self._pg(axes)
+        if pg is None:
+            return x
+        x = x.contiguous()
+        out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        self.count("all_to_all", x.numel() * x.element_size())
+        dist.all_to_all_single(out, x, output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=pg)
+        return out
+
     def barrier(self) -> None:
         """Every rank of the mesh reaches this point."""
         import torch.distributed as dist
@@ -657,11 +686,14 @@ class MeshGroup:
             dist.barrier(group=pg)
 
     # -- leaves --------------------------------------------------------------
-    def gather_leaf(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+    def gather_leaf(self, t: torch.Tensor, spec: Spec,
+                    keep: Sequence[str] = ()) -> torch.Tensor:
         """The full tensor from this rank's block ``t`` of a leaf with
-        ``spec``: one tiled all-gather per sharded dimension."""
+        ``spec``: one tiled all-gather per sharded dimension. The
+        dimensions sharded over an axis of ``keep`` stay this rank's block
+        (the partitioned step keeps its ``tp`` blocks)."""
         for d, entry in enumerate(spec):
-            if axes_of(entry):
+            if axes_of(entry) and not set(axes_of(entry)) & set(keep):
                 t = self.all_gather(t, axes_of(entry), d)
         return t
 
@@ -683,3 +715,216 @@ class MeshGroup:
         rest = tuple(None if d == done else e for d, e in enumerate(spec))
         return NamedSharding(self.mesh, rest).shard(g, self.rank) \
             .contiguous()
+
+
+# --------------------------------------------------------------------------- #
+# training: the partitioned compute of the sharded step
+# --------------------------------------------------------------------------- #
+
+class _CopyToTP(torch.autograd.Function):
+    """Into the ``tp`` region: the identity forward; the backward sums the
+    ranks' partial gradients of the replicated input (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group, axes):
+        ctx.group, ctx.axes = group, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.group.all_reduce(g, ctx.axes), None, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Out of the ``tp`` region: the forward sums the ranks' partial
+    results; the backward is the identity (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, group, axes):
+        return group.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                                axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _MaxOverTP(torch.autograd.Function):
+    """The largest of the ranks' values (the vocab-parallel max of the
+    logits). It only shifts the exponentials, so it has no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, axes):
+        out = group.all_reduce(x.detach().clone(
+            memory_format=torch.contiguous_format), axes, op="max")
+        ctx.mark_non_differentiable(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None
+
+
+class _SumOverDP(torch.autograd.Function):
+    """The sum over the ``dp`` ranks of a statistic of each rank's rows
+    (the MoE router's per-expert sums). Every rank then holds the global
+    batch's value and the same upstream gradient; the step sums the ranks'
+    gradients and divides by ``dp``, so the backward scales by ``dp``: the
+    summed, divided gradient is the global statistic's."""
+
+    @staticmethod
+    def forward(ctx, x, group, axes, n):
+        ctx.n = n
+        return group.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                                axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainRegion:
+    """What the sharded train step makes current while it runs a loss
+    (:func:`use_region`): this rank's group, the ``dp`` axes, and ``tp``,
+    the model axes its products are partitioned over (None: every rank
+    runs whole weights)."""
+    group: "MeshGroup"
+    dp: Tuple[str, ...]
+    tp: Optional[Tuple[str, ...]] = None
+
+    @property
+    def dp_size(self) -> int:
+        return self.group.mesh.axis_size(self.dp)
+
+    @property
+    def tp_size(self) -> int:
+        return self.group.mesh.axis_size(self.tp) if self.tp else 1
+
+    @property
+    def tp_index(self) -> int:
+        return self.group.mesh.axis_index(self.tp, self.group.rank) \
+            if self.tp else 0
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyToTP.apply(x, self.group, self.tp)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceFromTP.apply(x, self.group, self.tp)
+
+    def max_over_tp(self, x: torch.Tensor) -> torch.Tensor:
+        return _MaxOverTP.apply(x, self.group, self.tp)
+
+    def sum_over_dp(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dp_size == 1:
+            return x
+        return _SumOverDP.apply(x, self.group, self.dp, self.dp_size)
+
+
+@contextlib.contextmanager
+def use_region(region: Optional[TrainRegion]):
+    """Make ``region`` current on this thread for the block (the
+    counterpart of the reference's ``use_shard_ctx`` in its train step)."""
+    prev = getattr(_ACTIVE, "region", None)
+    _ACTIVE.region = region
+    try:
+        yield region
+    finally:
+        _ACTIVE.region = prev
+
+
+def current_region() -> Optional[TrainRegion]:
+    """The calling thread's :class:`TrainRegion` (None off the sharded
+    step: single-device training and every serve path)."""
+    return getattr(_ACTIVE, "region", None)
+
+
+def tp_part() -> Optional[TrainRegion]:
+    """The current region when its products are partitioned over ``tp``,
+    else None."""
+    r = current_region()
+    return r if r is not None and r.tp_size > 1 else None
+
+
+def tp_compute_why(cfg: Any, ctx: ShardCtx) -> Optional[str]:
+    """None when the sharded step partitions ``cfg``'s products over the
+    ctx's ``tp`` axis; else why its step gathers every leaf whole.
+    Partitioned: every layer kind of the arch is a dense-attention, MLP
+    or Mamba1 layer (the dense trunks behind the stub frontends
+    included), the ``tp`` axis is above 1, and it divides every
+    width the partition cuts (so the rule table's guard keeps ``tp`` on
+    each of those leaves): the padded vocabulary, the query heads, the MLP
+    width, Mamba1's channels. The KV heads may stay whole (each rank then
+    takes the ones its query heads read) where the groups allow it."""
+    tp = ctx.axis_size("tp") if ctx.mesh is not None and ctx.tp else 1
+    if tp <= 1:
+        return "no model axis above 1"
+    if cfg.moe:
+        return "MoE layers (expert parallelism is not partitioned yet)"
+    if cfg.hybrid_attn_every or (cfg.ssm and cfg.ssm_version != 1):
+        return "Mamba2/hybrid layers are not partitioned yet"
+    cuts = {"padded vocabulary": cfg.padded_vocab}
+    if cfg.ssm:
+        cuts["Mamba1 channels"] = cfg.d_inner
+    else:
+        cuts["query heads"] = cfg.num_heads
+        cuts["MLP width"] = cfg.d_ff
+    for what, n in cuts.items():
+        if n % tp:
+            return f"model axis {tp} does not divide the {what} ({n})"
+    if not cfg.ssm and cfg.num_kv_heads % tp:
+        h, g = cfg.num_heads // tp, cfg.num_heads // cfg.num_kv_heads
+        if h % g and g % h:
+            return (f"model axis {tp} cuts the GQA groups ({cfg.num_heads} "
+                    f"query heads over {cfg.num_kv_heads} KV heads)")
+    return None
+
+
+def tp_compute(cfg: Any, ctx: ShardCtx) -> bool:
+    """True when the sharded step partitions ``cfg``'s products over the
+    model axis (:func:`tp_compute_why`)."""
+    return tp_compute_why(cfg, ctx) is None
+
+
+def split_spec(spec: Spec, tp: Sequence[str]) -> Tuple[Spec, Spec]:
+    """(the ``tp`` entries of ``spec``, the others), each a spec with None
+    in the place of the entries it leaves out."""
+    on = tuple(e if set(axes_of(e)) & set(tp) else None for e in spec)
+    off = tuple(None if set(axes_of(e)) & set(tp) else e for e in spec)
+    return on, off
+
+
+def exchange_xz(group: "MeshGroup", t: torch.Tensor, tp: Sequence[str],
+                dim: int, inverse: bool = False) -> torch.Tensor:
+    """Mamba1's fused ``in_proj`` (``x | z`` along ``dim``, ``2 dI``
+    wide) between its layout as stored, rank r's contiguous columns, and
+    the one the partitioned layer computes with, ``[x_r | z_r]``: the
+    r-th ``dI / tp`` columns of each half. One all-to-all over ``tp``;
+    ``inverse`` brings a gradient back to the stored layout. Chunks of
+    ``dI / tp`` columns are numbered over the whole leaf: rank r stores
+    2r and 2r + 1, and computes with r and tp + r."""
+    n = group.mesh.axis_size(tp)
+    if n == 1:
+        return t
+    r = group.mesh.axis_index(tp, group.rank)
+
+    def owner(k):           # the rank that stores chunk k
+        return k // 2
+
+    def user(k):            # the rank that computes with chunk k
+        return k % n
+
+    stored, computed = (2 * r, 2 * r + 1), (r, n + r)
+    held, dest, want, src = (computed, owner, stored, user) if inverse \
+        else (stored, user, computed, owner)
+    x = t.movedim(dim, 0)
+    c = x.shape[0] // 2
+    pieces = dict(zip(held, x.split(c)))
+    order = sorted(held, key=lambda k: (dest(k), k))
+    send = [c * sum(dest(k) == j for k in held) for j in range(n)]
+    recv = [c * sum(src(k) == j for k in want) for j in range(n)]
+    got = group.all_to_all(torch.cat([pieces[k] for k in order]), tp,
+                           send, recv)
+    parts = dict(zip(sorted(want, key=lambda k: (src(k), k)), got.split(c)))
+    return torch.cat([parts[k] for k in want]).movedim(0, dim)

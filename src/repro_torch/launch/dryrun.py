@@ -5,10 +5,16 @@ counterpart of ``repro.launch.dryrun``).
 For each cell this script:
 
 1. builds the mesh: ``node``, one node of 8 cards (``data`` 8 x ``model``
-   1), or ``multi``, 4 such nodes (``pod`` 4 x ``data`` 8 x ``model`` 1).
-   Every card is on ``dp``: the port's ``tp`` axis shards storage, not
-   compute (ROADMAP Queue 3), so a ``model`` axis above 1 would only add
-   gathers and repeat each row's work;
+   1), ``multi``, 4 such nodes (``pod`` 4 x ``data`` 8 x ``model`` 1), or
+   ``node_tp``, one node as ``data`` 2 x ``model`` 4. On ``node_tp`` the
+   train step partitions its products over ``model`` (column- and
+   row-parallel, vocab-parallel embedding and loss, Mamba1 on ``dI / 4``
+   channels: :func:`repro_torch.distributed.sharding.tp_compute`), and the
+   count takes in its reductions, Mamba1's ``in_proj`` exchange and each
+   rank's FLOPs of its slices. An arch whose layers are not partitioned
+   yet (MoE, Mamba2/hybrid) or whose widths the axis does not divide, and
+   the serve steps, which are not partitioned yet, are skipped there with
+   the reason;
 2. builds the step of the shape's kind (the sharded train step, or the
    prefill or decode step) and meta tensors of rank 0's inputs, its blocks
    under the rule table (:mod:`repro_torch.train.train_step`);
@@ -26,7 +32,8 @@ For each cell this script:
 Usage::
 
     python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --mesh node
-    python -m repro_torch.launch.dryrun --all [--mesh node|multi|both] [--variant opt]
+    python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --mesh node_tp
+    python -m repro_torch.launch.dryrun --all [--mesh node|multi|node_tp|both] [--variant opt]
 
 It runs on the CPU and allocates nothing on a device, so it needs no card.
 """
@@ -42,7 +49,7 @@ from pathlib import Path
 
 from ..configs import ARCHS, SHAPES_BY_NAME, get_config, shape_applicable
 from ..distributed.op_analysis import DryMeshGroup, StepCost, analyze_step
-from ..distributed.sharding import Mesh
+from ..distributed.sharding import Mesh, tp_compute_why
 from ..optim.adamw import OptConfig
 from ..tree import leaves
 from ..train.train_step import (make_decode_step, make_prefill_step,
@@ -68,6 +75,7 @@ HBM_BYTES = 80e9         # device memory a card
 MESHES = {
     "node": ((8, 1), ("data", "model"), "8x1"),
     "multi": ((4, 8, 1), ("pod", "data", "model"), "4x8x1"),
+    "node_tp": ((2, 4), ("data", "model"), "2x4"),
 }
 
 
@@ -171,17 +179,36 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     }
 
 
+def _mesh_skip(cfg, shape, mesh_name: str) -> str:
+    """Why a cell of a mesh with a ``model`` axis above 1 is skipped ("":
+    it runs): only the train step partitions over ``model``, and only for
+    the archs :func:`repro_torch.distributed.sharding.tp_compute` takes."""
+    dims, axes, label = MESHES[mesh_name]
+    mesh = Mesh(dims, axes)
+    if mesh.shape.get("model", 1) == 1:
+        return ""
+    if shape.kind != "train":
+        return (f"{label}: the {shape.kind} step is not partitioned over "
+                "the model axis yet")
+    why = tp_compute_why(cfg, make_ctx(mesh))
+    return f"{label}: {why} (the step would gather every leaf whole)" \
+        if why else ""
+
+
 def cells(archs, shapes, meshes):
     """(arch, shape, mesh or None with the skip reason) in run order."""
     for arch in archs:
         cfg = get_config(arch)
         for shape_name in shapes:
-            ok, why = shape_applicable(cfg, SHAPES_BY_NAME[shape_name])
+            shape = SHAPES_BY_NAME[shape_name]
+            ok, why = shape_applicable(cfg, shape)
             if not ok:
                 yield arch, shape_name, None, why
                 continue
             for m in meshes:
-                yield arch, shape_name, m, ""
+                why = _mesh_skip(cfg, shape, m)
+                yield (arch, shape_name, None, why) if why else \
+                    (arch, shape_name, m, "")
 
 
 def run(archs, shapes, meshes, out: Path, tag: str = "", variant: str = "",
@@ -236,7 +263,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="both",
-                    choices=["node", "multi", "both"])
+                    choices=["node", "multi", "node_tp", "both"])
     ap.add_argument("--all", action="store_true",
                     help="every arch and shape (the default without "
                          "--arch / --shape)")

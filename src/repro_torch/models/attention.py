@@ -27,6 +27,13 @@ counts are read from the weights, so every path runs on the rank's heads;
 tiled all-gathers, keyed by shape as in the reference
 (``src/repro/models/attention.py:170-174``).
 
+The partitioned train step (:mod:`repro_torch.train.train_step`): the
+chunked training attention runs on the rank's ``H / tp`` query heads and
+``KV / tp`` KV heads (``wq/wk/wv`` and their biases column-parallel, ``wo``
+row-parallel). Where ``tp`` does not divide the KV heads, the step brings
+``wk/wv`` whole and each rank takes the KV heads its query heads read
+(:func:`_rank_kv_heads`), so no GQA group is cut.
+
 fp32-accumulated products: the reference computes scores with
 ``preferred_element_type=float32`` from compute-dtype operands, and a torch
 bf16 matmul would return bf16. The plain paths here upcast the operands to
@@ -39,8 +46,8 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import gather_tp
-from .layers import dtype_of, rms_norm, rope
+from ..distributed.sharding import gather_tp, tp_part
+from .layers import column_parallel, dtype_of, rms_norm, row_parallel, rope
 
 __all__ = ["attention", "decode_attention", "paged_decode_attention",
            "paged_prefill_window_attention", "decode_attention_rows",
@@ -55,9 +62,8 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     H = p["wq"].shape[-1] // hd
     KV = p["wk"].shape[-1] // hd
     cdt = dtype_of(cfg.compute_dtype)
-    q = x @ p["wq"].to(cdt)
-    k = x @ p["wk"].to(cdt)
-    v = x @ p["wv"].to(cdt)
+    q, k, v = column_parallel(x, p["wq"].to(cdt), p["wk"].to(cdt),
+                              p["wv"].to(cdt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -79,10 +85,29 @@ def _project_out(out2, p, cfg: ModelConfig, cdt):
     after (identities off a group)."""
     if out2.shape[-1] != p["wo"].shape[0]:     # serve TP: concat heads
         out2 = gather_tp(out2, -1)
-    y = out2 @ p["wo"].to(cdt)
+    y = row_parallel(out2, p["wo"].to(cdt))
     if y.shape[-1] != cfg.d_model:             # serve TP: concat columns
         y = gather_tp(y, -1)
     return y
+
+
+def _rank_kv_heads(p, cfg: ModelConfig, part):
+    """Under the partitioned step with whole ``wk/wv`` (``tp`` does not
+    divide the KV heads): ``p`` with ``wk/wv`` (and ``bk/bv``) cut to the
+    KV heads this rank's ``H / tp`` query heads read; ``p`` itself when
+    they are the rank's blocks already."""
+    hd = cfg.hd
+    if p["wk"].shape[-1] != cfg.num_kv_heads * hd:     # the rank's block
+        return p
+    h = cfg.num_heads // part.tp_size
+    group = cfg.num_heads // cfg.num_kv_heads
+    lo = part.tp_index * h // group
+    hi = ((part.tp_index + 1) * h - 1) // group + 1
+    p = dict(p)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            p[name] = p[name][..., lo * hd:hi * hd]
+    return p
 
 
 def _softmax_attend(s, v, mask):
@@ -138,6 +163,9 @@ def attention(p, x, cfg: ModelConfig, positions, impl: str = "chunked",
     ``positions`` is ``arange(S)`` per row, which holds for prefill."""
     B, S, D = x.shape
     cdt = dtype_of(cfg.compute_dtype)
+    part = tp_part()
+    if part is not None:
+        p = _rank_kv_heads(p, cfg, part)
     q, k, v = _project_qkv(p, x, cfg, positions)
     if impl == "flash":
         from ..kernels.ops import flash_attention

@@ -4,6 +4,14 @@ Counterpart of ``repro.models.layers``; same signatures and layouts, on
 torch tensors. Init takes an explicit ``torch.Generator`` (its numbers
 differ from ``jax.random``'s; the parity tests load the reference's own
 params through :func:`repro_torch.params.from_reference` instead).
+
+The column- and row-parallel products of the partitioned train step
+(:func:`column_parallel`, :func:`row_parallel`) are plain products off it:
+under a :class:`repro_torch.distributed.sharding.TrainRegion` whose
+products are partitioned, each weight is this rank's ``tp`` block, the
+input of a column-parallel product enters the region (its gradient summed
+over ``tp`` in the backward) and a row-parallel product's partial sums
+leave it (summed over ``tp`` in the forward).
 """
 from __future__ import annotations
 
@@ -13,8 +21,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..distributed.sharding import tp_part
+
 __all__ = ["rms_norm", "rope", "sinusoidal_positions", "dense_init",
-           "normal_init", "dtype_of", "matmul_f32"]
+           "normal_init", "dtype_of", "matmul_f32", "tp_copy",
+           "column_parallel", "row_parallel"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -61,6 +72,33 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             and a.dtype in (torch.bfloat16, torch.float16):
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (replicated over ``tp``) into the partitioned region: the
+    identity, whose backward sums the ranks' gradients; the identity off
+    it."""
+    part = tp_part()
+    return x if part is None else part.copy_in(x)
+
+
+def column_parallel(x: torch.Tensor, *ws: torch.Tensor):
+    """``[x @ w for w in ws]``, ``x`` entering the region once: each ``w``
+    is this rank's block of output columns."""
+    x = tp_copy(x)
+    return [x @ w for w in ws]
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 bias=None) -> torch.Tensor:
+    """``x @ w (+ bias)``, ``w`` this rank's block of input rows and ``x``
+    the matching columns: the partial products summed over ``tp``, then
+    the replicated ``bias`` added once, after the sum."""
+    y = x @ w
+    part = tp_part()
+    if part is not None:
+        y = part.reduce_out(y)
+    return y if bias is None else y + bias
 
 
 def _rope_freqs(hd: int, theta: float) -> np.ndarray:

@@ -52,6 +52,18 @@ and per whole group (its Mamba2 layers and the shared block) in the
 hybrid. The master weights may be fp32 (``param_dtype``): every layer
 casts at use, so the gradients land in the fp32 leaves.
 
+Under the sharded train step with its products partitioned over ``tp``
+(:func:`repro_torch.distributed.sharding.tp_compute`) the embedding and
+the head are vocab-parallel: each rank holds ``padded_vocab / tp`` rows of
+``embed`` (columns of ``lm_head``), looks up the tokens of its range and
+zeroes the rest before the sum over ``tp`` (:func:`_lookup`), and forms
+only its logits' columns; :func:`loss_fn` then takes ``logz`` from the
+global max and the global sum of exponentials and the gold logit from the
+rank that holds the label (:func:`_vocab_parallel_ce`), so the ``(B, S,
+V)`` logits are never gathered. A remat recompute re-enters the region
+(``checkpoint``'s ``context_fn``): on CUDA the backward runs on another
+thread.
+
 One device sync per decode chunk: :func:`decode_chunk_paged` and
 :func:`decode_chunk_slots` keep the ``(lengths, last, rem)`` carry on the
 device through their ``n`` steps (no ``.item()``/``.cpu()`` inside), so the
@@ -59,6 +71,8 @@ engine's read of the chunk's tokens is its only sync, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -67,10 +81,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed.sharding import current_region, tp_part, use_region
 from .attention import (attention, decode_attention,
                         decode_attention_rows, paged_decode_attention,
                         paged_prefill_window_attention)
-from .layers import dtype_of, matmul_f32, rms_norm, sinusoidal_positions
+from .layers import (dtype_of, matmul_f32, rms_norm, sinusoidal_positions,
+                     tp_copy)
 from .mamba import init_mamba_state, mamba_forward, mamba_step
 from .mlp import mlp
 from .moe import moe_layer
@@ -152,7 +168,7 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
         raise ValueError(f"{cfg.name} requires frontend_embeds "
                          f"({cfg.frontend} stub)")
     cdt = dtype_of(cfg.compute_dtype)
-    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
+    x = _lookup(params["embed"], tokens).to(cdt)
     if cfg.frontend != "none":
         x = torch.cat([frontend_embeds.to(cdt), x], dim=1)
     B, S = x.shape[:2]
@@ -160,6 +176,20 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(cdt)
     return x, positions
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; vocab-parallel under the partitioned step (this
+    rank's rows of ``embed``: the tokens of its range looked up, the rest
+    zero, then the sum over ``tp``)."""
+    part = tp_part()
+    if part is None:
+        return F.embedding(tokens.long(), embed)
+    n = embed.shape[0]
+    t = tokens.long() - part.tp_index * n
+    inside = (t >= 0) & (t < n)
+    x = F.embedding(torch.where(inside, t, 0), embed)
+    return part.reduce_out(torch.where(inside[..., None], x, 0.0))
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
@@ -173,9 +203,10 @@ def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head: (B, D) -> (B, padded_vocab) fp32. Padded vocab
-    columns stay unmasked, as in the reference."""
+    columns stay unmasked, as in the reference. Under the partitioned step
+    the head is this rank's vocab columns, and so are the logits."""
     cdt = dtype_of(cfg.compute_dtype)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    x = tp_copy(rms_norm(x, params["final_norm"], cfg.rms_eps))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return matmul_f32(x, head.to(cdt))
 
@@ -249,6 +280,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     x, positions = _embed(cfg, params, tokens, frontend_embeds)
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    recompute = functools.partial(_checkpoint, current_region())
     layers = layer_views(params)
     if cfg.hybrid_attn_every:
         every = cfg.hybrid_attn_every
@@ -257,18 +289,45 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
         for g in range(G):
             args = (layers[g * every:(g + 1) * every],
                     params["shared_block"], x, x0, cfg, positions)
-            x = checkpoint(_group_train, *args, use_reentrant=False,
-                           preserve_rng_state=False) if remat \
+            x = recompute(_group_train, *args) if remat \
                 else _group_train(*args)
         layers = layers[G * every:]
     for lp in layers:
         if remat:
-            x, a = checkpoint(_block_train, lp, x, cfg, positions,
-                              use_reentrant=False, preserve_rng_state=False)
+            x, a = recompute(_block_train, lp, x, cfg, positions)
         else:
             x, a = _block_train(lp, x, cfg, positions)
         aux = aux + a
     return _logits(cfg, params, x), aux
+
+
+def _checkpoint(region, fn, *args):
+    """``fn(*args)`` recomputed in the backward (no RNG state kept); the
+    recompute runs inside ``region``, the sharded step's, as the forward
+    did, whichever thread the backward runs on."""
+    def contexts():
+        return contextlib.nullcontext(), use_region(region)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=contexts)
+
+
+def _vocab_parallel_ce(cfg: ModelConfig, pred: torch.Tensor,
+                       labels: torch.Tensor, part):
+    """(logz, gold) of vocab-parallel logits: ``pred`` holds this rank's
+    ``padded_vocab / tp`` columns, the padded ones (by their global index)
+    masked to -1e30; the max, the sum of exponentials and the gold logit
+    are summed over ``tp``."""
+    n = pred.shape[-1]
+    lo = part.tp_index * n
+    cols = lo + torch.arange(n, device=pred.device)
+    pred = pred.masked_fill(cols >= cfg.vocab_size, -1e30)
+    m = part.max_over_tp(pred.amax(dim=-1))
+    sumexp = part.reduce_out(torch.exp(pred - m[..., None]).sum(dim=-1))
+    logz = m + torch.log(sumexp)
+    t = labels - lo
+    inside = (t >= 0) & (t < n)
+    gold = pred.gather(-1, torch.where(inside, t, 0)[..., None])[..., 0]
+    return logz, part.reduce_out(torch.where(inside, gold, 0.0))
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
@@ -278,8 +337,9 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
     (``batch["frontend_embeds"]``) the logits at F - 1 .. F + S - 2
     predict the S tokens, as in the reference. The gold logit is a gather:
     the reference's one-hot sum has one nonzero term, so it is the same
-    number, without a (B, S, V) one-hot. Returns (total, {"ce", "aux",
-    "zloss", "ppl_proxy"})."""
+    number, without a (B, S, V) one-hot. Under the partitioned step the
+    logits are this rank's vocab columns (:func:`_vocab_parallel_ce`).
+    Returns (total, {"ce", "aux", "zloss", "ppl_proxy"})."""
     tokens = batch["tokens"]
     logits, aux = forward(cfg, params, tokens, batch.get("frontend_embeds"))
     S = tokens.shape[1]
@@ -290,11 +350,15 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
     else:
         pred = logits[:, :S - 1]
         labels = tokens[:, 1:].long()
-    padded = torch.arange(cfg.padded_vocab, device=pred.device) \
-        >= cfg.vocab_size
-    pred = pred.masked_fill(padded, -1e30)
-    logz = torch.logsumexp(pred, dim=-1)
-    gold = pred.gather(-1, labels[..., None])[..., 0]
+    part = tp_part()
+    if part is not None:
+        logz, gold = _vocab_parallel_ce(cfg, pred, labels, part)
+    else:
+        padded = torch.arange(cfg.padded_vocab, device=pred.device) \
+            >= cfg.vocab_size
+        pred = pred.masked_fill(padded, -1e30)
+        logz = torch.logsumexp(pred, dim=-1)
+        gold = pred.gather(-1, labels[..., None])[..., 0]
     ce = torch.mean(logz - gold)
     zloss = 1e-4 * torch.mean(torch.square(logz))
     total = ce + zloss + cfg.router_aux_weight * aux

@@ -17,6 +17,13 @@ Mamba1 (falcon-mamba):
   by fp32 rounding only.
 * :func:`mamba_step` (decode) is the single-token recurrence on the carried
   ``(conv_buf, h)``.
+* Under the partitioned train step a rank runs ``dI / tp`` channels:
+  ``in_proj`` and ``dt_proj`` column-parallel (the step brings ``in_proj``
+  as ``[x_r | z_r]``, :func:`repro_torch.distributed.sharding.
+  exchange_xz`), the per-channel leaves its blocks, ``x_proj`` and
+  ``out_proj`` row-parallel (so dt/B/C are summed over ``tp`` and enter
+  the region again), and the scan (K3 and its backward) on ``(B, S, dI /
+  tp)``.
 
 Mamba2 (zamba2): :func:`_ssd_scan` is the reference's SSD dual form in
 plain torch (no TPU kernel computes it; training differentiates it with
@@ -45,7 +52,8 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import mamba_scan_ref
-from .layers import dtype_of, rms_norm
+from .layers import (column_parallel, dtype_of, rms_norm, row_parallel,
+                     tp_copy)
 
 __all__ = ["mamba_forward", "mamba_step", "init_mamba_state", "SCAN_IMPLS"]
 
@@ -92,13 +100,13 @@ def _require_ssm(cfg: ModelConfig) -> None:
 # ===================================================================== Mamba1
 def _m1_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                 return_state: bool = False, impl: str = "kernel"):
-    dI, N, R, K = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_, cfg.ssm_conv
+    N, R, K = cfg.ssm_state, cfg.dt_rank_, cfg.ssm_conv
     cdt = dtype_of(cfg.compute_dtype)
-    xz = x @ p["in_proj"].to(cdt)
-    x_in, z = xz.split(dI, dim=-1)
+    (xz,) = column_parallel(x, p["in_proj"].to(cdt))
+    x_in, z = xz.split(xz.shape[-1] // 2, dim=-1)   # dI (dI / tp) each
     xh = F.silu(_causal_conv(x_in, p["conv_w"].to(cdt),
                              p["conv_b"].to(cdt)))
-    proj = xh @ p["x_proj"].to(cdt)
+    proj = tp_copy(row_parallel(xh, p["x_proj"].to(cdt)))
     dtr, Bc, Cc = proj.split([R, N, N], dim=-1)
     # jax.nn.softplus is logaddexp(x, 0); torch's softplus returns x itself
     # above threshold=20, where the dropped log1p(exp(-x)) is below 2.1e-9
@@ -116,7 +124,7 @@ def _m1_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                          f"{SCAN_IMPLS})")
     y = y + p["ssm_D"].float() * xh.float()
     y = y.to(cdt) * F.silu(z)
-    out = y @ p["out_proj"].to(cdt)
+    out = row_parallel(y, p["out_proj"].to(cdt))
     if return_state:
         return out, (_conv_tail(x_in, K), hT)
     return out

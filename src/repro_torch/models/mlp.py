@@ -4,8 +4,10 @@ Counterpart of ``repro.models.mlp``. Under serve TP a rank holds column
 slices of ``wi/wg`` and ``wd``: the hidden columns and the output columns
 are reassembled with shape-keyed tiled all-gathers, as in the reference
 (:func:`repro_torch.distributed.sharding.gather_tp`, the identity off a
-group). The reference's ``constrain`` hooks (training layouts) are
-dropped.
+group). In the partitioned train step ``wi/wg`` are column-parallel and
+``wd`` row-parallel (:func:`repro_torch.models.layers.column_parallel`,
+:func:`~repro_torch.models.layers.row_parallel`): the layouts the
+reference's ``constrain`` hooks give XLA.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import gather_tp
-from .layers import dtype_of
+from .layers import column_parallel, dtype_of, row_parallel
 
 __all__ = ["mlp"]
 
@@ -25,12 +27,14 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig, prefix: str = ""
     wi = p[prefix + "wi"].to(cdt)      # no-op for weights cast at load
     wd = p[prefix + "wd"].to(cdt)
     if cfg.mlp_gated:
-        h = F.silu(x @ p[prefix + "wg"].to(cdt)) * (x @ wi)
+        g, i = column_parallel(x, p[prefix + "wg"].to(cdt), wi)
+        h = F.silu(g) * i
     else:
-        h = F.gelu(x @ wi, approximate="tanh")   # jax.nn.gelu default
+        (i,) = column_parallel(x, wi)
+        h = F.gelu(i, approximate="tanh")   # jax.nn.gelu default
     if h.shape[-1] != wd.shape[0]:     # serve TP: concat local d_ff columns
         h = gather_tp(h, -1)
-    y = h @ wd
+    y = row_parallel(h, wd)
     if y.shape[-1] != cfg.d_model:     # serve TP: concat wd columns
         y = gather_tp(y, -1)
     return y

@@ -22,6 +22,15 @@ Three properties the serving path relies on:
   reference's scatter-add over its (E, C) update rows, never with atomics;
 * the router's load-balancing loss is computed only when asked for
   (``return_aux``): the serving call sites never read it.
+
+Under the sharded train step (a :class:`repro_torch.distributed.sharding.
+TrainRegion` with ``dp`` above 1) each rank routes its rows, and the layer
+is the reference's over the global batch, which XLA runs whole: the
+capacity C is the global batch's, an assignment's rank among its
+expert's counts the lower ``dp`` ranks' assignments before it (one
+all-gather of the per-expert counts), and the aux loss is formed from the
+global per-expert probability sums (summed over ``dp`` in the autograd
+graph) and counts.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import current_region
 from .layers import dense_init, dtype_of, normal_init
 from .mlp import mlp
 
@@ -120,11 +130,37 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
     return Routing(probs, gate, eidx, rank, _capacity(T, cfg))
 
 
-def _aux_loss(r: Routing, E: int) -> torch.Tensor:
-    """Switch-style load balancing: E * sum_e(token share_e * mean prob_e)."""
-    me = r.probs.mean(dim=0)
-    ce = (r.eidx[..., None] == torch.arange(E, device=r.eidx.device)
-          ).float().sum(dim=1).mean(dim=0)
+def _over_dp(r: Routing, E: int, region, cfg: ModelConfig):
+    """This rank's routing as part of the global batch's: the capacity of
+    every ``dp`` rank's tokens together, and each assignment ranked after
+    the lower ranks' assignments to its expert (their rows come first in
+    the global order). Returns it and the global per-expert counts."""
+    flat_e = r.eidx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat_e.device) \
+        .index_add_(0, flat_e, torch.ones_like(flat_e))
+    every = region.group.all_gather(counts[None], region.dp, 0)  # (dp, E)
+    d = region.group.mesh.axis_index(region.dp, region.group.rank)
+    before = every[:d].sum(dim=0)
+    return r._replace(rank=r.rank + before[flat_e].to(r.rank.dtype),
+                      capacity=_capacity(r.probs.shape[0]
+                                         * region.dp_size, cfg)), \
+        every.sum(dim=0)
+
+
+def _aux_loss(r: Routing, E: int, region=None,
+              counts=None) -> torch.Tensor:
+    """Switch-style load balancing: E * sum_e(token share_e * mean prob_e);
+    with ``region`` and the global per-expert ``counts``
+    (:func:`_over_dp`), the global batch's: the probabilities' per-expert
+    sums are summed over ``dp``."""
+    if region is None:
+        me = r.probs.mean(dim=0)
+        ce = (r.eidx[..., None] == torch.arange(E, device=r.eidx.device)
+              ).float().sum(dim=1).mean(dim=0)
+    else:
+        T = r.probs.shape[0] * region.dp_size
+        me = region.sum_over_dp(r.probs.sum(dim=0)) / T
+        ce = counts.float() / T
     return E * torch.sum(me * ce)
 
 
@@ -139,6 +175,11 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
     xt = x.reshape(B * S, D)
     T = B * S
     r = route(p, xt, cfg)
+    region, counts = current_region(), None
+    if region is None or region.dp_size == 1:
+        region = None
+    else:
+        r, counts = _over_dp(r, E, region, cfg)
     C = r.capacity
 
     # ---- the (E+1, C) slot table: row E takes every dropped assignment
@@ -180,5 +221,5 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
     if cfg.dense_residual:
         y = y + mlp(p, x.to(cdt), cfg, prefix="dense_")
     if return_aux:
-        return y, _aux_loss(r, E)
+        return y, _aux_loss(r, E, region, counts)
     return y

@@ -13,33 +13,47 @@ moment, as the reference's rule table places them (:func:`param_shardings`,
 :func:`opt_shardings`), and takes the global batch, of which it runs its
 ``dp`` rows. XLA partitions the reference's step; here the step is
 explicit, over the ranks' :class:`~repro_torch.distributed.sharding.
-MeshGroup`:
+MeshGroup`, and runs its losses inside a :class:`~repro_torch.
+distributed.sharding.TrainRegion` (``use_region``):
 
-* before a microbatch's forward every leaf is all-gathered whole; with
-  ``cfg.hoist_weight_gather`` (and more than one microbatch) once a step
-  instead, and the leaves of two or more dims cast to bf16, as the
-  reference casts its hoisted weights;
+* where :func:`~repro_torch.distributed.sharding.tp_compute` holds (every
+  layer a dense-attention, MLP or Mamba1 layer, a ``model`` axis above 1
+  that divides the widths it cuts), the products are partitioned over
+  ``tp`` as the reference's ``constrain`` hooks lay them out: each leaf
+  the rule table shards on ``tp`` stays this rank's block and is gathered
+  along ``fsdp`` only (:func:`tp_plan`); the layers run column- and
+  row-parallel products, the vocab-parallel embedding, head and loss, and
+  Mamba1 on ``dI / tp`` channels (Mamba1's fused ``in_proj`` is brought
+  to ``[x_r | z_r]`` by one all-to-all over ``tp``, its gradient back by
+  another); where ``tp`` does not divide the KV heads ``wk/wv`` come
+  whole and their gradients, like the head norms', are summed over
+  ``tp``. Any other arch, or a mesh without a ``model`` axis above 1,
+  gathers every leaf whole (ranks that differ only along ``model`` then
+  repeat the same rows' work);
+* the gather is once per microbatch, or with ``cfg.hoist_weight_gather``
+  (and more than one microbatch) once a step, the leaves of two or more
+  dims cast to bf16, as the reference casts its hoisted weights;
 * the gradients are accumulated over the microbatches in ``accum_dtype``
   and reduced once a step: summed over the ``dp`` axes and cut to this
   rank's block (a reduce-scatter along the ``fsdp`` dimension), then
-  divided by the ``dp`` size (each rank's loss is the mean over its rows);
+  divided by the ``dp`` size (each rank's loss is the mean over its
+  rows); a ``tp`` block's gradient is its block already, and a leaf the
+  rule table replicates over ``tp`` (the norms) gets the same gradient on
+  every ``tp`` rank, so it is not summed there;
+* the MoE layer routes over the global batch (its capacity, ranks and aux
+  loss: :mod:`repro_torch.models.moe`);
 * the metrics are averaged over the ``dp`` ranks (``ppl_proxy`` is formed
   from the averaged ``ce``, as from the global batch's);
 * the grad norm and compression's per-tensor ``amax`` are the whole
   tensors' (:mod:`repro_torch.optim`).
 
-Ranks that differ only along ``tp`` run the same rows: the ``tp`` axis
-shards storage here, not compute (ROADMAP Queue 3). Under a mesh the MoE
-router's aux loss is each rank's over its rows, averaged, where the
-reference's is the global batch's (Queue 3).
-
 The dry run's inputs (the reference's ``train_input_specs``,
 ``make_prefill_step`` and ``make_decode_step``) are meta tensors of one
 rank's blocks (:func:`train_input_specs`): shapes and dtypes with no
 storage, which :func:`repro_torch.distributed.op_analysis.analyze_step`
-runs the step on. Under a mesh the serve steps gather every weight whole,
-as the train step does (the ``tp`` axis shards storage here), and run this
-rank's ``dp`` rows of the batch (all rows when ``dp`` does not divide it).
+runs the step on. Under a mesh the serve steps gather every weight whole
+(their ``tp`` axis shards storage, not compute), and run this rank's
+``dp`` rows of the batch (all rows when ``dp`` does not divide it).
 """
 from __future__ import annotations
 
@@ -51,7 +65,9 @@ import dataclasses
 
 from ..configs.base import ModelConfig, ShapeSpec
 from ..distributed.sharding import (MeshGroup, NamedSharding, ShardCtx,
-                                    logical_to_spec, param_specs)
+                                    TrainRegion, axes_of, exchange_xz,
+                                    logical_to_spec, param_specs,
+                                    split_spec, tp_compute, use_region)
 from ..models import lm
 from ..models.layers import dtype_of
 from ..optim.adamw import OptConfig, adamw_update
@@ -61,7 +77,7 @@ from ..tree import leaves, tree_map, unflatten
 __all__ = ["make_train_step", "split_microbatches", "param_shapes",
            "param_shardings", "opt_shardings", "batch_shardings",
            "train_batch_shapes", "train_input_specs", "make_prefill_step",
-           "make_decode_step", "meta_blocks"]
+           "make_decode_step", "meta_blocks", "tp_plan"]
 
 StepFn = Callable[[Any, Dict[str, Any], Dict[str, torch.Tensor]],
                   Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]]
@@ -242,14 +258,14 @@ def split_microbatches(B: int, microbatches: Optional[int],
     return mb
 
 
-def _grads_of(cfg: ModelConfig, params):
+def _grads_of(cfg: ModelConfig, params, region=None):
     """Loss, metrics and the gradients of every leaf of ``params``, by
     autograd through aliases of the leaves (same storage, fresh leaves), so
     the caller's tensors keep requires_grad off and an in-place update
-    needs no special mode."""
+    needs no special mode; inside the sharded step's ``region``."""
     def run(batch):
         flat = [t.detach().requires_grad_(True) for t in leaves(params)]
-        with torch.enable_grad():
+        with torch.enable_grad(), use_region(region):
             total, metrics = lm.loss_fn(cfg, unflatten(params, flat), batch)
             grads = torch.autograd.grad(total, flat)
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
@@ -311,16 +327,91 @@ def make_train_step(cfg: ModelConfig, opt: Optional[OptConfig] = None,
     return train_step
 
 
+#: how the partitioned step fetches a leaf and reduces its gradient:
+#: ``block`` keeps this rank's ``tp`` block (gathered along ``fsdp`` only;
+#: its gradient is the block's), ``whole`` gathers it whole (a leaf the
+#: rule table does not shard on ``tp``: every ``tp`` rank forms the same
+#: gradient), ``sum`` gathers it whole and sums its gradient over ``tp``
+#: (each rank's covers only its heads), ``xz`` is Mamba1's fused
+#: ``in_proj``, exchanged to ``[x_r | z_r]`` and back
+_BLOCK_LEAVES = frozenset({
+    "embed", "lm_head", "wq", "bq", "wo", "wi", "wg", "wd", "dt_proj",
+    "out_proj", "conv_w", "conv_b", "x_proj", "A_log", "ssm_D", "dt_bias"})
+_KV_LEAVES = frozenset({"wk", "wv", "bk", "bv"})
+_SUM_LEAVES = frozenset({"q_norm", "k_norm"})
+
+
+def _leaf_names(tree, name: str = "") -> list:
+    """The last key of every leaf's path, in leaf order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], k)]
+    return [name]
+
+
+def tp_plan(cfg: ModelConfig, ctx: ShardCtx, shardings=None) -> list:
+    """Per leaf (in leaf order), how the partitioned step fetches it and
+    reduces its gradient (see ``_BLOCK_LEAVES``); [] when the step on
+    ``ctx`` gathers every leaf whole (:func:`repro_torch.distributed.
+    sharding.tp_compute`)."""
+    if not tp_compute(cfg, ctx):
+        return []
+    shardings = shardings if shardings is not None \
+        else param_shardings(cfg, ctx)
+    tp = axes_of(ctx.tp)
+    kv_block = cfg.num_kv_heads % ctx.axis_size("tp") == 0
+    plan = []
+    for name, sh in zip(_leaf_names(shardings), leaves(shardings)):
+        on_tp = any(set(axes_of(e)) & set(tp) for e in sh.spec)
+        how = ("xz" if name == "in_proj" else
+               "block" if name in _BLOCK_LEAVES or (name in _KV_LEAVES
+                                                    and kv_block) else
+               "sum" if name in _SUM_LEAVES | _KV_LEAVES else "whole")
+        if (how in ("block", "xz")) != on_tp and how != "sum":
+            raise ValueError(f"{cfg.name}: leaf {name} with spec {sh.spec}"
+                             f" cannot be fetched as {how!r} on {ctx.mesh}")
+        plan.append(how)
+    return plan
+
+
+def _tp_dim(spec, tp) -> int:
+    """The dimension of ``spec`` sharded over ``tp``."""
+    return next(d for d, e in enumerate(spec) if set(axes_of(e)) & set(tp))
+
+
 def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
                   compress: bool, microbatches: Optional[int],
                   accum_dtype: torch.dtype) -> StepFn:
     mesh = ctx.mesh
-    shardings = leaves(param_shardings(cfg, ctx))
+    pshard = param_shardings(cfg, ctx)
+    shardings = leaves(pshard)
     specs = [s.spec for s in shardings]
     dp_axes, dp = tuple(ctx.dp), ctx.axis_size("dp")
+    plan = tp_plan(cfg, ctx, pshard)
+    tp_axes = axes_of(ctx.tp) if plan else None
     if ctx.group is None and mesh.size > 1:
         raise ValueError(f"the sharded step on {mesh} needs the ctx's "
                          "MeshGroup")
+
+    def fetch(group, t, spec, how):
+        """The leaf the forward runs with, from this rank's block."""
+        if how in ("block", "xz"):
+            t = group.gather_leaf(t, spec, keep=tp_axes)
+            return t if how == "block" else exchange_xz(
+                group, t, tp_axes, _tp_dim(spec, tp_axes))
+        return group.gather_leaf(t, spec)
+
+    def reduce(group, g, spec, how):
+        """This rank's block of the gradient summed over ``dp`` (and over
+        ``tp`` where each rank's covers its heads only)."""
+        if how == "whole":
+            return group.reduce_leaf(g, spec, dp_axes)
+        spec_tp, rest = split_spec(spec, tp_axes)
+        if how == "xz":
+            g = exchange_xz(group, g, tp_axes, _tp_dim(spec, tp_axes),
+                            inverse=True)
+        elif how == "sum":
+            g = group.reduce_leaf(g, spec_tp, tp_axes)
+        return group.reduce_leaf(g, rest, dp_axes)
 
     def train_step(params, opt_state, batch):
         local = leaves(params)
@@ -337,17 +428,20 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
                              "microbatches)")
         r = rows // dp
         d = mesh.axis_index(dp_axes, group.rank)
+        hows = plan or ["whole"] * len(specs)
 
         def rows_of(i):
             lo = i * rows + d * r
             return {k: v[lo:lo + r] for k, v in batch.items()}
 
         def gathered():
-            return unflatten(params, [group.gather_leaf(t, s)
-                                      for t, s in zip(local, specs)])
+            return unflatten(params, [fetch(group, t, s, h) for t, s, h
+                                      in zip(local, specs, hows)])
 
+        region = TrainRegion(group, dp_axes, tp_axes)
         if mb <= 1:
-            loss, met, grads = _grads_of(cfg, gathered())(rows_of(0))
+            loss, met, grads = _grads_of(cfg, gathered(), region)(
+                rows_of(0))
             mets = [dict(met, loss=loss)]
             grads = list(grads)
         else:
@@ -359,8 +453,8 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
             grads, mets = None, []
             for i in range(mb):
                 l, met, g = _grads_of(
-                    cfg, hoisted if hoisted is not None else gathered())(
-                        rows_of(i))
+                    cfg, hoisted if hoisted is not None else gathered(),
+                    region)(rows_of(i))
                 if grads is None:
                     grads = [torch.zeros(gi.shape, dtype=accum_dtype,
                                          device=gi.device) for gi in g]
@@ -379,8 +473,8 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
         metrics = {k: v.mean() for k, v in metrics.items()}
         loss = metrics.pop("loss")
         out = []
-        for i, s in enumerate(specs):      # one full gradient at a time
-            out.append(group.reduce_leaf(grads[i], s, dp_axes) / dp)
+        for i, (s, h) in enumerate(zip(specs, hows)):   # one at a time
+            out.append(reduce(group, grads[i], s, h) / dp)
             grads[i] = None
         grads = unflatten(params, out)
         if compress:

@@ -12,8 +12,9 @@
   process; every collective has a 60 s timeout and the join 300 s; what
   the ranks run is in ``tests/test_torch_train_mesh_ranks.py``), on the
   fp32 stablelm-1.6b smoke config with the reference's PRNGKey(0) weights:
-  the sharded step on meshes (2, 1), (4, 1) and (2, 2), with the weight
-  gather hoisted and not, ``microbatches`` None, 1 and 2 and compression,
+  the sharded step on meshes (2, 1), (4, 1) and (2, 2) (where it
+  partitions its products over ``model``: ``tests/test_torch_train_tp.py``
+  holds that path's own cases), with the weight gather hoisted and not, ``microbatches`` None, 1 and 2 and compression,
   against the reference's sharded step (one subprocess with 4 virtual
   devices, ``XLA_FLAGS=--xla_force_host_platform_device_count=4``, started
   first and run beside the group) and against the port's single-device

@@ -1,5 +1,6 @@
 """Sharded training on the card: two ``gloo`` ranks on ``cuda:0`` (this
-process and one spawned rank, a (2, 1) mesh) against the single-device
+process and one spawned rank, a (2, 1) mesh, and a (1, 2) mesh whose step
+partitions its products over the model axis) against the single-device
 step, at smoke size.
 
 * Every collective the sharded step uses (tiled all-gathers over a mesh
@@ -13,6 +14,9 @@ step, at smoke size.
   rank's bytes are what its specs give.
 * falcon-mamba-7b's smoke config: K3 and its backward launch on both
   ranks under the group.
+* (1, 2): stablelm's fp32 step and falcon-mamba's (K3 and its backward on
+  each rank's dI / 2 channels, ``in_proj`` exchanged) against the
+  single-device step; no leaf is all-gathered.
 
 They carry the ``gpu`` marker and skip without CUDA:
 
@@ -34,7 +38,13 @@ RUNS = (TrainRun("fp32", preset="smoke", overrides=FP32, batch=4, seq=64,
         TrainRun("fp32-hoist", preset="smoke", overrides=FP32 + (
             ("hoist_weight_gather", True),), batch=4, seq=64,
             microbatches=2, keep=True),
-        TrainRun("falcon", "falcon-mamba-7b", "smoke", batch=2, seq=64))
+        TrainRun("falcon", "falcon-mamba-7b", "smoke", batch=2, seq=64),
+        TrainRun("fp32-tp", preset="smoke", overrides=FP32, batch=4,
+                 seq=64, microbatches=2, mesh=(1, 2), keep=True),
+        TrainRun("falcon-tp", "falcon-mamba-7b", "smoke", overrides=FP32,
+                 batch=2, seq=64, microbatches=2, mesh=(1, 2), keep=True))
+#: the (1, 2) runs, each held against the single-device step of RUNS[i]
+TP = {3: 0, 4: 4}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +90,7 @@ def card():
                      op_timeout_s=300.0) as s:
         s.run()
     return {"collectives": coll, "ranks": s.results,
-            "single": {i: single_run(RUNS[i], dev) for i in (0, 1)}}
+            "single": {i: single_run(RUNS[i], dev) for i in (0, 1, 4)}}
 
 
 def test_gloo_takes_every_collective_on_cuda_tensors(card):
@@ -103,7 +113,20 @@ def test_fp32_step_matches_the_single_device_step(card, i):
     assert cmp["ill_param_lr"] <= 2.05, cmp
 
 
-@pytest.mark.parametrize("i", [0, 1, 2])
+@pytest.mark.parametrize("i", sorted(TP), ids=["fp32-tp", "falcon-tp"])
+def test_partitioned_step_matches_the_single_device_step(card, i):
+    got = card["ranks"][0][i]
+    one = card["single"][TP[i]]
+    cmp = compare_states(got["whole"], one["whole"], got["history"],
+                         one["history"], RUNS[i].lr)
+    assert cmp["metric_rel"] <= 1e-5 and cmp["m_rel"] <= 1e-5 \
+        and cmp["v_rel"] <= 1e-5 and cmp["param_lr"] <= 5e-2, cmp
+    assert cmp["ill_param_lr"] <= 2.05, cmp
+    for rank in card["ranks"]:
+        assert "all_gather" not in rank[i]["counters"]["calls"]
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3, 4])
 def test_each_rank_holds_its_specs_bytes(card, i):
     for rank in card["ranks"]:
         r = rank[i]
@@ -114,5 +137,13 @@ def test_each_rank_holds_its_specs_bytes(card, i):
 def test_k3_and_its_backward_launch_on_both_ranks(card):
     for rank in card["ranks"]:
         launches = rank[2]["launches"]
+        assert launches["mamba_scan"] > 0, launches
+        assert launches["mamba_scan_bwd"] > 0, launches
+
+
+def test_k3_and_its_backward_launch_on_both_ranks_of_the_partitioned_step(
+        card):
+    for rank in card["ranks"]:
+        launches = rank[4]["launches"]
         assert launches["mamba_scan"] > 0, launches
         assert launches["mamba_scan_bwd"] > 0, launches

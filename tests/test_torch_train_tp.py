@@ -1,0 +1,408 @@
+"""The sharded train step with its products partitioned over the ``model``
+axis (column- and row-parallel products, the vocab-parallel embedding,
+head and loss, Mamba1 on ``dI / tp`` channels), and the MoE router's aux
+loss over the global batch, on the CPU.
+
+* The arch table: which archs partition on which meshes
+  (``tp_compute``), and each leaf's plan (``tp_plan``), in-process.
+* One spawned ``gloo`` group of 4 CPU ranks for the module (rank 0 is this
+  process; 60 s op timeouts; what the ranks run is in
+  ``tests/test_torch_train_tp_ranks.py``) beside one reference subprocess
+  with 4 virtual devices running the reference's sharded step on the same
+  meshes and weights (its ``PRNGKey(0)`` init): stablelm-1.6b smoke on
+  (1, 2), (2, 2) and (1, 4) (where 4 does not divide the 2 KV heads),
+  hoisted and not, ``microbatches`` None, 1 and 2 and compression;
+  falcon-mamba-7b smoke on (1, 2) (the ``in_proj`` exchange); qwen2-moe
+  smoke on (2, 1) (the aux loss and the dispatch over the global batch).
+  Each case is held against the reference's step and the port's
+  single-device step with ``tests/test_torch_train_mesh.py``'s tolerances;
+  each rank's collectives against the dry run's prediction; the leaves no
+  spec shards over ``model`` against every other model rank's.
+* The dry run: each rank's FLOPs are exactly 1/tp of one device's for the
+  same rows; on (1, 2) no leaf is all-gathered.
+* A checkpoint saved by a (1, 2) run restores at one rank and in the
+  reference's ``CheckpointManager``.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import lm as jlm
+from repro.train.checkpoint import CheckpointManager as JCheckpointManager
+from repro_torch.configs import ARCHS, ShapeSpec, get_config
+from repro_torch.distributed.op_analysis import (DryMeshGroup, StepCost,
+                                                 analyze_step)
+from repro_torch.distributed.sharding import Mesh, tp_compute
+from repro_torch.launch.mesh import MeshSession, make_ctx, small_mesh
+from repro_torch.optim import init_error_state, init_opt_state
+from repro_torch.params import from_reference
+from repro_torch.train import CheckpointManager
+from repro_torch.train.train_step import (make_train_step, param_shapes,
+                                          tp_plan, train_input_specs)
+from repro_torch.tree import leaves, tree_map
+from test_torch_train_mesh import (HOIST_METRIC_REL, HOIST_MOMENT_REL,
+                                   ILL_LR, PARAM_STEP_LR,
+                                   QUANTUM_REL, STEP_REL, _hold,
+                                   _ref_as_state)
+from test_torch_train_tp_ranks import (B, CASES, LR, SAVED, S, Body,
+                                       case_id, cfg_of, opt_of, tokens)
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
+ARCH_OF = sorted({c[0] for c in CASES})
+
+
+# ------------------------------------------------------- the arch table
+#: arch -> (partitions on the (1, 2) smoke mesh, on the dry run's
+#: node_tp (2, 4) mesh at full width)
+TP_TABLE = {
+    "stablelm-1.6b": (True, True),
+    "qwen2.5-32b": (True, True),
+    "qwen3-14b": (True, True),
+    "mistral-nemo-12b": (True, True),
+    "musicgen-large": (True, True),
+    "internvl2-1b": (True, False),      # 14 query heads over 4 ranks
+    "falcon-mamba-7b": (True, True),
+    "qwen2-moe-a2.7b": (False, False),  # MoE layers
+    "arctic-480b": (False, False),      # MoE layers
+    "zamba2-1.2b": (False, False),      # Mamba2 / hybrid layers
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_arch_table(arch):
+    smoke, full = TP_TABLE[arch]
+    assert tp_compute(get_config(arch).smoke(),
+                      make_ctx(small_mesh(1, 2))) == smoke
+    assert tp_compute(get_config(arch),
+                      make_ctx(Mesh((2, 4), ("data", "model")))) == full
+    # no model axis above 1: never partitioned
+    assert not tp_compute(get_config(arch).smoke(),
+                          make_ctx(small_mesh(2, 1)))
+    plan = tp_plan(get_config(arch).smoke(), make_ctx(small_mesh(2, 2)))
+    assert bool(plan) == smoke
+
+
+def test_the_plan_of_each_leaf():
+    """stablelm keeps every tp block; at tp = 4 its 2 KV heads come whole
+    and their gradients are summed over tp; qwen3's head norms are summed;
+    falcon-mamba's in_proj is exchanged."""
+    def plan_of(arch, mesh):
+        cfg = get_config(arch).smoke()
+        ctx = make_ctx(small_mesh(*mesh))
+        names = [n for n, _ in _named(param_shapes(cfg))]
+        return dict(zip(names, tp_plan(cfg, ctx)))
+
+    p = plan_of("stablelm-1.6b", (1, 2))
+    assert {k for k, v in p.items() if v == "whole"} == {
+        "blocks/ln1", "blocks/ln2", "final_norm"}
+    assert set(p.values()) == {"whole", "block"}
+    p4 = plan_of("stablelm-1.6b", (1, 4))
+    assert p4["blocks/wk"] == p4["blocks/wv"] == "sum"
+    assert p4["blocks/wq"] == "block"
+    q = plan_of("qwen3-14b", (1, 2))
+    assert q["blocks/q_norm"] == q["blocks/k_norm"] == "sum"
+    f = plan_of("falcon-mamba-7b", (1, 2))
+    assert f["blocks/in_proj"] == "xz" and f["blocks/A_log"] == "block"
+
+
+class _Exchange:
+    """A stand-in for one rank's group in an all-to-all over every rank
+    of a (1, n) mesh, run in turns: the first pass records each rank's
+    send buffer, the second hands each rank the rows the others sent."""
+
+    def __init__(self, n, sent=None):
+        self.mesh, self.sent, self.rank = small_mesh(1, n), sent, 0
+
+    def all_to_all(self, x, axes, send, recv):
+        if self.sent is None or self.rank not in self.sent:
+            self.sent = self.sent or {}
+            self.sent[self.rank] = (list(x.split(list(send))), recv)
+            return x.new_zeros((sum(recv),) + tuple(x.shape[1:]))
+        n = self.mesh.size
+        return torch.cat([self.sent[j][0][self.rank] for j in range(n)])
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_in_proj_exchange_brings_each_rank_its_x_and_z_columns(n):
+    """Mamba1's ``in_proj`` stored as contiguous column blocks (rank r:
+    columns [2r c, 2(r + 1) c) of x | z) comes to rank r as [x_r | z_r],
+    and the inverse takes it back, for an even and an odd model axis."""
+    from repro_torch.distributed.sharding import exchange_xz
+    dI, D, c = 6 * n, 5, 6
+    full = torch.arange(D * 2 * dI, dtype=torch.float32).reshape(D, 2 * dI)
+    blocks = full.split(2 * c, dim=1)
+    g = _Exchange(n)
+    for r in range(n):                       # every rank sends
+        g.rank = r
+        exchange_xz(g, blocks[r], ("model",), 1)
+    for r in range(n):                       # every rank receives
+        g.rank = r
+        got = exchange_xz(g, blocks[r], ("model",), 1)
+        want = torch.cat([full[:, r * c:(r + 1) * c],
+                          full[:, dI + r * c:dI + (r + 1) * c]], dim=1)
+        assert torch.equal(got, want), r
+    back = _Exchange(n)
+    for phase in range(2):
+        for r in range(n):
+            back.rank = r
+            x = torch.cat([full[:, r * c:(r + 1) * c],
+                           full[:, dI + r * c:dI + (r + 1) * c]], dim=1)
+            out = exchange_xz(back, x, ("model",), 1, inverse=True)
+            if phase:
+                assert torch.equal(out, blocks[r]), r
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+# ------------------------------------------------- the reference's step
+REF_SCRIPT = r"""
+import dataclasses, json, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config
+from repro.launch.mesh import make_ctx, small_mesh
+from repro.models import lm
+from repro.optim.adamw import OptConfig, init_opt_state
+from repro.optim.compress import init_error_state
+from repro.train.train_step import batch_shardings, make_train_step
+
+cases, out_dir, lr, B, S = json.loads(sys.argv[1])
+opt = OptConfig(lr=lr, warmup_steps=0, total_steps=10)
+for name, arch, (d, m), hoist, mb, comp in cases:
+    cfg = dataclasses.replace(get_config(arch).smoke(),
+                              compute_dtype="float32",
+                              hoist_weight_gather=hoist)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    mesh = small_mesh(d, m)
+    ctx = make_ctx(mesh)
+    step, _, (pshard, oshard) = make_train_step(cfg, ctx, opt,
+                                                compress=comp,
+                                                microbatches=mb)
+    params = lm.init_params(cfg, jax.random.PRNGKey(0))
+    st = init_opt_state(params, opt)
+    if comp:
+        st["err"] = init_error_state(params)
+        oshard = dict(oshard, err=pshard)
+    params = jax.device_put(params, pshard)
+    st = jax.device_put(st, oshard)
+    batch = jax.device_put({"tokens": jnp.asarray(toks)},
+                           batch_shardings(cfg, ctx))
+    with mesh:
+        p2, o2, met = jax.jit(step)(params, st, batch)
+    out = {f"metric/{k}": np.asarray(v) for k, v in met.items()}
+    for what, tree in (("params", p2), ("m", o2["m"]), ("v", o2["v"])):
+        for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+            out[what + jax.tree_util.keystr(path)] = np.asarray(leaf)
+    np.savez(f"{out_dir}/{name}.npz", **out)
+print("ref done", flush=True)
+"""
+
+
+def _start_reference(out_dir):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
+               "--xla_cpu_multi_thread_eigen=false",
+               PYTHONPATH=str(ROOT / "src"))
+    arg = json.dumps([[[case_id(c), c[0], list(c[1]), c[2], c[3], c[4]]
+                       for c in CASES], str(out_dir), LR, B, S])
+    return subprocess.Popen(["nice", "-n", "10", sys.executable, "-c",
+                             REF_SCRIPT, arg],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _ref_tree(arch):
+    cfg = dataclasses.replace(jget_config(arch).smoke(),
+                              compute_dtype="float32")
+    jp = jax.jit(jlm.init_params, static_argnums=(0,))(
+        cfg, jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map(np.asarray, jp)
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_tp")
+    (root / "ref").mkdir()
+    ref_proc = _start_reference(root / "ref")
+    try:
+        trees = {a: _ref_tree(a) for a in ARCH_OF}
+        with MeshSession(4, "gloo", Body(trees, str(root)), CPU,
+                         init_method=f"file://{root / 'store'}",
+                         timeout=300.0, op_timeout_s=60.0) as s:
+            s.run()
+        res = {"ranks": s.results, "trees": trees, "root": root}
+        out, err = ref_proc.communicate(timeout=600)
+        assert ref_proc.returncode == 0, err[-3000:]
+    finally:
+        if ref_proc.poll() is None:
+            ref_proc.kill()
+    res["ref"] = {case_id(c): dict(np.load(root / "ref"
+                                           / f"{case_id(c)}.npz"))
+                  for c in CASES}
+    return res
+
+
+def _single_step(tree, case):
+    """The case's step on one device: the single-device step, or with the
+    gather hoisted the step on a (1, 1) mesh, whose weights are the same
+    bf16 copies."""
+    arch, (d, _), hoist, mb, comp = case
+    cfg = cfg_of(arch, hoist)
+    params = from_reference(tree, cfg, device=CPU, cast=False)
+    st = init_opt_state(params, opt_of())
+    if comp:
+        st["err"] = init_error_state(params)
+    mb = mb if mb is not None else B // d
+    ctx = make_ctx(small_mesh(1, 1)) if hoist else None
+    p, o, m = make_train_step(cfg, opt_of(), compress=comp,
+                              microbatches=mb, ctx=ctx)(
+        params, st, {"tokens": torch.from_numpy(tokens(arch))})
+    return ({k: float(v) for k, v in m.items()},
+            {"params": [x.numpy() for x in leaves(p)],
+             "m": [x.numpy() for x in leaves(o["m"])],
+             "v": [x.numpy() for x in leaves(o["v"])]})
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_partitioned_step_matches_the_reference(run, case):
+    _, _, hoist, _, comp = case
+    got = run["ranks"][0][case_id(case)]
+    want_state, want_m = _ref_as_state(run["ref"][case_id(case)])
+    assert set(got["metrics"]) == set(want_m)
+    _hold(got["metrics"], got, want_m, want_state, case_id(case),
+          HOIST_MOMENT_REL if hoist else
+          QUANTUM_REL if comp else STEP_REL, quantised=comp,
+          metric_rel=HOIST_METRIC_REL if hoist else STEP_REL,
+          param_lr=ILL_LR if hoist else PARAM_STEP_LR)
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_partitioned_step_matches_the_single_device_step(run, case):
+    """Unhoisted, against the single-device step; hoisted, against the
+    (1, 1) mesh's step (no group: the same bf16 weights, whole), with the
+    hoisted bounds."""
+    hoist, comp = case[2], case[4]
+    got = run["ranks"][0][case_id(case)]
+    want_m, want = _single_step(run["trees"][case[0]], case)
+    _hold(got["metrics"], got, want_m, want, case_id(case) + " vs one",
+          HOIST_MOMENT_REL if hoist else
+          QUANTUM_REL if comp else STEP_REL, quantised=comp,
+          metric_rel=HOIST_METRIC_REL if hoist else STEP_REL,
+          param_lr=ILL_LR if hoist else PARAM_STEP_LR)
+
+
+def test_moe_aux_loss_is_the_global_batch_s(run):
+    """qwen2-moe on (2, 1): every rank's aux metric is the reference's
+    global-batch value (each rank's over its own rows, averaged, is not:
+    the loss is not linear in the batch)."""
+    case = next(c for c in CASES if c[0] == "qwen2-moe-a2.7b")
+    want = float(run["ref"][case_id(case)]["metric/aux"])
+    for r in run["ranks"][:2]:
+        got = r[case_id(case)]["metrics"]["aux"]
+        assert abs(got - want) <= STEP_REL * abs(want), (got, want)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[1][1] > 1],
+                         ids=case_id)
+def test_replicated_leaves_agree_over_the_model_axis(run, case):
+    """The leaves no spec shards over ``model`` (the norms) get the same
+    gradient on every model rank: after the step each rank of a data
+    coordinate holds the same bytes."""
+    d, m = case[1]
+    for i in range(d):
+        held = [run["ranks"][i * m + j][case_id(case)]["replicated"]
+                for j in range(m)]
+        assert held[0]
+        for other in held[1:]:
+            assert other.keys() == held[0].keys()
+            for k in held[0]:
+                np.testing.assert_array_equal(other[k], held[0][k])
+
+
+def _dry(case, rank, mesh=None):
+    arch, shape, hoist, mb, comp = case
+    m = small_mesh(*(mesh or shape))
+    cost = StepCost()
+    ctx = make_ctx(m, DryMeshGroup(m, rank, cost))
+    step, args, _ = train_input_specs(
+        cfg_of(arch, hoist), ctx, ShapeSpec("t", S, B, "train"),
+        opt=opt_of(), compress=comp, microbatches=mb)
+    analyze_step(step, *args, cost=cost)
+    return ctx.group, cost
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_dry_run_predicts_each_rank_s_collectives(run, case):
+    d, m = case[1]
+    for rank in range(d * m):
+        group, _ = _dry(case, rank)
+        assert group.counters() == \
+            run["ranks"][rank][case_id(case)]["counters"], (case, rank)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_each_rank_s_flops_are_one_tp_th_of_one_device_s(arch, mesh):
+    """The same rows on a mesh without the model axis and with it: the
+    dry run's FLOPs of a rank (every product: the projections, the
+    attention scores, the scan, the head, forward and backward) are
+    exactly 1/tp; an arch outside the slice repeats the whole work."""
+    case = (arch, mesh, False, None, False)
+    _, alone = _dry(case, 0, mesh=(mesh[0], 1))
+    for rank in range(mesh[0] * mesh[1]):
+        _, part = _dry(case, rank)
+        assert part.flops * mesh[1] == alone.flops, (rank, part.flops,
+                                                     alone.flops)
+    moe = ("qwen2-moe-a2.7b", mesh, False, None, False)
+    assert _dry(moe, 0)[1].flops == _dry(moe, 0, mesh=(mesh[0], 1))[1].flops
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[1] == (1, 2)],
+                         ids=case_id)
+def test_one_by_two_gathers_no_leaf(run, case):
+    """(1, 2): every leaf is either this rank's tp block as stored or
+    replicated, so nothing is all-gathered; Mamba1's in_proj is one
+    all-to-all a fetch. Each layer's forward sums its two row-parallel
+    products over the model axis, its backward the gradients of its two
+    column-parallel inputs."""
+    for r in run["ranks"][:2]:
+        calls = r[case_id(case)]["counters"]["calls"]
+        assert "all_gather" not in calls, calls
+        assert "reduce_scatter" not in calls, calls
+        assert ("all_to_all" in calls) == (case[0] == "falcon-mamba-7b")
+
+
+def test_a_one_by_two_checkpoint_restores_at_one_rank_and_in_the_reference(
+        run):
+    case = CASES[SAVED]
+    root = run["root"] / "ckpt"
+    got = run["ranks"][0][case_id(case)]
+    example = {"params": tree_map(lambda t: torch.empty(t.shape),
+                                  param_shapes(cfg_of(case[0], case[2])))}
+    example["opt"] = init_opt_state(example["params"], opt_of())
+    whole = CheckpointManager(str(root)).restore(1, example, CPU)
+    for what, key in (("params", ("params",)), ("m", ("opt", "m")),
+                      ("v", ("opt", "v"))):
+        tree = whole[key[0]] if len(key) == 1 else whole[key[0]][key[1]]
+        for a, b in zip(leaves(tree), got[what]):
+            np.testing.assert_array_equal(a.numpy(), b)
+    ex = jax.tree_util.tree_map(lambda t: np.zeros(t.shape, t.numpy().dtype),
+                                whole)
+    ref = JCheckpointManager(root).restore(1, ex)
+    for a, b in zip(jax.tree_util.tree_leaves(ref), leaves(whole)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())

@@ -1,0 +1,131 @@
+"""What the spawned ranks of ``tests/test_torch_train_tp.py`` run (it
+holds no test). It imports neither JAX nor the JAX package, so a spawned
+rank starts on torch and the port alone."""
+import dataclasses
+import os
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import mesh_ctx, small_mesh
+from repro_torch.optim import OptConfig, init_error_state, init_opt_state
+from repro_torch.params import from_reference
+from repro_torch.train import CheckpointManager
+from repro_torch.train.elastic import reshard_state
+from repro_torch.train.train_step import (make_train_step, opt_shardings,
+                                          param_shardings)
+from repro_torch.tree import leaves
+
+B, S = 4, 32
+LR = 1e-3
+#: (arch, (data, model), hoist the weight gather, microbatches, compress)
+CASES = [
+    ("stablelm-1.6b", (1, 2), False, None, False),
+    ("stablelm-1.6b", (1, 2), False, 2, False),
+    ("stablelm-1.6b", (1, 2), True, 2, False),
+    ("stablelm-1.6b", (1, 2), False, None, True),
+    ("stablelm-1.6b", (2, 2), False, None, False),
+    ("stablelm-1.6b", (2, 2), True, 2, False),
+    # tp = 4 does not divide the 2 KV heads: wk/wv come whole
+    ("stablelm-1.6b", (1, 4), False, 1, False),
+    ("falcon-mamba-7b", (1, 2), False, None, False),
+    ("falcon-mamba-7b", (1, 2), True, 2, False),
+    ("qwen2-moe-a2.7b", (2, 1), False, None, False),
+]
+#: the case whose final state a checkpoint saves and restores
+SAVED = 0
+
+
+def case_id(case):
+    arch, (d, m), hoist, mb, comp = case
+    return f"{arch}-{d}x{m}-hoist{int(hoist)}-mb{mb}" + (
+        "-compress" if comp else "")
+
+
+def cfg_of(arch, hoist=False):
+    return dataclasses.replace(get_config(arch).smoke(),
+                               compute_dtype="float32",
+                               hoist_weight_gather=hoist)
+
+
+def opt_of():
+    return OptConfig(lr=LR, warmup_steps=0, total_steps=10)
+
+
+def tokens(arch):
+    return np.random.default_rng(1).integers(
+        0, cfg_of(arch).vocab_size, (B, S)).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Body:
+    """Every rank's work (picklable): each case's step on its mesh, and a
+    checkpoint of the first case's state. Rank 0's results carry the whole
+    state; every rank's its counters and its replicated leaves."""
+    trees: dict
+    ckpt_root: str
+
+    def __call__(self, dev):
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            os.nice(10)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return self._run(dev)
+        finally:
+            torch.set_num_threads(threads)
+
+    def _run(self, dev):
+        ctxs, out = {}, {}
+        for i, case in enumerate(CASES):
+            shape = case[1]
+            if shape not in ctxs:
+                ctxs[shape] = mesh_ctx(small_mesh(*shape), dev,
+                                       timeout_s=60.0)
+            ctx = ctxs[shape]
+            if ctx is not None:
+                out[case_id(case)] = _port_case(
+                    self.trees[case[0]], case, ctx,
+                    Path(self.ckpt_root) / "ckpt" if i == SAVED else None)
+        return out
+
+
+def _port_case(tree, case, ctx, ckpt):
+    arch, _, hoist, mb, comp = case
+    cfg = cfg_of(arch, hoist)
+    full = from_reference(tree, cfg, device=ctx.group.device, cast=False)
+    params = reshard_state(cfg, {"params": full}, ctx)["params"]
+    st = init_opt_state(params, opt_of())
+    if comp:
+        st["err"] = init_error_state(params)
+    step = make_train_step(cfg, opt_of(), compress=comp, microbatches=mb,
+                           ctx=ctx)
+    ctx.group.reset_counters()
+    params, st, met = step(params, st,
+                           {"tokens": torch.from_numpy(tokens(arch))})
+    counters = ctx.group.counters()
+    pshard = param_shardings(cfg, ctx)
+    sh = leaves(pshard)
+    res = {"metrics": {k: float(v) for k, v in met.items()},
+           "counters": counters,
+           # the leaves no spec shards over the model axis, as this rank
+           # holds them: every model rank must hold the same
+           "replicated": {i: x.numpy().copy() for i, (x, s) in
+                          enumerate(zip(leaves(params), sh))
+                          if "model" not in str(s.spec)}}
+    whole = {}
+    for what, t in (("params", params), ("m", st["m"]), ("v", st["v"])):
+        whole[what] = [ctx.group.gather_leaf(x, s.spec).numpy()
+                       for x, s in zip(leaves(t), sh)]
+    if ctx.group.rank == 0:
+        res.update(whole)
+    if ckpt is not None:
+        oshard = opt_shardings(cfg, ctx, pshard)
+        CheckpointManager(str(ckpt)).save_sharded(
+            1, {"params": params, "opt": {k: st[k] for k in
+                                          ("m", "v", "count")}},
+            {"params": pshard, "opt": oshard}, ctx.group)
+    return res
