@@ -281,7 +281,14 @@ Drives the port's main path on one NVIDIA GPU and checks it:
               the fp32 stablelm step again against the single-device step,
               no leaf all-gathered; falcon-mamba-7b at 4 layers, K3 and its
               backward launched on each rank's 4,096 channels; K3 and its
-              backward timed at dI 4,096 and 8,192. Each rank's parameter
+              backward timed at dI 4,096 and 8,192; qwen2-moe-a2.7b at full
+              width and 2 layers (``moe-tp``: 30 of 60 experts a rank, the
+              shared experts column- and row-parallel): an fp32 step of 2 x
+              2048, each rank's blocks against the same blocks of the
+              single-device step, run on the card by each rank in turn
+              (nothing gathered), and 2 bf16 steps whose losses move; no
+              leaf all-gathered, each rank's expert leaves 30 experts a
+              layer. Each rank's parameter
               and moment bytes must be each leaf's over the ranks its spec
               shards it across; peak memory a rank, collectives by kind and
               step walls (host-staged, not a speed) are printed, with a
@@ -465,6 +472,10 @@ TRAIN_MESH_JOIN_S, TRAIN_MESH_OP_S = 900.0, 600.0
 # before, cut for the script's time: its kernels are the (1, 2) run's)
 TRAIN_MESH_FALCON_LAYERS = 4
 TRAIN_MESH_FALCON_DP_LAYERS = 2
+# qwen2-moe-a2.7b's layers in the (1, 2) runs (full width: 30 of its 60
+# experts a rank): fp32 masters and moments of 2 layers are ~14 GB a rank,
+# one device's fp32 step ~28 GB of state, all on the one card
+TRAIN_MESH_MOE_LAYERS = 2
 # fp32, 2 ranks against one device: the metrics relative, the moments per
 # leaf relative to its largest magnitude, the params in units of lr where
 # AdamW's first step is well-conditioned and where a gradient lies within
@@ -3127,7 +3138,17 @@ def _train_mesh_runs() -> tuple:
     falcon_tp = dataclasses.replace(
         falcon, name="falcon-mamba-tp", mesh=(1, 2),
         overrides=(("num_layers", TRAIN_MESH_FALCON_LAYERS),))
-    return (fp32, *bf16, falcon, fp32_tp, falcon_tp)
+    # qwen2-moe on (1, 2): each rank's experts; its fp32 state is held
+    # block by block against the single-device step's on the card, as
+    # gathering 21 GB of it through the host would take minutes
+    moe = (("num_layers", TRAIN_MESH_MOE_LAYERS),)
+    moe_tp = TrainRun("moe-tp", "qwen2-moe-a2.7b", pre, moe + (
+        ("compute_dtype", "float32"),), batch=2, seq=seq, steps=1,
+        microbatches=1, mesh=(1, 2), vs_single=True)
+    moe_bf16 = TrainRun("moe-tp-bf16", "qwen2-moe-a2.7b", pre, moe,
+                        batch=2, seq=seq, steps=TRAIN_MESH_STEPS,
+                        microbatches=1, mesh=(1, 2), lr=3e-4)
+    return (fp32, *bf16, falcon, fp32_tp, falcon_tp, moe_tp, moe_bf16)
 
 
 def phase_train_mesh(dev, card: str) -> dict:
@@ -3218,11 +3239,12 @@ def phase_train_mesh(dev, card: str) -> dict:
     if g0 != 2 * g1:
         raise SystemExit(f"[train_mesh] all-gathers: {g0} unhoisted (2 "
                          f"microbatches) against {g1} hoisted")
-    for name in ("fp32-tp", "falcon-mamba-tp"):
+    for name in ("fp32-tp", "falcon-mamba-tp", "moe-tp", "moe-tp-bf16"):
         for rc in res[name]["rank_collectives"]:
             if "all_gather" in rc["calls"]:
                 raise SystemExit(f"[train_mesh] {name}: the (1, 2) step "
                                  f"all-gathered a leaf {rc}")
+    _check_moe_tp(runs, ranks, res, card)
     names = [run.name for run in runs]
     for name in ("fp32", "fp32-tp"):
         idx = names.index(name)
@@ -3257,6 +3279,47 @@ def phase_train_mesh(dev, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def _check_moe_tp(runs, ranks, res, card: str) -> None:
+    """qwen2-moe's (1, 2) runs: each rank's expert leaves hold half the
+    experts a layer (30 of 60 at full width), and each rank's fp32 blocks
+    agree with the same blocks of the single-device step within
+    TRAIN_MESH_TOL."""
+    names = [run.name for run in runs]
+    for name in ("moe-tp", "moe-tp-bf16"):
+        per = [r[names.index(name)] for r in ranks]
+        E = runs[names.index(name)].config().num_experts
+        experts = [[b[1] for (full, _), b in zip(r["leaf_shapes_specs"],
+                                                 r["block_shapes"])
+                    if len(full) == 4 and full[1] == E] for r in per]
+        res[name]["experts_a_rank"] = experts
+        if any(e != [E // 2] * 3 for e in experts):
+            raise SystemExit(f"[train_mesh] {name}: expert leaves hold "
+                             f"{experts} experts a rank, not {E // 2} of "
+                             f"{E}")
+    per = [r[names.index("moe-tp")] for r in ranks]
+    cmps = [r["vs_single"] for r in per]
+    res["moe-tp"]["vs_single"] = cmps
+    shown = [{k: v for k, v in c.items() if k != "single_history"}
+             for c in cmps]
+    log(f"[train_mesh] moe-tp (qwen2-moe-a2.7b, {TRAIN_MESH_MOE_LAYERS} "
+        f"layers, full width, 2 x {TRAIN_MESH_SEQ}, mesh (1, 2)) on {card}: "
+        f"each rank's blocks against one device's {shown}; the ranks "
+        f"{[r['history'] for r in per]} | one device "
+        f"{cmps[0]['single_history']} (tolerances {TRAIN_MESH_TOL}); "
+        f"expert leaves {res['moe-tp']['experts_a_rank']} experts a rank")
+    for c in cmps:
+        if c["metric_rel"] > TRAIN_MESH_TOL["metric"] \
+                or max(c["m_rel"], c["v_rel"]) > TRAIN_MESH_TOL["moment"] \
+                or c["param_lr"] > TRAIN_MESH_TOL["param_lr"] \
+                or c["ill_param_lr"] > TRAIN_MESH_TOL["ill_param_lr"]:
+            raise SystemExit("[train_mesh] the 2-rank fp32 qwen2-moe step "
+                             "differs from the single-device step")
+    walls = [round(r[names.index(n)]["run_s"], 1)
+             for n in ("moe-tp", "moe-tp-bf16") for r in ranks]
+    log(f"[time] train_mesh: the moe-tp runs {walls} s by run and rank, "
+        "set-up and the single-device turns included")
 
 
 def _k3_at_widths(dev, card: str) -> dict:
@@ -3530,7 +3593,8 @@ def _dryrun_mesh_runs(train_mesh: dict) -> dict:
     counters (see :func:`phase_dryrun`)."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.distributed.op_analysis import (DryMeshGroup,
-                                                     StepCost, analyze_step)
+                                                     StepCost, analyze_step,
+                                                     replicated_flops)
     from repro_torch.launch.mesh import make_ctx, small_mesh
     from repro_torch.train.train_step import train_input_specs
 
@@ -3541,7 +3605,8 @@ def _dryrun_mesh_runs(train_mesh: dict) -> dict:
         mesh = small_mesh(*run.mesh)
         # rank 0 of the (2, 1) runs; both ranks of the partitioned (1, 2)
         # runs, and beside them the same rows on one device (a (1, 1)
-        # mesh): a rank's FLOPs are 1/2 of its
+        # mesh): a rank's FLOPs are 1/2 of its, but for the MoE router's
+        # and shared gate's, which every rank forms whole
         ranks = range(mesh.size) if run.mesh[1] > 1 else (0,)
         pred, flops, rest = [], [], []
         scan = _meta_scan() if run.arch == "falcon-mamba-7b" \
@@ -3582,10 +3647,13 @@ def _dryrun_mesh_runs(train_mesh: dict) -> dict:
         if pred != live:
             raise SystemExit(f"[dryrun] {run.name}: predicted collectives "
                              "differ from the live counters")
-        if run.mesh[1] > 1 and any(f * run.mesh[1] != flops[-1]
+        R = replicated_flops(run.config(), run.batch * run.seq
+                             // run.mesh[0])
+        if run.mesh[1] > 1 and any(f != (flops[-1] - R) / run.mesh[1] + R
                                    for f in flops[:-1]):
             raise SystemExit(f"[dryrun] {run.name}: a rank's FLOPs are not "
-                             "1/2 of one device's")
+                             f"1/2 of one device's but for the {R:.6e} "
+                             "of the replicated router and shared gate")
     return out
 
 
@@ -3600,7 +3668,9 @@ def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
     collectives (calls times the run's steps, and the largest bytes, by
     kind) must equal the live ``MeshGroup`` counters, rank 0's on the
     (2, 1) mesh and both ranks' on the (1, 2) mesh, whose FLOPs a rank
-    must be exactly 1/2 of the same rows' on one device."""
+    must be exactly 1/2 of the same rows' on one device, but for a MoE
+    layer's router and shared gate, which every rank forms whole
+    (``op_analysis.replicated_flops``)."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.distributed.op_analysis import analyze_step
     from repro_torch.distributed.sharding import ShardCtx

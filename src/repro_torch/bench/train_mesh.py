@@ -11,10 +11,14 @@ rank, and the single-device run they are held to:
   rank's :class:`~repro_torch.distributed.sharding.MeshGroup` (one per
   mesh shape), each reporting the rank's state bytes against what its
   specs give, its peak device memory, its collectives, its step walls, the
-  run's wall (its weights built and placed too), its kernel launches and
-  (rank 0) the metrics and, if asked, the whole state gathered into host
-  memory. A run on a mesh with a ``model`` axis takes the step its arch
-  takes there (:func:`repro_torch.distributed.sharding.tp_compute`);
+  run's wall (its weights built and placed too), its kernel launches,
+  its blocks' shapes and (rank 0) the metrics and, if asked, the whole
+  state gathered into host memory; or, for a state too large to gather
+  through the host (``vs_single``), every rank in turn runs the
+  single-device steps on its device and holds its own blocks against the
+  same blocks of that state there. A run on a mesh with a ``model`` axis
+  takes the step its arch takes there
+  (:func:`repro_torch.distributed.sharding.tp_compute`);
 * :func:`single_run`: the same steps through the single-device step;
 * :func:`compare_states`: the largest differences between two states
   (metrics, moments per leaf, params in units of lr), the params split by
@@ -55,6 +59,7 @@ class TrainRun:
     lr: float = 1e-3
     seed: int = 0
     keep: bool = False      # rank 0 returns the whole state after the run
+    vs_single: bool = False  # each rank holds its blocks against one device
 
     def config(self):
         from ..configs import get_config
@@ -163,13 +168,15 @@ def _sharded(run: TrainRun, ctx, device) -> Dict[str, Any]:
     ctx.group.reset_counters()
     before = ops.launch_counts()
     params, opt_state, hist, walls = _walls_and_metrics(
-        step, params, opt_state, run, cfg, dev, ctx.group.rank == 0)
+        step, params, opt_state, run, cfg, dev,
+        ctx.group.rank == 0 or run.vs_single)
     after = ops.launch_counts()
     res = {"name": run.name, "rank": ctx.group.rank,
            "param_bytes": _bytes(params),
            "moment_bytes": _bytes(opt_state["m"]) + _bytes(opt_state["v"]),
            "spec_bytes": spec_bytes, "full_bytes": full_bytes,
            "leaf_shapes_specs": shapes,
+           "block_shapes": [tuple(t.shape) for t in leaves(params)],
            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
            else None,
            "counters": ctx.group.counters(), "walls": walls,
@@ -181,12 +188,46 @@ def _sharded(run: TrainRun, ctx, device) -> Dict[str, Any]:
                  "m": opt_shardings(cfg, ctx, pshard)["m"],
                  "v": opt_shardings(cfg, ctx, pshard)["v"]}
         res["whole"] = gather_to_host(tree, shard, ctx.group)
+    if run.vs_single:
+        res["vs_single"] = _blocks_vs_single(
+            run, ctx, dev, pshard, hist,
+            {"params": params, "m": opt_state["m"], "v": opt_state["v"]})
     return res
 
 
-def single_run(run: TrainRun, device) -> Dict[str, Any]:
+def _blocks_vs_single(run: TrainRun, ctx, dev, pshard, hist, state
+                      ) -> Dict[str, Any]:
+    """:func:`compare_states` of this rank's blocks against the same
+    blocks of the single-device steps' state, which each rank runs in turn
+    on its device (the others wait at a barrier holding their blocks), so
+    no state crosses the host; with the single run's peak memory."""
+    from ..tree import leaves, unflatten
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = None
+    rank = ctx.group.rank
+    for r in range(ctx.group.mesh.size):
+        if r == rank:
+            one = single_run(run, dev, host=False)
+            want = {k: unflatten(t, [sh.shard(x, rank) for x, sh in
+                                     zip(leaves(t), leaves(pshard))])
+                    for k, t in one["whole"].items()}
+            out = dict(compare_states(state, want, hist, one["history"],
+                                      run.lr),
+                       single_peak_bytes=one["peak_bytes"],
+                       single_history=one["history"])
+            del one, want
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        ctx.group.barrier()
+    return out
+
+
+def single_run(run: TrainRun, device, host: bool = True) -> Dict[str, Any]:
     """``run``'s steps through the single-device step on ``device``: its
-    metrics per step, walls, peak memory and whole final state (host)."""
+    metrics per step, walls, peak memory and whole final state (in host
+    memory, or with ``host`` False where it is)."""
     from ..optim import init_opt_state
     from ..train.train_step import make_train_step
     from ..tree import tree_map
@@ -202,9 +243,9 @@ def single_run(run: TrainRun, device) -> Dict[str, Any]:
     step = make_train_step(cfg, run.opt(), microbatches=mb)
     params, opt_state, hist, walls = _walls_and_metrics(
         step, params, opt_state, run, cfg, dev, True)
-    whole = tree_map(lambda t: t.detach().to("cpu", copy=True),
-                     {"params": params, "m": opt_state["m"],
-                      "v": opt_state["v"]})
+    whole = {"params": params, "m": opt_state["m"], "v": opt_state["v"]}
+    if host:
+        whole = tree_map(lambda t: t.detach().to("cpu", copy=True), whole)
     return {"history": hist, "walls": walls, "whole": whole,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
             else None}

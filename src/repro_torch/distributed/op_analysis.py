@@ -55,6 +55,7 @@ from torch.utils._pytree import tree_flatten
 from .sharding import MeshGroup, TPGroup
 
 __all__ = ["StepCost", "analyze_step", "DryMeshGroup", "DryTPGroup",
+           "replicated_flops",
            "COLLECTIVES"]
 
 #: the reference's collective types (``hlo_analysis._COLLECTIVES``)
@@ -269,6 +270,22 @@ def analyze_step(fn: Callable, *meta_args: Any,
     cost.output_bytes = sum(_nbytes(t) for t in tree_flatten(out)[0]
                             if isinstance(t, torch.Tensor))
     return cost
+
+
+def replicated_flops(cfg: Any, rows: int) -> float:
+    """The FLOPs of the partitioned train step's products that every
+    ``tp`` rank forms whole, for ``rows`` token rows a rank: a MoE layer's
+    router (``D x E``) and shared gate (``D x 1``), which stay in the
+    replicated region; each is a forward product, its recompute under
+    ``remat`` and two gradient products (its input's and its weight's). A
+    rank's FLOPs are then ``(F1 - R) / tp + R``, F1 one device's for the
+    same rows."""
+    if not cfg.moe:
+        return 0.0
+    n = cfg.num_experts + cfg.moe_expert_pad \
+        + (1 if cfg.shared_expert_d_ff else 0)
+    passes = 4 if cfg.remat else 3
+    return 2.0 * passes * rows * cfg.d_model * n * cfg.num_layers
 
 
 class DryMeshGroup(MeshGroup):

@@ -42,8 +42,10 @@ step; here each rank is a process holding its blocks, and
 subgroups of each mesh axis.
 
 The partitioned compute of the train step: :func:`tp_compute` decides
-which archs partition their products over the ``tp`` axis; inside the
-step's :class:`TrainRegion` the layers call four collectives that sit in
+which archs partition their products over the ``tp`` axis (dense,
+MoE and Mamba1 layers; a MoE layer keeps its ``E / tp`` experts, or all
+experts' ``1 / tp`` hidden width, as the rule table splits them); inside
+the step's :class:`TrainRegion` the layers call four collectives that sit in
 the autograd graph, each counted by the group: into the ``tp`` region
 (identity forward, sum backward), out of it (sum forward, identity
 backward), the vocab-parallel max (no gradient) and the MoE router's sum
@@ -850,18 +852,20 @@ def tp_part() -> Optional[TrainRegion]:
 def tp_compute_why(cfg: Any, ctx: ShardCtx) -> Optional[str]:
     """None when the sharded step partitions ``cfg``'s products over the
     ctx's ``tp`` axis; else why its step gathers every leaf whole.
-    Partitioned: every layer kind of the arch is a dense-attention, MLP
-    or Mamba1 layer (the dense trunks behind the stub frontends
+    Partitioned: every layer kind of the arch is a dense-attention, MLP,
+    MoE or Mamba1 layer (the dense trunks behind the stub frontends
     included), the ``tp`` axis is above 1, and it divides every
     width the partition cuts (so the rule table's guard keeps ``tp`` on
     each of those leaves): the padded vocabulary, the query heads, the MLP
-    width, Mamba1's channels. The KV heads may stay whole (each rank then
-    takes the ones its query heads read) where the groups allow it."""
+    width (a MoE arch's: its shared experts' and its dense residual's),
+    Mamba1's channels, and a MoE layer's experts (the padded count ``E``,
+    split by expert) or else their hidden width (split by hidden dim), as
+    the rule table's ``e_wi/e_wg/e_wd`` rules choose. The KV heads may
+    stay whole (each rank then takes the ones its query heads read) where
+    the groups allow it."""
     tp = ctx.axis_size("tp") if ctx.mesh is not None and ctx.tp else 1
     if tp <= 1:
         return "no model axis above 1"
-    if cfg.moe:
-        return "MoE layers (expert parallelism is not partitioned yet)"
     if cfg.hybrid_attn_every or (cfg.ssm and cfg.ssm_version != 1):
         return "Mamba2/hybrid layers are not partitioned yet"
     cuts = {"padded vocabulary": cfg.padded_vocab}
@@ -869,6 +873,16 @@ def tp_compute_why(cfg: Any, ctx: ShardCtx) -> Optional[str]:
         cuts["Mamba1 channels"] = cfg.d_inner
     else:
         cuts["query heads"] = cfg.num_heads
+    if cfg.moe:
+        if cfg.shared_expert_d_ff:
+            cuts["shared experts' width"] = cfg.shared_expert_d_ff
+        if cfg.dense_residual:
+            cuts["dense residual's width"] = cfg.d_ff
+        E = cfg.num_experts + cfg.moe_expert_pad
+        if E % tp and cfg.moe_d_ff % tp:
+            return (f"model axis {tp} divides neither the {E} experts nor "
+                    f"their hidden width ({cfg.moe_d_ff})")
+    elif not cfg.ssm:
         cuts["MLP width"] = cfg.d_ff
     for what, n in cuts.items():
         if n % tp:

@@ -8,13 +8,15 @@ For each cell this script:
    1), ``multi``, 4 such nodes (``pod`` 4 x ``data`` 8 x ``model`` 1), or
    ``node_tp``, one node as ``data`` 2 x ``model`` 4. On ``node_tp`` the
    train step partitions its products over ``model`` (column- and
-   row-parallel, vocab-parallel embedding and loss, Mamba1 on ``dI / 4``
+   row-parallel, vocab-parallel embedding and loss, a MoE layer's own
+   experts (qwen2-moe's 60 split 15 a rank, 16 of 64 under ``--variant
+   opt``'s pad; arctic's 128 split 32 a rank), Mamba1 on ``dI / 4``
    channels: :func:`repro_torch.distributed.sharding.tp_compute`), and the
    count takes in its reductions, Mamba1's ``in_proj`` exchange and each
    rank's FLOPs of its slices. An arch whose layers are not partitioned
-   yet (MoE, Mamba2/hybrid) or whose widths the axis does not divide, and
-   the serve steps, which are not partitioned yet, are skipped there with
-   the reason;
+   yet (Mamba2/hybrid) or whose widths the axis does not divide, and the
+   serve steps, which are not partitioned yet, are skipped there with the
+   reason;
 2. builds the step of the shape's kind (the sharded train step, or the
    prefill or decode step) and meta tensors of rank 0's inputs, its blocks
    under the rule table (:mod:`repro_torch.train.train_step`);

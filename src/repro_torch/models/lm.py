@@ -60,7 +60,9 @@ zeroes the rest before the sum over ``tp`` (:func:`_lookup`), and forms
 only its logits' columns; :func:`loss_fn` then takes ``logz`` from the
 global max and the global sum of exponentials and the gold logit from the
 rank that holds the label (:func:`_vocab_parallel_ce`), so the ``(B, S,
-V)`` logits are never gathered. A remat recompute re-enters the region
+V)`` logits are never gathered. A MoE layer runs its rank's experts
+and sums its FFN's partials over ``tp`` once (:mod:`repro_torch.models.
+moe`). A remat recompute re-enters the region
 (``checkpoint``'s ``context_fn``): on CUDA the backward runs on another
 thread.
 

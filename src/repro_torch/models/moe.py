@@ -7,8 +7,7 @@ assignments ranked at or past the capacity C are dropped, and the kept ones
 fill an (E+1, C) slot table whose last row is the sentinel of the dropped.
 Then gather -> three batched expert products -> gate-weighted combine.
 qwen2-moe adds its sigmoid-gated shared experts, arctic its dense FFN in
-parallel with the MoE. The reference's ``constrain``/``_tp_size`` sharding
-hooks are identities off a mesh and are dropped.
+parallel with the MoE.
 
 Three properties the serving path relies on:
 
@@ -31,6 +30,22 @@ expert's counts the lower ``dp`` ranks' assignments before it (one
 all-gather of the per-expert counts), and the aux loss is formed from the
 global per-expert probability sums (summed over ``dp`` in the autograd
 graph) and counts.
+
+With its products partitioned over ``tp`` as well (``tp_part()``, the
+reference's rule table and its ``constrain`` of the dispatched rows to
+``tp``), every ``tp`` rank holds the same rows, so the routing, the
+capacity, the ranks and the aux loss come out the same on each, with no
+exchange of rows. A rank runs the experts whose blocks it holds: its
+``E / tp`` experts' slots of the table (rows ``[r E/tp C, (r+1) E/tp C)``;
+a token whose slot is another rank's reads the zero row), or, where
+``tp`` does not divide E, every slot on its ``1 / tp`` of the hidden
+width. The experts' partial, the shared experts' partial times the
+sigmoid gate and arctic's dense residual's are added before one sum over
+``tp`` (one forward all-reduce, as a dense MLP's). The router and the
+shared gate are formed in the replicated region; ``x``, the top-k gate
+and the shared gate enter the partitioned one through ``copy_in``, whose
+backward sums the ranks' partial gradients. The aux loss's router
+gradient is thus counted once, and the gate's has every rank's experts.
 """
 from __future__ import annotations
 
@@ -40,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import current_region
+from ..distributed.sharding import current_region, tp_part
 from .layers import dense_init, dtype_of, normal_init
 from .mlp import mlp
 
@@ -167,7 +182,9 @@ def _aux_loss(r: Routing, E: int, region=None,
 def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
               return_aux: bool = False):
     """x: (B, S, D) -> y (B, S, D) in the compute dtype, or (y, aux_loss)
-    with ``return_aux``."""
+    with ``return_aux``. Under the partitioned step (``tp_part()``) ``p``
+    holds this rank's blocks of the experts and of the shared and dense
+    MLPs, and y is their partials summed over ``tp`` once."""
     B, S, D = x.shape
     E = cfg.num_experts + cfg.moe_expert_pad   # padded experts are inert
     K = cfg.num_experts_per_tok
@@ -181,6 +198,24 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
     else:
         r, counts = _over_dp(r, E, region, cfg)
     C = r.capacity
+    # formed before the partitioned products, so that a remat recompute
+    # stops short of the layer's sum over tp
+    aux = _aux_loss(r, E, region, counts) if return_aux else None
+    part, xin, gate = tp_part(), x, r.gate
+    sg = torch.sigmoid(xt.float() @ p["shared_gate"].float()) \
+        if cfg.shared_expert_d_ff else None
+    if part is not None:
+        # routing, the shared gate and the aux loss stay replicated (each
+        # rank forms their whole gradient); the values the partitioned
+        # products read enter the region, so their gradients are summed
+        # (the two gates' in one reduction)
+        xin = part.copy_in(x)
+        xt = xin.reshape(T, D)
+        if sg is None:
+            gate = part.copy_in(gate)
+        else:
+            gate, sg = part.copy_in(torch.cat([gate, sg], dim=1)) \
+                .split([K, 1], dim=1)
 
     # ---- the (E+1, C) slot table: row E takes every dropped assignment
     flat_e = r.eidx.reshape(-1)
@@ -193,20 +228,31 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
     slot_tok.scatter_(0, slot, torch.where(keep, flat_t, T))
     slot_tok = slot_tok[:E * C]                  # T: the zero sentinel row
 
+    # ---- this rank's experts: all E (whole, or a slice of the hidden
+    # width each), or the El = E / tp from expert lo on, whose slots are
+    # rows [lo C, (lo + El) C) of the table; any other slot reads the
+    # zero row
+    El = p["e_wi"].shape[0]
+    if El < E:
+        lo = part.tp_index * El
+        slot_tok = slot_tok[lo * C:(lo + El) * C]
+        slot = slot - lo * C
+        slot = torch.where((slot >= 0) & (slot < El * C), slot, El * C)
+
     # ---- gather -> expert FFN (batched over experts)
     xpad = torch.cat([xt, xt.new_zeros((1, D))])
-    xe = xpad.index_select(0, slot_tok).view(E, C, D).to(cdt)
+    xe = xpad.index_select(0, slot_tok).view(El, C, D).to(cdt)
     h = F.silu(torch.bmm(xe, p["e_wg"].to(cdt))) \
         * torch.bmm(xe, p["e_wi"].to(cdt))
-    eo = torch.bmm(h, p["e_wd"].to(cdt)).view(E * C, D)
+    eo = torch.bmm(h, p["e_wd"].to(cdt)).view(El * C, D)
 
     # ---- combine: a token's contributions in ascending expert id (a
-    # dropped one reads the zero row E*C), gate-weighted in the compute
+    # dropped one reads the zero row El*C), gate-weighted in the compute
     # dtype as the reference's update rows
     eo = torch.cat([eo, eo.new_zeros((1, D))])
     order = r.eidx.argsort(dim=1)
     slot_tk = slot.view(T, K).gather(1, order)
-    g_tk = r.gate.gather(1, order).to(cdt)
+    g_tk = gate.gather(1, order).to(cdt)
     contrib = eo.index_select(0, slot_tk.reshape(-1)).view(T, K, D) \
         * g_tk[..., None]
     y = contrib[:, 0]
@@ -214,12 +260,14 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
         y = y + contrib[:, k]
     y = y.view(B, S, D)
 
+    # the shared experts' and the dense residual's partials join the
+    # experts' before the one sum over tp
+    inside = part is not None
     if cfg.shared_expert_d_ff:
-        shared = mlp(p, x.to(cdt), cfg, prefix="shared_")
-        sg = torch.sigmoid(x.float() @ p["shared_gate"].float())
-        y = y + shared * sg.to(cdt)
+        shared = mlp(p, xin.to(cdt), cfg, prefix="shared_", partial=inside)
+        y = y + shared * sg.view(B, S, 1).to(cdt)
     if cfg.dense_residual:
-        y = y + mlp(p, x.to(cdt), cfg, prefix="dense_")
-    if return_aux:
-        return y, _aux_loss(r, E, region, counts)
-    return y
+        y = y + mlp(p, xin.to(cdt), cfg, prefix="dense_", partial=inside)
+    if inside:
+        y = part.reduce_out(y)
+    return (y, aux) if return_aux else y

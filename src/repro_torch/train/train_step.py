@@ -17,17 +17,21 @@ MeshGroup`, and runs its losses inside a :class:`~repro_torch.
 distributed.sharding.TrainRegion` (``use_region``):
 
 * where :func:`~repro_torch.distributed.sharding.tp_compute` holds (every
-  layer a dense-attention, MLP or Mamba1 layer, a ``model`` axis above 1
-  that divides the widths it cuts), the products are partitioned over
-  ``tp`` as the reference's ``constrain`` hooks lay them out: each leaf
-  the rule table shards on ``tp`` stays this rank's block and is gathered
-  along ``fsdp`` only (:func:`tp_plan`); the layers run column- and
-  row-parallel products, the vocab-parallel embedding, head and loss, and
-  Mamba1 on ``dI / tp`` channels (Mamba1's fused ``in_proj`` is brought
-  to ``[x_r | z_r]`` by one all-to-all over ``tp``, its gradient back by
-  another); where ``tp`` does not divide the KV heads ``wk/wv`` come
-  whole and their gradients, like the head norms', are summed over
-  ``tp``. Any other arch, or a mesh without a ``model`` axis above 1,
+  layer a dense-attention, MLP, MoE or Mamba1 layer, a ``model`` axis
+  above 1 that divides the widths it cuts), the products are partitioned
+  over ``tp`` as the reference's ``constrain`` hooks lay them out: each
+  leaf the rule table shards on ``tp`` stays this rank's block and is
+  gathered along ``fsdp`` only (:func:`tp_plan`); the layers run column-
+  and row-parallel products, the vocab-parallel embedding, head and loss,
+  a MoE layer's own experts (or every expert's slice of the hidden width)
+  beside its column- and row-parallel shared experts and dense residual,
+  and Mamba1 on ``dI / tp`` channels (Mamba1's fused ``in_proj`` is
+  brought to ``[x_r | z_r]`` by one all-to-all over ``tp``, its gradient
+  back by another); where ``tp`` does not divide the KV heads ``wk/wv``
+  come whole and their gradients, like the head norms', are summed over
+  ``tp``. The MoE router and shared gate come whole and their gradients
+  are not summed over ``tp``: they are formed in the replicated region.
+  Any other arch (zamba2), or a mesh without a ``model`` axis above 1,
   gathers every leaf whole (ranks that differ only along ``model`` then
   repeat the same rows' work);
 * the gather is once per microbatch, or with ``cfg.hoist_weight_gather``
@@ -336,7 +340,9 @@ def make_train_step(cfg: ModelConfig, opt: Optional[OptConfig] = None,
 #: ``in_proj``, exchanged to ``[x_r | z_r]`` and back
 _BLOCK_LEAVES = frozenset({
     "embed", "lm_head", "wq", "bq", "wo", "wi", "wg", "wd", "dt_proj",
-    "out_proj", "conv_w", "conv_b", "x_proj", "A_log", "ssm_D", "dt_bias"})
+    "out_proj", "conv_w", "conv_b", "x_proj", "A_log", "ssm_D", "dt_bias",
+    "e_wi", "e_wg", "e_wd", "shared_wi", "shared_wg", "shared_wd",
+    "dense_wi", "dense_wg", "dense_wd"})
 _KV_LEAVES = frozenset({"wk", "wv", "bk", "bv"})
 _SUM_LEAVES = frozenset({"q_norm", "k_norm"})
 

@@ -17,6 +17,10 @@ step, at smoke size.
 * (1, 2): stablelm's fp32 step and falcon-mamba's (K3 and its backward on
   each rank's dI / 2 channels, ``in_proj`` exchanged) against the
   single-device step; no leaf is all-gathered.
+* (1, 2), the ``moe-tp`` run of ``chip_smoke.py`` at smoke size:
+  qwen2-moe's fp32 step with 4 of its 8 experts a rank, each rank's blocks
+  against the same blocks of the single-device step, which each rank runs
+  on the card in turn; no leaf is all-gathered.
 
 They carry the ``gpu`` marker and skip without CUDA:
 
@@ -42,7 +46,10 @@ RUNS = (TrainRun("fp32", preset="smoke", overrides=FP32, batch=4, seq=64,
         TrainRun("fp32-tp", preset="smoke", overrides=FP32, batch=4,
                  seq=64, microbatches=2, mesh=(1, 2), keep=True),
         TrainRun("falcon-tp", "falcon-mamba-7b", "smoke", overrides=FP32,
-                 batch=2, seq=64, microbatches=2, mesh=(1, 2), keep=True))
+                 batch=2, seq=64, microbatches=2, mesh=(1, 2), keep=True),
+        TrainRun("moe-tp", "qwen2-moe-a2.7b", "smoke", overrides=FP32,
+                 batch=4, seq=64, microbatches=1, mesh=(1, 2),
+                 vs_single=True))
 #: the (1, 2) runs, each held against the single-device step of RUNS[i]
 TP = {3: 0, 4: 4}
 
@@ -126,7 +133,23 @@ def test_partitioned_step_matches_the_single_device_step(card, i):
         assert "all_gather" not in rank[i]["counters"]["calls"]
 
 
-@pytest.mark.parametrize("i", [0, 1, 2, 3, 4])
+def test_moe_partitioned_step_matches_the_single_device_step(card):
+    """Each rank's blocks (its experts, its shared experts' slices, the
+    router whole) against the same blocks of one device's step."""
+    for rank in card["ranks"]:
+        r = rank[5]
+        cmp = r["vs_single"]
+        assert cmp["metric_rel"] <= 1e-5 and cmp["m_rel"] <= 1e-5 \
+            and cmp["v_rel"] <= 1e-5 and cmp["param_lr"] <= 5e-2, cmp
+        assert cmp["ill_param_lr"] <= 2.05, cmp
+        assert "all_gather" not in r["counters"]["calls"]
+        experts = [b[1] for (full, _), b in zip(r["leaf_shapes_specs"],
+                                                r["block_shapes"])
+                   if len(full) == 4 and full[1] == 8]
+        assert experts == [4, 4, 4], experts
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3, 4, 5])
 def test_each_rank_holds_its_specs_bytes(card, i):
     for rank in card["ranks"]:
         r = rank[i]

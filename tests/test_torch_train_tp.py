@@ -1,7 +1,8 @@
 """The sharded train step with its products partitioned over the ``model``
 axis (column- and row-parallel products, the vocab-parallel embedding,
-head and loss, Mamba1 on ``dI / tp`` channels), and the MoE router's aux
-loss over the global batch, on the CPU.
+head and loss, Mamba1 on ``dI / tp`` channels, the MoE layer's experts
+split by expert or by hidden dim), and the MoE router's aux loss over the
+global batch, on the CPU.
 
 * The arch table: which archs partition on which meshes
   (``tp_compute``), and each leaf's plan (``tp_plan``), in-process.
@@ -13,17 +14,23 @@ loss over the global batch, on the CPU.
   (1, 2), (2, 2) and (1, 4) (where 4 does not divide the 2 KV heads),
   hoisted and not, ``microbatches`` None, 1 and 2 and compression;
   falcon-mamba-7b smoke on (1, 2) (the ``in_proj`` exchange); qwen2-moe
-  smoke on (2, 1) (the aux loss and the dispatch over the global batch).
+  smoke on (2, 1) (the aux loss and the dispatch over the global batch),
+  on (1, 2) split by expert with the aux loss weighted 1.0, on (2, 2)
+  hoisted (the global batch's routing and the expert split), with 5
+  experts on (1, 2) (the hidden-dim split) and with 6 and 2 inert ones on
+  (1, 4); arctic smoke (fp32 masters) on (1, 2) (the dense residual).
   Each case is held against the reference's step and the port's
   single-device step with ``tests/test_torch_train_mesh.py``'s tolerances;
   each rank's collectives against the dry run's prediction; the leaves no
   spec shards over ``model`` against every other model rank's.
 * The dry run: each rank's FLOPs are exactly 1/tp of one device's for the
-  same rows; on (1, 2) no leaf is all-gathered.
+  same rows, but for a MoE arch's router and shared gate, which every
+  rank forms whole; on (1, 2) no leaf is all-gathered.
 * A checkpoint saved by a (1, 2) run restores at one rank and in the
   reference's ``CheckpointManager``.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -40,7 +47,8 @@ from repro.models import lm as jlm
 from repro.train.checkpoint import CheckpointManager as JCheckpointManager
 from repro_torch.configs import ARCHS, ShapeSpec, get_config
 from repro_torch.distributed.op_analysis import (DryMeshGroup, StepCost,
-                                                 analyze_step)
+                                                 analyze_step,
+                                                 replicated_flops)
 from repro_torch.distributed.sharding import Mesh, tp_compute
 from repro_torch.launch.mesh import MeshSession, make_ctx, small_mesh
 from repro_torch.optim import init_error_state, init_opt_state
@@ -54,11 +62,12 @@ from test_torch_train_mesh import (HOIST_METRIC_REL, HOIST_MOMENT_REL,
                                    QUANTUM_REL, STEP_REL, _hold,
                                    _ref_as_state)
 from test_torch_train_tp_ranks import (B, CASES, LR, SAVED, S, Body,
-                                       case_id, cfg_of, opt_of, tokens)
+                                       case_id, cfg_of, opt_of, tokens,
+                                       tree_key)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
-ARCH_OF = sorted({c[0] for c in CASES})
+TREES = sorted({tree_key(c) for c in CASES})
 
 
 # ------------------------------------------------------- the arch table
@@ -72,8 +81,8 @@ TP_TABLE = {
     "musicgen-large": (True, True),
     "internvl2-1b": (True, False),      # 14 query heads over 4 ranks
     "falcon-mamba-7b": (True, True),
-    "qwen2-moe-a2.7b": (False, False),  # MoE layers
-    "arctic-480b": (False, False),      # MoE layers
+    "qwen2-moe-a2.7b": (True, True),
+    "arctic-480b": (True, True),
     "zamba2-1.2b": (False, False),      # Mamba2 / hybrid layers
 }
 
@@ -95,9 +104,12 @@ def test_arch_table(arch):
 def test_the_plan_of_each_leaf():
     """stablelm keeps every tp block; at tp = 4 its 2 KV heads come whole
     and their gradients are summed over tp; qwen3's head norms are summed;
-    falcon-mamba's in_proj is exchanged."""
-    def plan_of(arch, mesh):
-        cfg = get_config(arch).smoke()
+    falcon-mamba's in_proj is exchanged; the MoE archs keep their experts'
+    blocks (by expert, or by hidden dim where tp does not divide E) and
+    their shared experts' or dense residual's, and take the router and the
+    shared gate whole."""
+    def plan_of(arch, mesh, **over):
+        cfg = dataclasses.replace(get_config(arch).smoke(), **over)
         ctx = make_ctx(small_mesh(*mesh))
         names = [n for n, _ in _named(param_shapes(cfg))]
         return dict(zip(names, tp_plan(cfg, ctx)))
@@ -113,6 +125,22 @@ def test_the_plan_of_each_leaf():
     assert q["blocks/q_norm"] == q["blocks/k_norm"] == "sum"
     f = plan_of("falcon-mamba-7b", (1, 2))
     assert f["blocks/in_proj"] == "xz" and f["blocks/A_log"] == "block"
+    experts = {"blocks/e_wi", "blocks/e_wg", "blocks/e_wd"}
+    shared = {"blocks/shared_wi", "blocks/shared_wg", "blocks/shared_wd"}
+    dense = {"blocks/dense_wi", "blocks/dense_wg", "blocks/dense_wd"}
+    for arch, mesh, mlps in (("qwen2-moe-a2.7b", (1, 2), shared),
+                             ("qwen2-moe-a2.7b", (1, 4), shared),
+                             ("arctic-480b", (1, 2), dense)):
+        m = plan_of(arch, mesh)
+        assert {k for k, v in m.items() if v == "block"} >= experts | mlps
+        assert m["blocks/router"] == "whole"
+        assert m.get("blocks/shared_gate", "whole") == "whole"
+        kv = "block" if mesh[1] == 2 else "sum"
+        assert m["blocks/wk"] == m["blocks/wv"] == kv
+    q = plan_of("qwen2-moe-a2.7b", (1, 4))
+    assert q["blocks/bq"] == "block" and q["blocks/bk"] == "sum"
+    h = plan_of("qwen2-moe-a2.7b", (1, 2), num_experts=5)
+    assert all(h[k] == "block" for k in experts)
 
 
 class _Exchange:
@@ -182,10 +210,10 @@ from repro.train.train_step import batch_shardings, make_train_step
 
 cases, out_dir, lr, B, S = json.loads(sys.argv[1])
 opt = OptConfig(lr=lr, warmup_steps=0, total_steps=10)
-for name, arch, (d, m), hoist, mb, comp in cases:
+for name, arch, (d, m), hoist, mb, comp, over in cases:
     cfg = dataclasses.replace(get_config(arch).smoke(),
                               compute_dtype="float32",
-                              hoist_weight_gather=hoist)
+                              hoist_weight_gather=hoist, **dict(over))
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
     mesh = small_mesh(d, m)
@@ -218,17 +246,17 @@ def _start_reference(out_dir):
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                "--xla_cpu_multi_thread_eigen=false",
                PYTHONPATH=str(ROOT / "src"))
-    arg = json.dumps([[[case_id(c), c[0], list(c[1]), c[2], c[3], c[4]]
-                       for c in CASES], str(out_dir), LR, B, S])
+    arg = json.dumps([[[case_id(c), c[0], list(c[1]), c[2], c[3], c[4],
+                        c[5]] for c in CASES], str(out_dir), LR, B, S])
     return subprocess.Popen(["nice", "-n", "10", sys.executable, "-c",
                              REF_SCRIPT, arg],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 
-def _ref_tree(arch):
+def _ref_tree(arch, over):
     cfg = dataclasses.replace(jget_config(arch).smoke(),
-                              compute_dtype="float32")
+                              compute_dtype="float32", **dict(over))
     jp = jax.jit(jlm.init_params, static_argnums=(0,))(
         cfg, jax.random.PRNGKey(0))
     return jax.tree_util.tree_map(np.asarray, jp)
@@ -240,7 +268,7 @@ def run(tmp_path_factory):
     (root / "ref").mkdir()
     ref_proc = _start_reference(root / "ref")
     try:
-        trees = {a: _ref_tree(a) for a in ARCH_OF}
+        trees = {k: _ref_tree(*k) for k in TREES}
         with MeshSession(4, "gloo", Body(trees, str(root)), CPU,
                          init_method=f"file://{root / 'store'}",
                          timeout=300.0, op_timeout_s=60.0) as s:
@@ -261,8 +289,8 @@ def _single_step(tree, case):
     """The case's step on one device: the single-device step, or with the
     gather hoisted the step on a (1, 1) mesh, whose weights are the same
     bf16 copies."""
-    arch, (d, _), hoist, mb, comp = case
-    cfg = cfg_of(arch, hoist)
+    arch, (d, _), hoist, mb, comp, over = case
+    cfg = cfg_of(arch, hoist, over)
     params = from_reference(tree, cfg, device=CPU, cast=False)
     st = init_opt_state(params, opt_of())
     if comp:
@@ -280,7 +308,7 @@ def _single_step(tree, case):
 
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_partitioned_step_matches_the_reference(run, case):
-    _, _, hoist, _, comp = case
+    hoist, comp = case[2], case[4]
     got = run["ranks"][0][case_id(case)]
     want_state, want_m = _ref_as_state(run["ref"][case_id(case)])
     assert set(got["metrics"]) == set(want_m)
@@ -298,7 +326,7 @@ def test_partitioned_step_matches_the_single_device_step(run, case):
     hoisted bounds."""
     hoist, comp = case[2], case[4]
     got = run["ranks"][0][case_id(case)]
-    want_m, want = _single_step(run["trees"][case[0]], case)
+    want_m, want = _single_step(run["trees"][tree_key(case)], case)
     _hold(got["metrics"], got, want_m, want, case_id(case) + " vs one",
           HOIST_MOMENT_REL if hoist else
           QUANTUM_REL if comp else STEP_REL, quantised=comp,
@@ -334,13 +362,14 @@ def test_replicated_leaves_agree_over_the_model_axis(run, case):
                 np.testing.assert_array_equal(other[k], held[0][k])
 
 
+@functools.lru_cache(maxsize=None)
 def _dry(case, rank, mesh=None):
-    arch, shape, hoist, mb, comp = case
+    arch, shape, hoist, mb, comp, over = case
     m = small_mesh(*(mesh or shape))
     cost = StepCost()
     ctx = make_ctx(m, DryMeshGroup(m, rank, cost))
     step, args, _ = train_input_specs(
-        cfg_of(arch, hoist), ctx, ShapeSpec("t", S, B, "train"),
+        cfg_of(arch, hoist, over), ctx, ShapeSpec("t", S, B, "train"),
         opt=opt_of(), compress=comp, microbatches=mb)
     analyze_step(step, *args, cost=cost)
     return ctx.group, cost
@@ -361,15 +390,75 @@ def test_each_rank_s_flops_are_one_tp_th_of_one_device_s(arch, mesh):
     """The same rows on a mesh without the model axis and with it: the
     dry run's FLOPs of a rank (every product: the projections, the
     attention scores, the scan, the head, forward and backward) are
-    exactly 1/tp; an arch outside the slice repeats the whole work."""
-    case = (arch, mesh, False, None, False)
+    exactly 1/tp; qwen2-moe's are 1/tp but for its router and shared
+    gate, which every rank forms whole."""
+    case = (arch, mesh, False, None, False, ())
     _, alone = _dry(case, 0, mesh=(mesh[0], 1))
     for rank in range(mesh[0] * mesh[1]):
         _, part = _dry(case, rank)
         assert part.flops * mesh[1] == alone.flops, (rank, part.flops,
                                                      alone.flops)
-    moe = ("qwen2-moe-a2.7b", mesh, False, None, False)
-    assert _dry(moe, 0)[1].flops == _dry(moe, 0, mesh=(mesh[0], 1))[1].flops
+    moe = ("qwen2-moe-a2.7b", mesh, False, None, False, ())
+    one = _dry(moe, 0, mesh=(mesh[0], 1))[1].flops
+    R = replicated_flops(cfg_of(moe[0]), B * S // mesh[0])
+    assert R > 0
+    assert _dry(moe, 0)[1].flops == (one - R) / mesh[1] + R
+
+
+def _kv_repeat(cfg, rows, tp):
+    """The FLOPs of the KV projections a rank forms beyond its 1/tp share
+    where tp does not divide the KV heads: it projects the KV heads its
+    query heads read (forward, recompute, two gradient products)."""
+    if cfg.num_kv_heads % tp == 0:
+        return 0.0
+    read = max(1, (cfg.num_heads // tp)
+               // (cfg.num_heads // cfg.num_kv_heads))
+    width = 2 * cfg.hd * read                # its heads of wk and of wv
+    share = 2 * cfg.num_kv_heads * cfg.hd / tp
+    return 8.0 * rows * cfg.d_model * (width - share) * cfg.num_layers
+
+
+MOE_TP = [c for c in CASES if c[1][1] > 1
+          and c[0] in ("qwen2-moe-a2.7b", "arctic-480b")]
+
+
+@pytest.mark.parametrize("case", MOE_TP, ids=case_id)
+def test_a_moe_rank_s_flops_are_its_share_and_the_router_s(case):
+    """Split by expert, by hidden dim or with inert experts, with the
+    shared experts or the dense residual: a rank's FLOPs are exactly
+    ``(F1 - R) / tp + R`` (R the router's and the shared gate's products,
+    :func:`replicated_flops`), and where 4 does not divide the 2 KV heads
+    the one KV head each rank projects whole on top."""
+    d, m = case[1]
+    cfg = cfg_of(case[0], case[2], case[5])
+    rows = B * S // d
+    one = _dry(case, 0, mesh=(d, 1))[1].flops
+    R = replicated_flops(cfg, rows)
+    want = (one - R) / m + R + _kv_repeat(cfg, rows, m)
+    for rank in range(d * m):
+        assert _dry(case, rank)[1].flops == want, (rank, want)
+
+
+@pytest.mark.parametrize("case", MOE_TP, ids=case_id)
+def test_each_rank_holds_its_experts(run, case):
+    """A rank's expert leaves are its E / tp experts where tp divides E
+    (the padded count), else every expert's 1 / tp of the hidden width;
+    its shared experts' or dense residual's its 1 / tp of their width."""
+    d, m = case[1]
+    cfg = cfg_of(case[0], case[2], case[5])
+    L, D = cfg.num_layers, cfg.d_model
+    E, Fe = cfg.num_experts + cfg.moe_expert_pad, cfg.moe_d_ff
+    wi = (L, E // m, D // d, Fe) if E % m == 0 else (L, E, D // d, Fe // m)
+    wd = (L, E // m, Fe, D // d) if E % m == 0 else (L, E, Fe // m, D // d)
+    mlp, width = ("shared_", cfg.shared_expert_d_ff) \
+        if cfg.shared_expert_d_ff else ("dense_", cfg.d_ff)
+    for rank in range(d * m):
+        shapes = run["ranks"][rank][case_id(case)]["shapes"]
+        assert shapes["blocks/e_wi"] == shapes["blocks/e_wg"] == wi
+        assert shapes["blocks/e_wd"] == wd
+        assert shapes[f"blocks/{mlp}wi"] == (L, D // d, width // m)
+        assert shapes[f"blocks/{mlp}wd"] == (L, width // m, D // d)
+        assert shapes["blocks/router"][1:] == (D // d, E)
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[1] == (1, 2)],

@@ -20,34 +20,58 @@ from repro_torch.tree import leaves
 
 B, S = 4, 32
 LR = 1e-3
-#: (arch, (data, model), hoist the weight gather, microbatches, compress)
+#: (arch, (data, model), hoist the weight gather, microbatches, compress,
+#: config overrides)
 CASES = [
-    ("stablelm-1.6b", (1, 2), False, None, False),
-    ("stablelm-1.6b", (1, 2), False, 2, False),
-    ("stablelm-1.6b", (1, 2), True, 2, False),
-    ("stablelm-1.6b", (1, 2), False, None, True),
-    ("stablelm-1.6b", (2, 2), False, None, False),
-    ("stablelm-1.6b", (2, 2), True, 2, False),
+    ("stablelm-1.6b", (1, 2), False, None, False, ()),
+    ("stablelm-1.6b", (1, 2), False, 2, False, ()),
+    ("stablelm-1.6b", (1, 2), True, 2, False, ()),
+    ("stablelm-1.6b", (1, 2), False, None, True, ()),
+    ("stablelm-1.6b", (2, 2), False, None, False, ()),
+    ("stablelm-1.6b", (2, 2), True, 2, False, ()),
     # tp = 4 does not divide the 2 KV heads: wk/wv come whole
-    ("stablelm-1.6b", (1, 4), False, 1, False),
-    ("falcon-mamba-7b", (1, 2), False, None, False),
-    ("falcon-mamba-7b", (1, 2), True, 2, False),
-    ("qwen2-moe-a2.7b", (2, 1), False, None, False),
+    ("stablelm-1.6b", (1, 4), False, 1, False, ()),
+    ("falcon-mamba-7b", (1, 2), False, None, False, ()),
+    ("falcon-mamba-7b", (1, 2), True, 2, False, ()),
+    ("qwen2-moe-a2.7b", (2, 1), False, None, False, ()),
+    # split by expert (4 of 8 a rank), the aux loss weighted 1.0: an aux
+    # gradient counted tp times, or a gate gradient of one rank's experts
+    # only, moves the router beyond the bounds
+    ("qwen2-moe-a2.7b", (1, 2), False, 1, False,
+     (("router_aux_weight", 1.0),)),
+    # the global batch's routing and the expert split together
+    ("qwen2-moe-a2.7b", (2, 2), True, 2, False, ()),
+    # 2 does not divide 5 experts: the hidden-dim split
+    ("qwen2-moe-a2.7b", (1, 2), False, 1, False, (("num_experts", 5),)),
+    # 6 experts and 2 inert ones, 2 a rank: the inert on the last rank;
+    # 4 does not divide the 2 KV heads
+    ("qwen2-moe-a2.7b", (1, 4), False, 1, False,
+     (("num_experts", 6), ("moe_expert_pad", 2))),
+    # the dense residual in parallel; fp32 masters: with its bf16 ones the
+    # gradients are bf16 too, and where two summation orders differ a
+    # gradient rounds to another bf16 (moments 1e-3 to 2e-3 of a leaf's
+    # largest apart from one device's step, beyond the 1e-5 bound)
+    ("arctic-480b", (1, 2), False, 1, False, (("param_dtype", "float32"),)),
 ]
 #: the case whose final state a checkpoint saves and restores
 SAVED = 0
 
 
 def case_id(case):
-    arch, (d, m), hoist, mb, comp = case
+    arch, (d, m), hoist, mb, comp, over = case
     return f"{arch}-{d}x{m}-hoist{int(hoist)}-mb{mb}" + (
-        "-compress" if comp else "")
+        "-compress" if comp else "") + "".join(f"-{k}{v}" for k, v in over)
 
 
-def cfg_of(arch, hoist=False):
+def tree_key(case):
+    """The key of the case's initial weights (its arch and overrides)."""
+    return case[0], case[5]
+
+
+def cfg_of(arch, hoist=False, over=()):
     return dataclasses.replace(get_config(arch).smoke(),
                                compute_dtype="float32",
-                               hoist_weight_gather=hoist)
+                               hoist_weight_gather=hoist, **dict(over))
 
 
 def opt_of():
@@ -88,14 +112,22 @@ class Body:
             ctx = ctxs[shape]
             if ctx is not None:
                 out[case_id(case)] = _port_case(
-                    self.trees[case[0]], case, ctx,
+                    self.trees[tree_key(case)], case, ctx,
                     Path(self.ckpt_root) / "ckpt" if i == SAVED else None)
         return out
 
 
+def _paths(tree, prefix=""):
+    """The '/'-joined key path of every leaf, in leaf order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
 def _port_case(tree, case, ctx, ckpt):
-    arch, _, hoist, mb, comp = case
-    cfg = cfg_of(arch, hoist)
+    arch, _, hoist, mb, comp, over = case
+    cfg = cfg_of(arch, hoist, over)
     full = from_reference(tree, cfg, device=ctx.group.device, cast=False)
     params = reshard_state(cfg, {"params": full}, ctx)["params"]
     st = init_opt_state(params, opt_of())
@@ -111,6 +143,8 @@ def _port_case(tree, case, ctx, ckpt):
     sh = leaves(pshard)
     res = {"metrics": {k: float(v) for k, v in met.items()},
            "counters": counters,
+           "shapes": {n: tuple(x.shape) for n, x in
+                      zip(_paths(params), leaves(params))},
            # the leaves no spec shards over the model axis, as this rank
            # holds them: every model rank must hold the same
            "replicated": {i: x.numpy().copy() for i, (x, s) in
