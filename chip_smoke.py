@@ -476,6 +476,15 @@ TRAIN_MESH_FALCON_DP_LAYERS = 2
 # experts a rank): fp32 masters and moments of 2 layers are ~14 GB a rank,
 # one device's fp32 step ~28 GB of state, all on the one card
 TRAIN_MESH_MOE_LAYERS = 2
+# zamba2-1.2b on (1, 2) at full width (D 2,048, dI 4,096, 64 SSD heads, N
+# 64): one group of 6 Mamba2 layers and the shared block once, fp32; and
+# internvl2-1b at full width (14 query heads, 2 KV heads) at 2 layers on
+# (1, 4), attention whole on each rank, fp32, its 256 frames before the
+# 2,048 tokens: 4 gloo ranks share the card in a session of their own
+# (14 heads divide by the phase's 2)
+TRAIN_MESH_ZAMBA2_LAYERS = 6
+TRAIN_MESH_VLM_LAYERS = 2
+TRAIN_MESH_VLM_RANKS = 4
 # fp32, 2 ranks against one device: the metrics relative, the moments per
 # leaf relative to its largest magnitude, the params in units of lr where
 # AdamW's first step is well-conditioned and where a gradient lies within
@@ -3116,8 +3125,8 @@ def _sharded_leaf_bytes(shapes_specs, mesh) -> int:
 
 
 def _train_mesh_runs() -> tuple:
-    """The train_mesh phase's runs: fp32, bf16 unhoisted and hoisted,
-    falcon-mamba."""
+    """The train_mesh phase's runs on its TRAIN_MESH_RANKS ranks: fp32,
+    bf16 unhoisted and hoisted, falcon-mamba, then the (1, 2) runs."""
     from repro_torch.bench.train_mesh import TrainRun
     pre, seq = TRAIN_MESH_PRESET, TRAIN_MESH_SEQ
     fp32 = TrainRun("fp32", preset=pre, overrides=(
@@ -3148,7 +3157,40 @@ def _train_mesh_runs() -> tuple:
     moe_bf16 = TrainRun("moe-tp-bf16", "qwen2-moe-a2.7b", pre, moe,
                         batch=2, seq=seq, steps=TRAIN_MESH_STEPS,
                         microbatches=1, mesh=(1, 2), lr=3e-4)
-    return (fp32, *bf16, falcon, fp32_tp, falcon_tp, moe_tp, moe_bf16)
+    # zamba2 on (1, 2): each rank's 32 SSD heads, the shared block's
+    # fused_proj output gathered, held block by block like moe-tp
+    zamba2_tp = TrainRun("zamba2-tp", "zamba2-1.2b", pre, (
+        ("num_layers", TRAIN_MESH_ZAMBA2_LAYERS),
+        ("compute_dtype", "float32")), batch=2, seq=seq, steps=1,
+        microbatches=1, mesh=(1, 2), vs_single=True)
+    return (fp32, *bf16, falcon, fp32_tp, falcon_tp, moe_tp, moe_bf16,
+            zamba2_tp)
+
+
+def _train_mesh_vlm_runs() -> tuple:
+    """The train_mesh phase's run on TRAIN_MESH_VLM_RANKS ranks:
+    internvl2-1b on (1, 4), held block by block against one device."""
+    from repro_torch.bench.train_mesh import TrainRun
+    return (TrainRun("internvl2-tp", "internvl2-1b", TRAIN_MESH_PRESET, (
+        ("num_layers", TRAIN_MESH_VLM_LAYERS),
+        ("compute_dtype", "float32")), batch=2, seq=TRAIN_MESH_SEQ, steps=1,
+        microbatches=1, mesh=(1, TRAIN_MESH_VLM_RANKS), vs_single=True),)
+
+
+def _session(n: int, runs: tuple, dev, what: str) -> list:
+    """``runs`` on ``n`` gloo ranks sharing the card; each rank's results."""
+    from repro_torch.bench.train_mesh import Runs
+    from repro_torch.launch.mesh import MeshSession
+    t0 = time.perf_counter()
+    with MeshSession(n, "gloo", Runs(runs), dev, timeout=TRAIN_MESH_JOIN_S,
+                     op_timeout_s=TRAIN_MESH_OP_S) as s:
+        log(f"[train_mesh] {n} gloo ranks on {dev} up in "
+            f"{time.perf_counter() - t0:.1f}s; "
+            "allow_bf16_reduced_precision_reduction="
+            f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+        s.run()
+    log(f"[time] train_mesh: {what} {time.perf_counter() - t0:.1f}s")
+    return s.results
 
 
 def phase_train_mesh(dev, card: str) -> dict:
@@ -3156,83 +3198,29 @@ def phase_train_mesh(dev, card: str) -> dict:
     (this process and one spawned rank, one ``MeshSession``): the (2, 1)
     runs (every leaf gathered whole) and the (1, 2) runs (the products
     partitioned over the model axis, falcon-mamba's K3 and its backward on
-    each rank's dI / 2 channels); returns each run's summary
-    (``res[name]["launches"]``: the ranks' kernel launches)."""
-    from repro_torch.bench.train_mesh import (Runs, compare_states,
-                                              single_run)
-    from repro_torch.launch.mesh import MeshSession
+    each rank's dI / 2 channels, qwen2-moe's experts, zamba2's SSD heads);
+    then internvl2-1b on TRAIN_MESH_VLM_RANKS ranks (1, 4), attention
+    whole; returns each run's summary (``res[name]["launches"]``: the
+    ranks' kernel launches)."""
+    from repro_torch.bench.train_mesh import compare_states, single_run
 
     seq = TRAIN_MESH_SEQ
     runs = _train_mesh_runs()
     fp32 = runs[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    with MeshSession(TRAIN_MESH_RANKS, "gloo", Runs(runs), dev,
-                     timeout=TRAIN_MESH_JOIN_S, op_timeout_s=TRAIN_MESH_OP_S) as s:
-        log(f"[train_mesh] {TRAIN_MESH_RANKS} gloo ranks on {dev} up in "
-            f"{time.perf_counter() - t0:.1f}s; "
-            "allow_bf16_reduced_precision_reduction="
-            f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
-        s.run()
-    ranks = s.results
-    log(f"[time] train_mesh: the session {time.perf_counter() - t0:.1f}s")
+    ranks = _session(TRAIN_MESH_RANKS, runs, dev, "the session")
+    vlm_runs = _train_mesh_vlm_runs()
+    vlm_ranks = _session(TRAIN_MESH_VLM_RANKS, vlm_runs, dev,
+                         "the internvl2-tp session")
     t1 = time.perf_counter()
     one = single_run(fp32, dev)
     log(f"[time] train_mesh: the single-device fp32 step "
         f"{time.perf_counter() - t1:.1f}s")
     res = {}
-    for i, run in enumerate(runs):
-        per = [r[i] for r in ranks]
-        for r in per:
-            want = _sharded_leaf_bytes(r["leaf_shapes_specs"], run.mesh)
-            if not (r["param_bytes"] == r["spec_bytes"] == want
-                    and r["moment_bytes"] == 2 * want):
-                raise SystemExit(f"[train_mesh] {run.name} rank {r['rank']}: "
-                                 f"params {r['param_bytes']} B, moments "
-                                 f"{r['moment_bytes']} B, specs "
-                                 f"{r['spec_bytes']} B, want {want} B")
-        hist = per[0]["history"]
-        losses = [h["loss"] for h in hist]
-        if not all(np.isfinite([h["loss"] for h in hist]
-                               + [h["grad_norm"] for h in hist])):
-            raise SystemExit(f"[train_mesh] {run.name}: not finite {hist}")
-        if run.steps > 1 and len(set(losses)) < 2:
-            raise SystemExit(f"[train_mesh] {run.name}: losses do not move "
-                             f"{losses}")
-        c = per[0]["counters"]
-        kinds = ("mamba_scan", "mamba_scan_bwd", "flash_attention",
-                 "paged_attention")
-        res[run.name] = {
-            "arch": run.arch, "mesh": list(run.mesh),
-            "layers": run.config().num_layers, "batch": [run.batch, run.seq],
-            "steps": run.steps, "loss": losses,
-            "grad_norm": [h["grad_norm"] for h in hist],
-            "param_bytes": [r["param_bytes"] for r in per],
-            "moment_bytes": [r["moment_bytes"] for r in per],
-            "full_param_bytes": per[0]["full_bytes"],
-            "peak_bytes": [r["peak_bytes"] for r in per],
-            "walls_s": [r["walls"] for r in per],
-            "run_s": [r["run_s"] for r in per],
-            "collective_calls": c["calls"], "collective_max_bytes":
-                c["max_bytes"],
-            "rank_collectives": [r["counters"] for r in per],
-            "rank_launches": [{k: r["launches"].get(k, 0) for k in kinds}
-                              for r in per],
-            "launches": {k: sum(r["launches"].get(k, 0) for r in per)
-                         for k in kinds}}
-        log(f"[train_mesh] {run.name} ({run.arch}, {res[run.name]['layers']} "
-            f"layers, full width, batch {run.batch} x {run.seq}, "
-            f"{run.steps} step(s), mesh {run.mesh}) on {card}: losses "
-            f"{losses}; per rank params {res[run.name]['param_bytes']} B and "
-            f"moments {res[run.name]['moment_bytes']} B of "
-            f"{per[0]['full_bytes']} B whole (each leaf over the ranks its "
-            f"spec shards it across); peak device memory "
-            f"{[r['peak_bytes'] for r in per]} B; collectives by rank "
-            f"{[r['counters'] for r in per]} (calls, largest bytes); step "
-            f"walls {[[round(w, 3) for w in r['walls']] for r in per]} s "
-            f"(host-staged gloo, two ranks on one card: not a speed); the "
-            f"run {[round(r['run_s'], 1) for r in per]} s with its set-up; "
-            f"launches by rank {res[run.name]['rank_launches']}")
+    for group_runs, group_ranks in ((runs, ranks), (vlm_runs, vlm_ranks)):
+        for i, run in enumerate(group_runs):
+            res[run.name] = _train_mesh_summary(
+                run, [r[i] for r in group_ranks], card)
     b0, b1 = res["bf16-hoist0"], res["bf16-hoist1"]
     g0 = b0["collective_calls"]["all_gather"]
     g1 = b1["collective_calls"]["all_gather"]
@@ -3245,6 +3233,8 @@ def phase_train_mesh(dev, card: str) -> dict:
                 raise SystemExit(f"[train_mesh] {name}: the (1, 2) step "
                                  f"all-gathered a leaf {rc}")
     _check_moe_tp(runs, ranks, res, card)
+    _check_zamba2_tp(runs, ranks, res, card)
+    _check_vlm_tp(vlm_runs, vlm_ranks, res, card)
     names = [run.name for run in runs]
     for name in ("fp32", "fp32-tp"):
         idx = names.index(name)
@@ -3256,10 +3246,7 @@ def phase_train_mesh(dev, card: str) -> dict:
             f"width, 2 x {seq}, mesh {runs[idx].mesh}): 2 ranks "
             f"{ranks[0][idx]['history']} | one device {one['history']} | "
             f"{cmp} (tolerances {TRAIN_MESH_TOL})")
-        if cmp["metric_rel"] > TRAIN_MESH_TOL["metric"] \
-                or max(cmp["m_rel"], cmp["v_rel"]) > TRAIN_MESH_TOL["moment"] \
-                or cmp["param_lr"] > TRAIN_MESH_TOL["param_lr"] \
-                or cmp["ill_param_lr"] > TRAIN_MESH_TOL["ill_param_lr"]:
+        if _beyond_tol(cmp):
             raise SystemExit(f"[train_mesh] the 2-rank fp32 step ({name}) "
                              "differs from the single-device step")
     res["fp32"]["single_peak_bytes"] = one["peak_bytes"]
@@ -3281,6 +3268,89 @@ def phase_train_mesh(dev, card: str) -> dict:
     return res
 
 
+def _train_mesh_summary(run, per: list, card: str) -> dict:
+    """One train_mesh run's summary from its ranks' results, after the
+    checks every run holds: each rank's state bytes are its specs'
+    blocks, the metrics finite, a run of several steps moving its loss."""
+    for r in per:
+        want = _sharded_leaf_bytes(r["leaf_shapes_specs"], run.mesh)
+        if not (r["param_bytes"] == r["spec_bytes"] == want
+                and r["moment_bytes"] == 2 * want):
+            raise SystemExit(f"[train_mesh] {run.name} rank {r['rank']}: "
+                             f"params {r['param_bytes']} B, moments "
+                             f"{r['moment_bytes']} B, specs "
+                             f"{r['spec_bytes']} B, want {want} B")
+    hist = per[0]["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite([h["loss"] for h in hist]
+                           + [h["grad_norm"] for h in hist])):
+        raise SystemExit(f"[train_mesh] {run.name}: not finite {hist}")
+    if run.steps > 1 and len(set(losses)) < 2:
+        raise SystemExit(f"[train_mesh] {run.name}: losses do not move "
+                         f"{losses}")
+    c = per[0]["counters"]
+    kinds = ("mamba_scan", "mamba_scan_bwd", "flash_attention",
+             "paged_attention")
+    out = {
+        "arch": run.arch, "mesh": list(run.mesh),
+        "layers": run.config().num_layers, "batch": [run.batch, run.seq],
+        "steps": run.steps, "loss": losses,
+        "grad_norm": [h["grad_norm"] for h in hist],
+        "param_bytes": [r["param_bytes"] for r in per],
+        "moment_bytes": [r["moment_bytes"] for r in per],
+        "full_param_bytes": per[0]["full_bytes"],
+        "peak_bytes": [r["peak_bytes"] for r in per],
+        "walls_s": [r["walls"] for r in per],
+        "run_s": [r["run_s"] for r in per],
+        "collective_calls": c["calls"], "collective_max_bytes":
+            c["max_bytes"],
+        "rank_collectives": [r["counters"] for r in per],
+        "rank_launches": [{k: r["launches"].get(k, 0) for k in kinds}
+                          for r in per],
+        "launches": {k: sum(r["launches"].get(k, 0) for r in per)
+                     for k in kinds}}
+    log(f"[train_mesh] {run.name} ({run.arch}, {out['layers']} "
+        f"layers, full width, batch {run.batch} x {run.seq}, "
+        f"{run.steps} step(s), mesh {run.mesh}) on {card}: losses "
+        f"{losses}; per rank params {out['param_bytes']} B and "
+        f"moments {out['moment_bytes']} B of "
+        f"{per[0]['full_bytes']} B whole (each leaf over the ranks its "
+        f"spec shards it across); peak device memory "
+        f"{[r['peak_bytes'] for r in per]} B; collectives by rank "
+        f"{[r['counters'] for r in per]} (calls, largest bytes); step "
+        f"walls {[[round(w, 3) for w in r['walls']] for r in per]} s "
+        f"(host-staged gloo, {len(per)} ranks on one card: not a speed); "
+        f"the run {[round(r['run_s'], 1) for r in per]} s with its set-up;"
+        f" launches by rank {out['rank_launches']}")
+    return out
+
+
+def _beyond_tol(c: dict) -> bool:
+    """True when a compare_states result is beyond TRAIN_MESH_TOL."""
+    return c["metric_rel"] > TRAIN_MESH_TOL["metric"] \
+        or max(c["m_rel"], c["v_rel"]) > TRAIN_MESH_TOL["moment"] \
+        or c["param_lr"] > TRAIN_MESH_TOL["param_lr"] \
+        or c["ill_param_lr"] > TRAIN_MESH_TOL["ill_param_lr"]
+
+
+def _vs_single(name: str, per: list, res: dict, what: str,
+               card: str) -> None:
+    """A ``vs_single`` run's ranks, each holding its blocks against the
+    same blocks of the single-device step on the card: logged, and within
+    TRAIN_MESH_TOL on every rank."""
+    cmps = [r["vs_single"] for r in per]
+    res[name]["vs_single"] = cmps
+    shown = [{k: v for k, v in c.items() if k != "single_history"}
+             for c in cmps]
+    log(f"[train_mesh] {name} ({what}) on {card}: each rank's blocks "
+        f"against one device's {shown}; the ranks "
+        f"{[r['history'] for r in per]} | one device "
+        f"{cmps[0]['single_history']} (tolerances {TRAIN_MESH_TOL})")
+    if any(_beyond_tol(c) for c in cmps):
+        raise SystemExit(f"[train_mesh] {name} differs from the "
+                         "single-device step")
+
+
 def _check_moe_tp(runs, ranks, res, card: str) -> None:
     """qwen2-moe's (1, 2) runs: each rank's expert leaves hold half the
     experts a layer (30 of 60 at full width), and each rank's fp32 blocks
@@ -3298,28 +3368,75 @@ def _check_moe_tp(runs, ranks, res, card: str) -> None:
             raise SystemExit(f"[train_mesh] {name}: expert leaves hold "
                              f"{experts} experts a rank, not {E // 2} of "
                              f"{E}")
-    per = [r[names.index("moe-tp")] for r in ranks]
-    cmps = [r["vs_single"] for r in per]
-    res["moe-tp"]["vs_single"] = cmps
-    shown = [{k: v for k, v in c.items() if k != "single_history"}
-             for c in cmps]
-    log(f"[train_mesh] moe-tp (qwen2-moe-a2.7b, {TRAIN_MESH_MOE_LAYERS} "
-        f"layers, full width, 2 x {TRAIN_MESH_SEQ}, mesh (1, 2)) on {card}: "
-        f"each rank's blocks against one device's {shown}; the ranks "
-        f"{[r['history'] for r in per]} | one device "
-        f"{cmps[0]['single_history']} (tolerances {TRAIN_MESH_TOL}); "
-        f"expert leaves {res['moe-tp']['experts_a_rank']} experts a rank")
-    for c in cmps:
-        if c["metric_rel"] > TRAIN_MESH_TOL["metric"] \
-                or max(c["m_rel"], c["v_rel"]) > TRAIN_MESH_TOL["moment"] \
-                or c["param_lr"] > TRAIN_MESH_TOL["param_lr"] \
-                or c["ill_param_lr"] > TRAIN_MESH_TOL["ill_param_lr"]:
-            raise SystemExit("[train_mesh] the 2-rank fp32 qwen2-moe step "
-                             "differs from the single-device step")
+    _vs_single("moe-tp", [r[names.index("moe-tp")] for r in ranks], res,
+               f"qwen2-moe-a2.7b, {TRAIN_MESH_MOE_LAYERS} layers, full "
+               f"width, 2 x {TRAIN_MESH_SEQ}, mesh (1, 2); expert leaves "
+               f"{res['moe-tp']['experts_a_rank']} experts a rank", card)
     walls = [round(r[names.index(n)]["run_s"], 1)
              for n in ("moe-tp", "moe-tp-bf16") for r in ranks]
     log(f"[time] train_mesh: the moe-tp runs {walls} s by run and rank, "
         "set-up and the single-device turns included")
+
+
+def _check_zamba2_tp(runs, ranks, res, card: str) -> None:
+    """zamba2's (1, 2) run: each rank all-gathers only the shared block's
+    ``fused_proj`` output (its forward and remat's recompute, a
+    2 x 2,048 x 2,048 fp32 activation), no leaf; its fp32 blocks agree
+    with the single-device step's within TRAIN_MESH_TOL."""
+    i = [run.name for run in runs].index("zamba2-tp")
+    cfg = runs[i].config()
+    G = cfg.num_layers // cfg.hybrid_attn_every
+    act = runs[i].batch * runs[i].seq * cfg.d_model * 4
+    for rc in res["zamba2-tp"]["rank_collectives"]:
+        if rc["calls"].get("all_gather") != 2 * G \
+                or rc["max_bytes"].get("all_gather") != act:
+            raise SystemExit(f"[train_mesh] zamba2-tp gathered more than "
+                             f"{2 * G} activations of {act} B: {rc}")
+    per = [r[i] for r in ranks]
+    single = [r["vs_single"]["single_peak_bytes"] for r in per]
+    _vs_single("zamba2-tp", per, res,
+               f"zamba2-1.2b, {cfg.num_layers} Mamba2 layers and the "
+               f"shared block, full width, 2 x {TRAIN_MESH_SEQ}, mesh "
+               f"(1, 2); peak a rank {res['zamba2-tp']['peak_bytes']} B, "
+               f"one device's {single} B in each rank's turn", card)
+    log(f"[time] train_mesh: the zamba2-tp run "
+        f"{[round(r['run_s'], 1) for r in per]} s by rank, set-up and "
+        "the single-device turns included")
+
+
+def _check_vlm_tp(runs, ranks, res, card: str) -> None:
+    """internvl2's (1, 4) run: each rank holds a quarter of each MLP and
+    embedding (and head) leaf; it gathers its attention leaves whole (14
+    query heads: attention whole on every rank); its fp32 blocks agree
+    with the single-device step's within TRAIN_MESH_TOL."""
+    (run,) = runs
+    cfg, n = run.config(), run.mesh[1]
+    per = [r[0] for r in ranks]
+    L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
+    # the embedding (tied: the head too), wi and wg, wd
+    want = {(cfg.padded_vocab, D): (cfg.padded_vocab // n, D),
+            (L, D, F): (L, D, F // n), (L, F, D): (L, F // n, D)}
+    for r in per:
+        shapes = [(tuple(full), tuple(b)) for (full, _), b in
+                  zip(r["leaf_shapes_specs"], r["block_shapes"])]
+        if sum(full in want for full, _ in shapes) != 4 or any(
+                b != want[full] for full, b in shapes if full in want):
+            raise SystemExit(f"[train_mesh] internvl2-tp rank {r['rank']}:"
+                             f" blocks {shapes}, want {want}")
+        if r["counters"]["calls"].get("all_gather") != 7:
+            raise SystemExit(f"[train_mesh] internvl2-tp rank {r['rank']}:"
+                             f" gathers {r['counters']}, want the 7 "
+                             "attention leaves")
+    _vs_single("internvl2-tp", per, res,
+               f"internvl2-1b, {cfg.num_layers} layers, full width, 2 x "
+               f"({cfg.frontend_tokens} frames + {run.seq} tokens), mesh "
+               f"{run.mesh}, attention whole; peak a rank "
+               f"{res['internvl2-tp']['peak_bytes']} B, one device's "
+               f"{[r['vs_single']['single_peak_bytes'] for r in per]} B in "
+               "each rank's turn", card)
+    log(f"[time] train_mesh: the internvl2-tp run "
+        f"{[round(r['run_s'], 1) for r in per]} s by rank, set-up and "
+        "the single-device turns included")
 
 
 def _k3_at_widths(dev, card: str) -> dict:
@@ -3600,13 +3717,13 @@ def _dryrun_mesh_runs(train_mesh: dict) -> dict:
 
     out = {}
     runs = _train_mesh_runs()
-    for run in runs[:3] + runs[4:]:
+    for run in runs[:3] + runs[4:] + _train_mesh_vlm_runs():
         t1 = time.perf_counter()
         mesh = small_mesh(*run.mesh)
-        # rank 0 of the (2, 1) runs; both ranks of the partitioned (1, 2)
-        # runs, and beside them the same rows on one device (a (1, 1)
-        # mesh): a rank's FLOPs are 1/2 of its, but for the MoE router's
-        # and shared gate's, which every rank forms whole
+        # rank 0 of the (2, 1) runs; every rank of the partitioned (1, 2)
+        # and (1, 4) runs, and beside them the same rows on one device (a
+        # (1, 1) mesh): a rank's FLOPs are 1/tp of its, but for what every
+        # rank forms whole (replicated_flops)
         ranks = range(mesh.size) if run.mesh[1] > 1 else (0,)
         pred, flops, rest = [], [], []
         scan = _meta_scan() if run.arch == "falcon-mamba-7b" \
@@ -3633,8 +3750,10 @@ def _dryrun_mesh_runs(train_mesh: dict) -> dict:
                          "max_bytes": one["max_bytes"]})
         live = train_mesh[run.name]["rank_collectives"][:len(pred)]
         out[run.name] = {"predicted": pred, "live": live,
-                                       "flops": flops, "rest": rest,
-                                       "seconds": time.perf_counter() - t1}
+                         "flops": flops, "rest": rest,
+                         "live_peak_bytes":
+                             train_mesh[run.name]["peak_bytes"],
+                         "seconds": time.perf_counter() - t1}
         log(f"[dryrun] train_mesh {run.name} ({run.config().num_layers} "
             f"layers, {run.batch} x {run.seq}, {run.steps} step(s), mesh "
             f"{run.mesh}): predicted by rank {pred}, live {live}; FLOPs a "
@@ -3642,18 +3761,21 @@ def _dryrun_mesh_runs(train_mesh: dict) -> dict:
             + (f", one device {flops[-1]:.6e} ({flops[0] / flops[-1]:.6f}x)"
                if run.mesh[1] > 1 else "")
             + "; transcendentals, bytes accessed and peak bytes by rank "
-            f"(the last one device's where there is one) {rest}"
+            f"(the last one device's where there is one) {rest}; live "
+            f"peak by rank {train_mesh[run.name]['peak_bytes']}"
             + f" ({time.perf_counter() - t1:.1f}s)")
         if pred != live:
             raise SystemExit(f"[dryrun] {run.name}: predicted collectives "
                              "differ from the live counters")
-        R = replicated_flops(run.config(), run.batch * run.seq
-                             // run.mesh[0])
-        if run.mesh[1] > 1 and any(f != (flops[-1] - R) / run.mesh[1] + R
-                                   for f in flops[:-1]):
+        if run.mesh[1] == 1:
+            continue
+        R = replicated_flops(run.config(), run.batch // run.mesh[0],
+                             run.seq, run.mesh[1])
+        out[run.name]["replicated_flops"] = R
+        if any(f != (flops[-1] - R) / run.mesh[1] + R for f in flops[:-1]):
             raise SystemExit(f"[dryrun] {run.name}: a rank's FLOPs are not "
-                             f"1/2 of one device's but for the {R:.6e} "
-                             "of the replicated router and shared gate")
+                             f"1/{run.mesh[1]} of one device's but for the "
+                             f"{R:.6e} every rank forms whole")
     return out
 
 
@@ -3667,10 +3789,11 @@ def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
     ``max_memory_allocated``; for train_mesh's runs, one step's predicted
     collectives (calls times the run's steps, and the largest bytes, by
     kind) must equal the live ``MeshGroup`` counters, rank 0's on the
-    (2, 1) mesh and both ranks' on the (1, 2) mesh, whose FLOPs a rank
-    must be exactly 1/2 of the same rows' on one device, but for a MoE
-    layer's router and shared gate, which every rank forms whole
-    (``op_analysis.replicated_flops``)."""
+    (2, 1) mesh and every rank's on the (1, 2) and (1, 4) meshes, whose
+    FLOPs a rank must be exactly 1/tp of the same rows' on one device, but
+    for what every rank forms whole (a MoE layer's router and shared gate,
+    Mamba2's B and C, attention kept whole: ``op_analysis.
+    replicated_flops``)."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.distributed.op_analysis import analyze_step
     from repro_torch.distributed.sharding import ShardCtx

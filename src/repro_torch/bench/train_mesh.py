@@ -82,12 +82,18 @@ def build(run: TrainRun, device) -> Tuple[Any, Dict[str, Any]]:
     return cfg, init_params(cfg, g, device=device, cast=False)
 
 
-def batches(run: TrainRun, vocab: int):
-    """The global batch of each step (the same on every rank)."""
+def batches(run: TrainRun, cfg):
+    """The global batch of each step (the same on every rank); a frontend
+    arch's frames are standard normal, drawn after the tokens."""
     for i in range(run.steps):
-        yield {"tokens": torch.from_numpy(np.random.default_rng(
-            run.seed + 1 + i).integers(0, vocab, (run.batch, run.seq))
-            .astype(np.int32))}
+        rng = np.random.default_rng(run.seed + 1 + i)
+        b = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (run.batch, run.seq)).astype(np.int32))}
+        if cfg.frontend != "none":
+            b["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+                (run.batch, cfg.frontend_tokens, cfg.d_model),
+                dtype=np.float32))
+        yield b
 
 
 def _bytes(tree) -> int:
@@ -102,7 +108,7 @@ def _sync(device) -> None:
 
 def _walls_and_metrics(step, params, opt_state, run, cfg, device, keep_rank):
     hist, walls = [], []
-    for batch in batches(run, cfg.vocab_size):
+    for batch in batches(run, cfg):
         batch = {k: v.to(device) for k, v in batch.items()}
         _sync(device)
         t0 = time.perf_counter()

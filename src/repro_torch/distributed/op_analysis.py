@@ -272,20 +272,46 @@ def analyze_step(fn: Callable, *meta_args: Any,
     return cost
 
 
-def replicated_flops(cfg: Any, rows: int) -> float:
-    """The FLOPs of the partitioned train step's products that every
-    ``tp`` rank forms whole, for ``rows`` token rows a rank: a MoE layer's
-    router (``D x E``) and shared gate (``D x 1``), which stay in the
-    replicated region; each is a forward product, its recompute under
-    ``remat`` and two gradient products (its input's and its weight's). A
-    rank's FLOPs are then ``(F1 - R) / tp + R``, F1 one device's for the
-    same rows."""
-    if not cfg.moe:
-        return 0.0
-    n = cfg.num_experts + cfg.moe_expert_pad \
-        + (1 if cfg.shared_expert_d_ff else 0)
-    passes = 4 if cfg.remat else 3
-    return 2.0 * passes * rows * cfg.d_model * n * cfg.num_layers
+def replicated_flops(cfg: Any, batch: int, seq: int, tp: int) -> float:
+    """The FLOPs of the partitioned train step's products that every one
+    of ``tp`` ranks forms whole, for ``batch`` sequences of ``seq`` tokens
+    a rank (and a frontend's frames before each): a MoE layer's router
+    (``D x E``) and shared gate (``D x 1``), which stay in the replicated
+    region; a Mamba2 layer's ``B`` and ``C`` columns of ``in_proj`` and
+    its SSD's ``C B^T`` a chunk, which every head reads (its conv is
+    elementwise, no product); and attention where it runs whole
+    (:func:`~repro_torch.distributed.sharding.tp_whole`): its projections,
+    scores and probabilities times values. Each is a forward product, its
+    recompute under ``remat`` and two gradient products (of each operand).
+    A rank's FLOPs are then ``(F1 - R) / tp + R``, F1 one device's for the
+    same rows. Another layer kind run whole raises: its work is not
+    counted here."""
+    from .sharding import tp_whole
+    whole = tp_whole(cfg, tp)
+    if set(whole) - {"attn"}:
+        raise ValueError(f"{cfg.name} on {tp} ranks runs {sorted(whole)} "
+                         "whole; only whole attention is counted")
+    S = seq + (cfg.frontend_tokens if cfg.frontend != "none" else 0)
+    rows = batch * S
+    D, L = cfg.d_model, cfg.num_layers
+    R = 0.0
+    if cfg.moe:
+        n = cfg.num_experts + cfg.moe_expert_pad \
+            + (1 if cfg.shared_expert_d_ff else 0)
+        R += 2.0 * rows * D * n * L
+    if cfg.ssm and cfg.ssm_version == 2:
+        N = cfg.ssm_state
+        chunk = min(cfg.ssm_chunk, S)
+        chunk = S if S % chunk else chunk
+        R += (2.0 * rows * D * 2 * N + 2.0 * rows * chunk * N) * L
+    if "attn" in whole:
+        H, KV, hd, cq = (cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                         cfg.attn_chunk_q)
+        Sq = S if S <= cq or (S % cq and S <= 8192) else S + (-S) % cq
+        n_attn = L // cfg.hybrid_attn_every if cfg.hybrid_attn_every else L
+        R += (2.0 * rows * D * (2 * H + 2 * KV) * hd
+              + 4.0 * batch * H * Sq * S * hd) * n_attn
+    return (4 if cfg.remat else 3) * R
 
 
 class DryMeshGroup(MeshGroup):

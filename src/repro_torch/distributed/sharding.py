@@ -41,16 +41,21 @@ step; here each rank is a process holding its blocks, and
 :class:`MeshGroup` runs the step's explicit, counted collectives over the
 subgroups of each mesh axis.
 
-The partitioned compute of the train step: :func:`tp_compute` decides
-which archs partition their products over the ``tp`` axis (dense,
-MoE and Mamba1 layers; a MoE layer keeps its ``E / tp`` experts, or all
-experts' ``1 / tp`` hidden width, as the rule table splits them); inside
-the step's :class:`TrainRegion` the layers call four collectives that sit in
-the autograd graph, each counted by the group: into the ``tp`` region
-(identity forward, sum backward), out of it (sum forward, identity
-backward), the vocab-parallel max (no gradient) and the MoE router's sum
-over ``dp``. :func:`exchange_xz` moves Mamba1's fused ``in_proj`` between
-its stored layout and the one the partitioned layer computes with.
+The partitioned compute of the train step: on a ``model`` axis above 1
+every arch partitions its products over the ``tp`` axis
+(:func:`tp_compute`), each layer kind where ``tp`` divides what it cuts
+(:func:`tp_whole`: dense attention, MLP, MoE, Mamba1, Mamba2 and zamba2's
+shared block input; a MoE layer keeps its ``E / tp`` experts, or all
+experts' ``1 / tp`` hidden width, as the rule table splits them), the
+other kinds whole on every rank; inside the step's :class:`TrainRegion`
+the layers call six collectives that sit in the autograd graph, each
+counted by the group: into the ``tp`` region (identity forward, sum
+backward), out of it (sum forward, identity backward), a sum of partial
+statistics (sum both ways), the gather of a column-parallel activation
+(its block back), the vocab-parallel max (no gradient) and the MoE
+router's sum over ``dp``. :func:`exchange_fused` moves a fused Mamba
+leaf between its stored layout and the one the partitioned layer
+computes with.
 """
 from __future__ import annotations
 
@@ -69,7 +74,8 @@ __all__ = ["MeshDivisibilityError", "serve_attn_sharded",
            "Mesh", "ShardCtx", "logical_to_spec", "constrain",
            "param_specs", "NamedSharding", "axes_of", "MeshGroup",
            "TrainRegion", "use_region", "current_region", "tp_part",
-           "tp_compute", "tp_compute_why", "split_spec", "exchange_xz"]
+           "tp_compute", "tp_compute_why", "tp_whole", "LEAF_KINDS",
+           "split_spec", "exchange_fused"]
 
 
 class MeshDivisibilityError(ValueError):
@@ -786,15 +792,52 @@ class _SumOverDP(torch.autograd.Function):
         return g * ctx.n, None, None, None
 
 
+class _SumOverTP(torch.autograd.Function):
+    """The sum over the ``tp`` ranks of partial sums that each rank then
+    reads for its own channels (Mamba2's mean of squares over ``dI``):
+    each rank's gradient covers only its channels' use, so the backward
+    sums them too."""
+
+    @staticmethod
+    def forward(ctx, x, group, axes):
+        ctx.group, ctx.axes = group, axes
+        return group.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                                axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.group.all_reduce(g, ctx.axes), None, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """The ranks' column blocks of an activation concatenated along its
+    last dim (zamba2's ``fused_proj`` output, which every rank then uses
+    whole); the backward keeps this rank's block of the gradient, the same
+    on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group, axes):
+        ctx.n = x.shape[-1]
+        ctx.lo = group.mesh.axis_index(axes, group.rank) * ctx.n
+        return group.all_gather(x, axes, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.lo, ctx.n).contiguous(), None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainRegion:
     """What the sharded train step makes current while it runs a loss
-    (:func:`use_region`): this rank's group, the ``dp`` axes, and ``tp``,
-    the model axes its products are partitioned over (None: every rank
-    runs whole weights)."""
+    (:func:`use_region`): this rank's group, the ``dp`` axes, ``tp``, the
+    model axes its products are partitioned over (None: every rank runs
+    whole weights), and ``whole``, the layer kinds (:func:`tp_whole`)
+    that run whole on every ``tp`` rank all the same."""
     group: "MeshGroup"
     dp: Tuple[str, ...]
     tp: Optional[Tuple[str, ...]] = None
+    whole: frozenset = frozenset()
 
     @property
     def dp_size(self) -> int:
@@ -817,6 +860,12 @@ class TrainRegion:
 
     def max_over_tp(self, x: torch.Tensor) -> torch.Tensor:
         return _MaxOverTP.apply(x, self.group, self.tp)
+
+    def sum_over_tp(self, x: torch.Tensor) -> torch.Tensor:
+        return _SumOverTP.apply(x, self.group, self.tp)
+
+    def gather_over_tp(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherFromTP.apply(x, self.group, self.tp)
 
     def sum_over_dp(self, x: torch.Tensor) -> torch.Tensor:
         if self.dp_size == 1:
@@ -842,57 +891,106 @@ def current_region() -> Optional[TrainRegion]:
     return getattr(_ACTIVE, "region", None)
 
 
-def tp_part() -> Optional[TrainRegion]:
-    """The current region when its products are partitioned over ``tp``,
-    else None."""
+def tp_part(kind: str) -> Optional[TrainRegion]:
+    """The current region when the products of the layer ``kind`` are
+    partitioned over ``tp`` (:func:`tp_whole`), else None."""
     r = current_region()
-    return r if r is not None and r.tp_size > 1 else None
+    return r if r is not None and r.tp_size > 1 and kind not in r.whole \
+        else None
+
+
+#: the layer kind of each leaf the partitioned step may cut over ``tp``;
+#: any other leaf (the norms) is replicated
+LEAF_KINDS = {
+    **dict.fromkeys(("embed", "lm_head", "pos_embed"), "vocab"),
+    **dict.fromkeys(("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm",
+                     "k_norm"), "attn"),
+    **dict.fromkeys(("wi", "wg", "wd"), "mlp"),
+    **dict.fromkeys(("router", "shared_gate", "e_wi", "e_wg", "e_wd",
+                     "shared_wi", "shared_wg", "shared_wd", "dense_wi",
+                     "dense_wg", "dense_wd"), "moe"),
+    **dict.fromkeys(("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+                     "A_log", "ssm_D", "dt_bias", "ssm_norm", "out_proj"),
+                    "mamba"),
+    "fused_proj": "fused",
+}
+
+
+def tp_whole(cfg: Any, tp: int) -> Dict[str, str]:
+    """The layer kinds of ``cfg`` (the values of :data:`LEAF_KINDS`) that
+    run whole on every rank of a ``tp``-way model axis, each with why; the
+    others partition. A kind partitions when ``tp`` divides every width
+    it cuts, so the rule table's guard keeps ``tp`` on each of its
+    leaves:
+
+    * ``vocab`` (the embedding, the head and the loss): the padded
+      vocabulary;
+    * ``attn``: the query heads, with the GQA groups whole on a rank (the
+      KV heads may stay whole: each rank then takes the ones its query
+      heads read). Else attention runs whole: its leaves are still stored
+      over ``tp``, gathered whole, and every rank forms the same gradient;
+    * ``mlp`` (a dense arch's and zamba2's shared block's): its width;
+    * ``moe``: the shared experts' and the dense residual's widths, and
+      the padded experts ``E`` (split by expert) or else their hidden width
+      (split by hidden dim), as the rule table's ``e_wi/e_wg/e_wd`` rules
+      choose;
+    * ``mamba``: Mamba1's channels ``dI``; Mamba2's ``dI``, its SSD heads
+      and its fused ``in_proj`` (``z | x | B | C | dt``) and conv (``x |
+      B | C``) widths, each stored in contiguous blocks that the step
+      exchanges (:func:`exchange_fused`);
+    * ``fused`` (zamba2's shared block input ``concat([x, x0]) @
+      fused_proj``): ``d_model``, the product's columns."""
+    cuts: Dict[str, Dict[str, int]] = {
+        "vocab": {"padded vocabulary": cfg.padded_vocab}}
+    if cfg.num_heads:
+        cuts["attn"] = {"query heads": cfg.num_heads}
+    if cfg.moe:
+        m = {}
+        if cfg.shared_expert_d_ff:
+            m["shared experts' width"] = cfg.shared_expert_d_ff
+        if cfg.dense_residual:
+            m["dense residual's width"] = cfg.d_ff
+        cuts["moe"] = m
+    elif cfg.d_ff and (not cfg.ssm or cfg.hybrid_attn_every):
+        cuts["mlp"] = {"MLP width": cfg.d_ff}
+    if cfg.ssm:
+        dI, N = cfg.d_inner, cfg.ssm_state
+        cuts["mamba"] = {"Mamba channels": dI}
+        if cfg.ssm_version == 2:
+            cuts["mamba"].update({
+                "SSD heads": cfg.ssm_heads,
+                "fused in_proj": 2 * dI + 2 * N + cfg.ssm_heads,
+                "fused conv": dI + 2 * N})
+    if cfg.hybrid_attn_every:
+        cuts["fused"] = {"fused_proj's columns": cfg.d_model}
+    out = {}
+    for kind, widths in cuts.items():
+        for what, n in widths.items():
+            if n % tp:
+                out[kind] = f"model axis {tp} does not divide the {what} ({n})"
+                break
+    if cfg.moe and "moe" not in out:
+        E = cfg.num_experts + cfg.moe_expert_pad
+        if E % tp and cfg.moe_d_ff % tp:
+            out["moe"] = (f"model axis {tp} divides neither the {E} experts"
+                          f" nor their hidden width ({cfg.moe_d_ff})")
+    if "attn" in cuts and "attn" not in out and cfg.num_kv_heads % tp:
+        h, g = cfg.num_heads // tp, cfg.num_heads // cfg.num_kv_heads
+        if h % g and g % h:
+            out["attn"] = (f"model axis {tp} cuts the GQA groups "
+                           f"({cfg.num_heads} query heads over "
+                           f"{cfg.num_kv_heads} KV heads)")
+    return out
 
 
 def tp_compute_why(cfg: Any, ctx: ShardCtx) -> Optional[str]:
     """None when the sharded step partitions ``cfg``'s products over the
-    ctx's ``tp`` axis; else why its step gathers every leaf whole.
-    Partitioned: every layer kind of the arch is a dense-attention, MLP,
-    MoE or Mamba1 layer (the dense trunks behind the stub frontends
-    included), the ``tp`` axis is above 1, and it divides every
-    width the partition cuts (so the rule table's guard keeps ``tp`` on
-    each of those leaves): the padded vocabulary, the query heads, the MLP
-    width (a MoE arch's: its shared experts' and its dense residual's),
-    Mamba1's channels, and a MoE layer's experts (the padded count ``E``,
-    split by expert) or else their hidden width (split by hidden dim), as
-    the rule table's ``e_wi/e_wg/e_wd`` rules choose. The KV heads may
-    stay whole (each rank then takes the ones its query heads read) where
-    the groups allow it."""
+    ctx's ``tp`` axis; else why its step gathers every leaf whole: only
+    when no ``model`` axis is above 1. On one, each layer kind partitions
+    where ``tp`` divides what it cuts, and the rest run whole on every
+    rank (:func:`tp_whole`)."""
     tp = ctx.axis_size("tp") if ctx.mesh is not None and ctx.tp else 1
-    if tp <= 1:
-        return "no model axis above 1"
-    if cfg.hybrid_attn_every or (cfg.ssm and cfg.ssm_version != 1):
-        return "Mamba2/hybrid layers are not partitioned yet"
-    cuts = {"padded vocabulary": cfg.padded_vocab}
-    if cfg.ssm:
-        cuts["Mamba1 channels"] = cfg.d_inner
-    else:
-        cuts["query heads"] = cfg.num_heads
-    if cfg.moe:
-        if cfg.shared_expert_d_ff:
-            cuts["shared experts' width"] = cfg.shared_expert_d_ff
-        if cfg.dense_residual:
-            cuts["dense residual's width"] = cfg.d_ff
-        E = cfg.num_experts + cfg.moe_expert_pad
-        if E % tp and cfg.moe_d_ff % tp:
-            return (f"model axis {tp} divides neither the {E} experts nor "
-                    f"their hidden width ({cfg.moe_d_ff})")
-    elif not cfg.ssm:
-        cuts["MLP width"] = cfg.d_ff
-    for what, n in cuts.items():
-        if n % tp:
-            return f"model axis {tp} does not divide the {what} ({n})"
-    if not cfg.ssm and cfg.num_kv_heads % tp:
-        h, g = cfg.num_heads // tp, cfg.num_heads // cfg.num_kv_heads
-        if h % g and g % h:
-            return (f"model axis {tp} cuts the GQA groups ({cfg.num_heads} "
-                    f"query heads over {cfg.num_kv_heads} KV heads)")
-    return None
+    return "no model axis above 1" if tp <= 1 else None
 
 
 def tp_compute(cfg: Any, ctx: ShardCtx) -> bool:
@@ -909,36 +1007,60 @@ def split_spec(spec: Spec, tp: Sequence[str]) -> Tuple[Spec, Spec]:
     return on, off
 
 
-def exchange_xz(group: "MeshGroup", t: torch.Tensor, tp: Sequence[str],
-                dim: int, inverse: bool = False) -> torch.Tensor:
-    """Mamba1's fused ``in_proj`` (``x | z`` along ``dim``, ``2 dI``
-    wide) between its layout as stored, rank r's contiguous columns, and
-    the one the partitioned layer computes with, ``[x_r | z_r]``: the
-    r-th ``dI / tp`` columns of each half. One all-to-all over ``tp``;
-    ``inverse`` brings a gradient back to the stored layout. Chunks of
-    ``dI / tp`` columns are numbered over the whole leaf: rank r stores
-    2r and 2r + 1, and computes with r and tp + r."""
+def exchange_fused(group: "MeshGroup", t: torch.Tensor,
+                   tp: Sequence[str], dim: int,
+                   parts: Sequence[Tuple[int, bool]],
+                   inverse: bool = False) -> torch.Tensor:
+    """A fused leaf (``parts``: its parts along ``dim`` in order, each
+    ``(width, split)``) between its layout as stored, rank r's contiguous
+    ``1 / tp`` of the whole leaf, and the one the partitioned layer
+    computes with: the concatenation, part by part, of the r-th ``1 /
+    tp`` of each split part and the whole of every other part. One
+    all-to-all over ``tp``. Mamba1's ``in_proj`` is ``x | z``, two split
+    parts; Mamba2's is ``z | x | B | C | dt`` with ``B`` and ``C`` whole
+    (every head reads them), its conv ``x | B | C``.
+
+    ``inverse`` brings a gradient of the computed layout back to the
+    stored one: each column goes back to the rank that stores it, and a
+    whole part's gradients, each rank's covering only its heads, are
+    summed there (in rank order)."""
     n = group.mesh.axis_size(tp)
     if n == 1:
         return t
     r = group.mesh.axis_index(tp, group.rank)
+    c = sum(w for w, _ in parts) // n          # a rank's stored columns
 
-    def owner(k):           # the rank that stores chunk k
-        return k // 2
+    def within(j, k):
+        """Rank j's columns stored on rank k: ``(lo, hi, at)``, columns
+        [lo, hi) of the whole leaf at row ``at`` of j's computed layout."""
+        out, lo, at = [], 0, 0
+        for w, split in parts:
+            a, b = (lo + j * w // n, lo + (j + 1) * w // n) if split \
+                else (lo, lo + w)
+            a2, b2 = max(a, k * c), min(b, (k + 1) * c)
+            if a2 < b2:
+                out.append((a2, b2, at + a2 - a))
+            at, lo = at + b - a, lo + w
+        return out
 
-    def user(k):            # the rank that computes with chunk k
-        return k % n
-
-    stored, computed = (2 * r, 2 * r + 1), (r, n + r)
-    held, dest, want, src = (computed, owner, stored, user) if inverse \
-        else (stored, user, computed, owner)
     x = t.movedim(dim, 0)
-    c = x.shape[0] // 2
-    pieces = dict(zip(held, x.split(c)))
-    order = sorted(held, key=lambda k: (dest(k), k))
-    send = [c * sum(dest(k) == j for k in held) for j in range(n)]
-    recv = [c * sum(src(k) == j for k in want) for j in range(n)]
-    got = group.all_to_all(torch.cat([pieces[k] for k in order]), tp,
+    if not inverse:
+        pieces = [[x[a - r * c:b - r * c] for a, b, _ in within(j, r)]
+                  for j in range(n)]
+        recv = [sum(b - a for a, b, _ in within(r, k)) for k in range(n)]
+    else:
+        pieces = [[x[at:at + b - a] for a, b, at in within(r, k)]
+                  for k in range(n)]
+        recv = [sum(b - a for a, b, _ in within(j, r)) for j in range(n)]
+    send = [sum(p.shape[0] for p in ps) for ps in pieces]
+    got = group.all_to_all(torch.cat([p for ps in pieces for p in ps]), tp,
                            send, recv)
-    parts = dict(zip(sorted(want, key=lambda k: (src(k), k)), got.split(c)))
-    return torch.cat([parts[k] for k in want]).movedim(0, dim)
+    if not inverse:
+        return got.movedim(0, dim)
+    out = got.new_zeros((c,) + tuple(got.shape[1:]))
+    i = 0
+    for j in range(n):
+        for a, b, _ in within(j, r):
+            out[a - r * c:b - r * c] += got[i:i + b - a]
+            i += b - a
+    return out.movedim(0, dim)

@@ -11,11 +11,12 @@ For each cell this script:
    row-parallel, vocab-parallel embedding and loss, a MoE layer's own
    experts (qwen2-moe's 60 split 15 a rank, 16 of 64 under ``--variant
    opt``'s pad; arctic's 128 split 32 a rank), Mamba1 on ``dI / 4``
-   channels: :func:`repro_torch.distributed.sharding.tp_compute`), and the
-   count takes in its reductions, Mamba1's ``in_proj`` exchange and each
-   rank's FLOPs of its slices. An arch whose layers are not partitioned
-   yet (Mamba2/hybrid) or whose widths the axis does not divide, and the
-   serve steps, which are not partitioned yet, are skipped there with the
+   channels, Mamba2 on ``nh / 4`` heads and zamba2's shared block,
+   attention whole on every rank where 4 does not divide the query heads
+   (internvl2-1b's 14): :func:`repro_torch.distributed.sharding.
+   tp_whole`), and the count takes in its reductions, the fused Mamba
+   leaves' exchanges and each rank's FLOPs of its slices. The serve
+   steps, which are not partitioned yet, are skipped there with the
    reason;
 2. builds the step of the shape's kind (the sharded train step, or the
    prefill or decode step) and meta tensors of rank 0's inputs, its blocks
@@ -183,8 +184,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
 
 def _mesh_skip(cfg, shape, mesh_name: str) -> str:
     """Why a cell of a mesh with a ``model`` axis above 1 is skipped ("":
-    it runs): only the train step partitions over ``model``, and only for
-    the archs :func:`repro_torch.distributed.sharding.tp_compute` takes."""
+    it runs): only the train step partitions over ``model``
+    (:func:`repro_torch.distributed.sharding.tp_compute`, every arch)."""
     dims, axes, label = MESHES[mesh_name]
     mesh = Mesh(dims, axes)
     if mesh.shape.get("model", 1) == 1:

@@ -32,7 +32,11 @@ chunked training attention runs on the rank's ``H / tp`` query heads and
 ``KV / tp`` KV heads (``wq/wk/wv`` and their biases column-parallel, ``wo``
 row-parallel). Where ``tp`` does not divide the KV heads, the step brings
 ``wk/wv`` whole and each rank takes the KV heads its query heads read
-(:func:`_rank_kv_heads`), so no GQA group is cut.
+(:func:`_rank_kv_heads`), so no GQA group is cut. Where ``tp`` does not
+divide the query heads, or the groups would be cut
+(:func:`repro_torch.distributed.sharding.tp_whole`), attention runs whole
+on every rank: its weights come whole, and neither its input enters the
+region nor its output is summed.
 
 fp32-accumulated products: the reference computes scores with
 ``preferred_element_type=float32`` from compute-dtype operands, and a torch
@@ -63,7 +67,7 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     KV = p["wk"].shape[-1] // hd
     cdt = dtype_of(cfg.compute_dtype)
     q, k, v = column_parallel(x, p["wq"].to(cdt), p["wk"].to(cdt),
-                              p["wv"].to(cdt))
+                              p["wv"].to(cdt), kind="attn")
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -85,7 +89,7 @@ def _project_out(out2, p, cfg: ModelConfig, cdt):
     after (identities off a group)."""
     if out2.shape[-1] != p["wo"].shape[0]:     # serve TP: concat heads
         out2 = gather_tp(out2, -1)
-    y = row_parallel(out2, p["wo"].to(cdt))
+    y = row_parallel(out2, p["wo"].to(cdt), kind="attn")
     if y.shape[-1] != cfg.d_model:             # serve TP: concat columns
         y = gather_tp(y, -1)
     return y
@@ -163,7 +167,7 @@ def attention(p, x, cfg: ModelConfig, positions, impl: str = "chunked",
     ``positions`` is ``arange(S)`` per row, which holds for prefill."""
     B, S, D = x.shape
     cdt = dtype_of(cfg.compute_dtype)
-    part = tp_part()
+    part = tp_part("attn")
     if part is not None:
         p = _rank_kv_heads(p, cfg, part)
     q, k, v = _project_qkv(p, x, cfg, positions)

@@ -11,7 +11,8 @@ under a :class:`repro_torch.distributed.sharding.TrainRegion` whose
 products are partitioned, each weight is this rank's ``tp`` block, the
 input of a column-parallel product enters the region (its gradient summed
 over ``tp`` in the backward) and a row-parallel product's partial sums
-leave it (summed over ``tp`` in the forward).
+leave it (summed over ``tp`` in the forward). Each names its layer's
+kind: a kind that runs whole on every rank takes neither collective.
 """
 from __future__ import annotations
 
@@ -74,28 +75,31 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def tp_copy(x: torch.Tensor) -> torch.Tensor:
+def tp_copy(x: torch.Tensor, kind: str) -> torch.Tensor:
     """``x`` (replicated over ``tp``) into the partitioned region: the
     identity, whose backward sums the ranks' gradients; the identity off
-    it."""
-    part = tp_part()
+    it, and where the layer ``kind`` runs whole
+    (:func:`repro_torch.distributed.sharding.tp_whole`)."""
+    part = tp_part(kind)
     return x if part is None else part.copy_in(x)
 
 
-def column_parallel(x: torch.Tensor, *ws: torch.Tensor):
+def column_parallel(x: torch.Tensor, *ws: torch.Tensor, kind: str):
     """``[x @ w for w in ws]``, ``x`` entering the region once: each ``w``
-    is this rank's block of output columns."""
-    x = tp_copy(x)
+    is this rank's block of output columns (of a layer ``kind`` that
+    partitions; else the whole weight)."""
+    x = tp_copy(x, kind)
     return [x @ w for w in ws]
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor,
-                 bias=None) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w: torch.Tensor, bias=None, *,
+                 kind: str) -> torch.Tensor:
     """``x @ w (+ bias)``, ``w`` this rank's block of input rows and ``x``
     the matching columns: the partial products summed over ``tp``, then
-    the replicated ``bias`` added once, after the sum."""
+    the replicated ``bias`` added once, after the sum (a layer ``kind``
+    that runs whole: the product alone)."""
     y = x @ w
-    part = tp_part()
+    part = tp_part(kind)
     if part is not None:
         y = part.reduce_out(y)
     return y if bias is None else y + bias

@@ -62,9 +62,13 @@ global max and the global sum of exponentials and the gold logit from the
 rank that holds the label (:func:`_vocab_parallel_ce`), so the ``(B, S,
 V)`` logits are never gathered. A MoE layer runs its rank's experts
 and sums its FFN's partials over ``tp`` once (:mod:`repro_torch.models.
-moe`). A remat recompute re-enters the region
-(``checkpoint``'s ``context_fn``): on CUDA the backward runs on another
-thread.
+moe`); a zamba2 Mamba2 layer its rank's SSD heads, and its shared block
+gathers ``fused_proj``'s column blocks before the dense block's
+partitioned attention and MLP (:func:`_shared_block`). A layer kind whose
+widths ``tp`` does not divide runs whole on every rank
+(:func:`repro_torch.distributed.sharding.tp_whole`). A remat recompute
+re-enters the region (``checkpoint``'s ``context_fn``): on CUDA the
+backward runs on another thread.
 
 One device sync per decode chunk: :func:`decode_chunk_paged` and
 :func:`decode_chunk_slots` keep the ``(lengths, last, rem)`` carry on the
@@ -87,8 +91,8 @@ from ..distributed.sharding import current_region, tp_part, use_region
 from .attention import (attention, decode_attention,
                         decode_attention_rows, paged_decode_attention,
                         paged_prefill_window_attention)
-from .layers import (dtype_of, matmul_f32, rms_norm, sinusoidal_positions,
-                     tp_copy)
+from .layers import (column_parallel, dtype_of, matmul_f32, rms_norm,
+                     sinusoidal_positions, tp_copy)
 from .mamba import init_mamba_state, mamba_forward, mamba_step
 from .mlp import mlp
 from .moe import moe_layer
@@ -184,7 +188,7 @@ def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``embed[tokens]``; vocab-parallel under the partitioned step (this
     rank's rows of ``embed``: the tokens of its range looked up, the rest
     zero, then the sum over ``tp``)."""
-    part = tp_part()
+    part = tp_part("vocab")
     if part is None:
         return F.embedding(tokens.long(), embed)
     n = embed.shape[0]
@@ -208,7 +212,7 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     columns stay unmasked, as in the reference. Under the partitioned step
     the head is this rank's vocab columns, and so are the logits."""
     cdt = dtype_of(cfg.compute_dtype)
-    x = tp_copy(rms_norm(x, params["final_norm"], cfg.rms_eps))
+    x = tp_copy(rms_norm(x, params["final_norm"], cfg.rms_eps), "vocab")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return matmul_f32(x, head.to(cdt))
 
@@ -352,7 +356,7 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
     else:
         pred = logits[:, :S - 1]
         labels = tokens[:, 1:].long()
-    part = tp_part()
+    part = tp_part("vocab")
     if part is not None:
         logz, gold = _vocab_parallel_ce(cfg, pred, labels, part)
     else:
@@ -558,9 +562,16 @@ def _shared_block(sb, x, x0, cfg: ModelConfig, positions,
     """zamba2's shared block over the whole sequence (the reference's
     ``_shared_block_apply``): concat([x, x0]) @ fused_proj -> attention ->
     MLP, added to x. With ``return_kv`` returns (x, (k, v)), k/v (B, S, KV,
-    hd) as :func:`repro_torch.models.attention.attention` gives them."""
+    hd) as :func:`repro_torch.models.attention.attention` gives them.
+    Under the partitioned step ``fused_proj`` is column-parallel and its
+    output's blocks are gathered over ``tp`` (the norm and the residual
+    read all of it); attention and the MLP are the dense block's."""
     cdt = dtype_of(cfg.compute_dtype)
-    h = torch.cat([x, x0], dim=-1) @ sb["fused_proj"].to(cdt)
+    (h,) = column_parallel(torch.cat([x, x0], dim=-1),
+                           sb["fused_proj"].to(cdt), kind="fused")
+    part = tp_part("fused")
+    if part is not None:
+        h = part.gather_over_tp(h)
     a = attention(sb, rms_norm(h, sb["ln1"], cfg.rms_eps), cfg, positions,
                   impl=impl, return_kv=return_kv)
     if return_kv:

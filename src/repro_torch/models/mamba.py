@@ -20,7 +20,7 @@ Mamba1 (falcon-mamba):
 * Under the partitioned train step a rank runs ``dI / tp`` channels:
   ``in_proj`` and ``dt_proj`` column-parallel (the step brings ``in_proj``
   as ``[x_r | z_r]``, :func:`repro_torch.distributed.sharding.
-  exchange_xz`), the per-channel leaves its blocks, ``x_proj`` and
+  exchange_fused`), the per-channel leaves its blocks, ``x_proj`` and
   ``out_proj`` row-parallel (so dt/B/C are summed over ``tp`` and enter
   the region again), and the scan (K3 and its backward) on ``(B, S, dI /
   tp)``.
@@ -33,6 +33,9 @@ B, and a carried state links the chunks. The chunk rule is the
 reference's: ``chunk = min(ssm_chunk, S)``, and a ragged S runs as ONE
 chunk, whose (B, S, S, nh) fp32 temporaries grow with S squared.
 :func:`_m2_step` is the per-head recurrence the dual form stands for.
+Under the partitioned train step a rank runs ``nh / tp`` heads
+(:func:`_m2_forward`): ``out_proj`` row-parallel, the gated norm's mean
+of squares summed over ``tp``, B and C whole on every rank.
 
 A prompt shorter than ``ssm_conv - 1`` tokens leaves a conv tail with fewer
 than K-1 rows in the reference (which then fails to seat it in its
@@ -50,6 +53,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed.sharding import tp_part
 from ..kernels import ops
 from ..kernels.ref import mamba_scan_ref
 from .layers import (column_parallel, dtype_of, rms_norm, row_parallel,
@@ -102,11 +106,12 @@ def _m1_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                 return_state: bool = False, impl: str = "kernel"):
     N, R, K = cfg.ssm_state, cfg.dt_rank_, cfg.ssm_conv
     cdt = dtype_of(cfg.compute_dtype)
-    (xz,) = column_parallel(x, p["in_proj"].to(cdt))
+    (xz,) = column_parallel(x, p["in_proj"].to(cdt), kind="mamba")
     x_in, z = xz.split(xz.shape[-1] // 2, dim=-1)   # dI (dI / tp) each
     xh = F.silu(_causal_conv(x_in, p["conv_w"].to(cdt),
                              p["conv_b"].to(cdt)))
-    proj = tp_copy(row_parallel(xh, p["x_proj"].to(cdt)))
+    proj = tp_copy(row_parallel(xh, p["x_proj"].to(cdt), kind="mamba"),
+                   kind="mamba")
     dtr, Bc, Cc = proj.split([R, N, N], dim=-1)
     # jax.nn.softplus is logaddexp(x, 0); torch's softplus returns x itself
     # above threshold=20, where the dropped log1p(exp(-x)) is below 2.1e-9
@@ -124,7 +129,7 @@ def _m1_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                          f"{SCAN_IMPLS})")
     y = y + p["ssm_D"].float() * xh.float()
     y = y.to(cdt) * F.silu(z)
-    out = row_parallel(y, p["out_proj"].to(cdt))
+    out = row_parallel(y, p["out_proj"].to(cdt), kind="mamba")
     if return_state:
         return out, (_conv_tail(x_in, K), hT)
     return out
@@ -228,20 +233,38 @@ def _m2_split(zxbcdt: torch.Tensor, cfg: ModelConfig):
     return zxbcdt.split([dI, dI + 2 * N, cfg.ssm_heads], dim=-1)
 
 
-def _m2_out(p, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, cdt
-            ) -> torch.Tensor:
-    """Gated norm and out-projection: rms_norm(y * silu(z)) @ out_proj."""
-    y = rms_norm(y.to(cdt) * F.silu(z), p["ssm_norm"], cfg.rms_eps)
-    return y @ p["out_proj"].to(cdt)
+def _m2_out(p, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, cdt,
+            part=None) -> torch.Tensor:
+    """Gated norm and out-projection: rms_norm(y * silu(z)) @ out_proj.
+    Under the partitioned step (``part``) y and z are the rank's channels:
+    the mean of squares is over the whole ``dI`` (the ranks' sums summed),
+    and ``out_proj`` is row-parallel."""
+    if part is None:
+        y = rms_norm(y.to(cdt) * F.silu(z), p["ssm_norm"], cfg.rms_eps)
+        return y @ p["out_proj"].to(cdt)
+    g = (y.to(cdt) * F.silu(z)).float()
+    var = part.sum_over_tp(g.square().sum(dim=-1, keepdim=True)) \
+        / cfg.d_inner
+    g = (g * torch.rsqrt(var + cfg.rms_eps) * p["ssm_norm"].float()).to(cdt)
+    return row_parallel(g, p["out_proj"].to(cdt), kind="mamba")
 
 
 def _m2_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                 return_state: bool = False):
+    """Under the partitioned step a rank runs its ``nh / tp`` heads: its
+    ``in_proj`` block is ``[z_r | x_r | B | C | dt_r]`` and its conv's
+    ``[x_r | B | C]`` (:func:`repro_torch.distributed.sharding.
+    exchange_fused`), B and C whole on every rank (every head reads them;
+    their gradients, each rank's of its heads, are summed by the
+    exchange's inverse and by ``x``'s entry into the region)."""
     B, S, _ = x.shape
-    dI, N, nh, hp = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+    part = tp_part("mamba")
+    n = part.tp_size if part is not None else 1
+    dI, N, nh, hp = (cfg.d_inner // n, cfg.ssm_state, cfg.ssm_heads // n,
                      cfg.ssm_head_dim)
     cdt = dtype_of(cfg.compute_dtype)
-    z, xbc_in, dt = _m2_split(x @ p["in_proj"].to(cdt), cfg)
+    (zxbcdt,) = column_parallel(x, p["in_proj"].to(cdt), kind="mamba")
+    z, xbc_in, dt = zxbcdt.split([dI, dI + 2 * N, nh], dim=-1)
     xbc = F.silu(_causal_conv(xbc_in, p["conv_w"].to(cdt),
                               p["conv_b"].to(cdt)))
     xh, Bc, Cc = xbc.split([dI, N, N], dim=-1)
@@ -254,7 +277,7 @@ def _m2_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                          device=x.device)
     y, hT = _ssd_scan(xhh, dt, A, Bc, Cc, h0, cfg.ssm_chunk)
     y = y + p["ssm_D"].float()[:, None] * xhh.float()
-    out = _m2_out(p, y.reshape(B, S, dI), z, cfg, cdt)
+    out = _m2_out(p, y.reshape(B, S, dI), z, cfg, cdt, part)
     if return_state:
         return out, (_conv_tail(xbc_in, cfg.ssm_conv), hT)
     return out

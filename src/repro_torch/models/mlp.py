@@ -24,15 +24,18 @@ __all__ = ["mlp"]
 
 
 def mlp(p, x: torch.Tensor, cfg: ModelConfig, prefix: str = "",
-        partial: bool = False) -> torch.Tensor:
+        partial: bool = False, kind: str = "mlp") -> torch.Tensor:
     """With ``partial`` (the partitioned MoE layer), ``x`` has entered the
     ``tp`` region already and the row-parallel product comes back unsummed:
-    the caller adds it to its other partials before one sum over ``tp``."""
+    the caller adds it to its other partials before one sum over ``tp``.
+    ``kind``: the layer kind whose partition the products follow (a MoE
+    layer's shared experts and dense residual are ``moe``)."""
     cdt = dtype_of(cfg.compute_dtype)
     wi = p[prefix + "wi"].to(cdt)      # no-op for weights cast at load
     wd = p[prefix + "wd"].to(cdt)
     ws = (p[prefix + "wg"].to(cdt), wi) if cfg.mlp_gated else (wi,)
-    cols = [x @ w for w in ws] if partial else column_parallel(x, *ws)
+    cols = [x @ w for w in ws] if partial \
+        else column_parallel(x, *ws, kind=kind)
     if cfg.mlp_gated:
         h = F.silu(cols[0]) * cols[1]
     else:
@@ -41,7 +44,7 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig, prefix: str = "",
         return h @ wd
     if h.shape[-1] != wd.shape[0]:     # serve TP: concat local d_ff columns
         h = gather_tp(h, -1)
-    y = row_parallel(h, wd)
+    y = row_parallel(h, wd, kind=kind)
     if y.shape[-1] != cfg.d_model:     # serve TP: concat wd columns
         y = gather_tp(y, -1)
     return y

@@ -31,7 +31,7 @@ all-gather of the per-expert counts), and the aux loss is formed from the
 global per-expert probability sums (summed over ``dp`` in the autograd
 graph) and counts.
 
-With its products partitioned over ``tp`` as well (``tp_part()``, the
+With its products partitioned over ``tp`` as well (``tp_part("moe")``, the
 reference's rule table and its ``constrain`` of the dispatched rows to
 ``tp``), every ``tp`` rank holds the same rows, so the routing, the
 capacity, the ranks and the aux loss come out the same on each, with no
@@ -182,9 +182,9 @@ def _aux_loss(r: Routing, E: int, region=None,
 def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
               return_aux: bool = False):
     """x: (B, S, D) -> y (B, S, D) in the compute dtype, or (y, aux_loss)
-    with ``return_aux``. Under the partitioned step (``tp_part()``) ``p``
-    holds this rank's blocks of the experts and of the shared and dense
-    MLPs, and y is their partials summed over ``tp`` once."""
+    with ``return_aux``. Under the partitioned step (``tp_part("moe")``)
+    ``p`` holds this rank's blocks of the experts and of the shared and
+    dense MLPs, and y is their partials summed over ``tp`` once."""
     B, S, D = x.shape
     E = cfg.num_experts + cfg.moe_expert_pad   # padded experts are inert
     K = cfg.num_experts_per_tok
@@ -201,7 +201,7 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
     # formed before the partitioned products, so that a remat recompute
     # stops short of the layer's sum over tp
     aux = _aux_loss(r, E, region, counts) if return_aux else None
-    part, xin, gate = tp_part(), x, r.gate
+    part, xin, gate = tp_part("moe"), x, r.gate
     sg = torch.sigmoid(xt.float() @ p["shared_gate"].float()) \
         if cfg.shared_expert_d_ff else None
     if part is not None:
@@ -264,10 +264,12 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig,
     # experts' before the one sum over tp
     inside = part is not None
     if cfg.shared_expert_d_ff:
-        shared = mlp(p, xin.to(cdt), cfg, prefix="shared_", partial=inside)
+        shared = mlp(p, xin.to(cdt), cfg, prefix="shared_", partial=inside,
+                     kind="moe")
         y = y + shared * sg.view(B, S, 1).to(cdt)
     if cfg.dense_residual:
-        y = y + mlp(p, xin.to(cdt), cfg, prefix="dense_", partial=inside)
+        y = y + mlp(p, xin.to(cdt), cfg, prefix="dense_", partial=inside,
+                    kind="moe")
     if inside:
         y = part.reduce_out(y)
     return (y, aux) if return_aux else y

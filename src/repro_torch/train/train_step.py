@@ -16,24 +16,31 @@ explicit, over the ranks' :class:`~repro_torch.distributed.sharding.
 MeshGroup`, and runs its losses inside a :class:`~repro_torch.
 distributed.sharding.TrainRegion` (``use_region``):
 
-* where :func:`~repro_torch.distributed.sharding.tp_compute` holds (every
-  layer a dense-attention, MLP, MoE or Mamba1 layer, a ``model`` axis
-  above 1 that divides the widths it cuts), the products are partitioned
-  over ``tp`` as the reference's ``constrain`` hooks lay them out: each
-  leaf the rule table shards on ``tp`` stays this rank's block and is
-  gathered along ``fsdp`` only (:func:`tp_plan`); the layers run column-
-  and row-parallel products, the vocab-parallel embedding, head and loss,
-  a MoE layer's own experts (or every expert's slice of the hidden width)
-  beside its column- and row-parallel shared experts and dense residual,
-  and Mamba1 on ``dI / tp`` channels (Mamba1's fused ``in_proj`` is
-  brought to ``[x_r | z_r]`` by one all-to-all over ``tp``, its gradient
-  back by another); where ``tp`` does not divide the KV heads ``wk/wv``
-  come whole and their gradients, like the head norms', are summed over
-  ``tp``. The MoE router and shared gate come whole and their gradients
-  are not summed over ``tp``: they are formed in the replicated region.
-  Any other arch (zamba2), or a mesh without a ``model`` axis above 1,
-  gathers every leaf whole (ranks that differ only along ``model`` then
-  repeat the same rows' work);
+* on a ``model`` axis above 1 (:func:`~repro_torch.distributed.sharding.
+  tp_compute`) the products are partitioned over ``tp`` as the
+  reference's ``constrain`` hooks lay them out, each layer kind where
+  ``tp`` divides the widths it cuts (:func:`~repro_torch.distributed.
+  sharding.tp_whole`): each leaf the rule table shards on ``tp`` stays
+  this rank's block and is gathered along ``fsdp`` only (:func:`tp_plan`);
+  the layers run column- and row-parallel products, the vocab-parallel
+  embedding, head and loss, a MoE layer's own experts (or every expert's
+  slice of the hidden width) beside its column- and row-parallel shared
+  experts and dense residual, Mamba1 on ``dI / tp`` channels and Mamba2
+  on ``nh / tp`` heads (a fused Mamba leaf, stored in contiguous blocks,
+  is brought to the layout the layer computes with by one all-to-all over
+  ``tp``, its gradient back by another: Mamba1's ``in_proj`` to ``[x_r |
+  z_r]``, Mamba2's to ``[z_r | x_r | B | C | dt_r]`` and its conv to
+  ``[x_r | B | C]``, B and C whole on every rank and their gradients
+  summed there), and zamba2's shared block gathers its column-parallel
+  ``fused_proj`` output over ``tp``; where ``tp`` does not divide the KV
+  heads ``wk/wv`` come whole and their gradients, like the head norms',
+  are summed over ``tp``. The MoE router and shared gate come whole and
+  their gradients are not summed over ``tp``: they are formed in the
+  replicated region. A layer kind that runs whole (attention where ``tp``
+  does not divide the query heads) has its leaves gathered whole, though
+  the rule table stores them over ``tp``: every ``tp`` rank forms the same
+  gradient and keeps its block of it. A mesh without a ``model`` axis
+  above 1 gathers every leaf whole;
 * the gather is once per microbatch, or with ``cfg.hoist_weight_gather``
   (and more than one microbatch) once a step, the leaves of two or more
   dims cast to bf16, as the reference casts its hoisted weights;
@@ -68,10 +75,11 @@ import torch
 import dataclasses
 
 from ..configs.base import ModelConfig, ShapeSpec
-from ..distributed.sharding import (MeshGroup, NamedSharding, ShardCtx,
-                                    TrainRegion, axes_of, exchange_xz,
-                                    logical_to_spec, param_specs,
-                                    split_spec, tp_compute, use_region)
+from ..distributed.sharding import (LEAF_KINDS, MeshGroup, NamedSharding,
+                                    ShardCtx, TrainRegion, axes_of,
+                                    exchange_fused, logical_to_spec,
+                                    param_specs, split_spec, tp_compute,
+                                    tp_whole, use_region)
 from ..models import lm
 from ..models.layers import dtype_of
 from ..optim.adamw import OptConfig, adamw_update
@@ -334,17 +342,26 @@ def make_train_step(cfg: ModelConfig, opt: Optional[OptConfig] = None,
 #: how the partitioned step fetches a leaf and reduces its gradient:
 #: ``block`` keeps this rank's ``tp`` block (gathered along ``fsdp`` only;
 #: its gradient is the block's), ``whole`` gathers it whole (a leaf the
-#: rule table does not shard on ``tp``: every ``tp`` rank forms the same
-#: gradient), ``sum`` gathers it whole and sums its gradient over ``tp``
-#: (each rank's covers only its heads), ``xz`` is Mamba1's fused
-#: ``in_proj``, exchanged to ``[x_r | z_r]`` and back
-_BLOCK_LEAVES = frozenset({
-    "embed", "lm_head", "wq", "bq", "wo", "wi", "wg", "wd", "dt_proj",
-    "out_proj", "conv_w", "conv_b", "x_proj", "A_log", "ssm_D", "dt_bias",
-    "e_wi", "e_wg", "e_wd", "shared_wi", "shared_wg", "shared_wd",
-    "dense_wi", "dense_wg", "dense_wd"})
-_KV_LEAVES = frozenset({"wk", "wv", "bk", "bv"})
-_SUM_LEAVES = frozenset({"q_norm", "k_norm"})
+#: rule table does not shard on ``tp``, or one of a layer kind that runs
+#: whole, :func:`~repro_torch.distributed.sharding.tp_whole`: every
+#: ``tp`` rank forms the same gradient, of which it keeps its block),
+#: ``sum`` gathers it whole and sums its gradient over ``tp`` (each rank's
+#: covers only its heads), and the fused Mamba leaves (``_FUSED``) are
+#: exchanged to the layout the layer computes with and back
+#: (:func:`~repro_torch.distributed.sharding.exchange_fused`): ``xz``
+#: Mamba1's ``in_proj``, ``zxbcdt`` Mamba2's, ``xbc`` Mamba2's conv
+_FUSED = ("xz", "zxbcdt", "xbc")
+
+
+def _fused_parts(cfg: ModelConfig, how: str):
+    """The ``(width, split)`` parts of a ``_FUSED`` leaf, in order:
+    Mamba2's ``B`` and ``C`` whole (``ngroups`` 1: every head reads
+    them), the rest split over ``tp``."""
+    dI, N, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return {"xz": [(dI, True), (dI, True)],
+            "zxbcdt": [(dI, True), (dI, True), (N, False), (N, False),
+                       (nh, True)],
+            "xbc": [(dI, True), (N, False), (N, False)]}[how]
 
 
 def _leaf_names(tree, name: str = "") -> list:
@@ -354,25 +371,39 @@ def _leaf_names(tree, name: str = "") -> list:
     return [name]
 
 
+def _how(cfg: ModelConfig, name: str, whole, kv_block: bool) -> str:
+    kind = LEAF_KINDS.get(name)
+    if kind is None or kind in whole or name in ("router", "shared_gate"):
+        return "whole"     # replicated, of a kind run whole, or (the MoE
+        #                    router and gate) formed in the replicated region
+    if name == "in_proj":
+        return "xz" if cfg.ssm_version == 1 else "zxbcdt"
+    if name in ("conv_w", "conv_b") and cfg.ssm_version == 2:
+        return "xbc"
+    if name in ("wk", "wv", "bk", "bv"):
+        return "block" if kv_block else "sum"
+    return "sum" if name in ("q_norm", "k_norm") else "block"
+
+
 def tp_plan(cfg: ModelConfig, ctx: ShardCtx, shardings=None) -> list:
     """Per leaf (in leaf order), how the partitioned step fetches it and
-    reduces its gradient (see ``_BLOCK_LEAVES``); [] when the step on
-    ``ctx`` gathers every leaf whole (:func:`repro_torch.distributed.
-    sharding.tp_compute`)."""
+    reduces its gradient (see ``_FUSED``); [] when the step on ``ctx``
+    gathers every leaf whole (:func:`repro_torch.distributed.sharding.
+    tp_compute`)."""
     if not tp_compute(cfg, ctx):
         return []
     shardings = shardings if shardings is not None \
         else param_shardings(cfg, ctx)
-    tp = axes_of(ctx.tp)
-    kv_block = cfg.num_kv_heads % ctx.axis_size("tp") == 0
+    tp, n = axes_of(ctx.tp), ctx.axis_size("tp")
+    whole = tp_whole(cfg, n)
+    kv_block = cfg.num_kv_heads % n == 0
     plan = []
     for name, sh in zip(_leaf_names(shardings), leaves(shardings)):
         on_tp = any(set(axes_of(e)) & set(tp) for e in sh.spec)
-        how = ("xz" if name == "in_proj" else
-               "block" if name in _BLOCK_LEAVES or (name in _KV_LEAVES
-                                                    and kv_block) else
-               "sum" if name in _SUM_LEAVES | _KV_LEAVES else "whole")
-        if (how in ("block", "xz")) != on_tp and how != "sum":
+        how = _how(cfg, name, whole, kv_block)
+        ok = (not on_tp or LEAF_KINDS.get(name) in whole) \
+            if how == "whole" else on_tp or how == "sum"
+        if not ok:
             raise ValueError(f"{cfg.name}: leaf {name} with spec {sh.spec}"
                              f" cannot be fetched as {how!r} on {ctx.mesh}")
         plan.append(how)
@@ -394,17 +425,21 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
     dp_axes, dp = tuple(ctx.dp), ctx.axis_size("dp")
     plan = tp_plan(cfg, ctx, pshard)
     tp_axes = axes_of(ctx.tp) if plan else None
+    whole = frozenset(tp_whole(cfg, ctx.axis_size("tp"))) if plan \
+        else frozenset()
     if ctx.group is None and mesh.size > 1:
         raise ValueError(f"the sharded step on {mesh} needs the ctx's "
                          "MeshGroup")
 
     def fetch(group, t, spec, how):
         """The leaf the forward runs with, from this rank's block."""
-        if how in ("block", "xz"):
-            t = group.gather_leaf(t, spec, keep=tp_axes)
-            return t if how == "block" else exchange_xz(
-                group, t, tp_axes, _tp_dim(spec, tp_axes))
-        return group.gather_leaf(t, spec)
+        if how in ("whole", "sum"):
+            return group.gather_leaf(t, spec)
+        t = group.gather_leaf(t, spec, keep=tp_axes)
+        if how == "block":
+            return t
+        return exchange_fused(group, t, tp_axes, _tp_dim(spec, tp_axes),
+                              _fused_parts(cfg, how))
 
     def reduce(group, g, spec, how):
         """This rank's block of the gradient summed over ``dp`` (and over
@@ -412,9 +447,9 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
         if how == "whole":
             return group.reduce_leaf(g, spec, dp_axes)
         spec_tp, rest = split_spec(spec, tp_axes)
-        if how == "xz":
-            g = exchange_xz(group, g, tp_axes, _tp_dim(spec, tp_axes),
-                            inverse=True)
+        if how in _FUSED:
+            g = exchange_fused(group, g, tp_axes, _tp_dim(spec, tp_axes),
+                               _fused_parts(cfg, how), inverse=True)
         elif how == "sum":
             g = group.reduce_leaf(g, spec_tp, tp_axes)
         return group.reduce_leaf(g, rest, dp_axes)
@@ -444,7 +479,7 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
             return unflatten(params, [fetch(group, t, s, h) for t, s, h
                                       in zip(local, specs, hows)])
 
-        region = TrainRegion(group, dp_axes, tp_axes)
+        region = TrainRegion(group, dp_axes, tp_axes, whole)
         if mb <= 1:
             loss, met, grads = _grads_of(cfg, gathered(), region)(
                 rows_of(0))

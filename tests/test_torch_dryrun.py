@@ -21,6 +21,7 @@ factories of ``repro_torch.train.train_step`` and
 The collective counters of a dry-run train step are held to a live 2-rank
 step's in ``tests/test_torch_train_mesh.py``, on its spawned group.
 """
+import dataclasses
 import json
 
 import jax
@@ -35,7 +36,7 @@ from repro.train.train_step import make_prefill_step as jmake_prefill_step
 from repro_torch.configs import ARCHS, ShapeSpec, get_config
 from repro_torch.distributed.op_analysis import (DryMeshGroup, DryTPGroup,
                                                  StepCost, analyze_step)
-from repro_torch.distributed.sharding import ShardCtx, gather_tp
+from repro_torch.distributed.sharding import Mesh, ShardCtx, gather_tp
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_ctx, small_mesh
 from repro_torch.optim import init_opt_state
@@ -302,3 +303,44 @@ def test_every_applicable_cell_is_listed_for_both_meshes():
     assert ("falcon-mamba-7b", "long_500k") not in skipped
     assert sum(m is not None for _, _, m, _ in cells) == \
         2 * (len(ARCHS) + len(ARCHS) - len(skipped))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "internvl2-1b"])
+def test_node_tp_runs_the_hybrid_and_the_fourteen_head_train_cells(arch):
+    """On ``node_tp`` (2 x 4) zamba2's and internvl2's train cells run
+    (their serve cells wait for the serve steps' partition), and a rank's
+    dry step at smoke width (internvl2 with its 14 query heads) counts the
+    partitioned step's collectives: zamba2's fused Mamba2 leaves one
+    all-to-all a fetch and one a reduction, its shared block's
+    ``fused_proj`` output gathered (twice a group with remat); internvl2's
+    attention leaves gathered whole once a microbatch; every rank makes
+    the same calls (a rank's all-to-all bytes follow the parts its block
+    holds)."""
+    cells = list(dryrun.cells([arch], ["train_4k", "prefill_32k"],
+                              ["node_tp"]))
+    assert (arch, "train_4k", "node_tp", "") in cells
+    assert [c for c in cells if c[1] == "prefill_32k"][0][2] is None
+    cfg = get_config(arch).smoke()
+    if arch == "internvl2-1b":
+        cfg = dataclasses.replace(cfg, num_heads=14)
+    mesh = Mesh(*dryrun.MESHES["node_tp"][:2])
+    shape, mb = ShapeSpec("t", 32, 8, "train"), 2
+    seen = []
+    for rank in range(mesh.size):
+        ctx = make_ctx(mesh, DryMeshGroup(mesh, rank, StepCost()))
+        step, args, _ = train_input_specs(cfg, ctx, shape, microbatches=mb)
+        analyze_step(step, *args, cost=ctx.group.cost)
+        seen.append(ctx.group.counters())
+    assert all(c["calls"] == seen[0]["calls"] for c in seen)
+    calls = seen[0]["calls"]
+    if arch == "zamba2-1.2b":
+        G = cfg.num_layers // cfg.hybrid_attn_every
+        # in_proj, conv_w, conv_b of the group's and the tail's stacks
+        assert calls["all_to_all"] == 6 * (mb + 1)
+        assert seen[0]["max_bytes"]["all_gather"] >= \
+            shape.global_batch // 2 // mb * shape.seq_len * cfg.d_model * 4
+        assert calls["all_gather"] >= 2 * G * mb
+    else:
+        # wq wk wv wo bq bk bv, one stacked leaf each, over model and data
+        assert calls["all_gather"] >= 7 * mb
+        assert "all_to_all" not in calls

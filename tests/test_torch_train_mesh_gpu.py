@@ -21,6 +21,10 @@ step, at smoke size.
   qwen2-moe's fp32 step with 4 of its 8 experts a rank, each rank's blocks
   against the same blocks of the single-device step, which each rank runs
   on the card in turn; no leaf is all-gathered.
+* (1, 2), the ``zamba2-tp`` run of ``chip_smoke.py`` at smoke size:
+  zamba2's fp32 step on each rank's SSD heads, each rank's blocks against
+  one device's; only the shared block's ``fused_proj`` output (an
+  activation) is all-gathered.
 
 They carry the ``gpu`` marker and skip without CUDA:
 
@@ -49,7 +53,10 @@ RUNS = (TrainRun("fp32", preset="smoke", overrides=FP32, batch=4, seq=64,
                  batch=2, seq=64, microbatches=2, mesh=(1, 2), keep=True),
         TrainRun("moe-tp", "qwen2-moe-a2.7b", "smoke", overrides=FP32,
                  batch=4, seq=64, microbatches=1, mesh=(1, 2),
-                 vs_single=True))
+                 vs_single=True),
+        TrainRun("zamba2-tp", "zamba2-1.2b", "smoke", overrides=(
+            ("compute_dtype", "float32"),), batch=2, seq=64,
+            microbatches=1, mesh=(1, 2), vs_single=True))
 #: the (1, 2) runs, each held against the single-device step of RUNS[i]
 TP = {3: 0, 4: 4}
 
@@ -149,7 +156,25 @@ def test_moe_partitioned_step_matches_the_single_device_step(card):
         assert experts == [4, 4, 4], experts
 
 
-@pytest.mark.parametrize("i", [0, 1, 2, 3, 4, 5])
+def test_zamba2_partitioned_step_matches_the_single_device_step(card):
+    """Each rank's blocks (its SSD heads, its blocks of the fused leaves,
+    the shared block's column and row blocks) against the same blocks of
+    one device's step; the (1, 2) step gathers the shared block's input
+    projection, once in the forward and once in remat's recompute, and
+    no leaf."""
+    for rank in card["ranks"]:
+        r = rank[6]
+        cmp = r["vs_single"]
+        assert cmp["metric_rel"] <= 1e-5 and cmp["m_rel"] <= 1e-5 \
+            and cmp["v_rel"] <= 1e-5 and cmp["param_lr"] <= 5e-2, cmp
+        assert cmp["ill_param_lr"] <= 2.05, cmp
+        calls, most = r["counters"]["calls"], r["counters"]["max_bytes"]
+        assert calls["all_gather"] == 2, calls
+        assert most["all_gather"] == 2 * 64 * 64 * 4, most
+        assert calls["all_to_all"] == 12, calls
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3, 4, 5, 6])
 def test_each_rank_holds_its_specs_bytes(card, i):
     for rank in card["ranks"]:
         r = rank[i]

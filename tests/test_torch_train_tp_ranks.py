@@ -52,6 +52,19 @@ CASES = [
     # gradient rounds to another bf16 (moments 1e-3 to 2e-3 of a leaf's
     # largest apart from one device's step, beyond the 1e-5 bound)
     ("arctic-480b", (1, 2), False, 1, False, (("param_dtype", "float32"),)),
+    # its own bf16 masters, held to the hoisted bounds (BF16_MASTERS)
+    ("arctic-480b", (1, 2), False, 1, False, ()),
+    # Mamba2 on its heads, the shared block's fused_proj gathered; on
+    # (1, 4) in_proj's 74-column blocks mix z, x, B, C and dt
+    ("zamba2-1.2b", (1, 2), False, None, False, ()),
+    ("zamba2-1.2b", (1, 4), False, 1, False, ()),
+    ("zamba2-1.2b", (2, 2), True, 2, False, ()),
+    # 4 does not divide 14 query heads: attention whole on every rank, the
+    # MLP, embedding, head and loss partitioned
+    ("internvl2-1b", (1, 4), False, 1, False, (("num_heads", 14),)),
+    # 4 does not divide an MLP width of 90: the MLP whole on every rank
+    # (the rule table keeps wi/wg/wd off the model axis), the rest cut
+    ("stablelm-1.6b", (1, 4), False, 1, False, (("d_ff", 90),)),
 ]
 #: the case whose final state a checkpoint saves and restores
 SAVED = 0
@@ -81,6 +94,26 @@ def opt_of():
 def tokens(arch):
     return np.random.default_rng(1).integers(
         0, cfg_of(arch).vocab_size, (B, S)).astype(np.int32)
+
+
+def batch_of(case):
+    """The case's global batch as numpy arrays: its tokens, and a frontend
+    arch's frames (standard normal, from their own seed)."""
+    cfg = cfg_of(case[0], over=case[5])
+    out = {"tokens": tokens(case[0])}
+    if cfg.frontend != "none":
+        out["frontend_embeds"] = np.random.default_rng(2).standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def to_numpy(x):
+    """``x`` as numpy; a bf16 tensor in fp32 (exact)."""
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def torch_batch(case):
+    return {k: torch.from_numpy(v) for k, v in batch_of(case).items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,8 +169,7 @@ def _port_case(tree, case, ctx, ckpt):
     step = make_train_step(cfg, opt_of(), compress=comp, microbatches=mb,
                            ctx=ctx)
     ctx.group.reset_counters()
-    params, st, met = step(params, st,
-                           {"tokens": torch.from_numpy(tokens(arch))})
+    params, st, met = step(params, st, torch_batch(case))
     counters = ctx.group.counters()
     pshard = param_shardings(cfg, ctx)
     sh = leaves(pshard)
@@ -147,12 +179,12 @@ def _port_case(tree, case, ctx, ckpt):
                       zip(_paths(params), leaves(params))},
            # the leaves no spec shards over the model axis, as this rank
            # holds them: every model rank must hold the same
-           "replicated": {i: x.numpy().copy() for i, (x, s) in
+           "replicated": {i: to_numpy(x).copy() for i, (x, s) in
                           enumerate(zip(leaves(params), sh))
                           if "model" not in str(s.spec)}}
     whole = {}
     for what, t in (("params", params), ("m", st["m"]), ("v", st["v"])):
-        whole[what] = [ctx.group.gather_leaf(x, s.spec).numpy()
+        whole[what] = [to_numpy(ctx.group.gather_leaf(x, s.spec))
                        for x, s in zip(leaves(t), sh)]
     if ctx.group.rank == 0:
         res.update(whole)
