@@ -393,10 +393,11 @@ MOE_FP32_LAYERS = 8
 
 # the train phase: stablelm-1.6b at full width and depth, the full
 # preset's batch of 256 x 4096 cut to 8 x 2048 (one sequence per
-# microbatch) so that the phase stays near 90 s; 3 steps (6, then 4,
-# before; cut for the script's time: it took 984.0 s on an H100 whose
-# host ran its host-bound phases slowly)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 8, 2048, 8, 3
+# microbatch) so that the phase stays near 90 s; 2 steps (6, then 4, then
+# 3, before; cut for the script's time: it took 984.0 s on an H100 whose
+# host ran its host-bound phases slowly; 3 to 2 for the partitioned serve
+# runs of train_mesh, ~18 s with their dry-run check, a step being ~7 s)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 8, 2048, 8, 2
 # its checks: bf16 against fp32 compute at full width and 4 layers, |d
 # loss| in nats and the grad norm's relative difference (measured on the
 # H100: 2.6e-4 nats and 2.7e-4; the bounds are ~20x that)
@@ -494,6 +495,28 @@ TRAIN_MESH_VLM_RANKS = 4
 # 4096 in one GEMM), params 1.2e-4 lr and 0.32 lr
 TRAIN_MESH_TOL = {"metric": 1e-5, "moment": 5e-5, "param_lr": 5e-2,
                   "ill_param_lr": 2.05}
+# the partitioned serve steps in the same 2-rank session: stablelm-1.6b
+# fp32 at 4 layers on (1, 2), 2 x 512-token prompts into a 1,024-position
+# cache, then 8 greedy steps (each rank holds 512 positions of every KV
+# head); bf16 at its 24 layers, 2 x 2,048 into 4,096 (K2 on each rank's
+# 16 heads); falcon-mamba-7b fp32 at 4 of 64 layers on (1, 2) (K3 on each
+# rank's 4,096 channels); stablelm fp32 at 4 layers with one row on
+# (2, 1), the cache's positions over both ranks, its decode on weights
+# resident whole (serve_tp_only: the step gathering the 0.8 GB fp32
+# embedding through the host took ~3 s a step). fp32 tokens must be one
+# device's and its logits within LOGIT_TOL (tests/test_torch_decode_step.py).
+# The other runs take fewer steps for the script's time: the runs took
+# 64.4 s with 8 steps each (bf16 ~0.6-1.1 s a step, falcon-mamba's
+# in_proj exchange 0.5 s a step)
+SERVE_MESH_FP32_LAYERS = 4
+SERVE_MESH_FALCON_LAYERS = 4
+SERVE_MESH_STEPS = 8
+SERVE_MESH_SHORT_STEPS = 2
+LOGIT_TOL = 1e-4
+# rank 0's block of the fp32 cache against the plain path's (no
+# hand-written kernel) on one device: max |d| <= STATE_TOL x max(1,
+# max |plain|) per leaf (STATE_TOL as tests/test_torch_decode_step.py's)
+STATE_TOL = 2e-5
 
 # the prefix phase: the serve suite's continuous trace at the reference's
 # non-quick shapes with 104 requests (over 100, so that the nearest-rank
@@ -3177,6 +3200,226 @@ def _train_mesh_vlm_runs() -> tuple:
         microbatches=1, mesh=(1, TRAIN_MESH_VLM_RANKS), vs_single=True),)
 
 
+def _serve_mesh_runs() -> tuple:
+    """The partitioned serve steps' runs in train_mesh's session
+    (SERVE_MESH_*)."""
+    from repro_torch.bench.train_mesh import ServeRun
+    pre, n = TRAIN_MESH_PRESET, SERVE_MESH_SHORT_STEPS
+    fp32 = (("compute_dtype", "float32"),
+            ("num_layers", SERVE_MESH_FP32_LAYERS))
+    return (ServeRun("serve-fp32-tp", preset=pre, overrides=fp32, batch=2,
+                     prompt=512, max_len=1024, steps=SERVE_MESH_STEPS),
+            ServeRun("serve-bf16-tp", preset=pre, batch=2, prompt=2048,
+                     max_len=4096, steps=n),
+            ServeRun("serve-falcon-tp", "falcon-mamba-7b", pre, (
+                ("compute_dtype", "float32"),
+                ("num_layers", SERVE_MESH_FALCON_LAYERS)), batch=2,
+                prompt=512, max_len=1024, steps=n),
+            ServeRun("serve-b1", preset=pre, overrides=fp32, batch=1,
+                     prompt=512, max_len=1024, steps=n, mesh=(2, 1),
+                     serve_tp_only=True))
+
+
+def _serve_kernel_shapes(run) -> dict:
+    """The shapes a rank's K2 and K3 launches take in ``run``'s prefill:
+    its rows, the prompt, its heads (all of them where attention runs
+    whole) and its ``dI / tp`` channels."""
+    from repro_torch.distributed.sharding import tp_whole
+    cfg = run.config()
+    d, m = run.mesh
+    rows = run.batch // d if run.batch > 1 and run.batch % d == 0 \
+        else run.batch
+    whole = tp_whole(cfg, m) if m > 1 else {}
+
+    def ranks(kind):
+        return 1 if m == 1 or kind in whole else m
+    out = {}
+    if not cfg.attention_free:
+        n = ranks("attn")
+        out["K2"] = (rows, run.prompt, cfg.num_heads // n,
+                     cfg.num_kv_heads // n, cfg.hd)
+    if cfg.ssm and cfg.ssm_version == 1:
+        n = ranks("mamba")
+        out["K3"] = (rows, run.prompt, cfg.d_inner // n, cfg.ssm_state)
+    return out
+
+
+def _kernels_at_serve_shapes(runs, dev, card: str) -> dict:
+    """K2 and K3 against their plain versions at the shapes the serve
+    runs give them on a rank (:func:`_serve_kernel_shapes`), in the run's
+    compute dtype, with phase_kernels' and phase_k3's tolerances: the
+    ranks' runs are held to one device's, which launches the same kernels,
+    so this and the plain path's run (:func:`_check_serve_tp`) are what
+    holds the kernels to their plain versions at these shapes."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import mamba_scan as scan_mod
+    from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref
+    g = torch.Generator(dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    out = {}
+    for run in runs:
+        dtype = getattr(torch, run.config().compute_dtype)
+        for name, shape in _serve_kernel_shapes(run).items():
+            key = f"{name} {shape} {str(dtype)[6:]}"
+            if key in out:
+                continue
+            if name == "K2":
+                B, S, H, KV, hd = shape
+                q = randn(B, S, H, hd).to(dtype)
+                k, v = (randn(B, S, KV, hd).to(dtype) for _ in range(2))
+                got = flash_mod.flash_attention_cuda(q, k, v)
+                want = flash_attention_ref(q, k, v)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = KERNEL_TOL
+            else:
+                B, S, dI, N = shape
+                dt = F.softplus(randn(B, S, dI)) * 0.1
+                x = randn(B, S, dI).to(dtype)
+                Bc, Cc = (randn(B, S, N).to(dtype) for _ in range(2))
+                A = -torch.exp(randn(dI, N) * 0.5)
+                y, hT = scan_mod.mamba_scan_cuda(dt, x, Bc, Cc, A)
+                yr, hr = mamba_scan_ref(dt, A, Bc, Cc, x)
+                torch.cuda.synchronize()
+                got = torch.cat([y.flatten(), hT.flatten()])
+                err, tol = max(_rel(y, yr), _rel(hT, hr)), K3_REL_TOL
+            ok = bool(torch.isfinite(got.float()).all().item())
+            what = "max|kernel-plain|" + ("" if name == "K2"
+                                          else "/max(1,|plain|)")
+            log(f"[serve_tp] {key} (a rank's in {run.name}) on {card}: "
+                f"{what} = {err:.3e} (tol {tol})")
+            if not ok or err > tol:
+                raise SystemExit(f"[serve_tp] {key}: the kernel disagrees "
+                                 f"with its plain version ({err} > {tol})")
+            out[key] = err
+    return out
+
+
+def _check_serve_tp(runs, per_run, dev, card: str) -> dict:
+    """The serve runs' checks: every rank's tokens for the same rows are
+    the same; fp32 tokens are one device's and the logits of each step
+    within LOGIT_TOL of its; against the plain path on one device (no
+    hand-written kernel), fp32 tokens equal, the logits of each step
+    within LOGIT_TOL and rank 0's block of the final cache within
+    STATE_TOL of max(1, |plain|), and bf16 prefill logits within
+    STEP_REL_TOL of the plain ones' spread (phase_steps' K2-vs-plain
+    bound);
+    K2 and K3 against their plain versions at the ranks' shapes
+    (:func:`_kernels_at_serve_shapes`); a rank's KV bytes are one device's
+    over the sequence-parallel ranks (every KV head at max_len / 2
+    positions); on (1, 2) no leaf is all-gathered (the prefill gathers
+    its logits, a decode step each attention layer's q, k, v and the
+    logits); K2 ran on each rank's heads in the stablelm prefills and K3
+    on each rank's channels in falcon-mamba's. Returns each run's summary
+    and the launches summed over runs and ranks."""
+    out, launches = {}, {"flash_attention": 0, "mamba_scan": 0}
+    kernel_errs = _kernels_at_serve_shapes(runs, dev, card)
+    for run, per in zip(runs, per_run):
+        cfg = run.config()
+        r0 = per[0]
+        if any((r["tokens"] != r0["tokens"]).any() for r in per):
+            raise SystemExit(f"[serve_tp] {run.name}: the ranks' tokens "
+                             f"differ {[r['tokens'] for r in per]}")
+        same = bool((r0["single_tokens"] == r0["tokens"]).all())
+        fp32 = cfg.compute_dtype == "float32"
+        if fp32 and (not same or r0["logits_max_abs"] > LOGIT_TOL):
+            raise SystemExit(f"[serve_tp] {run.name}: tokens "
+                             f"{r0['tokens'].tolist()} against one "
+                             f"device's {r0['single_tokens'].tolist()}, "
+                             f"logits {r0['logits_max_abs']} apart")
+        plain_same = bool((r0["plain_tokens"] == r0["tokens"]).all())
+        plain_logits = max(r0["plain_logits_max_abs"])
+        plain_rel = r0["plain_logits_max_abs"][0] / r0["plain_logits_std"][0]
+        if fp32 and (not plain_same or plain_logits > LOGIT_TOL
+                     or r0["plain_cache_rel"] > STATE_TOL):
+            raise SystemExit(f"[serve_tp] {run.name}: against the plain "
+                             f"path tokens {r0['plain_tokens'].tolist()}, "
+                             f"logits {r0['plain_logits_max_abs']} apart, "
+                             f"cache {r0['plain_cache_rel']} of max(1, "
+                             "|plain|)")
+        if not fp32 and plain_rel > STEP_REL_TOL[cfg.compute_dtype]:
+            raise SystemExit(f"[serve_tp] {run.name}: prefill logits "
+                             f"{plain_rel} of the plain ones' spread")
+        if not cfg.attention_free:
+            L, KV = cfg.num_layers, cfg.num_kv_heads
+            want = (L, run.batch, KV, run.max_len // 2, cfg.hd)
+            if any(r["kv_shape"] != want
+                   or 2 * r["kv_bytes"] != r0["single_kv_bytes"]
+                   for r in per):
+                raise SystemExit(f"[serve_tp] {run.name}: K/V "
+                                 f"{[r['kv_shape'] for r in per]} "
+                                 f"{[r['kv_bytes'] for r in per]} B, one "
+                                 f"device {r0['single_kv_bytes']} B")
+        n_attn = 0 if cfg.attention_free else cfg.num_layers
+        for r in per:
+            k2 = r["launches"].get("flash_attention", 0)
+            k3 = r["launches"].get("mamba_scan", 0)
+            if (k2, k3) != (n_attn, cfg.num_layers if cfg.ssm else 0):
+                raise SystemExit(f"[serve_tp] {run.name} rank {r['rank']} "
+                                 f"launched {r['launches']}")
+            launches["flash_attention"] += k2
+            launches["mamba_scan"] += k3
+            if run.mesh == (1, 2):
+                pre = r["prefill_counters"]["calls"].get("all_gather")
+                dec = {c["calls"].get("all_gather")
+                       for c in r["decode_counters"]}
+                if pre != 1 or dec != {1 + n_attn}:
+                    raise SystemExit(f"[serve_tp] {run.name}: gathers "
+                                     f"{r['prefill_counters']} "
+                                     f"{r['decode_counters'][0]}")
+        out[run.name] = {
+            "arch": run.arch, "mesh": list(run.mesh), "layers":
+            cfg.num_layers, "batch": [run.batch, run.prompt, run.max_len],
+            "dtype": cfg.compute_dtype, "tokens": r0["tokens"].tolist(),
+            "single_tokens_equal": same,
+            "logits_max_abs": r0["logits_max_abs"],
+            "plain_tokens_equal": plain_same,
+            "plain_logits_max_abs": r0["plain_logits_max_abs"],
+            "plain_prefill_logits_rel": plain_rel,
+            "plain_cache_max_abs": r0["plain_cache_max_abs"],
+            "plain_cache_rel": r0["plain_cache_rel"],
+            "kv_bytes": [r["kv_bytes"] for r in per],
+            "single_kv_bytes": r0["single_kv_bytes"],
+            "kv_shape": r0["kv_shape"],
+            "prefill_collectives": [r["prefill_counters"] for r in per],
+            "decode_collectives": [r["decode_counters"][0] for r in per],
+            "launches": [r["launches"].get(k, 0) for r in per
+                         for k in ("flash_attention", "mamba_scan")],
+            "walls_s": [r["walls"] for r in per],
+            "single_walls_s": r0["single_walls"],
+            "peak_bytes": [r["peak_bytes"] for r in per],
+            "run_s": [r["run_s"] for r in per]}
+        log(f"[serve_tp] {run.name} ({run.arch}, {cfg.num_layers} layers, "
+            f"{cfg.compute_dtype}, full width, {run.batch} x {run.prompt} "
+            f"into {run.max_len}, {run.steps} greedy steps, mesh "
+            f"{run.mesh}) on {card}: tokens {r0['tokens'].tolist()}, one "
+            f"device's {'equal' if same else 'not equal'}; logits "
+            f"{r0['logits_max_abs']:.3e} apart at most; against the plain "
+            f"path (no kernel) tokens "
+            f"{'equal' if plain_same else 'not equal'}, logits "
+            f"{plain_logits:.3e} apart at most (prefill {plain_rel:.3e} of "
+            f"their spread), rank 0's cache {r0['plain_cache_max_abs']:.3e}"
+            f" apart ({r0['plain_cache_rel']:.3e} of max(1, |plain|)); K/V "
+            f"a rank "
+            f"{out[run.name]['kv_bytes']} B {r0['kv_shape']} against one "
+            f"device's {r0['single_kv_bytes']} B; collectives a rank "
+            f"prefill {out[run.name]['prefill_collectives']} decode "
+            f"{out[run.name]['decode_collectives']}; launches (K2, K3) "
+            f"by rank {out[run.name]['launches']}; walls (prefill, then "
+            f"each step) {[[round(w, 4) for w in r['walls']] for r in per]}"
+            f" s, one device {[round(w, 4) for w in r0['single_walls']]} s "
+            f"(host-staged gloo: not a speed); peak "
+            f"{out[run.name]['peak_bytes']} B")
+    secs = [round(sum(r["run_s"] for r in per), 1) for per in
+            zip(*per_run)]
+    log(f"[time] train_mesh: the serve runs {secs} s by rank, set-up and "
+        "the single-device runs included")
+    return {"runs": out, "launches": launches,
+            "kernels_vs_plain": kernel_errs}
+
+
 def _session(n: int, runs: tuple, dev, what: str) -> list:
     """``runs`` on ``n`` gloo ranks sharing the card; each rank's results."""
     from repro_torch.bench.train_mesh import Runs
@@ -3199,16 +3442,19 @@ def phase_train_mesh(dev, card: str) -> dict:
     runs (every leaf gathered whole) and the (1, 2) runs (the products
     partitioned over the model axis, falcon-mamba's K3 and its backward on
     each rank's dI / 2 channels, qwen2-moe's experts, zamba2's SSD heads);
-    then internvl2-1b on TRAIN_MESH_VLM_RANKS ranks (1, 4), attention
-    whole; returns each run's summary (``res[name]["launches"]``: the
-    ranks' kernel launches)."""
+    then the partitioned serve steps in the same session
+    (:func:`_serve_mesh_runs`, ``res["serve_tp"]``); then internvl2-1b on
+    TRAIN_MESH_VLM_RANKS ranks (1, 4), attention whole; returns each
+    run's summary (``res[name]["launches"]``: the ranks' kernel
+    launches)."""
     from repro_torch.bench.train_mesh import compare_states, single_run
 
     seq = TRAIN_MESH_SEQ
     runs = _train_mesh_runs()
+    serve = _serve_mesh_runs()
     fp32 = runs[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    ranks = _session(TRAIN_MESH_RANKS, runs, dev, "the session")
+    ranks = _session(TRAIN_MESH_RANKS, runs + serve, dev, "the session")
     vlm_runs = _train_mesh_vlm_runs()
     vlm_ranks = _session(TRAIN_MESH_VLM_RANKS, vlm_runs, dev,
                          "the internvl2-tp session")
@@ -3262,6 +3508,9 @@ def phase_train_mesh(dev, card: str) -> dict:
             f"{res[name]['mesh']}: K3 and its backward launched "
             f"{res[name]['rank_launches']} by rank")
     res["k3_at_rank_width"] = _k3_at_widths(dev, card)
+    res["serve_tp"] = _check_serve_tp(
+        serve, [[r[len(runs) + j] for r in ranks if r[len(runs) + j]]
+                for j in range(len(serve))], dev, card)
     print(json.dumps({"train_mesh": res}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3779,6 +4028,53 @@ def _dryrun_mesh_runs(train_mesh: dict) -> dict:
     return out
 
 
+def _dryrun_serve_runs(live: dict) -> dict:
+    """The serve runs' prefill and decode steps on the meta device, each
+    rank's, against the collectives the ranks counted live (every decode
+    step's the same)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.op_analysis import (DryMeshGroup,
+                                                     StepCost, analyze_step)
+    from repro_torch.launch.mesh import make_ctx, small_mesh
+    from repro_torch.train.train_step import (make_decode_step,
+                                              make_prefill_step)
+    out = {}
+    for run in _serve_mesh_runs():
+        t1 = time.perf_counter()
+        mesh, cfg = small_mesh(*run.mesh), run.config()
+        scan = _meta_scan() if cfg.ssm else contextlib.nullcontext()
+        pred = []
+        for rank in range(mesh.size):
+            got = []
+            for kind in ("prefill", "decode"):
+                ctx = make_ctx(mesh, DryMeshGroup(mesh, rank, StepCost()))
+                if kind == "prefill":
+                    step, args, _ = make_prefill_step(
+                        cfg, ctx, ShapeSpec("p", run.prompt, run.batch,
+                                            "prefill"),
+                        max_len=run.max_len)
+                else:
+                    step, args, _ = make_decode_step(
+                        cfg, ctx, ShapeSpec("d", run.max_len, run.batch,
+                                            "decode"),
+                        serve_tp_only=run.serve_tp_only)
+                with scan:
+                    analyze_step(step, *args, cost=ctx.group.cost)
+                del args
+                got.append(ctx.group.counters())
+            pred.append(got)
+        have = [[p, d] for p, d in zip(live[run.name]["prefill_collectives"],
+                                       live[run.name]["decode_collectives"])]
+        out[run.name] = {"predicted": pred, "live": have,
+                         "seconds": time.perf_counter() - t1}
+        log(f"[dryrun] serve_tp {run.name} (prefill, decode) predicted by "
+            f"rank {pred}, live {have} ({out[run.name]['seconds']:.1f}s)")
+        if pred != have:
+            raise SystemExit(f"[dryrun] {run.name}: predicted collectives "
+                             "differ from the live counters")
+    return out
+
+
 def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
     """The dry run (``repro_torch.distributed.op_analysis`` on the meta
     device, nothing launched) beside what the train and train_mesh phases
@@ -3793,7 +4089,8 @@ def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
     FLOPs a rank must be exactly 1/tp of the same rows' on one device, but
     for what every rank forms whole (a MoE layer's router and shared gate,
     Mamba2's B and C, attention kept whole: ``op_analysis.
-    replicated_flops``)."""
+    replicated_flops``); and each rank's predicted prefill and decode
+    collectives of the serve runs must equal its live counters."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.distributed.op_analysis import analyze_step
     from repro_torch.distributed.sharding import ShardCtx
@@ -3832,6 +4129,7 @@ def phase_dryrun(train: dict, train_mesh: dict, card: str) -> dict:
         raise SystemExit("[dryrun] the predicted argument bytes are not the "
                          "trainer's state and batch")
     res["train_mesh"] = _dryrun_mesh_runs(train_mesh)
+    res["serve_tp"] = _dryrun_serve_runs(train_mesh["serve_tp"]["runs"])
     print(json.dumps({"dryrun": res}), flush=True)
     return res
 
@@ -5041,6 +5339,8 @@ def main(argv=None) -> None:
     mcounts_tm = {k: tmesh["falcon-mamba"]["launches"][k]
                   + tmesh["falcon-mamba-tp"]["launches"][k]
                   for k in ("mamba_scan", "mamba_scan_bwd")}
+    mcounts_tm["mamba_scan"] += tmesh["serve_tp"]["launches"]["mamba_scan"]
+    scounts_tm = tmesh["serve_tp"]["launches"]["flash_attention"]
     done("train_mesh (sharded training, 2 gloo ranks on the card)")
     dcounts_tm = phase_mesh_durable(dev, smi)
     done("mesh_durable (journal, snapshot, restore, isolation, per-call and "
@@ -5060,7 +5360,7 @@ def main(argv=None) -> None:
         + zpre["flash_attention"] + qcounts["flash_attention"] \
         + sum(c["flash_attention"] for c in train_counts) \
         + ecounts["flash_attention"] + tcounts["flash_attention"] \
-        + dcounts_tm["flash_attention"]
+        + dcounts_tm["flash_attention"] + scounts_tm
     report["mamba_scan"]["launches"] = mcounts["mamba_scan"] \
         + mpre["mamba_scan"] + sum(c["mamba_scan"] for c in train_counts) \
         + mcounts_tm["mamba_scan"]

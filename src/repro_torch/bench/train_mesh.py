@@ -19,6 +19,14 @@ rank, and the single-device run they are held to:
   same blocks of that state there. A run on a mesh with a ``model`` axis
   takes the step its arch takes there
   (:func:`repro_torch.distributed.sharding.tp_compute`);
+* :class:`ServeRun`: one sharded serve configuration, run by the same
+  :class:`Runs` body: its prompts through the partitioned prefill step
+  into a sequence-parallel cache, then greedy decode steps
+  (:func:`repro_torch.train.train_step.make_prefill_step`,
+  ``make_decode_step``), each rank reporting its rows' tokens and logits,
+  its KV bytes, its collectives of each step and its kernel launches,
+  and rank 0 the same prompts on one device beside them, through the
+  kernels and through the plain path;
 * :func:`single_run`: the same steps through the single-device step;
 * :func:`compare_states`: the largest differences between two states
   (metrics, moments per leaf, params in units of lr), the params split by
@@ -40,8 +48,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["TrainRun", "Runs", "TrainerBody", "build", "single_run",
-           "compare_states", "batches", "main"]
+__all__ = ["TrainRun", "ServeRun", "Runs", "TrainerBody", "build",
+           "single_run", "compare_states", "batches", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +80,29 @@ class TrainRun:
         from ..optim import OptConfig
         return OptConfig(lr=self.lr, warmup_steps=0,
                          total_steps=max(10, self.steps))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeRun:
+    """One sharded serve configuration (picklable): ``batch`` prompts of
+    ``prompt`` tokens prefilled into a ``max_len`` cache on ``mesh``, then
+    ``steps`` greedy decode steps; the weights are served ones (matrices
+    in the compute dtype) from the same seeded generator as
+    :class:`TrainRun`'s."""
+    name: str
+    arch: str = "stablelm-1.6b"
+    preset: str = "full"
+    overrides: Tuple[Tuple[str, Any], ...] = ()
+    batch: int = 2
+    prompt: int = 512
+    max_len: int = 1024
+    steps: int = 8
+    mesh: Tuple[int, int] = (1, 2)
+    seed: int = 0
+    serve_tp_only: bool = False   # decode on weights resident whole over
+    #                               fsdp (make_decode_step's option)
+
+    config = TrainRun.config
 
 
 def build(run: TrainRun, device) -> Tuple[Any, Dict[str, Any]]:
@@ -138,9 +169,9 @@ class Runs:
                                           self.op_timeout_s)
             ctx = ctxs[run.mesh]
             t0 = time.perf_counter()
+            body = _serve if isinstance(run, ServeRun) else _sharded
             out.append(None if ctx is None else dict(
-                _sharded(run, ctx, device),
-                run_s=time.perf_counter() - t0))
+                body(run, ctx, device), run_s=time.perf_counter() - t0))
             gc.collect()
             if torch.device(device).type == "cuda":
                 torch.cuda.empty_cache()
@@ -199,6 +230,144 @@ def _sharded(run: TrainRun, ctx, device) -> Dict[str, Any]:
             run, ctx, dev, pshard, hist,
             {"params": params, "m": opt_state["m"], "v": opt_state["v"]})
     return res
+
+
+def _serve_steps(prefill, decode, params, tokens, rows, steps, dev,
+                 group=None):
+    """The prompts' prefill and ``steps`` greedy decode steps: (tokens (B_r,
+    steps + 1), each step's logits, the cache, the walls, each step's
+    collectives). A step reads its ``rows`` of the global tokens."""
+    B = tokens.shape[0]
+    counters = []
+
+    def timed(fn, *args):
+        if group is not None:
+            group.reset_counters()
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(dev)
+        if group is not None:
+            counters.append(group.counters())
+        return out, time.perf_counter() - t0
+
+    (logits, cache), w = timed(prefill, params, tokens)
+    walls, out = [w], [logits.float().cpu()]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    toks = [tok]
+    for _ in range(steps):
+        glob = torch.zeros((B,), dtype=torch.int32, device=dev)
+        glob[rows] = tok
+        (logits, cache), w = timed(decode, params, cache, glob)
+        walls.append(w)
+        out.append(logits.float().cpu())
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+    return torch.stack(toks, dim=1).cpu(), out, cache, walls, counters
+
+
+def _kv_bytes(cache) -> int:
+    from ..distributed.sharding import KV_LEAVES
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in KV_LEAVES if k in cache)
+
+
+def _serve(run: ServeRun, ctx, device) -> Dict[str, Any]:
+    """``run`` on this rank: the partitioned prefill and decode steps on
+    its blocks (:func:`_serve_steps`). Rank 0 then runs the same prompts
+    on one device from the whole weights twice: through the kernels, as
+    the ranks do, and through the plain path (``lm.prefill``'s
+    ``"chunked"`` attention or ``"plain"`` scan: no hand-written kernel),
+    its rows' logits of every step held beside the ranks' and its block of
+    the plain run's final cache beside its own."""
+    from ..configs import ShapeSpec
+    from ..distributed.sharding import cache_block
+    from ..kernels import ops
+    from ..models import lm
+    from ..params import init_params
+    from ..train.elastic import reshard_state
+    from ..train.train_step import (_serve_rows, make_decode_step,
+                                    make_prefill_step)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = run.config()
+    full = init_params(cfg, torch.Generator(dev).manual_seed(run.seed),
+                       device=dev, cast=True)
+    params = reshard_state(cfg, {"params": full}, ctx)["params"]
+    dparams = reshard_state(cfg, {"params": full}, dataclasses.replace(
+        ctx, fsdp=None))["params"] if run.serve_tp_only else params
+    single = ctx.group.rank == 0
+    if not single:
+        del full
+    tokens = torch.from_numpy(np.random.default_rng(run.seed + 1).integers(
+        0, cfg.vocab_size, (run.batch, run.prompt)).astype(np.int32)
+    ).to(dev)
+    prefill, _, _ = make_prefill_step(
+        cfg, ctx, ShapeSpec("p", run.prompt, run.batch, "prefill"),
+        max_len=run.max_len)
+    decode, _, _ = make_decode_step(
+        cfg, ctx, ShapeSpec("d", run.max_len, run.batch, "decode"),
+        serve_tp_only=run.serve_tp_only)
+    rows = _serve_rows(ctx, run.batch)
+    before = ops.launch_counts()
+    toks, logits, cache, walls, counters = _serve_steps(
+        lambda p, t: prefill(p, {"tokens": t}),
+        lambda p, c, t: decode(dparams, c, t), params, tokens, rows,
+        run.steps, dev, ctx.group)
+    after = ops.launch_counts()
+    res = {"name": run.name, "rank": ctx.group.rank,
+           "rows": (rows.start, rows.stop), "tokens": toks.numpy(),
+           "walls": walls, "prefill_counters": counters[0],
+           "decode_counters": counters[1:], "kv_bytes": _kv_bytes(cache),
+           "kv_shape": tuple(cache["k" if "k" in cache else "shared_k"]
+                             .shape) if not cfg.attention_free else None,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+           else None,
+           "launches": {k: after[k] - before.get(k, 0) for k in after}}
+    del dparams, params
+    if not single:
+        return res
+    gc.collect()
+
+    def one_device(impl):
+        return _serve_steps(
+            lambda p, t: lm.prefill(cfg, p, t, run.max_len, impl=impl),
+            lambda p, c, t: lm.decode_step(cfg, p, c, t), full, tokens,
+            slice(0, run.batch), run.steps, dev)
+    one = one_device(None)
+    res.update(single_tokens=one[0][rows].numpy(),
+               single_kv_bytes=_kv_bytes(one[2]),
+               logits_max_abs=max(float((a - b[rows]).abs().max())
+                                  for a, b in zip(logits, one[1])),
+               single_walls=one[3])
+    del one
+    gc.collect()
+    plain = one_device("plain" if cfg.ssm and not cfg.hybrid_attn_every
+                       else "chunked")
+    mine = cache_block(cfg, ctx, run.batch, plain[2])
+    diffs = [(float((a.float() - b.float()).abs().max()),
+              float(b.float().abs().max()))
+             for a, b in zip(_cache_leaves(cache), _cache_leaves(mine))]
+    res.update(plain_tokens=plain[0][rows].numpy(),
+               plain_logits_max_abs=[float((a - b[rows]).abs().max())
+                                     for a, b in zip(logits, plain[1])],
+               plain_logits_std=[float(b[rows].std()) for b in plain[1]],
+               plain_cache_max_abs=max(d for d, _ in diffs),
+               plain_cache_rel=max(d / max(1.0, m) for d, m in diffs))
+    del plain, mine, cache, full
+    return res
+
+
+def _cache_leaves(cache) -> list:
+    """A decode cache's tensors in key order (``pos`` left out)."""
+    out = []
+    for k in sorted(cache):
+        v = cache[k]
+        if k != "pos":
+            out.extend(v if isinstance(v, tuple) else (v,))
+    return out
 
 
 def _blocks_vs_single(run: TrainRun, ctx, dev, pshard, hist, state

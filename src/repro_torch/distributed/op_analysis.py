@@ -272,26 +272,39 @@ def analyze_step(fn: Callable, *meta_args: Any,
     return cost
 
 
-def replicated_flops(cfg: Any, batch: int, seq: int, tp: int) -> float:
-    """The FLOPs of the partitioned train step's products that every one
-    of ``tp`` ranks forms whole, for ``batch`` sequences of ``seq`` tokens
-    a rank (and a frontend's frames before each): a MoE layer's router
-    (``D x E``) and shared gate (``D x 1``), which stay in the replicated
-    region; a Mamba2 layer's ``B`` and ``C`` columns of ``in_proj`` and
-    its SSD's ``C B^T`` a chunk, which every head reads (its conv is
-    elementwise, no product); and attention where it runs whole
+def replicated_flops(cfg: Any, batch: int, seq: int, tp: int,
+                     kind: str = "train") -> float:
+    """The FLOPs of a partitioned step's products that every one of ``tp``
+    ranks forms whole, for ``batch`` rows a rank: ``seq`` tokens each (and
+    a frontend's frames before each) in the train and prefill steps, one
+    in the decode step. They are a MoE layer's router (``D x E``) and
+    shared gate (``D x 1``), which stay in the replicated region; a Mamba2
+    layer's ``B`` and ``C`` columns of ``in_proj`` (in a serve step that
+    exchanges the product instead, :func:`~repro_torch.distributed.
+    sharding.exchange_products`, each rank forms its share), and its
+    SSD's ``C
+    B^T`` a chunk (train, prefill) or its conv window's ``B`` and ``C``
+    channels (decode, a product there), which every head reads; and
+    attention where it runs whole
     (:func:`~repro_torch.distributed.sharding.tp_whole`): its projections,
-    scores and probabilities times values. Each is a forward product, its
-    recompute under ``remat`` and two gradient products (of each operand).
-    A rank's FLOPs are then ``(F1 - R) / tp + R``, F1 one device's for the
+    and in the train and prefill steps its scores and probabilities times
+    values (a decode's scores are cut over the cache's sequence-parallel
+    ranks, each rank scoring its keys). ``kind="train"`` counts each
+    forward product, its recompute under ``remat`` and two gradient
+    products (of each operand); the serve steps the forward alone. A
+    rank's FLOPs are then ``(F1 - R) / tp + R``, F1 one device's for the
     same rows. Another layer kind run whole raises: its work is not
     counted here."""
-    from .sharding import tp_whole
+    from .sharding import exchange_products, tp_whole
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown step kind {kind!r}")
     whole = tp_whole(cfg, tp)
     if set(whole) - {"attn"}:
         raise ValueError(f"{cfg.name} on {tp} ranks runs {sorted(whole)} "
                          "whole; only whole attention is counted")
-    S = seq + (cfg.frontend_tokens if cfg.frontend != "none" else 0)
+    decode = kind == "decode"
+    S = 1 if decode else \
+        seq + (cfg.frontend_tokens if cfg.frontend != "none" else 0)
     rows = batch * S
     D, L = cfg.d_model, cfg.num_layers
     R = 0.0
@@ -301,16 +314,26 @@ def replicated_flops(cfg: Any, batch: int, seq: int, tp: int) -> float:
         R += 2.0 * rows * D * n * L
     if cfg.ssm and cfg.ssm_version == 2:
         N = cfg.ssm_state
-        chunk = min(cfg.ssm_chunk, S)
-        chunk = S if S % chunk else chunk
-        R += (2.0 * rows * D * 2 * N + 2.0 * rows * chunk * N) * L
+        if decode:
+            mix = 2.0 * rows * cfg.ssm_conv * 2 * N
+        else:
+            chunk = min(cfg.ssm_chunk, S)
+            chunk = S if S % chunk else chunk
+            mix = 2.0 * rows * chunk * N
+        # B and C's columns of in_proj, unless a serve step exchanges
+        # the products of the stored blocks (each rank forming its share)
+        cols = 0.0 if kind != "train" and exchange_products(cfg, rows) \
+            else 2.0 * rows * D * 2 * N
+        R += (cols + mix) * L
     if "attn" in whole:
         H, KV, hd, cq = (cfg.num_heads, cfg.num_kv_heads, cfg.hd,
                          cfg.attn_chunk_q)
         Sq = S if S <= cq or (S % cq and S <= 8192) else S + (-S) % cq
         n_attn = L // cfg.hybrid_attn_every if cfg.hybrid_attn_every else L
         R += (2.0 * rows * D * (2 * H + 2 * KV) * hd
-              + 4.0 * batch * H * Sq * S * hd) * n_attn
+              + (0.0 if decode else 4.0 * batch * H * Sq * S * hd)) * n_attn
+    if kind != "train":
+        return R
     return (4 if cfg.remat else 3) * R
 
 

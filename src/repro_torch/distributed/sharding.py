@@ -55,7 +55,14 @@ statistics (sum both ways), the gather of a column-parallel activation
 (its block back), the vocab-parallel max (no gradient) and the MoE
 router's sum over ``dp``. :func:`exchange_fused` moves a fused Mamba
 leaf between its stored layout and the one the partitioned layer
-computes with.
+computes with. The sharded prefill and decode steps run in the same
+region, with the decode cache laid out as the reference's
+``cache_shardings`` (:func:`cache_specs`, :func:`cache_shardings`): the
+KV caches' sequence dim over ``sp`` (:func:`cache_seq_axes`), whose
+softmax reductions a decode sums over those ranks
+(:meth:`TrainRegion.over_sp`). Where a rank runs fewer token rows than
+``d_model`` they exchange a fused Mamba ``in_proj``'s product instead of
+its weight (:func:`fused_product`).
 """
 from __future__ import annotations
 
@@ -75,7 +82,10 @@ __all__ = ["MeshDivisibilityError", "serve_attn_sharded",
            "param_specs", "NamedSharding", "axes_of", "MeshGroup",
            "TrainRegion", "use_region", "current_region", "tp_part",
            "tp_compute", "tp_compute_why", "tp_whole", "LEAF_KINDS",
-           "split_spec", "exchange_fused"]
+           "split_spec", "exchange_fused", "fused_parts", "fused_product",
+           "exchange_products", "FusedSharding",
+           "KV_LEAVES", "cache_seq_axes", "cache_specs", "cache_shardings",
+           "cache_block", "assemble_cache"]
 
 
 class MeshDivisibilityError(ValueError):
@@ -543,6 +553,53 @@ class NamedSharding:
         return n * torch.empty((), dtype=dtype).element_size()
 
 
+@dataclasses.dataclass(frozen=True)
+class FusedSharding(NamedSharding):
+    """A :class:`NamedSharding` whose blocks along the last dim are in the
+    layout a partitioned layer computes with (:func:`exchange_fused`):
+    part by part (``parts``, each ``(width, split)``, as
+    :func:`fused_parts`), the r-th ``1 / n`` of each split part and the
+    whole of every other part, r being the rank's index along the axes of
+    ``spec[-1]`` and n their size. The other dims are cut as the spec
+    says. Mamba2's conv buffer on a ``model`` axis: ``[x_r | B | C]``."""
+    parts: Tuple[Tuple[int, bool], ...] = ()
+
+    def _rest(self) -> NamedSharding:
+        return NamedSharding(self.mesh, tuple(self.spec[:-1]) + (None,))
+
+    def _n(self) -> int:
+        return self.mesh.axis_size(axes_of(self.spec[-1]))
+
+    def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        n = self._n()
+        return self._rest().local_shape(shape)[:-1] + (
+            sum(w // n if split else w for w, split in self.parts),)
+
+    def shard(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """``rank``'s block of the full tensor ``t`` (a copy)."""
+        t = self._rest().shard(t, rank)
+        n, r = self._n(), self.mesh.axis_index(axes_of(self.spec[-1]), rank)
+        pieces, lo = [], 0
+        for w, split in self.parts:
+            pieces.append(t[..., lo + r * w // n:lo + (r + 1) * w // n]
+                          if split else t[..., lo:lo + w])
+            lo += w
+        return torch.cat(pieces, dim=-1)
+
+    def assemble(self, blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The full tensor from every rank's block: each split part
+        concatenated over the ranks, each whole part from the first
+        holder."""
+        n, cols, at = self._n(), [], 0
+        for w, split in self.parts:
+            k = w // n if split else w
+            sh = NamedSharding(self.mesh, self.spec) if split \
+                else self._rest()
+            cols.append(sh.assemble([b[..., at:at + k] for b in blocks]))
+            at += k
+        return torch.cat(cols, dim=-1)
+
+
 # --------------------------------------------------------------------------- #
 # training: the collectives over the mesh's axes
 # --------------------------------------------------------------------------- #
@@ -829,15 +886,26 @@ class _GatherFromTP(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class TrainRegion:
-    """What the sharded train step makes current while it runs a loss
-    (:func:`use_region`): this rank's group, the ``dp`` axes, ``tp``, the
-    model axes its products are partitioned over (None: every rank runs
-    whole weights), and ``whole``, the layer kinds (:func:`tp_whole`)
-    that run whole on every ``tp`` rank all the same."""
+    """What a sharded step makes current while it runs the model
+    (:func:`use_region`): the train step around its losses, the prefill
+    and decode steps around ``lm.prefill`` / ``lm.decode_step``
+    (:mod:`repro_torch.train.train_step`). It holds this rank's group, the
+    ``dp`` axes its rows are split over (empty where every rank runs every
+    row), ``tp``, the model axes its products are partitioned over (None:
+    every rank runs whole weights), ``whole``, the layer kinds
+    (:func:`tp_whole`) that run whole on every ``tp`` rank all the same,
+    and, in the serve steps, ``sp``: the axes a decode cache's sequence
+    dim is cut over (:func:`cache_seq_axes`), whose softmax statistics and
+    probabilities-times-values a decode sums over them, and
+    ``fused_out``: a fused Mamba ``in_proj`` comes as this rank's stored
+    block, and its product is exchanged rather than the weight
+    (:func:`fused_product`, :func:`exchange_products`)."""
     group: "MeshGroup"
     dp: Tuple[str, ...]
     tp: Optional[Tuple[str, ...]] = None
     whole: frozenset = frozenset()
+    sp: Tuple[str, ...] = ()
+    fused_out: bool = False
 
     @property
     def dp_size(self) -> int:
@@ -872,6 +940,21 @@ class TrainRegion:
             return x
         return _SumOverDP.apply(x, self.group, self.dp, self.dp_size)
 
+    @property
+    def sp_size(self) -> int:
+        return self.group.mesh.axis_size(self.sp)
+
+    @property
+    def sp_index(self) -> int:
+        """The block of the cache's sequence dim this rank holds."""
+        return self.group.mesh.axis_index(self.sp, self.group.rank)
+
+    def over_sp(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced (``sum`` or ``max``) over the ``sp`` ranks (no
+        gradient: the serve steps run under ``no_grad``)."""
+        return self.group.all_reduce(
+            x.clone(memory_format=torch.contiguous_format), self.sp, op)
+
 
 @contextlib.contextmanager
 def use_region(region: Optional[TrainRegion]):
@@ -887,7 +970,8 @@ def use_region(region: Optional[TrainRegion]):
 
 def current_region() -> Optional[TrainRegion]:
     """The calling thread's :class:`TrainRegion` (None off the sharded
-    step: single-device training and every serve path)."""
+    steps: single-device training, the serve engine and every other serve
+    path)."""
     return getattr(_ACTIVE, "region", None)
 
 
@@ -1007,6 +1091,43 @@ def split_spec(spec: Spec, tp: Sequence[str]) -> Tuple[Spec, Spec]:
     return on, off
 
 
+def fused_parts(cfg: Any, how: str) -> Tuple[Tuple[int, bool], ...]:
+    """The ``(width, split)`` parts of a fused Mamba leaf along its fused
+    dim, in order (:func:`exchange_fused`): ``xz`` Mamba1's ``in_proj``,
+    ``zxbcdt`` Mamba2's, ``xbc`` Mamba2's conv (its weight and its decode
+    buffer). Mamba2's ``B`` and ``C`` are whole (``ngroups`` 1: every head
+    reads them), the rest split over ``tp``."""
+    dI, N, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return {"xz": ((dI, True), (dI, True)),
+            "zxbcdt": ((dI, True), (dI, True), (N, False), (N, False),
+                       (nh, True)),
+            "xbc": ((dI, True), (N, False), (N, False))}[how]
+
+
+def exchange_products(cfg: Any, tokens: int) -> bool:
+    """Whether a serve step that runs ``tokens`` token rows on a rank
+    exchanges a fused Mamba ``in_proj``'s product (``tokens`` rows of its
+    columns) rather than its weight block (``d_model`` rows of them):
+    where that moves fewer bytes. A decode step's product is a row a
+    sequence; the train step always exchanges the weight, whose gradient
+    goes back through the exchange's inverse."""
+    return tokens < cfg.d_model
+
+
+def fused_product(y: torch.Tensor, cfg: Any, how: str) -> torch.Tensor:
+    """The product ``y`` (..., columns) of a fused Mamba ``in_proj`` (``how``
+    as :func:`fused_parts`) in the layout the partitioned layer computes
+    with: ``y`` itself where the weight came exchanged, and where the
+    region's ``fused_out`` says the weight is this rank's stored block,
+    ``y`` exchanged along its last dim (the same columns as the exchanged
+    weight's product: the columns of a product are independent)."""
+    part = tp_part("mamba")
+    if part is None or not part.fused_out:
+        return y
+    return exchange_fused(part.group, y, part.tp, y.dim() - 1,
+                          fused_parts(cfg, how))
+
+
 def exchange_fused(group: "MeshGroup", t: torch.Tensor,
                    tp: Sequence[str], dim: int,
                    parts: Sequence[Tuple[int, bool]],
@@ -1064,3 +1185,156 @@ def exchange_fused(group: "MeshGroup", t: torch.Tensor,
             out[a - r * c:b - r * c] += got[i:i + b - a]
             i += b - a
     return out.movedim(0, dim)
+
+
+# --------------------------------------------------------------------------- #
+# serving: the decode cache's layout on a mesh
+# --------------------------------------------------------------------------- #
+
+#: the cache leaves of a KV cache, (L?, B, KV, S, hd): their sequence dim
+#: is cut over the mesh (the reference's sequence-parallel cache)
+KV_LEAVES = ("k", "v", "shared_k", "shared_v")
+
+
+def _rows_split(ctx: ShardCtx, batch: int) -> bool:
+    """The reference's ``_dim_ok(batch, ctx, "dp")``: the rows go over
+    ``dp``."""
+    return batch > 1 and batch % ctx.axis_size("dp") == 0
+
+
+def cache_seq_axes(ctx: ShardCtx, batch: int) -> Tuple[str, ...]:
+    """The mesh axes a KV cache's sequence dim is cut over for a batch of
+    ``batch`` rows (the reference's ``cache_shardings``): ``sp`` when the
+    rows go over ``dp``; else ``(data, model)`` on a mesh of two or more
+    axes (B = 1 long contexts, flash-decode style), every ``pod`` rank
+    holding the same blocks. () off a mesh."""
+    if ctx.mesh is None:
+        return ()
+    names = ctx.mesh.axis_names
+    if _rows_split(ctx, batch) or len(names) < 2:
+        return axes_of(ctx.sp)
+    return tuple(a for a in ("data", "model") if a in names)
+
+
+def cache_specs(cfg: Any, ctx: ShardCtx, batch: int,
+                cache: Dict[str, Any]) -> Dict[str, Any]:
+    """A spec per leaf of a decode cache (``lm.init_cache``'s dict; ``pos``
+    None) on ``ctx`` for a batch of ``batch`` rows, the reference's
+    ``cache_shardings`` leaf for leaf:
+
+    * ``k``, ``v``, ``shared_k``, ``shared_v`` (L?, B, KV, S, hd): the rows
+      over ``dp`` when it divides them, and S over
+      :func:`cache_seq_axes`;
+    * a conv buffer (..., B, K-1, C): C over ``tp`` where it divides it;
+    * a state (..., B, dI, N) or (..., B, nh, hp, N): dI or nh over ``tp``
+      where it divides it. Where the rows do not go over ``dp`` the
+      reference puts it over ``(data, model)``; here it stays on ``tp``,
+      every ``data`` rank holding the same block (the one difference).
+
+    An SSM leaf goes over ``tp`` only where the Mamba layer partitions
+    (:func:`tp_whole`), which every registered config's does where ``tp``
+    divides the leaf. A Mamba2 conv buffer's block on ``tp`` is in the
+    layout the partitioned layer computes with, ``[x_r | B | C]``, not the
+    r-th contiguous block of ``[x | B | C]``: its sharding
+    (:func:`cache_shardings`) is a :class:`FusedSharding`."""
+    if ctx.mesh is None:
+        return {k: None for k in cache}
+    rows = _rows_split(ctx, batch)
+    dp = (ctx.dp if len(ctx.dp) > 1 else ctx.dp[0]) if rows else None
+    sp = cache_seq_axes(ctx, batch)
+    sp = sp[0] if len(sp) == 1 else (sp or None)
+    tpn = ctx.axis_size("tp")
+    on_tp = ctx.tp is not None and (tpn == 1 or "mamba" not in
+                                    tp_whole(cfg, tpn))
+
+    def tp_if(n: int):
+        return ctx.tp if on_tp and n > 1 and n % tpn == 0 else None
+
+    def spec(t: torch.Tensor, kv: bool) -> Spec:
+        nd = t.dim()
+        if kv:
+            return (None,) * (nd - 4) + (dp, None, sp, None)
+        if nd >= 2 and t.shape[-2] == cfg.ssm_conv - 1:      # conv buffer
+            return (None,) * (nd - 3) + (dp, None, tp_if(t.shape[-1]))
+        lead = nd - 3 if nd == 4 else nd - 4     # m1 (B, dI, N), m2 (B, nh,
+        return (None,) * lead + (dp, tp_if(t.shape[lead + 1])) \
+            + (None,) * (nd - lead - 2)          # hp, N)
+
+    out: Dict[str, Any] = {}
+    for k, v in cache.items():
+        if k == "pos":
+            out[k] = None
+        elif isinstance(v, tuple):
+            out[k] = tuple(spec(t, False) for t in v)
+        else:
+            out[k] = spec(v, k in KV_LEAVES)
+    return out
+
+
+def cache_shardings(cfg: Any, ctx: ShardCtx, batch: int,
+                    cache: Dict[str, Any]) -> Dict[str, Any]:
+    """A sharding per leaf of a decode cache on ``ctx`` for a batch of
+    ``batch`` rows (None off a mesh and for ``pos``): a
+    :class:`NamedSharding` of :func:`cache_specs`' spec, and for a Mamba2
+    conv buffer on ``tp`` a :class:`FusedSharding` (its block is ``[x_r |
+    B | C]``). Their :meth:`~NamedSharding.shard` and
+    :meth:`~NamedSharding.assemble` give a rank's block of a whole cache
+    and the whole from the blocks (:func:`cache_block`,
+    :func:`assemble_cache`)."""
+    specs = cache_specs(cfg, ctx, batch, cache)
+    if ctx.mesh is None:
+        return specs
+
+    def sharding(t, spec):
+        if cfg.ssm_version == 2 and t.shape[-2] == cfg.ssm_conv - 1 \
+                and spec[-1] is not None:
+            return FusedSharding(ctx.mesh, spec, fused_parts(cfg, "xbc"))
+        return NamedSharding(ctx.mesh, spec)
+
+    out = _per_leaf(lambda k, i, t: sharding(
+        t, specs[k] if i is None else specs[k][i]), cache)
+    if "pos" in out:
+        out["pos"] = None
+    return out
+
+
+def _per_leaf(fn, cache: Dict[str, Any]) -> Dict[str, Any]:
+    """``fn(key, i, t)`` of each tensor of a cache (``i`` its index in a
+    tuple leaf, else None); ``pos`` is kept."""
+    return {k: v if k == "pos" else
+            tuple(fn(k, i, t) for i, t in enumerate(v))
+            if isinstance(v, tuple) else fn(k, None, v)
+            for k, v in cache.items()}
+
+
+def cache_block(cfg: Any, ctx: ShardCtx, batch: int, cache: Dict[str, Any],
+                rank: Optional[int] = None, meta: bool = False
+                ) -> Dict[str, Any]:
+    """``rank``'s block (default this process's) of a whole decode cache
+    under :func:`cache_shardings`, as fresh tensors (``meta``: empty meta
+    tensors of the block's shape, for the dry run). ``pos`` is kept."""
+    if ctx.mesh is None:
+        return dict(cache)
+    rank = ctx.rank if rank is None else rank
+    shardings = cache_shardings(cfg, ctx, batch, cache)
+
+    def cut(k, i, t):
+        t = (shardings[k] if i is None else shardings[k][i]).shard(t, rank)
+        if meta:
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+        return t.clone(memory_format=torch.contiguous_format)
+
+    return _per_leaf(cut, cache)
+
+
+def assemble_cache(shardings: Dict[str, Any],
+                   blocks: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """The whole cache from every rank's block (``blocks[r]`` rank ``r``'s,
+    under ``shardings`` from :func:`cache_shardings`): concatenation, no
+    arithmetic. ``pos`` is rank 0's."""
+    def join(k, i, _):
+        if i is None:
+            return shardings[k].assemble([b[k] for b in blocks])
+        return shardings[k][i].assemble([b[k][i] for b in blocks])
+
+    return _per_leaf(join, blocks[0])

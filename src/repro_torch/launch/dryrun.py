@@ -5,9 +5,10 @@ counterpart of ``repro.launch.dryrun``).
 For each cell this script:
 
 1. builds the mesh: ``node``, one node of 8 cards (``data`` 8 x ``model``
-   1), ``multi``, 4 such nodes (``pod`` 4 x ``data`` 8 x ``model`` 1), or
-   ``node_tp``, one node as ``data`` 2 x ``model`` 4. On ``node_tp`` the
-   train step partitions its products over ``model`` (column- and
+   1), ``multi``, 4 such nodes (``pod`` 4 x ``data`` 8 x ``model`` 1),
+   ``node_tp``, one node as ``data`` 2 x ``model`` 4, or ``multi_tp``, 4
+   such nodes (``pod`` 4 x ``data`` 2 x ``model`` 4, 32 cards). On a
+   ``model`` axis every step partitions its products over it (column- and
    row-parallel, vocab-parallel embedding and loss, a MoE layer's own
    experts (qwen2-moe's 60 split 15 a rank, 16 of 64 under ``--variant
    opt``'s pad; arctic's 128 split 32 a rank), Mamba1 on ``dI / 4``
@@ -16,8 +17,13 @@ For each cell this script:
    (internvl2-1b's 14): :func:`repro_torch.distributed.sharding.
    tp_whole`), and the count takes in its reductions, the fused Mamba
    leaves' exchanges and each rank's FLOPs of its slices. The serve
-   steps, which are not partitioned yet, are skipped there with the
-   reason;
+   steps' KV caches are sequence-parallel as the reference's
+   (:func:`repro_torch.train.train_step.cache_shardings`): a rank holds
+   ``1 / model`` of its rows' positions, or ``1 / (data x model)`` of a
+   single row's. A collective over an axis set with ``pod`` in it crosses
+   nodes (the ``fsdp`` gathers, the ``dp`` reductions); ``tp`` and the
+   caches' sequence axes, ``model`` or ``(data, model)``, stay inside a
+   node on ``multi_tp``;
 2. builds the step of the shape's kind (the sharded train step, or the
    prefill or decode step) and meta tensors of rank 0's inputs, its blocks
    under the rule table (:mod:`repro_torch.train.train_step`);
@@ -36,7 +42,8 @@ Usage::
 
     python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --mesh node
     python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --mesh node_tp
-    python -m repro_torch.launch.dryrun --all [--mesh node|multi|node_tp|both] [--variant opt]
+    python -m repro_torch.launch.dryrun --arch zamba2-1.2b --shape long_500k --mesh multi_tp
+    python -m repro_torch.launch.dryrun --all [--mesh node|multi|node_tp|multi_tp|both] [--variant opt]
 
 It runs on the CPU and allocates nothing on a device, so it needs no card.
 """
@@ -79,6 +86,7 @@ MESHES = {
     "node": ((8, 1), ("data", "model"), "8x1"),
     "multi": ((4, 8, 1), ("pod", "data", "model"), "4x8x1"),
     "node_tp": ((2, 4), ("data", "model"), "2x4"),
+    "multi_tp": ((4, 2, 4), ("pod", "data", "model"), "4x2x4"),
 }
 
 
@@ -182,17 +190,14 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     }
 
 
-def _mesh_skip(cfg, shape, mesh_name: str) -> str:
+def _mesh_skip(cfg, mesh_name: str) -> str:
     """Why a cell of a mesh with a ``model`` axis above 1 is skipped ("":
-    it runs): only the train step partitions over ``model``
+    it runs): every step partitions over ``model``
     (:func:`repro_torch.distributed.sharding.tp_compute`, every arch)."""
     dims, axes, label = MESHES[mesh_name]
     mesh = Mesh(dims, axes)
     if mesh.shape.get("model", 1) == 1:
         return ""
-    if shape.kind != "train":
-        return (f"{label}: the {shape.kind} step is not partitioned over "
-                "the model axis yet")
     why = tp_compute_why(cfg, make_ctx(mesh))
     return f"{label}: {why} (the step would gather every leaf whole)" \
         if why else ""
@@ -209,7 +214,7 @@ def cells(archs, shapes, meshes):
                 yield arch, shape_name, None, why
                 continue
             for m in meshes:
-                why = _mesh_skip(cfg, shape, m)
+                why = _mesh_skip(cfg, m)
                 yield (arch, shape_name, None, why) if why else \
                     (arch, shape_name, m, "")
 
@@ -266,7 +271,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="both",
-                    choices=["node", "multi", "node_tp", "both"])
+                    choices=["node", "multi", "node_tp", "multi_tp",
+                             "both"])
     ap.add_argument("--all", action="store_true",
                     help="every arch and shape (the default without "
                          "--arch / --shape)")

@@ -38,6 +38,11 @@ divide the query heads, or the groups would be cut
 on every rank: its weights come whole, and neither its input enters the
 region nor its output is summed.
 
+The sharded serve steps: prefill's K and V leave this rank's heads as
+its block of the sequence-parallel cache (:func:`seq_shard_kv`), and a
+decode step against such a block is a flash decode across the ranks
+(:func:`decode_attention_rows`).
+
 fp32-accumulated products: the reference computes scores with
 ``preferred_element_type=float32`` from compute-dtype operands, and a torch
 bf16 matmul would return bf16. The plain paths here upcast the operands to
@@ -50,12 +55,12 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import gather_tp, tp_part
+from ..distributed.sharding import current_region, gather_tp, tp_part
 from .layers import column_parallel, dtype_of, rms_norm, row_parallel, rope
 
 __all__ = ["attention", "decode_attention", "paged_decode_attention",
            "paged_prefill_window_attention", "decode_attention_rows",
-           "NEG_INF"]
+           "seq_shard_kv", "NEG_INF"]
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps bf16 softmax NaN-free
 
@@ -95,6 +100,19 @@ def _project_out(out2, p, cfg: ModelConfig, cdt):
     return y
 
 
+def _kv_ranges(cfg: ModelConfig, tp: int):
+    """The KV heads ``[lo, hi)`` each of ``tp`` ranks projects under the
+    partitioned step: its block where ``tp`` divides them, else the ones
+    its ``H / tp`` query heads read (one each: the GQA groups are never
+    cut, :func:`repro_torch.distributed.sharding.tp_whole`)."""
+    KV = cfg.num_kv_heads
+    if KV % tp == 0:
+        return [(i * KV // tp, (i + 1) * KV // tp) for i in range(tp)]
+    h, group = cfg.num_heads // tp, cfg.num_heads // KV
+    return [(i * h // group, ((i + 1) * h - 1) // group + 1)
+            for i in range(tp)]
+
+
 def _rank_kv_heads(p, cfg: ModelConfig, part):
     """Under the partitioned step with whole ``wk/wv`` (``tp`` does not
     divide the KV heads): ``p`` with ``wk/wv`` (and ``bk/bv``) cut to the
@@ -103,10 +121,7 @@ def _rank_kv_heads(p, cfg: ModelConfig, part):
     hd = cfg.hd
     if p["wk"].shape[-1] != cfg.num_kv_heads * hd:     # the rank's block
         return p
-    h = cfg.num_heads // part.tp_size
-    group = cfg.num_heads // cfg.num_kv_heads
-    lo = part.tp_index * h // group
-    hi = ((part.tp_index + 1) * h - 1) // group + 1
+    lo, hi = _kv_ranges(cfg, part.tp_size)[part.tp_index]
     p = dict(p)
     for name in ("wk", "wv", "bk", "bv"):
         if name in p:
@@ -259,6 +274,87 @@ def paged_prefill_window_attention(p, x, cfg: ModelConfig, pool_kv, tables,
     return y, pool_kv
 
 
+def seq_shard_kv(k, v, cfg: ModelConfig, region):
+    """A prefill's K and V, (B, S_max, KV_r, hd) of the heads this rank
+    projected, as this rank's block of the sequence-parallel cache: (B,
+    S_max / sp, KV, hd), every KV head at the positions of its ``sp``
+    block (:func:`repro_torch.distributed.sharding.cache_seq_axes`).
+
+    Where attention is partitioned, each ``tp`` rank holds its KV heads at
+    every position: one all-to-all over ``tp`` sends each peer those heads
+    at the peer's positions, K and V together (a head that several ranks
+    read, where ``tp`` does not divide the KV heads, is sent by the first
+    of them). Where attention runs whole, or nothing is partitioned, this
+    rank holds every head already and keeps its positions."""
+    B, S, _, hd = k.shape
+    n = region.sp_size
+    if S % n:
+        raise ValueError(f"a cache of {S} positions does not split over "
+                         f"{n} sequence-parallel ranks")
+    w = S // n
+    part = tp_part("attn")
+    if part is None:
+        j = region.sp_index
+        return k[:, j * w:(j + 1) * w], v[:, j * w:(j + 1) * w]
+    group, mesh = region.group, region.group.mesh
+    ranges = _kv_ranges(cfg, part.tp_size)
+    owner: dict = {}
+    for i, (lo, hi) in enumerate(ranges):
+        for h in range(lo, hi):
+            owner.setdefault(h, i)
+    sent = [sum(owner[h] == i for h in owner) for i in range(part.tp_size)]
+    me = part.tp_index
+    lo = ranges[me][0]
+    a = next((h for h in range(*ranges[me]) if owner[h] == me), lo) - lo
+    kv = torch.stack([k, v])                       # (2, B, S, KV_r, hd)
+    pieces = []
+    for peer in mesh.axis_ranks(part.tp, group.rank):
+        j = mesh.axis_index(region.sp, peer)
+        pieces.append(kv[:, :, j * w:(j + 1) * w, a:a + sent[me]]
+                      .reshape(-1))
+    recv = [2 * B * w * c * hd for c in sent]
+    got = group.all_to_all(torch.cat(pieces), part.tp,
+                           [t.numel() for t in pieces], recv)
+    kv = torch.cat([g.view(2, B, w, c, hd) for g, c in
+                    zip(got.split(recv), sent)], dim=3)
+    return kv[0], kv[1]
+
+
+def _all_heads(q, k, v, cfg: ModelConfig, part):
+    """Every head's q, k and v of one token, (B, 1, heads, hd) each, from
+    the ranks' own heads: one all-gather over ``tp`` of (B, H_r + 2 KV_r,
+    hd); a KV head several ranks read is taken from the first."""
+    Hr, KVr = q.shape[2], k.shape[2]
+    w = Hr + 2 * KVr
+    g = part.group.all_gather(torch.cat([q, k, v], dim=2)[:, 0],
+                              part.tp, 1)                # (B, tp w, hd)
+    ranges = _kv_ranges(cfg, part.tp_size)
+    qi = [i * w + j for i in range(part.tp_size) for j in range(Hr)]
+    ki = []
+    for h in range(cfg.num_kv_heads):
+        i = next(i for i, (lo, hi) in enumerate(ranges) if lo <= h < hi)
+        ki.append(i * w + Hr + h - ranges[i][0])
+    pick = [torch.tensor(ix, device=g.device) for ix in
+            (qi, ki, [j + KVr for j in ki])]
+    return tuple(g.index_select(1, ix)[:, None] for ix in pick)
+
+
+def _write_token(cache, t, pl, lo: int, sharded: bool):
+    """Row b's token ``t[b]`` (B, KV, hd) into ``cache`` (B, KV, w, hd) at
+    global position ``pl[b]``, the cache holding positions ``[lo, lo +
+    w)``: in place; on a block of a sequence-parallel cache (``sharded``)
+    only where the block holds the position."""
+    bidx = torch.arange(t.shape[0], device=t.device)
+    t = t.to(cache.dtype)
+    if not sharded:
+        cache[bidx, :, pl] = t
+        return
+    w = cache.shape[2]
+    at = (pl - lo).clamp(0, w - 1)
+    mine = ((pl >= lo) & (pl < lo + w))[:, None, None]
+    cache[bidx, :, at] = torch.where(mine, t, cache[bidx, :, at])
+
+
 def decode_attention_rows(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
     """One-token decode against per-slot contiguous KV spans, each row at
     its own position (the zamba2 shared block's slot decode).
@@ -270,25 +366,56 @@ def decode_attention_rows(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
     engine's submit check keeps positions in range). The probabilities are
     rounded to the cache dtype before P V, as in the reference. Returns
     (y (B, 1, D), cache_k, cache_v).
+
+    In a sharded serve step the cache is this rank's block (B, KV, S_max /
+    sp, hd) of every KV head, the ``sp``-th of the sequence (a flash
+    decode across the ranks): every rank forms every head's q, k and v
+    (its own heads' gathered over ``tp`` where attention is partitioned,
+    :func:`_all_heads`), the rank whose block holds ``pos[b]`` writes row
+    b's token, and each scores its keys at their global positions. The
+    reference's arithmetic follows with its reductions over the sharded S
+    as reductions over ``sp``: the max, ``e = exp(s - max)``, the sum, the
+    probabilities rounded to the cache dtype, then P V (in fp32) summed.
+    Where attention is partitioned the rank keeps its own heads' output
+    for the row-parallel ``wo``.
     """
-    B = x.shape[0]
-    hd = cfg.hd
-    H = p["wq"].shape[-1] // hd
-    KV = p["wk"].shape[-1] // hd
+    region = current_region()
+    part = tp_part("attn")
+    if part is not None:
+        p = _rank_kv_heads(p, cfg, part)
+    B, hd = x.shape[0], cfg.hd
     cdt = dtype_of(cfg.compute_dtype)
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
-    bidx = torch.arange(B, device=x.device)
+    if part is not None:
+        q, k, v = _all_heads(q, k, v, cfg, part)
+    H, KV = q.shape[2], k.shape[2]
+    sharded = region is not None and region.sp_size > 1
+    w = cache_k.shape[2]
+    lo = region.sp_index * w if sharded else 0
     pl = pos.long()
-    cache_k[bidx, :, pl] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, :, pl] = v[:, 0].to(cache_v.dtype)
+    _write_token(cache_k, k[:, 0], pl, lo, sharded)
+    _write_token(cache_v, v[:, 0], pl, lo, sharded)
+
+    def over_sp(t, op="sum"):
+        return region.over_sp(t, op) if sharded else t
     qg = q.reshape(B, KV, H // KV, hd)
     s = torch.einsum("bkgh,bksh->bkgs", qg.float(), cache_k.float()) \
         * (hd ** -0.5)
-    kpos = torch.arange(cache_k.shape[2], device=x.device)
+    kpos = lo + torch.arange(w, device=x.device)
     mask = (kpos[None, :] <= pl[:, None])[:, None, None, :]
-    probs = _softmax_attend(s, cache_v, mask)
-    out = torch.einsum("bkgs,bksh->bkgh", probs, cache_v)
-    y = _project_out(out.reshape(B, H * hd).to(cdt), p, cfg, cdt)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    e = torch.exp(s - over_sp(s.amax(dim=-1, keepdim=True), "max"))
+    probs = (e / over_sp(e.sum(dim=-1, keepdim=True))).to(cache_v.dtype)
+    if sharded:
+        out = over_sp(torch.einsum("bkgs,bksh->bkgh", probs.float(),
+                                   cache_v.float())).to(cache_v.dtype)
+    else:
+        out = torch.einsum("bkgs,bksh->bkgh", probs, cache_v)
+    out = out.reshape(B, H * hd)
+    if part is not None:
+        h = H // part.tp_size
+        out = out[:, part.tp_index * h * hd:(part.tp_index + 1) * h * hd]
+    y = _project_out(out.to(cdt), p, cfg, cdt)
     return y[:, None, :], cache_k, cache_v
 
 

@@ -68,7 +68,12 @@ partitioned attention and MLP (:func:`_shared_block`). A layer kind whose
 widths ``tp`` does not divide runs whole on every rank
 (:func:`repro_torch.distributed.sharding.tp_whole`). A remat recompute
 re-enters the region (``checkpoint``'s ``context_fn``): on CUDA the
-backward runs on another thread.
+backward runs on another thread. The sharded prefill and decode steps
+run :func:`prefill` and :func:`decode_step` in the same region: their
+embedding is vocab-parallel too (the step gathers the logits), and their
+KV caches are this rank's block of the sequence-parallel cache
+(:func:`_kv_span`, :func:`repro_torch.models.attention.
+decode_attention_rows`).
 
 One device sync per decode chunk: :func:`decode_chunk_paged` and
 :func:`decode_chunk_slots` keep the ``(lengths, last, rem)`` carry on the
@@ -90,7 +95,7 @@ from ..device import resolve_device
 from ..distributed.sharding import current_region, tp_part, use_region
 from .attention import (attention, decode_attention,
                         decode_attention_rows, paged_decode_attention,
-                        paged_prefill_window_attention)
+                        paged_prefill_window_attention, seq_shard_kv)
 from .layers import (column_parallel, dtype_of, matmul_f32, rms_norm,
                      sinusoidal_positions, tp_copy)
 from .mamba import init_mamba_state, mamba_forward, mamba_step
@@ -201,7 +206,7 @@ def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     cdt = dtype_of(cfg.compute_dtype)
-    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
+    x = _lookup(params["embed"], tokens).to(cdt)
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(cdt)
     return x
@@ -516,20 +521,25 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int = 0,
     return logits, cache
 
 
-def _kv_span(k, v, max_len: int, cdt):
+def _kv_span(cfg: ModelConfig, k, v, max_len: int):
     """A prefill's (B, S, KV, hd) K and V as (B, KV, max_len, hd) cache
-    spans in the compute dtype, zero past S."""
+    spans in the compute dtype, zero past S; in a sharded serve step this
+    rank's block of the sequence-parallel cache, (B, KV, max_len / sp, hd)
+    of every KV head (:func:`repro_torch.models.attention.seq_shard_kv`)."""
+    cdt = dtype_of(cfg.compute_dtype)
     pad = max_len - k.shape[1]
-    k, v = k.transpose(1, 2), v.transpose(1, 2)
     if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-    return k.to(cdt), v.to(cdt)
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    region = current_region()
+    if region is not None and (region.sp_size > 1
+                               or tp_part("attn") is not None):
+        k, v = seq_shard_kv(k, v, cfg, region)
+    return k.transpose(1, 2).to(cdt), v.transpose(1, 2).to(cdt)
 
 
 def _prefill_attention(cfg: ModelConfig, layers, x, positions, max_len: int,
                        impl: str):
-    cdt = dtype_of(cfg.compute_dtype)
     ks, vs = [], []
     for lp in layers:
         h = rms_norm(x, lp["ln1"], cfg.rms_eps)
@@ -538,7 +548,7 @@ def _prefill_attention(cfg: ModelConfig, layers, x, positions, max_len: int,
         x = x + y
         h2 = rms_norm(x, lp["ln2"], cfg.rms_eps)
         x = x + _ffn(lp, h2, cfg)
-        k, v = _kv_span(k, v, max_len, cdt)
+        k, v = _kv_span(cfg, k, v, max_len)
         ks.append(k)
         vs.append(v)
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -599,7 +609,7 @@ def _prefill_hybrid(cfg: ModelConfig, params, layers, x, positions,
         if i < G * every and i % every == every - 1:
             x, (k, v) = _shared_block(params["shared_block"], x, x0, cfg,
                                       positions, impl, return_kv=True)
-            k, v = _kv_span(k, v, max_len, cdt)
+            k, v = _kv_span(cfg, k, v, max_len)
             ks.append(k)
             vs.append(v)
     n = G * every
@@ -692,9 +702,16 @@ def decode_step(cfg: ModelConfig, params, cache, token, layers=None
 
 def _shared_block_decode_rows(p, x1, x0, cfg: ModelConfig, ck, cv, pos):
     """Per-row-position zamba2 shared block (slot-resident decode); ck/cv
-    are this group's (B, KV, S_max, hd) spans, written in place."""
+    are this group's (B, KV, S_max, hd) spans, written in place. In a
+    sharded serve step ``fused_proj`` is column-parallel and its output
+    gathered over ``tp``, as in :func:`_shared_block`, and ck/cv are this
+    rank's blocks of the sequence-parallel spans."""
     cdt = dtype_of(cfg.compute_dtype)
-    h = torch.cat([x1, x0], dim=-1) @ p["fused_proj"].to(cdt)
+    (h,) = column_parallel(torch.cat([x1, x0], dim=-1),
+                           p["fused_proj"].to(cdt), kind="fused")
+    part = tp_part("fused")
+    if part is not None:
+        h = part.gather_over_tp(h)
     a, _, _ = decode_attention_rows(
         p, rms_norm(h, p["ln1"], cfg.rms_eps)[:, None, :], cfg, ck, cv, pos)
     h = h + a[:, 0]

@@ -33,6 +33,11 @@ B, and a carried state links the chunks. The chunk rule is the
 reference's: ``chunk = min(ssm_chunk, S)``, and a ragged S runs as ONE
 chunk, whose (B, S, S, nh) fp32 temporaries grow with S squared.
 :func:`_m2_step` is the per-head recurrence the dual form stands for.
+The decode steps of both are partitioned as their forwards are in a
+sharded serve step (:mod:`repro_torch.train.train_step`), where a fused
+``in_proj`` may come as the rank's stored block with its product
+exchanged instead (:func:`repro_torch.distributed.sharding.
+fused_product`).
 Under the partitioned train step a rank runs ``nh / tp`` heads
 (:func:`_m2_forward`): ``out_proj`` row-parallel, the gated norm's mean
 of squares summed over ``tp``, B and C whole on every rank.
@@ -53,7 +58,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..distributed.sharding import tp_part
+from ..distributed.sharding import fused_product, tp_part
 from ..kernels import ops
 from ..kernels.ref import mamba_scan_ref
 from .layers import (column_parallel, dtype_of, rms_norm, row_parallel,
@@ -107,6 +112,7 @@ def _m1_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
     N, R, K = cfg.ssm_state, cfg.dt_rank_, cfg.ssm_conv
     cdt = dtype_of(cfg.compute_dtype)
     (xz,) = column_parallel(x, p["in_proj"].to(cdt), kind="mamba")
+    xz = fused_product(xz, cfg, "xz")
     x_in, z = xz.split(xz.shape[-1] // 2, dim=-1)   # dI (dI / tp) each
     xh = F.silu(_causal_conv(x_in, p["conv_w"].to(cdt),
                              p["conv_b"].to(cdt)))
@@ -136,16 +142,20 @@ def _m1_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
 
 
 def _m1_step(p, x1: torch.Tensor, cfg: ModelConfig, state):
-    """x1: (B, D); state = (conv_buf (B, K-1, dI), h (B, dI, N))."""
+    """x1: (B, D); state = (conv_buf (B, K-1, dI), h (B, dI, N)). In a
+    sharded serve step partitioned as :func:`_m1_forward` is: the state
+    and every per-channel product on the rank's ``dI / tp`` channels."""
     conv_buf, h = state
     cdt = dtype_of(cfg.compute_dtype)
-    dI, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
-    xz = x1 @ p["in_proj"].to(cdt)
-    xh, z = xz.split(dI, dim=-1)
+    N, R = cfg.ssm_state, cfg.dt_rank_
+    (xz,) = column_parallel(x1, p["in_proj"].to(cdt), kind="mamba")
+    xz = fused_product(xz, cfg, "xz")
+    xh, z = xz.split(xz.shape[-1] // 2, dim=-1)
     xh, conv_buf = _conv_step(conv_buf.to(cdt), xh, p["conv_w"].to(cdt),
                               p["conv_b"].to(cdt))
     xh = F.silu(xh)
-    proj = xh @ p["x_proj"].to(cdt)
+    proj = tp_copy(row_parallel(xh, p["x_proj"].to(cdt), kind="mamba"),
+                   kind="mamba")
     dtr, Bc, Cc = proj.split([R, N, N], dim=-1)
     dt = F.softplus(dtr @ p["dt_proj"].to(cdt)     # see _m1_forward
                     + p["dt_bias"].float())                  # (B,dI) f32
@@ -155,7 +165,8 @@ def _m1_step(p, x1: torch.Tensor, cfg: ModelConfig, state):
     h = a * h + (dt * xf)[..., None] * Bc.float()[:, None, :]
     y = torch.einsum("bdn,bn->bd", h, Cc.float()) + p["ssm_D"].float() * xf
     y = y.to(cdt) * F.silu(z)
-    return y @ p["out_proj"].to(cdt), (conv_buf, h)
+    return row_parallel(y, p["out_proj"].to(cdt), kind="mamba"), \
+        (conv_buf, h)
 
 
 # ===================================================================== Mamba2
@@ -227,12 +238,6 @@ def _ssd_scan(xh, dt, A, Bc, Cc, h0, chunk: int):
     return torch.cat(ys, dim=1).reshape(Bb, S, nh, hp), h
 
 
-def _m2_split(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    """in_proj output -> (z, pre-conv xBC, dt)."""
-    dI, N = cfg.d_inner, cfg.ssm_state
-    return zxbcdt.split([dI, dI + 2 * N, cfg.ssm_heads], dim=-1)
-
-
 def _m2_out(p, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, cdt,
             part=None) -> torch.Tensor:
     """Gated norm and out-projection: rms_norm(y * silu(z)) @ out_proj.
@@ -252,11 +257,12 @@ def _m2_out(p, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, cdt,
 def _m2_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                 return_state: bool = False):
     """Under the partitioned step a rank runs its ``nh / tp`` heads: its
-    ``in_proj`` block is ``[z_r | x_r | B | C | dt_r]`` and its conv's
-    ``[x_r | B | C]`` (:func:`repro_torch.distributed.sharding.
-    exchange_fused`), B and C whole on every rank (every head reads them;
-    their gradients, each rank's of its heads, are summed by the
-    exchange's inverse and by ``x``'s entry into the region)."""
+    ``in_proj`` block (or, in a serve step, its product: :func:`repro_torch.
+    distributed.sharding.fused_product`) is ``[z_r | x_r | B | C | dt_r]``
+    and its conv's ``[x_r | B | C]`` (:func:`repro_torch.distributed.
+    sharding.exchange_fused`), B and C whole on every rank (every head
+    reads them; their gradients, each rank's of its heads, are summed by
+    the exchange's inverse and by ``x``'s entry into the region)."""
     B, S, _ = x.shape
     part = tp_part("mamba")
     n = part.tp_size if part is not None else 1
@@ -264,6 +270,7 @@ def _m2_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                      cfg.ssm_head_dim)
     cdt = dtype_of(cfg.compute_dtype)
     (zxbcdt,) = column_parallel(x, p["in_proj"].to(cdt), kind="mamba")
+    zxbcdt = fused_product(zxbcdt, cfg, "zxbcdt")
     z, xbc_in, dt = zxbcdt.split([dI, dI + 2 * N, nh], dim=-1)
     xbc = F.silu(_causal_conv(xbc_in, p["conv_w"].to(cdt),
                               p["conv_b"].to(cdt)))
@@ -284,13 +291,20 @@ def _m2_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
 
 
 def _m2_step(p, x1: torch.Tensor, cfg: ModelConfig, state):
-    """x1: (B, D); state = (conv_buf (B, K-1, dI+2N), h (B, nh, hp, N))."""
+    """x1: (B, D); state = (conv_buf (B, K-1, dI+2N), h (B, nh, hp, N)).
+    In a sharded serve step partitioned as :func:`_m2_forward` is: the
+    rank's ``nh / tp`` heads, its conv buffer ``[x_r | B | C]`` (B, K-1,
+    dI / tp + 2N)."""
     conv_buf, h = state
     B = x1.shape[0]
-    dI, N, nh, hp = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+    part = tp_part("mamba")
+    n = part.tp_size if part is not None else 1
+    dI, N, nh, hp = (cfg.d_inner // n, cfg.ssm_state, cfg.ssm_heads // n,
                      cfg.ssm_head_dim)
     cdt = dtype_of(cfg.compute_dtype)
-    z, xbc, dt = _m2_split(x1 @ p["in_proj"].to(cdt), cfg)
+    (zxbcdt,) = column_parallel(x1, p["in_proj"].to(cdt), kind="mamba")
+    zxbcdt = fused_product(zxbcdt, cfg, "zxbcdt")
+    z, xbc, dt = zxbcdt.split([dI, dI + 2 * N, nh], dim=-1)
     xbc, conv_buf = _conv_step(conv_buf.to(cdt), xbc, p["conv_w"].to(cdt),
                                p["conv_b"].to(cdt))
     xh, Bc, Cc = F.silu(xbc).split([dI, N, N], dim=-1)
@@ -301,7 +315,7 @@ def _m2_step(p, x1: torch.Tensor, cfg: ModelConfig, state):
         + (dt[..., None] * xhh)[..., None] * Bc.float()[:, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", h, Cc.float()) \
         + p["ssm_D"].float()[:, None] * xhh
-    return _m2_out(p, y.reshape(B, dI), z, cfg, cdt), (conv_buf, h)
+    return _m2_out(p, y.reshape(B, dI), z, cfg, cdt, part), (conv_buf, h)
 
 
 # ==================================================================== dispatch

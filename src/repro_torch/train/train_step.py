@@ -62,9 +62,22 @@ The dry run's inputs (the reference's ``train_input_specs``,
 ``make_prefill_step`` and ``make_decode_step``) are meta tensors of one
 rank's blocks (:func:`train_input_specs`): shapes and dtypes with no
 storage, which :func:`repro_torch.distributed.op_analysis.analyze_step`
-runs the step on. Under a mesh the serve steps gather every weight whole
-(their ``tp`` axis shards storage, not compute), and run this rank's
-``dp`` rows of the batch (all rows when ``dp`` does not divide it).
+runs the step on.
+
+Under a mesh the serve steps (:func:`make_prefill_step`,
+:func:`make_decode_step`) run this rank's ``dp`` rows of the batch (all
+rows when ``dp`` does not divide it) inside a :class:`~repro_torch.
+distributed.sharding.TrainRegion`, under ``no_grad``: on a ``model`` axis
+above 1 their weights are fetched and their products partitioned as the
+train step's (above), the MoE layer routes over the global batch wherever
+``dp`` splits the rows, and the logits are gathered whole over ``tp``.
+Their cache is laid out as the reference's ``cache_shardings`` lays it
+out (:func:`cache_shardings`): the KV caches' sequence dim over ``sp``
+(over ``(data, model)`` where ``dp`` does not divide the rows), which
+prefill reaches from its head-parallel attention by one all-to-all over
+``tp`` a layer and decode reads as a flash decode across the ranks; the
+SSM states on their channels or heads over ``tp``. Without a ``model``
+axis above 1 every weight is gathered whole.
 """
 from __future__ import annotations
 
@@ -77,9 +90,12 @@ import dataclasses
 from ..configs.base import ModelConfig, ShapeSpec
 from ..distributed.sharding import (LEAF_KINDS, MeshGroup, NamedSharding,
                                     ShardCtx, TrainRegion, axes_of,
-                                    exchange_fused, logical_to_spec,
-                                    param_specs, split_spec, tp_compute,
-                                    tp_whole, use_region)
+                                    cache_block, cache_seq_axes,
+                                    cache_shardings, exchange_fused,
+                                    exchange_products, fused_parts,
+                                    logical_to_spec, param_specs,
+                                    split_spec, tp_compute, tp_whole,
+                                    use_region)
 from ..models import lm
 from ..models.layers import dtype_of
 from ..optim.adamw import OptConfig, adamw_update
@@ -89,7 +105,7 @@ from ..tree import leaves, tree_map, unflatten
 __all__ = ["make_train_step", "split_microbatches", "param_shapes",
            "param_shardings", "opt_shardings", "batch_shardings",
            "train_batch_shapes", "train_input_specs", "make_prefill_step",
-           "make_decode_step", "meta_blocks", "tp_plan"]
+           "make_decode_step", "cache_shardings", "meta_blocks", "tp_plan"]
 
 StepFn = Callable[[Any, Dict[str, Any], Dict[str, torch.Tensor]],
                   Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]]
@@ -203,30 +219,93 @@ def _serve_rows(ctx: ShardCtx, B: int):
     return slice(d * r, (d + 1) * r)
 
 
-def _gather_params(ctx: ShardCtx, pshard, params):
-    """Every leaf whole from this rank's blocks (the train step's gather)."""
-    if ctx.mesh is None:
-        return params
-    group = ctx.group
-    return unflatten(params, [t if sh is None else
-                              group.gather_leaf(t, sh.spec)
-                              for t, sh in zip(leaves(params),
-                                               leaves(pshard))])
+class _Serve:
+    """What a sharded serve step runs with on ``ctx``: each leaf fetched
+    from this rank's block as the train step fetches it (:func:`_fetch`,
+    by :func:`tp_plan` on a ``model`` axis above 1, else gathered whole),
+    and the :class:`TrainRegion` its model runs in: the ``dp`` axes where
+    they split the batch's rows, ``tp`` and the kinds run whole, and the
+    cache's sequence axes (:func:`repro_torch.distributed.sharding.
+    cache_seq_axes`). Where a rank runs fewer token rows (``per_row`` a
+    row) than ``d_model`` (:func:`repro_torch.distributed.sharding.
+    exchange_products`), a fused Mamba ``in_proj`` stays this rank's
+    stored block and the region's ``fused_out`` exchanges its product
+    instead: a decode step moves a row of activations a sequence, not the
+    weight."""
+
+    def __init__(self, cfg: ModelConfig, ctx: ShardCtx, pctx: ShardCtx,
+                 batch: int, max_len: int, per_row: int):
+        self.cfg, self.ctx = cfg, ctx
+        pshard = param_shardings(cfg, pctx)
+        self.specs = [s.spec for s in leaves(pshard)]
+        self.rows = _serve_rows(ctx, batch)
+        n = self.rows.stop - self.rows.start
+        self.plan = tp_plan(cfg, pctx, pshard)
+        self.fused_out = bool(self.plan) and exchange_products(
+            cfg, n * per_row)
+        if self.fused_out:
+            self.plan = ["block" if h in ("xz", "zxbcdt") else h
+                         for h in self.plan]
+        self.tp = axes_of(ctx.tp) if self.plan else None
+        self.whole = frozenset(tp_whole(cfg, ctx.axis_size("tp"))) \
+            if self.plan else frozenset()
+        self.dp = tuple(ctx.dp) if n < batch else ()
+        self.sp = cache_seq_axes(ctx, batch)
+        n = ctx.mesh.axis_size(self.sp)
+        if max_len % n:
+            raise ValueError(f"a cache of {max_len} positions does not "
+                             f"split over the {n} ranks of {self.sp} on "
+                             f"{ctx.mesh}")
+
+    def __call__(self, params):
+        """(the weights the model runs with, the region)."""
+        local = leaves(params)
+        if len(local) != len(self.specs):
+            raise ValueError(f"params have {len(local)} leaves, the rule "
+                             f"table {len(self.specs)}")
+        group = self.ctx.group or MeshGroup(self.ctx.mesh, 0,
+                                            local[0].device)
+        hows = self.plan or ["whole"] * len(local)
+        p = unflatten(params, [_fetch(self.cfg, group, t, s, h, self.tp)
+                               for t, s, h in zip(local, self.specs, hows)])
+        return p, TrainRegion(group, self.dp, self.tp, self.whole, self.sp,
+                              self.fused_out)
+
+    def logits(self, region: TrainRegion, logits: torch.Tensor):
+        """The whole vocabulary's logits from this rank's columns (the
+        head is vocab-parallel where it partitions)."""
+        if self.tp is None or "vocab" in self.whole:
+            return logits
+        return region.group.all_gather(logits, self.tp, logits.dim() - 1)
 
 
-def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx, shape: ShapeSpec):
+def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx, shape: ShapeSpec,
+                      max_len: int = 0):
     """``(prefill_step, (params, batch), pshard)``: ``prefill_step(params,
     batch) -> (logits, cache)`` of this rank's rows, and meta tensors of
     one rank's blocks of the served weights (matrices in the compute
-    dtype) and of the global ``shape`` batch."""
+    dtype) and of the global ``shape`` batch. Under a mesh the model runs
+    partitioned as the train step does (:class:`_Serve`), the logits come
+    out whole, and the cache (``max(max_len, F + S)`` positions) is this
+    rank's block under :func:`cache_shardings`."""
     pshard = param_shardings(cfg, ctx)
-    rows = _serve_rows(ctx, shape.global_batch)
+    F = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    max_len = max(max_len, F + shape.seq_len)
+    serve = _Serve(cfg, ctx, ctx, shape.global_batch, max_len,
+                   F + shape.seq_len) if ctx.mesh is not None else None
 
     def prefill_step(params, batch):
-        full = _gather_params(ctx, pshard, params)
         fe = batch.get("frontend_embeds")
-        return lm.prefill(cfg, full, batch["tokens"][rows],
-                          frontend_embeds=None if fe is None else fe[rows])
+        if serve is None:
+            return lm.prefill(cfg, params, batch["tokens"], max_len,
+                              frontend_embeds=fe)
+        rows = serve.rows
+        p, region = serve(params)
+        with torch.no_grad(), use_region(region):
+            logits, cache = lm.prefill(
+                cfg, p, batch["tokens"][rows], max_len,
+                frontend_embeds=None if fe is None else fe[rows])
+            return serve.logits(region, logits), cache
 
     p = meta_blocks(param_shapes(cfg, cast=True), pshard)
     b = train_batch_shapes(cfg, shape.global_batch, shape.seq_len)
@@ -235,27 +314,38 @@ def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx, shape: ShapeSpec):
 
 def make_decode_step(cfg: ModelConfig, ctx: ShardCtx, shape: ShapeSpec,
                      serve_tp_only: bool = False):
-    """``(decode_step, (params, cache, token), (pshard, None))``: ONE new
-    token of this rank's rows against a ``shape.seq_len`` cache, read
-    whole (its ``pos`` is the last position), and meta tensors of one
-    rank's weight blocks, its rows of the cache and the global (B,)
-    tokens. ``serve_tp_only`` drops the ``fsdp`` axis from the weights'
-    shardings (resident model-sharded, as the reference's)."""
+    """``(decode_step, (params, cache, token), (pshard, cshard))``: ONE new
+    token of this rank's rows against a ``shape.seq_len`` cache (its
+    ``pos`` is the last position), and meta tensors of one rank's weight
+    blocks, its block of the cache under ``cshard``
+    (:func:`cache_shardings`: its rows, its positions of every KV head
+    and its SSM channels) and the global (B,) tokens. Under a mesh the
+    model runs partitioned as the train step does (:class:`_Serve`), the
+    attention as a flash decode across the cache's sequence-parallel
+    ranks, and the logits come out whole. ``serve_tp_only`` drops the
+    ``fsdp`` axis from the weights' shardings (resident model-sharded, as
+    the reference's): a partitioned step then gathers no ``tp`` block."""
+    B = shape.global_batch
     pctx = dataclasses.replace(ctx, fsdp=None) if serve_tp_only else ctx
     pshard = param_shardings(cfg, pctx)
-    rows = _serve_rows(ctx, shape.global_batch)
-    n = rows.stop - rows.start
+    serve = _Serve(cfg, ctx, pctx, B, shape.seq_len, 1) \
+        if ctx.mesh is not None else None
 
     def decode_step(params, cache, token):
-        full = _gather_params(pctx, pshard, params)
-        return lm.decode_step(cfg, full, cache, token[rows])
+        if serve is None:
+            return lm.decode_step(cfg, params, cache, token)
+        p, region = serve(params)
+        with torch.no_grad(), use_region(region):
+            logits, cache = lm.decode_step(cfg, p, cache, token[serve.rows])
+            return serve.logits(region, logits), cache
 
-    cache = lm.init_cache(cfg, n, shape.seq_len, device="meta")
+    whole = lm.init_cache(cfg, B, shape.seq_len, device="meta")
+    cshard = cache_shardings(cfg, ctx, B, whole)
+    cache = cache_block(cfg, ctx, B, whole, meta=True)
     cache["pos"] = shape.seq_len - 1
     p = meta_blocks(param_shapes(cfg, cast=True), pshard)
-    tok = torch.empty((shape.global_batch,), dtype=torch.int32,
-                      device="meta")
-    return decode_step, (p, cache, tok), (pshard, None)
+    tok = torch.empty((B,), dtype=torch.int32, device="meta")
+    return decode_step, (p, cache, tok), (pshard, cshard)
 
 
 # --------------------------------------------------------------- the step
@@ -353,17 +443,6 @@ def make_train_step(cfg: ModelConfig, opt: Optional[OptConfig] = None,
 _FUSED = ("xz", "zxbcdt", "xbc")
 
 
-def _fused_parts(cfg: ModelConfig, how: str):
-    """The ``(width, split)`` parts of a ``_FUSED`` leaf, in order:
-    Mamba2's ``B`` and ``C`` whole (``ngroups`` 1: every head reads
-    them), the rest split over ``tp``."""
-    dI, N, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    return {"xz": [(dI, True), (dI, True)],
-            "zxbcdt": [(dI, True), (dI, True), (N, False), (N, False),
-                       (nh, True)],
-            "xbc": [(dI, True), (N, False), (N, False)]}[how]
-
-
 def _leaf_names(tree, name: str = "") -> list:
     """The last key of every leaf's path, in leaf order."""
     if isinstance(tree, dict):
@@ -415,6 +494,20 @@ def _tp_dim(spec, tp) -> int:
     return next(d for d, e in enumerate(spec) if set(axes_of(e)) & set(tp))
 
 
+def _fetch(cfg: ModelConfig, group: MeshGroup, t: torch.Tensor, spec,
+           how: str, tp_axes) -> torch.Tensor:
+    """The leaf a partitioned step runs with, from this rank's block
+    ``t`` (see ``_FUSED``): gathered whole, or its ``tp`` block gathered
+    along ``fsdp`` only, a fused Mamba leaf then exchanged."""
+    if how in ("whole", "sum"):
+        return group.gather_leaf(t, spec)
+    t = group.gather_leaf(t, spec, keep=tp_axes)
+    if how == "block":
+        return t
+    return exchange_fused(group, t, tp_axes, _tp_dim(spec, tp_axes),
+                          fused_parts(cfg, how))
+
+
 def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
                   compress: bool, microbatches: Optional[int],
                   accum_dtype: torch.dtype) -> StepFn:
@@ -431,16 +524,6 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
         raise ValueError(f"the sharded step on {mesh} needs the ctx's "
                          "MeshGroup")
 
-    def fetch(group, t, spec, how):
-        """The leaf the forward runs with, from this rank's block."""
-        if how in ("whole", "sum"):
-            return group.gather_leaf(t, spec)
-        t = group.gather_leaf(t, spec, keep=tp_axes)
-        if how == "block":
-            return t
-        return exchange_fused(group, t, tp_axes, _tp_dim(spec, tp_axes),
-                              _fused_parts(cfg, how))
-
     def reduce(group, g, spec, how):
         """This rank's block of the gradient summed over ``dp`` (and over
         ``tp`` where each rank's covers its heads only)."""
@@ -449,7 +532,7 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
         spec_tp, rest = split_spec(spec, tp_axes)
         if how in _FUSED:
             g = exchange_fused(group, g, tp_axes, _tp_dim(spec, tp_axes),
-                               _fused_parts(cfg, how), inverse=True)
+                               fused_parts(cfg, how), inverse=True)
         elif how == "sum":
             g = group.reduce_leaf(g, spec_tp, tp_axes)
         return group.reduce_leaf(g, rest, dp_axes)
@@ -476,8 +559,9 @@ def _sharded_step(cfg: ModelConfig, ctx: ShardCtx, opt: OptConfig,
             return {k: v[lo:lo + r] for k, v in batch.items()}
 
         def gathered():
-            return unflatten(params, [fetch(group, t, s, h) for t, s, h
-                                      in zip(local, specs, hows)])
+            return unflatten(params, [_fetch(cfg, group, t, s, h, tp_axes)
+                                      for t, s, h in zip(local, specs,
+                                                         hows)])
 
         region = TrainRegion(group, dp_axes, tp_axes, whole)
         if mb <= 1:

@@ -308,7 +308,8 @@ def test_every_applicable_cell_is_listed_for_both_meshes():
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "internvl2-1b"])
 def test_node_tp_runs_the_hybrid_and_the_fourteen_head_train_cells(arch):
     """On ``node_tp`` (2 x 4) zamba2's and internvl2's train cells run
-    (their serve cells wait for the serve steps' partition), and a rank's
+    (and, since the serve steps partition too, their prefill cells), and
+    a rank's
     dry step at smoke width (internvl2 with its 14 query heads) counts the
     partitioned step's collectives: zamba2's fused Mamba2 leaves one
     all-to-all a fetch and one a reduction, its shared block's
@@ -319,7 +320,7 @@ def test_node_tp_runs_the_hybrid_and_the_fourteen_head_train_cells(arch):
     cells = list(dryrun.cells([arch], ["train_4k", "prefill_32k"],
                               ["node_tp"]))
     assert (arch, "train_4k", "node_tp", "") in cells
-    assert [c for c in cells if c[1] == "prefill_32k"][0][2] is None
+    assert (arch, "prefill_32k", "node_tp", "") in cells
     cfg = get_config(arch).smoke()
     if arch == "internvl2-1b":
         cfg = dataclasses.replace(cfg, num_heads=14)
@@ -344,3 +345,57 @@ def test_node_tp_runs_the_hybrid_and_the_fourteen_head_train_cells(arch):
         # wq wk wv wo bq bk bv, one stacked leaf each, over model and data
         assert calls["all_gather"] >= 7 * mb
         assert "all_to_all" not in calls
+
+
+SERVE = ["prefill_32k", "decode_32k", "long_500k"]
+
+
+def test_node_tp_lists_and_runs_every_serve_cell():
+    """Every applicable serve cell runs on ``node_tp`` (only the pure
+    attention archs' ``long_500k`` is skipped, as on every mesh), and a
+    rank's KV cache argument is its rows' whole cache over the sequence
+    axes: stablelm-1.6b's ``decode_32k`` 64 rows a rank at 1/4 of the
+    positions, zamba2-1.2b's ``long_500k`` one row at 1/8 (``(data,
+    model)``)."""
+    cells = list(dryrun.cells(ARCHS, SERVE, ["node_tp"]))
+    for arch, shape, m, why in cells:
+        ok, _ = dryrun.shape_applicable(get_config(arch),
+                                        dryrun.SHAPES_BY_NAME[shape])
+        assert (m == "node_tp") == ok, (arch, shape, why)
+    assert sum(m is not None for *_, m, _ in cells) == 2 * len(ARCHS) + 2
+    cfg, _, _, _, _, args = dryrun.build_cell("zamba2-1.2b", "long_500k",
+                                              "node_tp")
+    G = cfg.num_layers // cfg.hybrid_attn_every
+    whole = G * 1 * cfg.num_kv_heads * 524288 * cfg.hd
+    assert args[1]["shared_k"].numel() == whole // 8
+    cfg, _, _, _, _, args = dryrun.build_cell("stablelm-1.6b", "decode_32k",
+                                              "node_tp")
+    whole = cfg.num_layers * 64 * cfg.num_kv_heads * 32768 * cfg.hd
+    assert args[1]["k"].numel() == args[1]["v"].numel() == whole // 4
+    rec = dryrun.run_cell("stablelm-1.6b", "decode_32k", "node_tp")
+    assert rec["ok"] and rec["chips"] == 8 and rec["mesh"] == "2x4"
+    # the weights' blocks, the bf16 K and V blocks and the int32 tokens
+    assert rec["memory"]["argument_bytes"] == rec["memory"]["param_bytes"] \
+        + 2 * 2 * whole // 4 + 128 * 4
+
+
+def test_multi_tp_is_four_nodes_with_a_model_axis():
+    """``multi_tp``: ``pod`` 4 x ``data`` 2 x ``model`` 4, 32 cards, a node
+    being ``data x model``. A serve cell's ``fsdp`` gathers (over ``(pod,
+    data)``) cross nodes; its ``tp`` and sequence-parallel collectives
+    (``model``) stay inside a node."""
+    assert dryrun.MESHES["multi_tp"] == ((4, 2, 4), ("pod", "data", "model"),
+                                         "4x2x4")
+    cells = list(dryrun.cells(["stablelm-1.6b", "zamba2-1.2b"], SERVE,
+                              ["multi_tp"]))
+    assert sum(m is not None for *_, m, _ in cells) == 5
+    cfg = get_config("stablelm-1.6b").smoke()
+    mesh = Mesh(*dryrun.MESHES["multi_tp"][:2])
+    cost = StepCost()
+    ctx = make_ctx(mesh, DryMeshGroup(mesh, 5, cost))
+    step, args, _ = make_decode_step(cfg, ctx, ShapeSpec("d", 64, 16,
+                                                         "decode"))
+    analyze_step(step, *args, cost=cost)
+    assert cost.link_bytes["internode"] > 0 and cost.link_bytes["nvlink"] > 0
+    # 16 rows over the 8 dp ranks, 64 positions over the 4 model ranks
+    assert tuple(args[1]["k"].shape[1:4]) == (2, cfg.num_kv_heads, 16)
